@@ -1,0 +1,362 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one CUDA card (written for an H100).
+
+Run from the repository root:
+
+    python3 chip_smoke.py
+
+It needs one CUDA card and ``nvcc``, and imports nothing of JAX. Phases,
+each printed as one JSON line:
+
+1. device: the card (``nvidia-smi`` name and power limit) and the build of
+   every CUDA kernel of the path from the sources in the checkout;
+2. kernels: each kernel against its plain PyTorch version at the shapes the
+   main path gives it (batch 16, 288x1280), f32 and bf16, with its time
+   (CUDA events, median over distinct inputs), the plain version's time and
+   the least time the card could take (``bound_ms``);
+3. slice: ``Stereo3D.predict`` (the port's main path, ResNet-34 at
+   288x1280) at batch 16 in f32 and bf16 over distinct request batches:
+   ms per batch, fps, batch-1 p50 latency, valid detections, and the
+   kernels' launch counts over that run (set to 0 just before it). After
+   each dtype, a ``torch.profiler`` breakdown of one batch-16 ``predict``:
+   device time by op and by kernel, and the device's busy share;
+4. parity: batch 1, f32 with TF32 off, the card's ``predict`` against the
+   same model on the CPU (the plain path the CPU tests tie to the JAX
+   package).
+
+Then the ``kernels`` summary line, the ``nvidia-smi`` line and, last,
+``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
+that line.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+BATCH = 16
+N_BATCHES = 6     # distinct request batches per timed main-path run
+N_KERNEL_RUNS = 10  # distinct inputs per kernel timing
+N_BS1 = 12
+
+# (memory bytes/s, f32 FLOP/s outside the tensor cores, bf16 dense FLOP/s),
+# NVIDIA data sheets; the SXM part is the default
+CARD_PEAKS = {
+    'PCIe': (2.0e12, 51e12, 756e12),
+    'SXM': (3.35e12, 67e12, 989e12),
+}
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({'phase': phase, **fields}), flush=True)
+
+
+def fail(msg: str) -> None:
+    sys.exit(f'chip_smoke: FAILED: {msg}')
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def card_peaks(name: str):
+    for key, peaks in CARD_PEAKS.items():
+        if key in name:
+            return key, peaks
+    return 'SXM', CARD_PEAKS['SXM']
+
+
+def cuda_ms(fn, inputs, warmup: int = 2):
+    """Median CUDA-event time of fn(x) over distinct inputs, in ms."""
+    import torch
+    for x in inputs[:warmup]:
+        fn(x)
+    times = []
+    for x in inputs:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(x)
+        end.record()
+        times.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in times)
+
+
+def bf16_ulp(v):
+    """One bf16 ulp at the magnitude of each f32 value."""
+    import torch
+    mag = v.abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def kernel_phase(torch, cv, peaks):
+    """Both correlation kernels against the plain version at the main
+    path's shapes, f32 and bf16, batch 16."""
+    bw, f32_peak, bf16_peak = peaks
+    shapes = {'stride4': (72, 320, 64, 96 // 4), 'stride8': (36, 160, 128, 192 // 8)}
+    gen = torch.Generator(device='cuda').manual_seed(1)
+    results = {}
+    for dtype_name, dtype in (('f32', torch.float32), ('bf16', torch.bfloat16)):
+        for kernel in ('correlation_volume_interleaved', 'correlation_volume'):
+            results[(kernel, dtype_name)] = {
+                'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0, 'max_abs_err': 0.0,
+                'bytes_bound_ms': 0.0, 'ops_bound_ms': 0.0, 'per_shape': {}}
+        for shape_name, (h, w, c, d) in shapes.items():
+            inputs = [torch.randn((2 * BATCH, h, w, c), generator=gen, device='cuda').to(dtype)
+                      for _ in range(N_KERNEL_RUNS)]
+            # the plain version in f32 on the same (rounded) inputs
+            ref = cv.correlation_volume_plain(inputs[0][0::2].float(), inputs[0][1::2].float(), d)
+            isz = inputs[0].element_size()
+            n_bytes = 2 * BATCH * h * w * c * isz + BATCH * h * w * d * isz
+            n_flops = 2 * BATCH * h * c * sum(max(w - k, 0) for k in range(d))
+            bytes_ms = n_bytes / bw * 1e3
+            ops_ms = n_flops / (f32_peak if dtype == torch.float32 else bf16_peak) * 1e3
+            split = [(x[0::2].contiguous(), x[1::2].contiguous()) for x in inputs]
+            runs = {
+                'correlation_volume_interleaved': (
+                    lambda x: cv.correlation_volume_interleaved(x, d), inputs),
+                'correlation_volume': (lambda lr: cv.correlation_volume(lr[0], lr[1], d), split),
+            }
+            plain_ms = cuda_ms(lambda x: cv.correlation_volume_plain(x[0::2], x[1::2], d),
+                               inputs, warmup=1)
+            for kernel, (fn, args) in runs.items():
+                out = fn(args[0])
+                torch.cuda.synchronize()
+                err = (out.float() - ref).abs()
+                if dtype == torch.float32:
+                    tol_ok = bool(err.max() <= 1e-5)
+                    tol = 'atol 1e-5'
+                else:
+                    # one bf16 ulp for the output's rounding, plus the f32
+                    # tolerance for the order of the C-term sum (bf16 products
+                    # are exact in f32, so the sums differ as in f32)
+                    tol_ok = bool((err <= bf16_ulp(ref) + 1e-5).all())
+                    tol = 'one bf16 ulp of the f32 plain value + 1e-5'
+                max_err = float(err.max())
+                check(tol_ok, f'{kernel} {dtype_name} {shape_name}: max abs err {max_err} '
+                              f'outside {tol}')
+                ms = cuda_ms(fn, args)
+                r = results[(kernel, dtype_name)]
+                r['per_shape'][shape_name] = dict(
+                    input=[2 * BATCH, h, w, c], num_disp=d, ms=ms, plain_ms=plain_ms,
+                    bound_ms=max(bytes_ms, ops_ms), max_abs_err=max_err,
+                    achieved_gbps=n_bytes / (ms * 1e-3) / 1e9)
+                r['ms'] += ms
+                r['plain_ms'] += plain_ms
+                r['bytes_bound_ms'] += bytes_ms
+                r['ops_bound_ms'] += ops_ms
+                r['max_abs_err'] = max(r['max_abs_err'], max_err)
+                emit('kernel', kernel=kernel, dtype=dtype_name, shape=shape_name,
+                     max_abs_err=max_err, tolerance=tol, ms=ms, plain_ms=plain_ms,
+                     bound_ms=max(bytes_ms, ops_ms), bytes=n_bytes, flops=n_flops)
+            del inputs, split, ref
+    for r in results.values():
+        r['bound_ms'] = max(r['bytes_bound_ms'], r['ops_bound_ms'])
+        r['bound_by'] = 'bytes' if r['bytes_bound_ms'] >= r['ops_bound_ms'] else 'operations'
+    return results
+
+
+def edge_case_phase(torch, cv):
+    """Ragged edges the main path does not reach: W not a multiple of the
+    32-column tile and D > W; separate eyes and interleaved."""
+    gen = torch.Generator(device='cuda').manual_seed(2)
+    for b2, h, w, c, d in ((4, 3, 45, 16, 8), (2, 2, 5, 8, 12)):
+        both = torch.randn((b2, h, w, c), generator=gen, device='cuda')
+        ref = cv.correlation_volume_plain(both[0::2], both[1::2], d)
+        for out in (cv.correlation_volume_interleaved(both, d),
+                    cv.correlation_volume(both[0::2].contiguous(), both[1::2].contiguous(), d)):
+            err = float((out - ref).abs().max())
+            check(err <= 1e-5, f'edge case {(b2, h, w, c, d)}: max abs err {err}')
+    emit('kernel_edges', ok=True, cases=['W=45 (ragged tile)', 'D=12 > W=5'])
+
+
+def slice_phase(torch, cv, system, dtype_name):
+    """The main path: predict at batch 16 over distinct request batches."""
+    from visualdet3d_tpu_torch.entry import IMAGE_HW, KITTI_P2
+    system.cfg.inference_dtype = dtype_name
+    gen = torch.Generator(device='cuda').manual_seed(3)
+    batches = [(torch.randn((BATCH, *IMAGE_HW, 3), generator=gen, device='cuda'),
+                torch.randn((BATCH, *IMAGE_HW, 3), generator=gen, device='cuda'))
+               for _ in range(N_BATCHES + 1)]
+    P2 = torch.as_tensor(np.tile(KITTI_P2, (BATCH, 1, 1)), device='cuda')
+    system.predict(*batches[0], P2)  # warm-up: cuDNN algorithm choice, cast copy
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    cv.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = [system.predict(left, right, P2) for left, right in batches[1:]]
+    torch.cuda.synchronize()
+    ms_batch = (time.perf_counter() - t0) * 1e3 / N_BATCHES
+    launches = dict(cv.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    check(launches['correlation_volume_interleaved'] == 2 * N_BATCHES,
+          f'{dtype_name}: {launches} correlation launches for {N_BATCHES} predict calls '
+          f'(expected 2 per call)')
+    n_valid = [int(o['valid'].sum()) for o in outs]
+    for o in outs:
+        check(o['bboxes'].shape == (BATCH, 32, 11) and o['scores'].shape == (BATCH, 32),
+              f'{dtype_name}: output shapes {o["bboxes"].shape} {o["scores"].shape}')
+        for key in ('scores', 'bboxes'):
+            check(bool(torch.isfinite(o[key]).all()), f'{dtype_name}: non-finite {key}')
+    check(min(n_valid) > 0, f'{dtype_name}: a batch with no valid detection {n_valid}')
+
+    P21 = P2[:1]
+    ones = [(left[:1].clone(), right[:1].clone()) for left, right in batches]
+    system.predict(*ones[0], P21)
+    lats = []
+    for i in range(N_BS1):
+        left, right = ones[i % len(ones)]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        system.predict(left, right, P21)
+        torch.cuda.synchronize()
+        lats.append((time.perf_counter() - t) * 1e3)
+    result = dict(dtype=dtype_name, batch=BATCH, image_hw=list(IMAGE_HW),
+                  ms_per_batch=ms_batch, fps=BATCH / ms_batch * 1e3,
+                  bs1_p50_ms=statistics.median(lats), bs1_ms=lats,
+                  valid_per_batch=n_valid, launches=launches,
+                  peak_memory_gb=peak_gb)
+    emit('slice', **result)
+    return result, batches[1], P2
+
+
+def profile_phase(torch, system, batch, P2, dtype_name):
+    """Kernel time by name for one batch-16 predict, and the device's busy
+    share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    system.cfg.inference_dtype = dtype_name
+    system.predict(*batch, P2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        system.predict(*batch, P2)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    # device events are the kernels; a CPU op's self device time is that of
+    # the kernels it launched (the ctypes-launched correlation kernel has no op)
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    ops = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU
+           and e.self_device_time_total > 0]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    check(device_ms > 0, 'profile: no device time recorded')
+
+    def top(evs, n):
+        evs = sorted(evs, key=lambda e: -e.self_device_time_total)[:n]
+        return [dict(name=e.key[:80], ms=e.self_device_time_total / 1e3, calls=e.count)
+                for e in evs]
+    emit('profile', dtype=dtype_name, wall_ms=wall_ms, device_ms=device_ms,
+         device_busy_share=device_ms / wall_ms, top_ops=top(ops, 12),
+         top_kernels=top(kernels, 12))
+
+
+def parity_phase(torch, system):
+    """Batch 1, f32, TF32 off: the card against the same model on the CPU."""
+    from visualdet3d_tpu_torch.entry import IMAGE_HW, KITTI_P2, build_system
+    system.cfg.inference_dtype = 'float32'
+    cpu = build_system(depth=34, device='cpu')
+    cpu.net.load_state_dict({k: v.cpu() for k, v in system.net.state_dict().items()})
+    cpu.weights_changed()
+    rng = np.random.default_rng(4)
+    left = torch.from_numpy(rng.standard_normal((1, *IMAGE_HW, 3)).astype(np.float32))
+    right = torch.from_numpy(rng.standard_normal((1, *IMAGE_HW, 3)).astype(np.float32))
+    P2 = torch.from_numpy(KITTI_P2[None])
+    out_gpu = {k: v.cpu() for k, v in system.predict(left, right, P2).items()}
+    raw_gpu = [t.float().cpu() for t in system.predict_raw(left, right)]
+    out_cpu = cpu.predict(left, right, P2)
+    raw_cpu = cpu.predict_raw(left, right)
+    raw_err = [float((g - c).abs().max() / c.abs().max()) for g, c in zip(raw_gpu, raw_cpu)]
+    valid = out_cpu['valid']
+    n_valid = int(valid.sum())
+    check(n_valid > 0, 'parity: no valid detection at batch 1')
+    check(torch.equal(out_gpu['valid'], valid),
+          f'parity: valid sets differ: gpu {out_gpu["valid"].nonzero().tolist()} '
+          f'cpu {valid.nonzero().tolist()}')
+    check(torch.equal(out_gpu['labels'][valid], out_cpu['labels'][valid]), 'parity: labels differ')
+    # rtol 1e-3: cuDNN and oneDNN sum the convs in different orders; atol 1e-3
+    # for the entries near zero (alpha, clipped corners)
+    box_ok = torch.allclose(out_gpu['bboxes'][valid], out_cpu['bboxes'][valid],
+                            rtol=1e-3, atol=1e-3)
+    box_err = float((out_gpu['bboxes'][valid] - out_cpu['bboxes'][valid]).abs().max())
+    check(box_ok, f'parity: boxes differ by up to {box_err}')
+    emit('parity', batch=1, dtype='float32', tf32=False, n_valid=n_valid,
+         max_box_abs_err=box_err, raw_rel_err_cls_reg=raw_err,
+         max_score_abs_err=float((out_gpu['scores'] - out_cpu['scores']).abs().max()))
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        fail('torch.cuda.is_available() is False: this smoke run needs a CUDA card')
+    try:
+        from visualdet3d_tpu_torch.entry import IMAGE_HW, build_system
+        from visualdet3d_tpu_torch.ops import cost_volume as cv
+        from visualdet3d_tpu_torch.ops import kernel_build
+        from visualdet3d_tpu_torch.testing import calibrate_prediction_convs
+    except ImportError as e:
+        fail(f'cannot import the port ({e}); run from the root of the repository')
+    # f32 parity and f32 timings are full f32, not TF32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    name = torch.cuda.get_device_name(0)
+    part, peaks = card_peaks(name)
+    t0 = time.perf_counter()
+    libs = kernel_build.build(['correlation'])
+    build_s = time.perf_counter() - t0
+    ptxas = [line.strip() for so in libs.values()
+             for line in so.with_name(so.name + '.log').read_text().splitlines()
+             if 'registers' in line or 'spill' in line]
+    emit('device', nvidia_smi=smi, name=name, count=torch.cuda.device_count(),
+         torch=torch.__version__, cuda=torch.version.cuda, peaks_of=part,
+         peak_bytes_per_s=peaks[0], peak_f32_flops=peaks[1], peak_bf16_flops=peaks[2],
+         kernel_build_s=build_s, ptxas=ptxas)
+
+    kernels = kernel_phase(torch, cv, peaks)
+    edge_case_phase(torch, cv)
+
+    system = build_system(depth=34, device='cuda')
+    gen = torch.Generator().manual_seed(5)
+    calib = [torch.randn((4, *IMAGE_HW, 3), generator=gen).cuda() for _ in range(2)]
+    calibrate_prediction_convs(system, calib[0], calib[1], gen)
+
+    slices = {}
+    for dtype_name in ('float32', 'bfloat16'):
+        slices[dtype_name], batch, P2 = slice_phase(torch, cv, system, dtype_name)
+        profile_phase(torch, system, batch, P2, dtype_name)
+        del batch
+    parity_phase(torch, system)
+
+    dtype_of = {'f32': 'float32', 'bf16': 'bfloat16'}
+    replaces = {  # the TPU kernel bodies _corr_kernel_eyes and _corr_kernel
+        'correlation_volume_interleaved': 'visualdet3d_tpu/ops/cost_volume.py:106',
+        'correlation_volume': 'visualdet3d_tpu/ops/cost_volume.py:95',
+    }
+    summary = []
+    for (kernel, dt), r in kernels.items():
+        summary.append(dict(
+            name=f'{kernel}[{dt}]', route='cuda',
+            source='visualdet3d_tpu_torch/csrc/correlation.cu',
+            replaces=replaces[kernel],
+            launches=slices[dtype_of[dt]]['launches'][kernel],
+            max_abs_err=r['max_abs_err'], ms=r['ms'], plain_ms=r['plain_ms'],
+            bound_ms=r['bound_ms'], bound_by=r['bound_by'], library_ms=None,
+            per_forward='stride-4 + stride-8 calls, batch 16', per_shape=r['per_shape']))
+    print(json.dumps({'kernels': summary}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': name,
+                                             'count': torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

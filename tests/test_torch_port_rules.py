@@ -1,0 +1,92 @@
+"""Rules of the port that no parity test shows.
+
+* Nothing under ``visualdet3d_tpu_torch/``, nor ``chip_smoke.py``, imports
+  JAX, flax, optax or the JAX package. The scan is static (an AST walk),
+  because this test process has JAX imported already.
+* The entry points run on the card by default and raise without CUDA
+  instead of running on the CPU.
+* Kernels build from the package's sources only, rebuild when a source
+  changes, and raise when ``nvcc`` is missing.
+"""
+import ast
+import pathlib
+
+import pytest
+import torch
+
+from visualdet3d_tpu_torch import device as device_lib
+from visualdet3d_tpu_torch.ops import kernel_build
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'visualdet3d_tpu')
+
+
+def _port_sources():
+    build = kernel_build.BUILD_DIR  # build outputs, not sources
+    files = sorted(p for p in (ROOT / 'visualdet3d_tpu_torch').rglob('*.py')
+                   if build not in p.parents) + [ROOT / 'chip_smoke.py']
+    assert len(files) > 10 and files[-1].exists()
+    return files
+
+
+def _imported_roots(path: pathlib.Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split('.')[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split('.')[0]
+        elif isinstance(node, ast.Call) and getattr(node.func, 'attr', getattr(
+                node.func, 'id', None)) in ('import_module', '__import__'):
+            for arg in node.args[:1]:
+                if isinstance(arg, ast.Constant) and isinstance(arg.value, str):
+                    yield arg.value.split('.')[0]
+
+
+def test_port_imports_nothing_of_jax_or_the_jax_package():
+    offenders = [f'{path.relative_to(ROOT)}: {root}'
+                 for path in _port_sources() for root in _imported_roots(path)
+                 if root in FORBIDDEN]
+    assert offenders == []
+
+
+def test_default_device_is_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
+    assert device_lib.resolve_device() == torch.device('cuda')
+    assert device_lib.resolve_device('cpu') == torch.device('cpu')
+
+
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    from visualdet3d_tpu_torch import entry as entry_lib
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        device_lib.resolve_device()
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        entry_lib.entry()
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        entry_lib.build_system(depth=18, preprocessed=str(tmp_path))
+
+
+def test_missing_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(kernel_build.shutil, 'which', lambda name: None)
+    monkeypatch.setenv('CUDA_HOME', str(tmp_path))
+    monkeypatch.delenv('CUDA_PATH', raising=False)
+    with pytest.raises(RuntimeError, match='nvcc not found'):
+        kernel_build.find_nvcc()
+
+
+def test_library_is_keyed_by_the_source(monkeypatch, tmp_path):
+    """An edited source maps to a new library name, so it is rebuilt; the
+    same source maps to the same one, so it is not."""
+    monkeypatch.setattr(kernel_build, 'CSRC_DIR', tmp_path)
+    (tmp_path / 'k.cu').write_text('__global__ void k() {}\n')
+    first = kernel_build.library_path('k')
+    assert kernel_build.library_path('k') == first
+    (tmp_path / 'k.cu').write_text('__global__ void k() { }\n')
+    assert kernel_build.library_path('k') != first
+    assert first.parent == kernel_build.BUILD_DIR
+
+
+def test_kernel_sources_target_hopper():
+    assert (kernel_build.CSRC_DIR / 'correlation.cu').exists()
+    assert 'arch=compute_90a,code=sm_90a' in kernel_build.NVCC_FLAGS
