@@ -9,20 +9,32 @@ It needs one CUDA card and ``nvcc``, and imports nothing of JAX. Phases,
 each printed as one JSON line:
 
 1. device: the card (``nvidia-smi`` name and power limit) and the build of
-   every CUDA kernel of the path from the sources in the checkout;
-2. kernels: each kernel against its plain PyTorch version at the shapes the
-   main path gives it (batch 16, 288x1280), f32 and bf16, with its time
-   (CUDA events, median over distinct inputs), the plain version's time and
-   the least time the card could take (``bound_ms``);
-3. slice: ``Stereo3D.predict`` (the port's main path, ResNet-34 at
-   288x1280) at batch 16 in f32 and bf16 over distinct request batches:
-   ms per batch, fps, batch-1 p50 latency, valid detections, and the
-   kernels' launch counts over that run (set to 0 just before it). After
-   each dtype, a ``torch.profiler`` breakdown of one batch-16 ``predict``:
-   device time by op and by kernel, and the device's busy share;
-4. parity: batch 1, f32 with TF32 off, the card's ``predict`` against the
-   same model on the CPU (the plain path the CPU tests tie to the JAX
-   package).
+   every CUDA kernel of the paths from the sources in the checkout
+   (``csrc/correlation.cu``, ``csrc/deform_conv.cu``, one ``nvcc`` each,
+   started together);
+2. kernel, kernel_edges: both correlation kernels against their plain
+   PyTorch version at the stereo path's shapes (batch 16, 288x1280), f32
+   and bf16, with their time (CUDA events, median over distinct inputs), the
+   plain version's time and the least time the card could take
+   (``bound_ms``), and ragged edge cases;
+3. slice, profile, parity: ``Stereo3D.predict`` (ResNet-34 at 288x1280) at
+   batch 16 in f32 and bf16 over distinct request batches: ms per batch,
+   fps, batch-1 p50 latency, valid detections, the correlation launches
+   over that run (set to 0 just before it); a ``torch.profiler`` breakdown
+   of one batch-16 ``predict`` per dtype; batch-1 f32 (TF32 off) parity of
+   the card against the same model on the CPU;
+4. deform_kernel, deform_edges: the DCNv2 kernel against its plain version
+   at the 7 shapes of the KM3D neck (batch 16, 384x1280), f32 and bf16,
+   with seeded offsets (std 2 px, 5% of them 20-40 px, outside the map),
+   its time, the plain version's, a cuDNN dense 3x3 conv of the same shape
+   as a reference point, and the bound; then the edge cases (samples wholly
+   outside, exactly on -1 and H, ragged tiles, stride 2, dilation 2) and the
+   wrapper's refusals;
+5. km3d_slice, km3d_profile, km3d_parity: ``KM3D.predict`` (DLA-34, the DCN
+   neck, ``head_features=256``) at batch 16 in f32 and bf16 over distinct
+   request batches, with exactly 16 DCN launches per ``predict``; a
+   profiler breakdown with the DCN kernel's share; batch-1 f32 parity of
+   the card against the CPU.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
@@ -291,6 +303,309 @@ def parity_phase(torch, system):
          max_score_abs_err=float((out_gpu['scores'] - out_cpu['scores']).abs().max()))
 
 
+# (count per forward, H, W, C_in, C_out) of the 16 DCNs of the KM3D neck at 384x1280
+DCN_SHAPES = ((1, 12, 40, 512, 256), (1, 24, 80, 256, 256), (2, 24, 80, 256, 128),
+              (1, 24, 80, 256, 64), (2, 48, 160, 128, 128), (4, 48, 160, 128, 64),
+              (5, 96, 320, 64, 64))
+DCN_PER_FORWARD = sum(shape[0] for shape in DCN_SHAPES)
+
+
+def dcn_inputs(torch, gen, b, h, w, c_in, c_out, dtype, n, ho=None, wo=None,
+               off_std=2.0, far=0.05):
+    """n distinct (x, offset, mask) inputs and one (weight, bias): offsets of
+    std ``off_std`` px, a share ``far`` of them 20-40 px (outside the map).
+    As in ``ModulatedDeformConv``, the offsets are the first 18 channels of
+    one [B, Ho, Wo, 27] tensor (pixel stride 27) and the mask the sigmoid of
+    the last 9."""
+    ho, wo = ho or h, wo or w
+    runs = []
+    for _ in range(n):
+        x = torch.randn((b, h, w, c_in), generator=gen, device='cuda').to(dtype)
+        om = torch.randn((b, ho, wo, 27), generator=gen, device='cuda')
+        off = om[..., :18] * off_std
+        big = torch.sign(off) * (20 + 20 * torch.rand(off.shape, generator=gen, device='cuda'))
+        om[..., :18] = torch.where(torch.rand(off.shape, generator=gen, device='cuda') < far,
+                                   big, off)
+        om[..., 18:] *= 2.0
+        om = om.to(dtype)
+        runs.append((x, om[..., :18], torch.sigmoid(om[..., 18:])))
+    weight = (torch.randn((3, 3, c_in, c_out), generator=gen, device='cuda')
+              / (9 * c_in) ** 0.5).to(dtype)
+    bias = (0.1 * torch.randn((c_out,), generator=gen, device='cuda')).to(dtype)
+    return runs, weight, bias
+
+
+def dcn_check(torch, dc, args, weight, bias, what, **conv):
+    """The kernel against the plain version on the card; returns (max abs
+    error, tolerance text). f32: 3e-5 of max|out| (the two sum the K*C_in
+    tap products in different orders). bf16: per element, one bf16 ulp of
+    the plain pre-bias output plus one of the output: the sampled values are
+    rounded identically (explicitly rounded products and sums in both), bf16
+    products are exact in f32, so only the f32 sum order differs, which can
+    flip the rounding of the pre-bias output, and then of the bias add."""
+    out = dc.modulated_deform_conv(*args, weight, bias, **conv)
+    ref = dc.modulated_deform_conv_plain(*args, weight, bias, **conv)
+    torch.cuda.synchronize()
+    check(out.shape == ref.shape and out.dtype == ref.dtype,
+          f'{what}: {tuple(out.shape)} {out.dtype} against {tuple(ref.shape)} {ref.dtype}')
+    err = (out.float() - ref.float()).abs()
+    if out.dtype == torch.float32:
+        tol = 'atol 3e-5 * max|out|'
+        ok = bool(err.max() <= 3e-5 * ref.abs().max() + 1e-7)
+    else:
+        pre = dc.modulated_deform_conv_plain(*args, weight, None, **conv).float()
+        tol = 'one bf16 ulp of the plain pre-bias output + one of the output, per element'
+        ok = bool((err <= bf16_ulp(pre) + bf16_ulp(ref.float())).all())
+    max_err = float(err.max())
+    check(ok, f'{what}: max abs err {max_err} outside {tol}')
+    return max_err, tol
+
+
+def deform_kernel_phase(torch, dc, peaks):
+    """The DCN kernel against its plain version at the KM3D neck's 7 shapes,
+    batch 16, f32 and bf16; times per shape and weighted per forward."""
+    import torch.nn.functional as F
+    bw, f32_peak, bf16_peak = peaks
+    gen = torch.Generator(device='cuda').manual_seed(11)
+    results = {}
+    for dt, dtype in (('f32', torch.float32), ('bf16', torch.bfloat16)):
+        tot = dict(ms=0.0, plain_ms=0.0, dense_conv_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
+                   max_abs_err=0.0, per_shape={})
+        for count, h, w, c_in, c_out in DCN_SHAPES:
+            runs, weight, bias = dcn_inputs(torch, gen, BATCH, h, w, c_in, c_out, dtype,
+                                            N_KERNEL_RUNS)
+            what = f'modulated_deform_conv {dt} {h}x{w} {c_in}->{c_out}'
+            max_err, tol = dcn_check(torch, dc, runs[0], weight, bias, what)
+            ms = cuda_ms(lambda a: dc.modulated_deform_conv(*a, weight, bias), runs)
+            plain_ms = cuda_ms(lambda a: dc.modulated_deform_conv_plain(*a, weight, bias),
+                               runs, warmup=1)
+            w_oihw = weight.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            dense_ms = cuda_ms(lambda a: F.conv2d(a[0].permute(0, 3, 1, 2), w_oihw, bias,
+                                                  padding=1), runs)
+            isz = runs[0][0].element_size()
+            pixels = BATCH * h * w
+            n_bytes = isz * (pixels * (c_in + 27 + c_out) + 9 * c_in * c_out + c_out)
+            n_flops = 2 * pixels * 9 * c_in * c_out
+            bytes_ms = n_bytes / bw * 1e3
+            ops_ms = n_flops / (f32_peak if dt == 'f32' else bf16_peak) * 1e3
+            shape = dict(count=count, x=[BATCH, h, w, c_in], c_out=c_out, ms=ms,
+                         plain_ms=plain_ms, dense_conv_ms=dense_ms,
+                         bound_ms=max(bytes_ms, ops_ms),
+                         bound_by='bytes' if bytes_ms >= ops_ms else 'operations',
+                         max_abs_err=max_err, tflops=n_flops / (ms * 1e-3) / 1e12)
+            tot['per_shape'][f'{h}x{w} {c_in}->{c_out}'] = shape
+            for key, v in (('ms', ms), ('plain_ms', plain_ms), ('dense_conv_ms', dense_ms),
+                           ('bytes_ms', bytes_ms), ('ops_ms', ops_ms)):
+                tot[key] += count * v
+            tot['max_abs_err'] = max(tot['max_abs_err'], max_err)
+            emit('deform_kernel', kernel='modulated_deform_conv', dtype=dt, tolerance=tol,
+                 bytes=n_bytes, flops=n_flops, **shape)
+            del runs
+        tot['bound_ms'] = max(tot['bytes_ms'], tot['ops_ms'])
+        tot['bound_by'] = 'bytes' if tot['bytes_ms'] >= tot['ops_ms'] else 'operations'
+        results[dt] = tot
+        emit('deform_kernel_per_forward', dtype=dt, dcn_launches=DCN_PER_FORWARD,
+             **{k: v for k, v in tot.items() if k != 'per_shape'})
+    return results
+
+
+def deform_edge_phase(torch, dc):
+    """Edge cases the KM3D shapes do not reach, both dtypes, and the
+    wrapper's refusals."""
+    gen = torch.Generator(device='cuda').manual_seed(12)
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, (b, h, w, c_in, c_out), conv, off_std, far in (
+                ('offsets of 30 px: wholly outside, output = bias', (2, 10, 14, 6, 5), {},
+                 0.0, 1.0),
+                ('ragged tiles: 63 px, C_in 33, C_out 70', (2, 7, 9, 33, 70), {}, 2.0, 0.05),
+                ('135 px, C_in 40, C_out 5', (1, 9, 15, 40, 5), {}, 3.0, 0.05),
+                ('stride 2', (2, 10, 14, 6, 5), dict(stride=2), 2.0, 0.05),
+                ('dilation 2', (2, 10, 14, 6, 5), dict(padding=2, dilation=2), 2.0, 0.05)):
+            ho, wo = dc.output_hw(h, w, 3, 3, conv.get('stride', 1), conv.get('padding', 1),
+                                  conv.get('dilation', 1))
+            runs, weight, bias = dcn_inputs(torch, gen, b, h, w, c_in, c_out, dtype, 1,
+                                            ho=ho, wo=wo, off_std=off_std, far=far)
+            dcn_check(torch, dc, runs[0], weight, bias, f'edge {name} {dtype}', **conv)
+            cases.append(name)
+        # samples exactly on rows/columns -1, H - 1 and H
+        runs, weight, bias = dcn_inputs(torch, gen, 1, 6, 7, 4, 3, dtype, 1, off_std=0.0, far=0.0)
+        x, off, mask = runs[0]
+        off = off.float()
+        off[0, 0, 0, 0::2] = torch.tensor([0, 0, 0, -1, 0, 0, 6, 5, 4.0], device='cuda')
+        off[0, 3, 3, 1::2] = torch.tensor([-3, 3.5, 2, -1, 0, 0, 0.5, 0, 0], device='cuda')
+        dcn_check(torch, dc, (x, off.to(dtype), mask), weight, bias, f'edge -1/H {dtype}')
+        cases.append('samples on -1, H - 1 and H')
+        # a contiguous x whose base is off 16-byte alignment: scalar loads
+        runs, weight, bias = dcn_inputs(torch, gen, 2, 9, 11, 64, 64, dtype, 1)
+        x, off, mask = runs[0]
+        shifted = torch.empty(x.numel() + 1, dtype=dtype, device='cuda')[1:].view(x.shape)
+        shifted.copy_(x)
+        dcn_check(torch, dc, (shifted, off, mask), weight, bias, f'edge unaligned x {dtype}')
+        cases.append('x base off 16-byte alignment')
+    # what the kernel does not take raises, never falls back
+    x, off, mask = runs[0]
+    refusals = (
+        ('NCHW permuted to NHWC', ValueError,
+         lambda: dc.modulated_deform_conv(x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1),
+                                          off, mask, weight, bias)),
+        ('float16', TypeError, lambda: dc.modulated_deform_conv(
+            x.half(), off.half(), mask.half(), weight.half(), bias.half())),
+        ('a CPU weight', ValueError, lambda: dc.modulated_deform_conv(
+            x, off, mask, weight.cpu(), bias)),
+        ('grad mode', RuntimeError, lambda: dc.modulated_deform_conv(
+            x, off, mask, weight.float().requires_grad_().to(x.dtype), bias)),
+    )
+    for name, exc, fn in refusals:
+        try:
+            with torch.enable_grad():
+                fn()
+        except exc:
+            continue
+        fail(f'modulated_deform_conv took {name} instead of raising {exc.__name__}')
+    emit('deform_edges', ok=True, cases=sorted(set(cases)), refused=[r[0] for r in refusals])
+
+
+def build_km3d(torch):
+    """The published KM3D on the card, random weights from seed 0, its
+    offset convs seeded (std 2 px) and its head calibrated on 4 images."""
+    from visualdet3d_tpu_torch.entry import KM3D_IMAGE_HW, build_km3d_system
+    from visualdet3d_tpu_torch.testing import calibrate_head_convs, seed_offset_convs
+    system = build_km3d_system(device='cuda')
+    gen = torch.Generator().manual_seed(13)
+    calib = torch.randn((4, *KM3D_IMAGE_HW, 3), generator=gen).cuda()
+    seed_offset_convs(system, gen, 2.0, calib)
+    calibrate_head_convs(system, calib, gen)
+    return system
+
+
+def km3d_slice_phase(torch, dc, system, dtype_name):
+    """KM3D.predict at batch 16 over distinct request batches; exactly 16
+    DCN launches per predict."""
+    from visualdet3d_tpu_torch.entry import KITTI_P2, KM3D_IMAGE_HW
+    system.cfg.inference_dtype = dtype_name
+    gen = torch.Generator(device='cuda').manual_seed(14)
+    batches = [torch.randn((BATCH, *KM3D_IMAGE_HW, 3), generator=gen, device='cuda')
+               for _ in range(N_BATCHES + 1)]
+    P2 = torch.as_tensor(np.tile(KITTI_P2, (BATCH, 1, 1)), device='cuda')
+    system.predict(batches[0], P2)  # warm-up: cuDNN algorithm choice, cast copy
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    dc.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = [system.predict(images, P2) for images in batches[1:]]
+    torch.cuda.synchronize()
+    ms_batch = (time.perf_counter() - t0) * 1e3 / N_BATCHES
+    launches = dc.LAUNCHES['modulated_deform_conv']
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    check(launches == DCN_PER_FORWARD * N_BATCHES,
+          f'km3d {dtype_name}: {launches} DCN launches for {N_BATCHES} predict calls '
+          f'(expected {DCN_PER_FORWARD} per call)')
+    n_valid = [int(o['valid'].sum()) for o in outs]
+    for o in outs:
+        check(o['bboxes'].shape == (BATCH, 32, 11) and o['scores'].shape == (BATCH, 32),
+              f'km3d {dtype_name}: output shapes {o["bboxes"].shape} {o["scores"].shape}')
+        for key in ('scores', 'bboxes'):
+            check(bool(torch.isfinite(o[key]).all()), f'km3d {dtype_name}: non-finite {key}')
+    check(min(n_valid) > 0, f'km3d {dtype_name}: a batch with no valid detection {n_valid}')
+
+    P21 = P2[:1]
+    ones = [images[:1].clone() for images in batches]
+    system.predict(ones[0], P21)
+    lats = []
+    for i in range(N_BS1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        system.predict(ones[i % len(ones)], P21)
+        torch.cuda.synchronize()
+        lats.append((time.perf_counter() - t) * 1e3)
+    result = dict(dtype=dtype_name, batch=BATCH, image_hw=list(KM3D_IMAGE_HW),
+                  ms_per_batch=ms_batch, fps=BATCH / ms_batch * 1e3,
+                  bs1_p50_ms=statistics.median(lats), bs1_ms=lats,
+                  valid_per_batch=n_valid, launches=launches,
+                  launches_per_predict=launches / N_BATCHES, peak_memory_gb=peak_gb)
+    emit('km3d_slice', **result)
+    return result, batches[1], P2
+
+
+def km3d_profile_phase(torch, system, images, P2, dtype_name):
+    """Device time by op and kernel for one batch-16 KM3D predict, the busy
+    share, and the DCN kernel's share of the device time."""
+    from torch.profiler import ProfilerActivity, profile
+    system.cfg.inference_dtype = dtype_name
+    system.predict(images, P2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        system.predict(images, P2)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    ops = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU
+           and e.self_device_time_total > 0]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    check(device_ms > 0, 'km3d profile: no device time recorded')
+    dcn = [e for e in kernels if 'deform_conv_kernel' in e.key]
+    dcn_ms = sum(e.self_device_time_total for e in dcn) / 1e3
+    check(sum(e.count for e in dcn) == DCN_PER_FORWARD,
+          f'km3d profile: {sum(e.count for e in dcn)} DCN kernels in one predict')
+
+    def top(evs, n):
+        evs = sorted(evs, key=lambda e: -e.self_device_time_total)[:n]
+        return [dict(name=e.key[:80], ms=e.self_device_time_total / 1e3, calls=e.count)
+                for e in evs]
+    emit('km3d_profile', dtype=dtype_name, wall_ms=wall_ms, device_ms=device_ms,
+         device_busy_share=device_ms / wall_ms, dcn_kernel_ms=dcn_ms,
+         dcn_share_of_device=dcn_ms / device_ms, top_ops=top(ops, 12),
+         top_kernels=top(kernels, 12))
+
+
+def km3d_parity_phase(torch, system):
+    """Batch 1, f32, TF32 off: the card's KM3D against the same weights on
+    the CPU. The same valid set and labels; 2D boxes, dimensions and alpha
+    within rtol = atol = 1e-3 and the 3D centre within rtol 1e-2 (cuDNN and
+    oneDNN sum the convs in different orders; the centre comes from a 3x3
+    least-squares solve and a division by depth); raw maps within 1e-3 of
+    their largest value."""
+    from visualdet3d_tpu_torch.entry import KITTI_P2, KM3D_IMAGE_HW, build_km3d_system
+    system.cfg.inference_dtype = 'float32'
+    cpu = build_km3d_system(device='cpu')
+    cpu.net.load_state_dict({k: v.cpu() for k, v in system.net.state_dict().items()})
+    cpu.weights_changed()
+    rng = np.random.default_rng(15)
+    image = torch.from_numpy(rng.standard_normal((1, *KM3D_IMAGE_HW, 3)).astype(np.float32))
+    P2 = torch.from_numpy(KITTI_P2[None])
+    out_gpu = {k: v.cpu() for k, v in system.predict(image, P2).items()}
+    raw_gpu = {k: v.float().cpu() for k, v in system.predict_raw(image).items()}
+    out_cpu = cpu.predict(image, P2)
+    raw_cpu = cpu.predict_raw(image)
+    raw_err = {k: float((raw_gpu[k] - raw_cpu[k]).abs().max() / raw_cpu[k].abs().max())
+               for k in raw_cpu}
+    check(max(raw_err.values()) <= 1e-3, f'km3d parity: raw maps differ {raw_err}')
+    valid = out_cpu['valid']
+    n_valid = int(valid.sum())
+    check(n_valid > 0, 'km3d parity: no valid detection at batch 1')
+    check(torch.equal(out_gpu['valid'], valid),
+          f'km3d parity: valid sets differ: gpu {out_gpu["valid"].nonzero().tolist()} '
+          f'cpu {valid.nonzero().tolist()}')
+    check(torch.equal(out_gpu['labels'][valid], out_cpu['labels'][valid]),
+          'km3d parity: labels differ')
+    g, c = out_gpu['bboxes'][valid], out_cpu['bboxes'][valid]
+    other = [i for i in range(11) if i not in (4, 5, 6)]
+    box_ok = torch.allclose(g[:, other], c[:, other], rtol=1e-3, atol=1e-3)
+    centre_ok = torch.allclose(g[:, 4:7], c[:, 4:7], rtol=1e-2, atol=1e-3)
+    box_err = float((g[:, other] - c[:, other]).abs().max())
+    centre_rel = float(((g[:, 4:7] - c[:, 4:7]).abs() / c[:, 4:7].abs().clamp_min(1e-3)).max())
+    check(box_ok and centre_ok, f'km3d parity: boxes differ by up to {box_err}, '
+                                f'centres by {centre_rel} relative')
+    emit('km3d_parity', batch=1, dtype='float32', tf32=False, n_valid=n_valid,
+         max_box_abs_err=box_err, max_centre_rel_err=centre_rel, raw_rel_err=raw_err,
+         max_score_abs_err=float((out_gpu['scores'] - out_cpu['scores']).abs().max()))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -298,6 +613,7 @@ def main() -> int:
     try:
         from visualdet3d_tpu_torch.entry import IMAGE_HW, build_system
         from visualdet3d_tpu_torch.ops import cost_volume as cv
+        from visualdet3d_tpu_torch.ops import deform_conv as dc
         from visualdet3d_tpu_torch.ops import kernel_build
         from visualdet3d_tpu_torch.testing import calibrate_prediction_convs
     except ImportError as e:
@@ -311,7 +627,7 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     part, peaks = card_peaks(name)
     t0 = time.perf_counter()
-    libs = kernel_build.build(['correlation'])
+    libs = kernel_build.build(['correlation', 'deform_conv'])
     build_s = time.perf_counter() - t0
     ptxas = [line.strip() for so in libs.values()
              for line in so.with_name(so.name + '.log').read_text().splitlines()
@@ -335,6 +651,18 @@ def main() -> int:
         profile_phase(torch, system, batch, P2, dtype_name)
         del batch
     parity_phase(torch, system)
+    del system
+    torch.cuda.empty_cache()
+
+    dcn = deform_kernel_phase(torch, dc, peaks)
+    deform_edge_phase(torch, dc)
+    km3d = build_km3d(torch)
+    km3d_slices = {}
+    for dtype_name in ('float32', 'bfloat16'):
+        km3d_slices[dtype_name], batch, P2 = km3d_slice_phase(torch, dc, km3d, dtype_name)
+        km3d_profile_phase(torch, km3d, batch, P2, dtype_name)
+        del batch
+    km3d_parity_phase(torch, km3d)
 
     dtype_of = {'f32': 'float32', 'bf16': 'bfloat16'}
     replaces = {  # the TPU kernel bodies _corr_kernel_eyes and _corr_kernel
@@ -351,6 +679,20 @@ def main() -> int:
             max_abs_err=r['max_abs_err'], ms=r['ms'], plain_ms=r['plain_ms'],
             bound_ms=r['bound_ms'], bound_by=r['bound_by'], library_ms=None,
             per_forward='stride-4 + stride-8 calls, batch 16', per_shape=r['per_shape']))
+    dcn_replaces = {  # the TPU kernel bodies _lerp_matmul_f32_kernel and _lerp_matmul_kernel
+        'f32': 'visualdet3d_tpu/ops/deform_conv.py:363',
+        'bf16': 'visualdet3d_tpu/ops/deform_conv.py:161',
+    }
+    for dt, r in dcn.items():
+        summary.append(dict(
+            name=f'modulated_deform_conv[{dt}]', route='cuda',
+            source='visualdet3d_tpu_torch/csrc/deform_conv.cu', replaces=dcn_replaces[dt],
+            launches=km3d_slices[dtype_of[dt]]['launches'],
+            max_abs_err=r['max_abs_err'], ms=r['ms'], plain_ms=r['plain_ms'],
+            bound_ms=r['bound_ms'], bound_by=r['bound_by'], library_ms=None,
+            dense_conv_ms=r['dense_conv_ms'],
+            per_forward='the 16 DCNs of one KM3D forward, batch 16 (shapes weighted by count)',
+            per_shape=r['per_shape']))
     print(json.dumps({'kernels': summary}), flush=True)
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': name,

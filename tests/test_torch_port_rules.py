@@ -5,8 +5,9 @@
   because this test process has JAX imported already.
 * The entry points run on the card by default and raise without CUDA
   instead of running on the CPU.
-* Kernels build from the package's sources only, rebuild when a source
-  changes, and raise when ``nvcc`` is missing.
+* Kernels build from the package's sources only (``csrc/correlation.cu``,
+  ``csrc/deform_conv.cu``), rebuild when a source changes, and raise when
+  ``nvcc`` is missing.
 """
 import ast
 import pathlib
@@ -90,3 +91,18 @@ def test_library_is_keyed_by_the_source(monkeypatch, tmp_path):
 def test_kernel_sources_target_hopper():
     assert (kernel_build.CSRC_DIR / 'correlation.cu').exists()
     assert 'arch=compute_90a,code=sm_90a' in kernel_build.NVCC_FLAGS
+
+
+def test_km3d_entry_point_raises_without_cuda(monkeypatch):
+    from visualdet3d_tpu_torch import entry as entry_lib
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        entry_lib.build_km3d_system()
+
+
+def test_every_kernel_source_is_in_the_package():
+    names = sorted(p.stem for p in kernel_build.CSRC_DIR.glob('*.cu'))
+    assert names == ['correlation', 'deform_conv']
+    for name in names:
+        src = (kernel_build.CSRC_DIR / f'{name}.cu').read_text()
+        assert 'extern "C"' in src and 'vd3d_cuda_error_string' in src

@@ -63,7 +63,8 @@ def flax_to_state_dict(variables: Mapping, skip: Sequence[str] = ()
             module = '.'.join(path[:-1])
             if collection == 'batch_stats':
                 bn_modules.add(module)
-            state[f'{module}.{_LEAF[key]}'] = torch.tensor(np.ascontiguousarray(arr))
+            state[f'{module}.{_LEAF[key]}' if module else _LEAF[key]] = torch.tensor(
+                np.ascontiguousarray(arr))
     for module in bn_modules:
         state[f'{module}.num_batches_tracked'] = torch.tensor(0, dtype=torch.long)
     return state, skipped

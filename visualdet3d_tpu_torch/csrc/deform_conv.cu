@@ -1,0 +1,414 @@
+// Modulated deformable convolution (DCNv2) forward for NVIDIA Hopper (sm_90a).
+//
+// Replaces the TPU kernels visualdet3d_tpu/ops/deform_conv.py::_lerp_matmul_kernel
+// (bf16, launched by _lerp_matmul_pallas) and ::_lerp_matmul_f32_kernel (f32,
+// _lerp_matmul_f32_pallas), with the XLA gather that fed them:
+//
+//   out[b,p,:] = bias + sum_k bilinear_zero(x[b], base_p + tap_k*dil + off[b,p,k])
+//                               * mask[b,p,k] @ W_k          (W_k: [C_in, C_out])
+//
+// NHWC x and output, offsets [B,Ho,Wo,2K] ((dy, dx) of tap k at channels 2k,
+// 2k+1, taps row-major), mask [B,Ho,Wo,K], W [K, C_in, C_out]. Offsets and
+// mask may be channel slices of a wider NHWC tensor: each takes its own
+// stride between pixels.
+//
+// What bounds it on the card: the tap products, 2*K*C_in*C_out operations
+// per output pixel against (C_in + 3K + C_out) values moved: at the KM3D
+// neck's shapes ~100-300 FLOPs per byte, above the f32 balance point of an
+// H100 (67 TFLOP/s over 3.35 TB/s = 20) and near the bf16 one (~295). The
+// TPU kernel's u32 row-pair packing, [v00|v01|v10|v11] rows, taps-outer
+// gather layout and VMEM row budgets answered a TPU without an in-kernel
+// gather; none is kept. The design, simple first:
+//   * one block per (image, tile of 64 output pixels, tile of 64 C_out), the
+//     C_out tiles of one pixel tile adjacent in launch order so that their
+//     gathers of the same corners hit L2;
+//   * a loop over taps and over C_in chunks (32 channels in f32, 64 in bf16)
+//     inside the block, in place of the TPU's sequential tap grid axis;
+//   * per (pixel, tap), once: the f32 coordinate, the four corner indices
+//     (-1 for a corner outside the unpadded image: it contributes 0) and the
+//     four lerp weights, formed in the input dtype as the plain version forms
+//     them, built by the whole block for 9 taps at a time and kept in shared
+//     memory;
+//   * the block gathers the four corners itself, 16 bytes of a corner pixel
+//     a thread (8 bf16 or 4 f32 channels; scalar loads where C_in or the
+//     base pointer does not allow it), lerps in f32 with explicitly rounded
+//     products and sums (__fmul_rn/__fadd_rn: nvcc would otherwise contract
+//     them into FMAs and differ from the plain version before the bf16
+//     rounding), and stages the sampled [64 x chunk] tile in shared memory,
+//     rounded to bf16 in the bf16 kernel where K3 rounds; the W_k chunk
+//     [chunk x 64] is staged beside it;
+//   * accumulation in f32 registers: FMA on the CUDA cores in f32 (4x4
+//     outputs a thread), WMMA 16x16x16 bf16 tensor-core products in bf16
+//     (a 16x32 tile a warp);
+//   * an epilogue that rounds to the output dtype, then adds the bias in
+//     that dtype.
+// Shared memory stays under 37 KB for every C_in (it is chunked), so no size
+// needs the opt-in beyond 48 KB. Faster designs (TMA/cp.async pipelining,
+// wgmma, fewer redundant gathers across C_out tiles) are later work.
+//
+// Plain C interface for ctypes; each entry returns the cudaError_t of the
+// launch (0 on success). The launch goes on the caller's stream and does not
+// synchronise.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+
+#include <cstdint>
+#include <type_traits>
+
+namespace {
+
+constexpr int kTileP = 64;   // output pixels per block
+constexpr int kTileO = 64;   // output channels per block
+constexpr int kThreads = 256;
+constexpr int kTapGroup = 9;  // taps whose corner tables are built at once
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// a value rounded to T, back in f32
+template <typename T> __device__ __forceinline__ float round_to(float v) {
+  return to_f32(from_f32<T>(v));
+}
+
+// Input channels per staged chunk, and row strides of the staged tiles in
+// elements: multiples of 8 in bf16 (WMMA), and 16-byte rows in both, so that
+// a thread stores its 16-byte group of sampled values at once.
+template <typename T> struct Tiles;
+template <> struct Tiles<float> {
+  static constexpr int chunk = 32;
+  static constexpr int a_ld = chunk + 4;
+  static constexpr int b_ld = kTileO;
+  static constexpr int c_ld = 0;
+};
+template <> struct Tiles<__nv_bfloat16> {
+  static constexpr int chunk = 64;
+  static constexpr int a_ld = chunk + 8;
+  static constexpr int b_ld = kTileO + 8;
+  static constexpr int c_ld = kTileO + 4;
+};
+
+template <typename T> __host__ __device__ constexpr int smem_bytes() {
+  return (int)sizeof(T) * (kTileP * Tiles<T>::a_ld + Tiles<T>::chunk * Tiles<T>::b_ld);
+}
+template <typename T> __host__ __device__ constexpr int staging_bytes() {
+  return smem_bytes<T>() > (int)sizeof(float) * kTileP * Tiles<T>::c_ld
+             ? smem_bytes<T>()
+             : (int)sizeof(float) * kTileP * Tiles<T>::c_ld;
+}
+
+// V consecutive values as f32: one 16-byte load when V = 16 / sizeof(T)
+// (the caller guarantees the alignment), else V scalar loads.
+template <typename T, int V>
+__device__ __forceinline__ void load_vals(const T* p, float (&out)[V]) {
+  if constexpr (V * sizeof(T) == 16) {
+    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
+    const T* t = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int j = 0; j < V; ++j) out[j] = to_f32(t[j]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j) out[j] = to_f32(p[j]);
+  }
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void store_vals(T* p, const float (&v)[V]) {
+  if constexpr (V * sizeof(T) == 16) {
+    uint4 raw;
+    T* t = reinterpret_cast<T*>(&raw);
+#pragma unroll
+    for (int j = 0; j < V; ++j) t[j] = from_f32<T>(v[j]);
+    *reinterpret_cast<uint4*>(p) = raw;
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j) p[j] = from_f32<T>(v[j]);
+  }
+}
+
+// The sampled [kTileP x chunk] tile of channels c0.., V channels a thread
+// at a time (the 8 threads of a bf16 pixel row read 128 contiguous bytes of
+// each corner). With V > 1 the caller guarantees C_in % V == 0, so a group
+// is wholly inside or wholly outside C_in.
+template <typename T, int V>
+__device__ __forceinline__ void gather_tile(const T* __restrict__ xb, int C_in, int c0,
+                                            const int (&s_idx)[4][kTileP],
+                                            const float (&s_wt)[4][kTileP], T* s_a, int tid) {
+  constexpr int chunk = Tiles<T>::chunk, a_ld = Tiles<T>::a_ld, groups = chunk / V;
+  for (int e = tid; e < kTileP * groups; e += kThreads) {
+    const int pl = e / groups, cl = (e - pl * groups) * V;
+    const int c = c0 + cl;
+    float v[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) v[j] = 0.f;
+    if (c < C_in) {
+      float corner[4][V];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int idx = s_idx[q][pl];
+        if (idx >= 0) {
+          load_vals<T, V>(xb + (long long)idx * C_in + c, corner[q]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < V; ++j) corner[q][j] = 0.f;
+        }
+      }
+      const float wx0 = s_wt[0][pl], wx1 = s_wt[1][pl];
+      const float wy0 = s_wt[2][pl], wy1 = s_wt[3][pl];
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        // corners (y0,x0) (y0,x0+1) (y0+1,x0) (y0+1,x0+1): the y lerp of each
+        // column, then the x lerp
+        const float vx0 = __fadd_rn(__fmul_rn(corner[0][j], wy0), __fmul_rn(corner[2][j], wy1));
+        const float vx1 = __fadd_rn(__fmul_rn(corner[1][j], wy0), __fmul_rn(corner[3][j], wy1));
+        v[j] = __fadd_rn(__fmul_rn(vx0, wx0), __fmul_rn(vx1, wx1));
+      }
+    }
+    store_vals<T, V>(s_a + pl * a_ld + cl, v);
+  }
+}
+
+// The W_k chunk [chunk x kTileO] of rows c0.. and columns o0.., zero outside
+// C_in x C_out; V columns a thread at a time (C_out % V == 0 when V > 1).
+template <typename T, int V>
+__device__ __forceinline__ void load_weight_tile(const T* __restrict__ wk, int C_in, int C_out,
+                                                 int c0, int o0, T* s_b, int tid) {
+  constexpr int chunk = Tiles<T>::chunk, b_ld = Tiles<T>::b_ld, groups = kTileO / V;
+  for (int e = tid; e < chunk * groups; e += kThreads) {
+    const int cl = e / groups, ol = (e - cl * groups) * V;
+    const int c = c0 + cl, o = o0 + ol;
+    float v[V];
+    if (c < C_in && o < C_out) {
+      load_vals<T, V>(wk + (long long)c * C_out + o, v);
+    } else {
+#pragma unroll
+      for (int j = 0; j < V; ++j) v[j] = 0.f;
+    }
+    store_vals<T, V>(s_b + cl * b_ld + ol, v);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+deform_conv_kernel(const T* __restrict__ x, const T* __restrict__ offset,
+                   const T* __restrict__ mask, const T* __restrict__ weight,
+                   const T* __restrict__ bias, T* __restrict__ out, int H, int W,
+                   int C_in, int Ho, int Wo, int C_out, int kh, int kw, int stride,
+                   int pad, int dil, int off_stride, int mask_stride, bool vec_x,
+                   bool vec_w) {
+  constexpr int a_ld = Tiles<T>::a_ld, b_ld = Tiles<T>::b_ld, chunk = Tiles<T>::chunk;
+  constexpr int kVec = 16 / sizeof(T);
+  __shared__ __align__(128) unsigned char staging[staging_bytes<T>()];
+  // per tap of the group: corners (y0,x0) (y0,x0+1) (y0+1,x0) (y0+1,x0+1) and
+  // the weights 1-fx, fx, (1-fy)*mask, fy*mask
+  __shared__ int s_idx[kTapGroup][4][kTileP];
+  __shared__ float s_wt[kTapGroup][4][kTileP];
+  T* s_a = reinterpret_cast<T*>(staging);  // [kTileP][a_ld] sampled
+  T* s_b = s_a + kTileP * a_ld;            // [chunk][b_ld] W_k chunk
+
+  const int tid = threadIdx.x;
+  const int o0 = blockIdx.x * kTileO;
+  const int p0 = blockIdx.y * kTileP;
+  const long long b = blockIdx.z;
+  const int P = Ho * Wo;
+  const int K = kh * kw;
+  const T* xb = x + b * H * W * (long long)C_in;
+
+  // f32: thread owns pixels ty + 16i and channels 4tx + j (i, j < 4)
+  float acc[4][4];
+  // bf16: warp owns the 16 x 32 tile at rows 16*(warp/2), columns 32*(warp%2)
+  using namespace nvcuda;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> frag_c[2];
+  if constexpr (std::is_same<T, float>::value) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  } else {
+    wmma::fill_fragment(frag_c[0], 0.f);
+    wmma::fill_fragment(frag_c[1], 0.f);
+  }
+  const int warp = tid / 32;
+
+  for (int k0 = 0; k0 < K; k0 += kTapGroup) {
+    const int n_taps = min(kTapGroup, K - k0);
+    __syncthreads();  // the previous group's corner tables are no longer read
+    for (int e = tid; e < n_taps * kTileP; e += kThreads) {
+      const int kl = e / kTileP, pl = e - kl * kTileP;
+      const int k = k0 + kl, p = p0 + pl;
+      int i00 = -1, i01 = -1, i10 = -1, i11 = -1;
+      float w0 = 0.f, w1 = 0.f, w2 = 0.f, w3 = 0.f;
+      if (p < P) {
+        const int ho = p / Wo, wo = p - ho * Wo;
+        const long long pix = b * P + p;
+        const float dy = to_f32(offset[pix * off_stride + 2 * k]);
+        const float dx = to_f32(offset[pix * off_stride + 2 * k + 1]);
+        const float m = to_f32(mask[pix * mask_stride + k]);
+        const float py = (float)(ho * stride - pad + (k / kw) * dil) + dy;
+        const float px = (float)(wo * stride - pad + (k % kw) * dil) + dx;
+        const float fy0 = floorf(py), fx0 = floorf(px);
+        // fractional parts, then the lerp weights, rounded to T as the plain
+        // version forms them in the input dtype
+        const float fy = round_to<T>(py - fy0), fx = round_to<T>(px - fx0);
+        w0 = round_to<T>(__fsub_rn(1.f, fx));
+        w1 = fx;
+        w2 = round_to<T>(__fmul_rn(round_to<T>(__fsub_rn(1.f, fy)), m));
+        w3 = round_to<T>(__fmul_rn(fy, m));
+        // clamping to [-2, H] / [-2, W] keeps each corner's inside/outside
+        // verdict and makes the integer cast safe (NaN goes to -2)
+        const int y0 = (int)fminf(fmaxf(fy0, -2.f), (float)H);
+        const int x0 = (int)fminf(fmaxf(fx0, -2.f), (float)W);
+        const bool y0_in = y0 >= 0 && y0 < H, y1_in = y0 + 1 >= 0 && y0 + 1 < H;
+        const bool x0_in = x0 >= 0 && x0 < W, x1_in = x0 + 1 >= 0 && x0 + 1 < W;
+        if (y0_in && x0_in) i00 = y0 * W + x0;
+        if (y0_in && x1_in) i01 = y0 * W + x0 + 1;
+        if (y1_in && x0_in) i10 = (y0 + 1) * W + x0;
+        if (y1_in && x1_in) i11 = (y0 + 1) * W + x0 + 1;
+      }
+      s_idx[kl][0][pl] = i00; s_idx[kl][1][pl] = i01;
+      s_idx[kl][2][pl] = i10; s_idx[kl][3][pl] = i11;
+      s_wt[kl][0][pl] = w0; s_wt[kl][1][pl] = w1; s_wt[kl][2][pl] = w2; s_wt[kl][3][pl] = w3;
+    }
+    for (int kl = 0; kl < n_taps; ++kl) {
+      const T* wk = weight + (long long)(k0 + kl) * C_in * C_out;
+
+      for (int c0 = 0; c0 < C_in; c0 += chunk) {
+        __syncthreads();  // corner tables written; the previous chunk consumed
+        if (vec_x) {
+          gather_tile<T, kVec>(xb, C_in, c0, s_idx[kl], s_wt[kl], s_a, tid);
+        } else {
+          gather_tile<T, 1>(xb, C_in, c0, s_idx[kl], s_wt[kl], s_a, tid);
+        }
+        if (vec_w) {
+          load_weight_tile<T, kVec>(wk, C_in, C_out, c0, o0, s_b, tid);
+        } else {
+          load_weight_tile<T, 1>(wk, C_in, C_out, c0, o0, s_b, tid);
+        }
+        __syncthreads();
+
+        if constexpr (std::is_same<T, float>::value) {
+          const int tx = tid & 15, ty = tid >> 4;
+#pragma unroll 4
+          for (int cl = 0; cl < chunk; ++cl) {
+            const float4 bv = *reinterpret_cast<const float4*>(s_b + cl * b_ld + 4 * tx);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const float av = s_a[(ty + 16 * i) * a_ld + cl];
+              acc[i][0] = fmaf(av, bv.x, acc[i][0]);
+              acc[i][1] = fmaf(av, bv.y, acc[i][1]);
+              acc[i][2] = fmaf(av, bv.z, acc[i][2]);
+              acc[i][3] = fmaf(av, bv.w, acc[i][3]);
+            }
+          }
+        } else {
+          const int row = 16 * (warp >> 1), col = 32 * (warp & 1);
+#pragma unroll
+          for (int kk = 0; kk < chunk; kk += 16) {
+            wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
+            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
+            wmma::load_matrix_sync(fa, s_a + row * a_ld + kk, a_ld);
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              wmma::load_matrix_sync(fb, s_b + kk * b_ld + col + 16 * j, b_ld);
+              wmma::mma_sync(frag_c[j], fa, fb, frag_c[j]);
+            }
+          }
+        }
+      }
+    }
+  }
+
+  // epilogue: round to T, then + bias in T
+  if constexpr (std::is_same<T, float>::value) {
+    const int tx = tid & 15, ty = tid >> 4;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int p = p0 + ty + 16 * i;
+      if (p >= P) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int o = o0 + 4 * tx + j;
+        if (o >= C_out) continue;
+        float v = acc[i][j];
+        if (bias != nullptr) v = __fadd_rn(v, bias[o]);
+        out[(b * P + p) * C_out + o] = v;
+      }
+    }
+  } else {
+    constexpr int c_ld = Tiles<T>::c_ld;
+    float* s_c = reinterpret_cast<float*>(staging);  // [kTileP][c_ld]
+    __syncthreads();  // the last chunk's tiles are consumed
+    const int row = 16 * (warp >> 1), col = 32 * (warp & 1);
+    wmma::store_matrix_sync(s_c + row * c_ld + col, frag_c[0], c_ld, wmma::mem_row_major);
+    wmma::store_matrix_sync(s_c + row * c_ld + col + 16, frag_c[1], c_ld, wmma::mem_row_major);
+    __syncthreads();
+    for (int e = tid; e < kTileP * kTileO; e += kThreads) {
+      const int pl = e / kTileO, ol = e - pl * kTileO;
+      const int p = p0 + pl, o = o0 + ol;
+      if (p >= P || o >= C_out) continue;
+      float v = round_to<T>(s_c[pl * c_ld + ol]);
+      if (bias != nullptr) v = __fadd_rn(v, to_f32(bias[o]));
+      out[(b * P + p) * C_out + o] = from_f32<T>(v);
+    }
+  }
+}
+
+template <typename T>
+int launch(const void* x, const void* offset, const void* mask, const void* weight,
+           const void* bias, void* out, int B, int H, int W, int C_in, int Ho, int Wo,
+           int C_out, int kh, int kw, int stride, int pad, int dil, int off_stride,
+           int mask_stride, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || C_in <= 0 || Ho <= 0 || Wo <= 0 || C_out <= 0 ||
+      kh <= 0 || kw <= 0 || stride <= 0 || dil <= 0 || pad < 0 ||
+      off_stride < 2 * kh * kw || mask_stride < kh * kw)
+    return (int)cudaErrorInvalidValue;
+  const long long P = (long long)Ho * Wo;
+  const dim3 grid((C_out + kTileO - 1) / kTileO, (unsigned)((P + kTileP - 1) / kTileP), B);
+  if (grid.y > 65535 || grid.z > 65535 || (long long)H * W * C_in > (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  // 16-byte loads where every row of x (C_in) and of W (C_out) starts
+  // 16-byte aligned
+  constexpr int vec = 16 / sizeof(T);
+  const bool vec_x = C_in % vec == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool vec_w = C_out % vec == 0 && reinterpret_cast<uintptr_t>(weight) % 16 == 0;
+  deform_conv_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(offset), static_cast<const T*>(mask),
+      static_cast<const T*>(weight), static_cast<const T*>(bias), static_cast<T*>(out), H, W,
+      C_in, Ho, Wo, C_out, kh, kw, stride, pad, dil, off_stride, mask_stride, vec_x, vec_w);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+int vd3d_modulated_deform_conv_f32(const void* x, const void* offset, const void* mask,
+                                   const void* weight, const void* bias, void* out, int B,
+                                   int H, int W, int C_in, int Ho, int Wo, int C_out, int kh,
+                                   int kw, int stride, int pad, int dil, int off_stride,
+                                   int mask_stride, void* stream) {
+  return launch<float>(x, offset, mask, weight, bias, out, B, H, W, C_in, Ho, Wo, C_out, kh,
+                       kw, stride, pad, dil, off_stride, mask_stride, stream);
+}
+
+int vd3d_modulated_deform_conv_bf16(const void* x, const void* offset, const void* mask,
+                                    const void* weight, const void* bias, void* out, int B,
+                                    int H, int W, int C_in, int Ho, int Wo, int C_out, int kh,
+                                    int kw, int stride, int pad, int dil, int off_stride,
+                                    int mask_stride, void* stream) {
+  return launch<__nv_bfloat16>(x, offset, mask, weight, bias, out, B, H, W, C_in, Ho, Wo,
+                               C_out, kh, kw, stride, pad, dil, off_stride, mask_stride,
+                               stream);
+}
+
+const char* vd3d_cuda_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+}  // extern "C"

@@ -1,4 +1,4 @@
-"""Reusable model blocks, stereo subset (counterpart of
+"""Reusable model blocks, stereo and DCN subset (counterpart of
 ``visualdet3d_tpu/models/blocks.py``).
 
 Modules take NCHW tensors and keep activations in ``torch.channels_last``
@@ -8,12 +8,14 @@ flax tree onto a ``state_dict`` path for path.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 import torch.nn.functional as F
+
+from visualdet3d_tpu_torch.ops.deform_conv import modulated_deform_conv
 
 
 def bn2d(features: int) -> nn.BatchNorm2d:
@@ -101,6 +103,52 @@ class ResGhostModule(nn.Module):
         return torch.cat([x, out], dim=1)[:, :self.features]
 
 
+class ModulatedDeformConv(nn.Module):
+    """DCNv2 'pack': a regular conv (``Conv_0``, 3K outputs, 'SAME') predicts
+    per-tap (dy, dx) and the mask logits, then the deformable conv
+    (``ops/deform_conv.py``, the CUDA kernel on the card) applies this
+    module's own ``weight`` (OIHW) and ``bias``, which the weight bridge
+    loads from the flax leaves ``kernel`` and ``bias``. The offset conv is
+    zero-initialised, so the module starts as a plain conv with mask 0.5.
+    Stride 1, the only one the ported models use (the flax module's strided
+    form pads its offset conv asymmetrically).
+    """
+
+    def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
+                 dilation: int = 1):
+        super().__init__()
+        self.kernel_size, self.dilation = kernel_size, dilation
+        k = kernel_size * kernel_size
+        self.pad = dilation * (kernel_size - 1) // 2
+        self.Conv_0 = nn.Conv2d(in_channels, 3 * k, kernel_size, padding=self.pad,
+                                dilation=dilation)
+        self.weight = nn.Parameter(torch.empty(features, in_channels, kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.empty(features))
+        self.reset_parameters()
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """The flax initialisers: offset conv zero, kernel he-normal (std
+        sqrt(2 / fan_in)), bias zero."""
+        self.Conv_0.weight.zero_()
+        self.Conv_0.bias.zero_()
+        std = (2.0 / self.weight[0].numel()) ** 0.5
+        w = torch.randn(self.weight.shape, generator=generator) * std
+        self.weight.copy_(w.to(self.weight.device))
+        self.bias.zero_()
+
+    def forward(self, x):
+        """x: NCHW (channels_last) -> NCHW (channels_last)."""
+        k = self.kernel_size * self.kernel_size
+        om = self.Conv_0(x).permute(0, 2, 3, 1)
+        offset = om[..., :2 * k]
+        mask = torch.sigmoid(om[..., 2 * k:])
+        out = modulated_deform_conv(x.permute(0, 2, 3, 1), offset, mask,
+                                    self.weight.permute(2, 3, 1, 0), self.bias,
+                                    padding=self.pad, dilation=self.dilation)
+        return out.permute(0, 3, 1, 2)
+
+
 def channels_last_(module: nn.Module) -> nn.Module:
     """Put every conv weight of ``module`` in channels_last (2-D) or
     channels_last_3d (3-D) memory format, in place; returns the module."""
@@ -116,7 +164,8 @@ def channels_last_(module: nn.Module) -> nn.Module:
 def flax_default_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Initialise like flax's defaults, from ``generator``: conv kernels
     lecun-normal (std sqrt(1/fan_in)), biases zero, BatchNorm identity
-    (scale 1, bias 0, running mean 0, running var 1)."""
+    (scale 1, bias 0, running mean 0, running var 1); a
+    ``ModulatedDeformConv`` takes its own initialisers (zero offset conv)."""
     for m in module.modules():
         if isinstance(m, (nn.Conv2d, nn.Conv3d)):
             fan_in = m.weight[0].numel()
@@ -126,4 +175,7 @@ def flax_default_init_(module: nn.Module, generator: torch.Generator) -> nn.Modu
                 m.bias.zero_()
         elif isinstance(m, nn.modules.batchnorm._BatchNorm):
             m.reset_parameters()
+    for m in module.modules():
+        if isinstance(m, ModulatedDeformConv):
+            m.reset_parameters(generator)
     return module

@@ -9,31 +9,23 @@ of the port; this base carries what the stereo system shares with them.
 """
 from __future__ import annotations
 
-import copy
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
-from torch import nn
 
-from visualdet3d_tpu_torch import convert
 from visualdet3d_tpu_torch.device import resolve_device
 from visualdet3d_tpu_torch.models.heads import detection_3d_head as head_lib
 from visualdet3d_tpu_torch.models.heads.anchors import Anchors
+from visualdet3d_tpu_torch.models.quant import InferenceMixin
 
-INFERENCE_DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
 
-
-class Yolo3DSystem:
+class Yolo3DSystem(InferenceMixin):
     """Config-built detector system.
 
     ``cfg.inference_dtype = 'bfloat16'`` runs the network in bf16 (decode
     and NMS stay f32, the logits stay bf16 until the top-K gather), as the
     JAX package's ``_inference_cast`` does for its non-int8 dtypes.
     """
-
-    net: nn.Module
-    # flax module paths the weight bridge skips (parameters inference never reads)
-    TRAIN_ONLY_PARAMS: Tuple[str, ...] = ()
 
     def __init__(self, network_cfg, device: Optional[Union[str, torch.device]] = None):
         self.cfg = network_cfg
@@ -55,7 +47,7 @@ class Yolo3DSystem:
         self.num_regression_loss_terms = head_cfg.get('num_regression_loss_terms', 13)
 
         self._anchor_cache: Dict[Tuple[int, int], Dict[str, torch.Tensor]] = {}
-        self._cast_nets: Dict[torch.dtype, nn.Module] = {}
+        self._init_inference_cache()
 
     # -------------------------------------------------------------- helpers
     def anchor_pack(self, image_hw: Tuple[int, int]) -> Dict[str, torch.Tensor]:
@@ -66,35 +58,6 @@ class Yolo3DSystem:
                 k: torch.as_tensor(v, device=self.device)
                 for k, v in self.anchors.get(key).items()}
         return self._anchor_cache[key]
-
-    def inference_dtype(self) -> torch.dtype:
-        name = self.cfg.get('inference_dtype', 'float32')
-        if name not in INFERENCE_DTYPES:
-            raise ValueError(f'inference_dtype {name!r} is not ported yet; '
-                             f'one of {sorted(INFERENCE_DTYPES)}')
-        return INFERENCE_DTYPES[name]
-
-    def inference_net(self) -> nn.Module:
-        """The network in the inference dtype: ``self.net`` for f32, else a
-        cast copy made once and kept until :meth:`weights_changed`."""
-        dtype = self.inference_dtype()
-        if dtype == torch.float32:
-            return self.net
-        if dtype not in self._cast_nets:
-            self._cast_nets[dtype] = copy.deepcopy(self.net).to(dtype).eval()
-        return self._cast_nets[dtype]
-
-    def weights_changed(self) -> None:
-        """Drop the cast copies of the network; call after changing weights."""
-        self._cast_nets.clear()
-
-    def load_flax_variables(self, variables) -> List[str]:
-        """Load the JAX package's ``{params, batch_stats}`` (as numpy
-        arrays) through the weight bridge; returns the skipped leaf names
-        (the train-only parameters)."""
-        skipped = convert.load_flax_variables(self.net, variables, self.TRAIN_ONLY_PARAMS)
-        self.weights_changed()
-        return skipped
 
     def decode(self, cls_preds, reg_preds, P2, image_hw, max_detections: int = 32,
                default_nms_iou_thr: float = 0.5):

@@ -155,14 +155,11 @@ class Stereo3D(Yolo3DSystem):
         f'StereoMerging_0/CostVolumePyramid_0/{name}'
         for name in ('Conv_0', 'BatchNorm_0', 'Conv_1', 'BatchNorm_1', 'Conv_2'))
 
-    def __init__(self, network_cfg, device: Optional[Union[str, torch.device]] = None,
-                 generator: Optional[torch.Generator] = None):
+    def __init__(self, network_cfg, device: Optional[Union[str, torch.device]] = None):
         super().__init__(network_cfg, device)
         net = YoloStereo3DNet(dict(network_cfg.backbone), dict(self.layer_cfg),
                               self.anchors.num_anchors)
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
-        flax_default_init_(net, generator)
+        flax_default_init_(net, torch.Generator().manual_seed(0))
         with torch.no_grad():
             for conv in net.StereoHead_0.prediction_convs():
                 conv.weight.zero_()

@@ -1,0 +1,172 @@
+"""RTM3D/KM3D utilities, inference half (counterpart of
+``visualdet3d_tpu/models/heads/rtm3d_utils.py``): heatmap max-pool NMS,
+top-K peak extraction, feature gathering by flat indices, the multibin
+alpha decode and the batched 16x3 least-squares 3D position solve. Maps are
+NHWC ``[B, H, W, C]``, as in the JAX package. The losses and the target
+builders come with the KM3D training slice.
+
+Ties: ``jax.lax.top_k`` puts the lower index first among equal values, and
+after ``heatmap_nms`` most of a map is exactly 0, so ties are the rule.
+``_topk`` is a stable descending sort, which keeps that order.
+
+Every reduction in ``gen_position`` is written as elementwise operations in
+a fixed order, so that a batched decode equals the per-image one exactly on
+the card (a library matmul may pick another summation order for another
+batch size).
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def heatmap_nms(heat: torch.Tensor, kernel: int = 3) -> torch.Tensor:
+    """Keep only local maxima (3x3 max-pool trick). heat: [B, H, W, C]."""
+    pad = (kernel - 1) // 2
+    hmax = F.max_pool2d(heat.permute(0, 3, 1, 2), kernel, 1, pad).permute(0, 2, 3, 1)
+    return torch.where(hmax == heat, heat, 0.0)
+
+
+def gather_feat(feat: torch.Tensor, ind: torch.Tensor) -> torch.Tensor:
+    """feat [B, HW, C], ind [B, K] -> [B, K, C]."""
+    return feat.gather(1, ind[..., None].expand(-1, -1, feat.shape[-1]))
+
+
+def transpose_and_gather_feat(feat: torch.Tensor, ind: torch.Tensor) -> torch.Tensor:
+    """feat [B, H, W, C], ind [B, K] flat y*W+x -> [B, K, C]."""
+    b, h, w, c = feat.shape
+    return gather_feat(feat.reshape(b, h * w, c), ind)
+
+
+def _topk(x: torch.Tensor, k: int):
+    """Top-k along the last axis, lower index first among ties (the order
+    of ``jax.lax.top_k``)."""
+    values, indices = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], indices[..., :k]
+
+
+def topk(scores: torch.Tensor, k: int = 40):
+    """Per-class then global top-K peaks. scores: [B, H, W, C]. Returns
+    (score, flat_inds, cls, ys, xs), all [B, K]."""
+    b, h, w, c = scores.shape
+    per_class = scores.permute(0, 3, 1, 2).reshape(b, c, h * w)
+    topk_scores, topk_inds = _topk(per_class, k)  # [B, C, K]
+    topk_ys = (topk_inds // w).float()
+    topk_xs = (topk_inds % w).float()
+    topk_score, topk_ind = _topk(topk_scores.reshape(b, c * k), k)  # [B, K]
+    topk_clses = (topk_ind // k).int()
+
+    def flat(x):
+        return x.reshape(b, c * k).gather(1, topk_ind)
+    return topk_score, flat(topk_inds), topk_clses, flat(topk_ys), flat(topk_xs)
+
+
+def topk_channel(scores: torch.Tensor, k: int = 40):
+    """Per-channel top-K. scores: [B, H, W, C] -> each [B, C, K]."""
+    b, h, w, c = scores.shape
+    per_class = scores.permute(0, 3, 1, 2).reshape(b, c, h * w)
+    topk_scores, topk_inds = _topk(per_class, k)
+    return topk_scores, topk_inds, (topk_inds // w).float(), (topk_inds % w).float()
+
+
+def _solve3x3(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Solve m @ x = v for batched 3x3 m ([..., 3, 3]) via the adjugate:
+    elementwise arithmetic only, so batching does not change the result."""
+    a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    d, e, f = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    g, h, i = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    c00 = e * i - f * h
+    c01 = c * h - b * i
+    c02 = b * f - c * e
+    c10 = f * g - d * i
+    c11 = a * i - c * g
+    c12 = c * d - a * f
+    c20 = d * h - e * g
+    c21 = b * g - a * h
+    c22 = a * e - b * d
+    det = a * c00 + b * c10 + c * c20
+    inv_det = 1.0 / det
+    x0 = (c00 * v[..., 0] + c01 * v[..., 1] + c02 * v[..., 2]) * inv_det
+    x1 = (c10 * v[..., 0] + c11 * v[..., 1] + c12 * v[..., 2]) * inv_det
+    x2 = (c20 * v[..., 0] + c21 * v[..., 1] + c22 * v[..., 2]) * inv_det
+    return torch.stack([x0, x1, x2], dim=-1)
+
+
+# per-row unit pattern of the 16x3 system: rows alternate (-1, 0) / (0, -1)
+_CONST = np.tile(np.array([[-1.0, 0.0], [0.0, -1.0]], np.float32), (8, 1))  # [16, 2]
+
+# corner order of the JAX package's geometry.CORNER_MATRIX:
+#   B[2i]   = _L_COS[i]*l/2*cos + _W_SIN[i]*w/2*sin
+#   B[2i+1] = _H_SIGN[i]*h/2
+#   C[2i] = C[2i+1] = _L_SIN[i]*l/2*sin + _W_COS[i]*w/2*cos
+_L_COS = np.array([-1, -1, -1, +1, +1, +1, +1, -1], np.float32)
+_H_SIGN = np.array([-1, -1, +1, +1, -1, -1, +1, +1], np.float32)
+_L_SIN = np.array([+1, +1, +1, -1, -1, -1, -1, +1], np.float32)
+_W_SIN = np.array([-1, +1, +1, +1, +1, -1, -1, -1], np.float32)
+_W_COS = np.array([-1, +1, +1, +1, +1, -1, -1, -1], np.float32)
+
+
+def decode_alpha_from_bins(rot: torch.Tensor) -> torch.Tensor:
+    """rot [*, 8] multibin -> alpha [*]."""
+    alpha_idx = (rot[..., 1] > rot[..., 5]).to(rot.dtype)
+    alpha1 = torch.atan(rot[..., 2] / rot[..., 3]) - 0.5 * math.pi
+    alpha2 = torch.atan(rot[..., 6] / rot[..., 7]) + 0.5 * math.pi
+    return alpha1 * alpha_idx + alpha2 * (1 - alpha_idx)
+
+
+def gen_position(kps: torch.Tensor, dim: torch.Tensor, rot: torch.Tensor,
+                 calib: torch.Tensor):
+    """Solve each object's 3D center from its 9 projected keypoints.
+
+    kps [B, K, 18] absolute keypoint image coords at input scale ((x, y) x 9,
+    the center last); dim [B, K, 3] (w, h, l); rot [B, K, 8] multibin;
+    calib [B, 3, 4]. Returns position [B, K, 3], rot_y [B, K, 1],
+    alpha_pre [B, K, 1] and kps.
+    """
+    b, k = kps.shape[0], kps.shape[1]
+    dev, dt = kps.device, kps.dtype
+    off_set = calib[:, 0, 3] / calib[:, 0, 0]  # [B]
+    si = calib[:, None, 0, 0].expand(b, k)
+
+    alpha_pre = decode_alpha_from_bins(rot)
+    rot_y = alpha_pre + torch.atan2(kps[:, :, 16] - calib[:, None, 0, 2], si)
+    rot_y = torch.where(rot_y > math.pi, rot_y - 2 * math.pi, rot_y)
+    rot_y = torch.where(rot_y < -math.pi, rot_y + 2 * math.pi, rot_y)
+
+    kpoint = kps[:, :, :16]
+    f = calib[:, None, 0, 0][..., None]                                   # [B, 1, 1]
+    cx, cy = calib[:, None, 0, 2][..., None], calib[:, None, 1, 2][..., None]
+    cxy = torch.cat([cx, cy], dim=2).repeat(1, 1, 8)                      # [B, 1, 16]
+    kp_norm = (kpoint - cxy) / f                                          # [B, K, 16]
+
+    w, h, l = dim[:, :, 0:1], dim[:, :, 1:2], dim[:, :, 2:3]
+    cosori = torch.cos(rot_y)[..., None]
+    sinori = torch.sin(rot_y)[..., None]
+    lc = 0.5 * l * cosori
+    ls = 0.5 * l * sinori
+    wc = 0.5 * w * cosori
+    ws = 0.5 * w * sinori
+    hh = 0.5 * h * torch.ones_like(lc)
+
+    def const(a):
+        return torch.as_tensor(a, dtype=dt, device=dev)
+    bx = const(_L_COS) * lc + const(_W_SIN) * ws                          # [B, K, 8]
+    by = const(_H_SIGN) * hh
+    b_vec = torch.stack([bx, by], dim=-1).reshape(b, k, 16)
+    c_even = const(_L_SIN) * ls + const(_W_COS) * wc
+    c_vec = c_even.repeat_interleave(2, dim=-1)                           # [B, K, 16]
+    b_vec = b_vec - kp_norm * c_vec
+
+    a_mat = torch.cat([const(_CONST).expand(b, k, 16, 2), kp_norm[..., None]], dim=-1)
+    # [A | b] -> A^T A and A^T b, summed over the 16 rows in order
+    ab = torch.cat([a_mat, b_vec[..., None]], dim=-1)                     # [B, K, 16, 4]
+    normal = ab[..., 0, :3, None] * ab[..., 0, None, :]
+    for r in range(1, 16):
+        normal = normal + ab[..., r, :3, None] * ab[..., r, None, :]      # [B, K, 3, 4]
+    m = normal[..., :3] + 1e-5 * torch.eye(3, dtype=dt, device=dev)
+    position = _solve3x3(m, normal[..., 3])                               # [B, K, 3]
+    position = torch.cat([position[..., :1] - off_set[:, None, None], position[..., 1:]], -1)
+    return position, rot_y[..., None], alpha_pre[..., None], kps

@@ -1,7 +1,7 @@
 """Synthetic fixtures for smoke runs and tests (counterpart of
-``visualdet3d_tpu/testing.py``): the YOLOStereo3D benchmark config,
+``visualdet3d_tpu/testing.py``): the YOLOStereo3D and KM3D configs,
 synthetic anchor priors, and seeded values for the zero-initialised
-prediction convs of a random-weight model."""
+prediction, offset and heatmap convs of a random-weight model."""
 from __future__ import annotations
 
 import contextlib
@@ -122,4 +122,108 @@ def calibrate_prediction_convs(system, left_images, right_images,
         b = mean - a * float(preds.mean())
         conv.weight.mul_(a)
         conv.bias.fill_(b)
+    system.weights_changed()
+
+
+def km3d_detector_cfg(obj_types=('Car',), head_features: int = 256, top_k: int = 100) -> edict:
+    """The KM3D config (mirrors configs/km3d.py: DLA-34, the RTM3D head dict,
+    ``head_features=256``, score_thr 0.1, NMS IoU 0.5, top-K 100)."""
+    obj_types = list(obj_types)
+    return edict(
+        obj_types=obj_types,
+        name='KM3D',
+        backbone=edict(name='dla', depth=34),
+        head=edict(
+            num_classes=len(obj_types),
+            num_joints=9,
+            max_objects=32,
+            layer_cfg=edict(
+                input_features=64,
+                head_features=head_features,
+                head_dict={'hm': len(obj_types), 'wh': 2, 'hps': 18, 'rot': 8, 'dim': 3,
+                           'prob': 1, 'reg': 2, 'hm_hp': 9, 'hp_offset': 2},
+            ),
+            loss_cfg=edict(gamma=2.0, rampup_length=100),
+            test_cfg=edict(score_thr=0.1, cls_agnostic=True, nms_iou_thr=0.5, top_k=top_k,
+                           post_optimization=False),
+        ),
+    )
+
+
+@torch.no_grad()
+def seed_offset_convs(system, generator: torch.Generator, scale: float, images) -> None:
+    """Give the zero-initialised offset convs of every ``ModulatedDeformConv``
+    seeded normal weights (zero bias), scaled so that on these images each
+    DCN's offsets have std ``scale`` pixels: fractions of a pixel to beyond
+    the image edge. The mask logits take the same factor. With zero offsets
+    every DCN is a plain conv with mask 0.5 and the interpolation goes
+    untested.
+
+    One f32 forward pass: a hook on each offset conv rescales its weight
+    and its output (linear in the weight, with zero bias) before the next
+    layer reads it, so every DCN sees the offsets the seeded model will
+    produce.
+    """
+    from visualdet3d_tpu_torch.models.blocks import ModulatedDeformConv
+
+    def rescale(conv, _, out):
+        k2 = 2 * out.shape[1] // 3
+        a = scale / float(out[:, :k2].std())
+        conv.weight.mul_(a)
+        return out * a
+
+    hooks = []
+    for m in system.net.modules():
+        if isinstance(m, ModulatedDeformConv):
+            conv = m.Conv_0
+            conv.weight.copy_(torch.randn(conv.weight.shape, generator=generator)
+                              .to(conv.weight.device))
+            conv.bias.zero_()
+            hooks.append(conv.register_forward_hook(rescale))
+    try:
+        system.net(system._images(images, torch.float32))
+    finally:
+        for h in hooks:
+            h.remove()
+    system.weights_changed()
+
+
+# statistics of the head's output maps after calibrate_head_convs, (mean, std)
+# over a batch, in map units: heatmap logits around the 0.1 score threshold
+# (sigmoid(-2.197), 1.9 std above the mean, so ~3% of the map and a share of
+# its peaks score above it, spread, not on it); box sizes of a few
+# stride-4 cells, dimensions around a car's metres, keypoints a few cells
+# from their center
+HEAD_OUTPUT_STATS = {'hm': (-5.0, 1.5), 'hm_hp': (-5.0, 1.5), 'wh': (6.0, 2.0),
+                     'hps': (0.0, 4.0), 'rot': (0.0, 1.0), 'dim': (2.0, 1.0),
+                     'prob': (0.0, 1.0), 'reg': (0.5, 0.2), 'hp_offset': (0.5, 0.2)}
+
+
+@torch.no_grad()
+def calibrate_head_convs(system, images, generator: torch.Generator) -> None:
+    """Give every ``{name}_out`` conv of the KM3D head seeded weights scaled
+    so that on these images its outputs have the mean and std of
+    ``HEAD_OUTPUT_STATS``.
+
+    The initial heatmap bias of -2.19 puts every score of a random-weight
+    model at 0.1, exactly the threshold, so the valid set would be decided
+    by rounding; the other branches' normal(0.001) weights give boxes of
+    zero size and 3D positions at the camera, where the position solve
+    divides by ~0. The outputs are affine in the conv's weight and bias, so
+    one forward pass with unit-normal weights fixes them exactly.
+    """
+    head = system.net.KM3DHeadNet_0
+    convs = {name: getattr(head, f'{name}_out') for name, _ in head.head_dict}
+    for conv in convs.values():
+        conv.weight.copy_(torch.randn(conv.weight.shape, generator=generator)
+                          .to(conv.weight.device))
+        conv.bias.zero_()
+    system.weights_changed()
+    raw = system.predict_raw(images)
+    for name, conv in convs.items():
+        mean, std = HEAD_OUTPUT_STATS[name]
+        preds = raw[name].float()
+        a = std / float(preds.std())
+        conv.weight.mul_(a)
+        conv.bias.fill_(mean - a * float(preds.mean()))
     system.weights_changed()
