@@ -34,7 +34,22 @@ each printed as one JSON line:
    neck, ``head_features=256``) at batch 16 in f32 and bf16 over distinct
    request batches, with exactly 16 DCN launches per ``predict``; a
    profiler breakdown with the DCN kernel's share; batch-1 f32 parity of
-   the card against the CPU.
+   the card against the CPU;
+6. deform_bwd_kernel, deform_bwd_edges: the DCNv2 backward kernels against
+   the plain backward (autograd through the plain forward) at the 7 neck
+   shapes, batch 16, f32 and bf16, offsets and mask as channel slices of one
+   [B,Ho,Wo,27] tensor, with their time, the plain version's and the bound;
+   then edge cases (samples wholly outside, a zero mask, C_in 512, ragged
+   tiles, stride 2, dilation 2, an unaligned x) and the wrapper's refusals;
+   deform_module_grad: the gradients of the whole DCN module (offset conv,
+   slices, sigmoid, both kernels) on the card against the CPU, f32, with
+   offsets kept away from the integer corners;
+7. km3d_train (bf16 mixed precision, then f32), km3d_train_parity: the KM3D
+   training step of ``entry.build_km3d_trainer`` (Adam, batch 16,
+   384x1280) over distinct synthetic batches: ms per step, img/s, exactly 16
+   DCN forward, 16 dx and 16 dW backward launches per step, peak memory, a
+   profiler breakdown of one step, and the loss falling over 10 steps on one
+   batch; one f32 step on the card against the same step on the CPU.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
@@ -104,6 +119,34 @@ def bf16_ulp(v):
     import torch
     mag = v.abs().clamp_min(2.0 ** -126)
     return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def device_profile(torch, fn):
+    """Run fn() once under torch.profiler, ending in synchronize(). Returns
+    (wall ms, kernel events, op events with device time, device ms): device
+    events are the kernels (a CPU op's self device time is that of the
+    kernels it launched; the ctypes-launched kernels have no op), less
+    torch.optim's range annotations ("Optimizer.step#Adam.step"), which show
+    up on the device too."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith('Optimizer.')]
+    ops = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU
+           and e.self_device_time_total > 0]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    check(device_ms > 0, 'profile: no device time recorded')
+    return wall_ms, kernels, ops, device_ms
+
+
+def top_events(evs, n):
+    evs = sorted(evs, key=lambda e: -e.self_device_time_total)[:n]
+    return [dict(name=e.key[:80], ms=e.self_device_time_total / 1e3, calls=e.count) for e in evs]
 
 
 def kernel_phase(torch, cv, peaks):
@@ -242,31 +285,13 @@ def slice_phase(torch, cv, system, dtype_name):
 def profile_phase(torch, system, batch, P2, dtype_name):
     """Kernel time by name for one batch-16 predict, and the device's busy
     share of the wall time."""
-    from torch.profiler import ProfilerActivity, profile
     system.cfg.inference_dtype = dtype_name
     system.predict(*batch, P2)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        system.predict(*batch, P2)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    # device events are the kernels; a CPU op's self device time is that of
-    # the kernels it launched (the ctypes-launched correlation kernel has no op)
-    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-    ops = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU
-           and e.self_device_time_total > 0]
-    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    check(device_ms > 0, 'profile: no device time recorded')
-
-    def top(evs, n):
-        evs = sorted(evs, key=lambda e: -e.self_device_time_total)[:n]
-        return [dict(name=e.key[:80], ms=e.self_device_time_total / 1e3, calls=e.count)
-                for e in evs]
+    wall_ms, kernels, ops, device_ms = device_profile(torch, lambda: system.predict(*batch, P2))
     emit('profile', dtype=dtype_name, wall_ms=wall_ms, device_ms=device_ms,
-         device_busy_share=device_ms / wall_ms, top_ops=top(ops, 12),
-         top_kernels=top(kernels, 12))
+         device_busy_share=device_ms / wall_ms, top_ops=top_events(ops, 12),
+         top_kernels=top_events(kernels, 12))
 
 
 def parity_phase(torch, system):
@@ -453,17 +478,214 @@ def deform_edge_phase(torch, dc):
             x.half(), off.half(), mask.half(), weight.half(), bias.half())),
         ('a CPU weight', ValueError, lambda: dc.modulated_deform_conv(
             x, off, mask, weight.cpu(), bias)),
-        ('grad mode', RuntimeError, lambda: dc.modulated_deform_conv(
-            x, off, mask, weight.float().requires_grad_().to(x.dtype), bias)),
+        ('a CPU bias', ValueError, lambda: dc.modulated_deform_conv(
+            x, off, mask, weight, bias.cpu())),
     )
     for name, exc, fn in refusals:
         try:
-            with torch.enable_grad():
-                fn()
+            fn()
         except exc:
             continue
         fail(f'modulated_deform_conv took {name} instead of raising {exc.__name__}')
     emit('deform_edges', ok=True, cases=sorted(set(cases)), refused=[r[0] for r in refusals])
+
+
+def bwd_check(torch, dc, args, weight, grad, what, **conv):
+    """The backward kernel against the plain backward (autograd through the
+    plain forward) on the card, per gradient (dx, d_offset, d_mask, dW).
+    f32: max|kernel - plain| <= 1e-4 * max|plain| (dW sums up to 491,520
+    pixel products, dx up to 36 per element, in other orders: atomics on
+    the card). bf16: each one's error to the f32 oracle (the plain backward
+    in f32 on the same bf16-valued inputs) is at most 1.5x the bf16 plain
+    backward's own, as max|err| / max|oracle| (+ 1e-6): the plain version
+    rounds ds = dy . W_k^T to bf16 at the cast autograd passes through, the
+    kernel keeps it in f32 (the TPU kernel's rounding point), so the two are
+    not bit-comparable, and the gate is that the kernel adds no error beyond
+    the bf16 noise floor. Returns (worst error, tolerance text, per-gradient
+    errors)."""
+    names = ('dx', 'd_offset', 'd_mask', 'd_weight')
+    out = dc.modulated_deform_conv_backward(*args, weight, grad, **conv)
+    ref = dc.modulated_deform_conv_backward_plain(*args, weight, grad, **conv)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, o, r, a in zip(names, out, ref, (*args, weight)):
+        check(o.shape == a.shape and o.dtype == a.dtype,
+              f'{what} {name}: {tuple(o.shape)} {o.dtype} for an input {tuple(a.shape)} {a.dtype}')
+        check(bool(torch.isfinite(o.float()).all()), f'{what} {name}: non-finite values')
+    if weight.dtype == torch.float32:
+        tol = 'max|kernel - plain| <= 1e-4 * max|plain| + 1e-7, per gradient'
+        for name, o, r in zip(names, out, ref):
+            err = float((o - r).abs().max())
+            errs[name] = err
+            check(err <= 1e-4 * float(r.abs().max()) + 1e-7,
+                  f'{what} {name}: max abs err {err} against max|plain| {float(r.abs().max())}')
+        return max(errs.values()), tol, errs
+    oracle = dc.modulated_deform_conv_backward_plain(*[a.float() for a in args], weight.float(),
+                                                     grad.float(), **conv)
+    tol = ('bf16: max|kernel - oracle| <= 1.5 * max|plain - oracle| + 1e-6 * max|oracle|, '
+           'oracle = the f32 plain backward on the same inputs')
+    for name, o, r, g in zip(names, out, ref, oracle):
+        scale = float(g.abs().max()) + 1e-30
+        err_k = float((o.float() - g).abs().max()) / scale
+        err_p = float((r.float() - g).abs().max()) / scale
+        errs[name] = dict(kernel=err_k, plain=err_p, abs=float((o.float() - r.float()).abs().max()))
+        check(err_k <= 1.5 * err_p + 1e-6,
+              f'{what} {name}: error to the f32 oracle {err_k} (of max|oracle|) against the plain '
+              f'bf16 backward\'s {err_p}')
+    return max(e['abs'] for e in errs.values()), tol, errs
+
+
+def deform_bwd_kernel_phase(torch, dc, peaks):
+    """The DCN backward kernels against the plain backward at the KM3D
+    neck's 7 shapes, batch 16, f32 and bf16, offsets and mask as channel
+    slices of one [B,Ho,Wo,27] tensor; times per shape and per training
+    step (the 16 DCNs, shapes weighted by count)."""
+    bw, f32_peak, bf16_peak = peaks
+    gen = torch.Generator(device='cuda').manual_seed(21)
+    results = {}
+    for dt, dtype in (('f32', torch.float32), ('bf16', torch.bfloat16)):
+        tot = dict(ms=0.0, plain_ms=0.0, bytes_ms=0.0, ops_ms=0.0, max_abs_err=0.0,
+                   atomics=0, per_shape={})
+        for count, h, w, c_in, c_out in DCN_SHAPES:
+            runs, weight, _ = dcn_inputs(torch, gen, BATCH, h, w, c_in, c_out, dtype,
+                                         N_KERNEL_RUNS)
+            grads = [torch.randn((BATCH, h, w, c_out), generator=gen, device='cuda').to(dtype)
+                     for _ in range(N_KERNEL_RUNS)]
+            what = f'modulated_deform_conv_backward {dt} {h}x{w} {c_in}->{c_out}'
+            max_err, tol, errs = bwd_check(torch, dc, runs[0], weight, grads[0], what)
+            pairs = list(zip(runs, grads))
+            ms = cuda_ms(lambda a: dc.modulated_deform_conv_backward(*a[0], weight, a[1]), pairs)
+            plain_ms = cuda_ms(lambda a: dc.modulated_deform_conv_backward_plain(
+                *a[0], weight, a[1]), pairs[:3], warmup=1)
+            isz = runs[0][0].element_size()
+            pixels = BATCH * h * w
+            # read x, offset + mask, W and dy once; write dx, d_offset + d_mask and dW once
+            n_bytes = isz * (2 * pixels * (c_in + 27) + 2 * 9 * c_in * c_out + pixels * c_out)
+            n_flops = 4 * pixels * 9 * c_in * c_out  # ds = dy . W_k^T and dW
+            atomics = pixels * 9 * 4 * c_in           # f32 adds into dx
+            bytes_ms = n_bytes / bw * 1e3
+            ops_ms = n_flops / (f32_peak if dt == 'f32' else bf16_peak) * 1e3
+            shape = dict(count=count, x=[BATCH, h, w, c_in], c_out=c_out, ms=ms,
+                         plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+                         bound_by='bytes' if bytes_ms >= ops_ms else 'operations',
+                         dx_atomic_adds=atomics, max_abs_err=max_err, errors=errs,
+                         tflops=n_flops / (ms * 1e-3) / 1e12)
+            tot['per_shape'][f'{h}x{w} {c_in}->{c_out}'] = shape
+            for key, v in (('ms', ms), ('plain_ms', plain_ms), ('bytes_ms', bytes_ms),
+                           ('ops_ms', ops_ms), ('atomics', atomics)):
+                tot[key] += count * v
+            tot['max_abs_err'] = max(tot['max_abs_err'], max_err)
+            emit('deform_bwd_kernel', kernel='modulated_deform_conv_backward', dtype=dt,
+                 tolerance=tol, bytes=n_bytes, flops=n_flops, **shape)
+            del runs, grads, pairs
+            torch.cuda.empty_cache()
+        tot['bound_ms'] = max(tot['bytes_ms'], tot['ops_ms'])
+        tot['bound_by'] = 'bytes' if tot['bytes_ms'] >= tot['ops_ms'] else 'operations'
+        results[dt] = tot
+        emit('deform_bwd_kernel_per_step', dtype=dt, dcn_backward_launches=2 * DCN_PER_FORWARD,
+             **{k: v for k, v in tot.items() if k != 'per_shape'})
+    return results
+
+
+def deform_bwd_edge_phase(torch, dc):
+    """Backward edge cases the KM3D shapes do not reach, both dtypes:
+    offsets far outside the image, a zero mask, C_in 512 at a ragged pixel
+    count, ragged channel tiles, stride 2, dilation 2, an unaligned x; and
+    the wrapper's refusals."""
+    gen = torch.Generator(device='cuda').manual_seed(22)
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, (b, h, w, c_in, c_out), conv, off_std, far, zero_mask in (
+                ('offsets of 20-40 px: wholly outside', (2, 10, 14, 64, 32), {}, 0.0, 1.0, False),
+                ('a zero mask', (2, 10, 14, 64, 32), {}, 2.0, 0.05, True),
+                ('C_in 512, 77 px', (2, 7, 11, 512, 64), {}, 2.0, 0.05, False),
+                ('ragged tiles: 63 px, C_in 33, C_out 70', (2, 7, 9, 33, 70), {}, 2.0, 0.05,
+                 False),
+                ('stride 2', (2, 10, 14, 16, 8), dict(stride=2), 2.0, 0.05, False),
+                ('dilation 2', (2, 10, 14, 16, 8), dict(padding=2, dilation=2), 2.0, 0.05,
+                 False)):
+            ho, wo = dc.output_hw(h, w, 3, 3, conv.get('stride', 1), conv.get('padding', 1),
+                                  conv.get('dilation', 1))
+            runs, weight, _ = dcn_inputs(torch, gen, b, h, w, c_in, c_out, dtype, 1,
+                                         ho=ho, wo=wo, off_std=off_std, far=far)
+            x, off, mask = runs[0]
+            if zero_mask:
+                mask = torch.zeros_like(mask)
+            grad = torch.randn((b, ho, wo, c_out), generator=gen, device='cuda').to(dtype)
+            bwd_check(torch, dc, (x, off, mask), weight, grad, f'edge {name} {dtype}', **conv)
+            cases.append(name)
+        # a contiguous x whose base is off 16-byte alignment: scalar loads
+        runs, weight, _ = dcn_inputs(torch, gen, 2, 9, 11, 64, 64, dtype, 1)
+        x, off, mask = runs[0]
+        shifted = torch.empty(x.numel() + 1, dtype=dtype, device='cuda')[1:].view(x.shape)
+        shifted.copy_(x)
+        grad = torch.randn((2, 9, 11, 64), generator=gen, device='cuda').to(dtype)
+        bwd_check(torch, dc, (shifted, off, mask), weight, grad, f'edge unaligned x {dtype}')
+        cases.append('x base off 16-byte alignment')
+    x, off, mask = runs[0]
+    refusals = (
+        ('grad_out of another shape', ValueError, lambda: dc.modulated_deform_conv_backward(
+            x, off, mask, weight, grad[:, :, :5])),
+        ('grad_out of another dtype', TypeError, lambda: dc.modulated_deform_conv_backward(
+            x, off, mask, weight, grad.float())),
+        ('a CPU grad_out', ValueError, lambda: dc.modulated_deform_conv_backward(
+            x, off, mask, weight, grad.cpu())),
+    )
+    for name, exc, fn in refusals:
+        try:
+            fn()
+        except exc:
+            continue
+        fail(f'modulated_deform_conv_backward took {name} instead of raising {exc.__name__}')
+    emit('deform_bwd_edges', ok=True, cases=sorted(set(cases)), refused=[r[0] for r in refusals])
+
+
+def deform_module_grad_phase(torch):
+    """The DCN module's gradients on the card against the CPU, f32 (TF32
+    off), at the neck's widest and largest shapes, batch 2: the whole of
+    ``ModulatedDeformConv`` (its offset conv, the strided offset and mask
+    slices of that conv's output, the sigmoid, the autograd function around
+    the forward and backward kernels), as the training step runs it.
+    Well conditioned, so that a fault in that glue shows: the offset conv's
+    bias puts every offset's fractional part in [0.3, 0.7] and its weights
+    (output std 0.02 px) keep it inside [0.15, 0.85], so no sample's corner
+    can differ between the card and the CPU. Gate: the output and every
+    gradient (x, the offset conv's weight and bias, the DCN's weight and
+    bias) norm-wise within 1e-4 of the CPU's (cuDNN may take an FFT
+    algorithm for the offset conv in f32)."""
+    import copy
+    from visualdet3d_tpu_torch.models.blocks import ModulatedDeformConv, channels_last_
+    gen = torch.Generator().manual_seed(27)
+    errors = {}
+    for _, h, w, c_in, c_out in (DCN_SHAPES[0], DCN_SHAPES[-1]):
+        mod = ModulatedDeformConv(c_in, c_out)
+        mod.reset_parameters(gen)
+        with torch.no_grad():
+            mod.Conv_0.weight.copy_(torch.randn(mod.Conv_0.weight.shape, generator=gen)
+                                    * 0.02 / (9 * c_in) ** 0.5)
+            whole = torch.randint(-3, 4, (18,), generator=gen).float()
+            mod.Conv_0.bias[:18] = whole + 0.3 + 0.4 * torch.rand(18, generator=gen)
+            mod.Conv_0.bias[18:] = torch.randn(9, generator=gen)
+            mod.bias.copy_(0.1 * torch.randn(c_out, generator=gen))
+        x = torch.randn((2, c_in, h, w), generator=gen)
+        g = torch.randn((2, c_out, h, w), generator=gen)
+        res = {}
+        for device in ('cuda', 'cpu'):
+            m = channels_last_(copy.deepcopy(mod).to(device))
+            xi = x.to(device).contiguous(memory_format=torch.channels_last).requires_grad_()
+            out = m(xi)
+            (out * g.to(device)).sum().backward()
+            res[device] = {'out': out.detach(), 'x': xi.grad,
+                           **{n: p.grad for n, p in m.named_parameters()}}
+        shape_err = {}
+        for key, ref in res['cpu'].items():
+            got = res['cuda'][key].cpu()
+            shape_err[key] = float((got - ref).norm() / ref.norm().clamp_min(1e-30))
+        errors[f'{h}x{w} {c_in}->{c_out}'] = shape_err
+        check(max(shape_err.values()) <= 1e-4,
+              f'deform_module_grad {h}x{w} {c_in}->{c_out}: card and CPU differ {shape_err}')
+    emit('deform_module_grad', dtype='float32', tf32=False, batch=2,
+         tolerance='norm-wise ||card - cpu|| / ||cpu|| <= 1e-4 per tensor', rel_err=errors)
 
 
 def build_km3d(torch):
@@ -533,34 +755,18 @@ def km3d_slice_phase(torch, dc, system, dtype_name):
 def km3d_profile_phase(torch, system, images, P2, dtype_name):
     """Device time by op and kernel for one batch-16 KM3D predict, the busy
     share, and the DCN kernel's share of the device time."""
-    from torch.profiler import ProfilerActivity, profile
     system.cfg.inference_dtype = dtype_name
     system.predict(images, P2)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        system.predict(images, P2)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-    ops = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU
-           and e.self_device_time_total > 0]
-    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    check(device_ms > 0, 'km3d profile: no device time recorded')
+    wall_ms, kernels, ops, device_ms = device_profile(torch, lambda: system.predict(images, P2))
     dcn = [e for e in kernels if 'deform_conv_kernel' in e.key]
     dcn_ms = sum(e.self_device_time_total for e in dcn) / 1e3
     check(sum(e.count for e in dcn) == DCN_PER_FORWARD,
           f'km3d profile: {sum(e.count for e in dcn)} DCN kernels in one predict')
-
-    def top(evs, n):
-        evs = sorted(evs, key=lambda e: -e.self_device_time_total)[:n]
-        return [dict(name=e.key[:80], ms=e.self_device_time_total / 1e3, calls=e.count)
-                for e in evs]
     emit('km3d_profile', dtype=dtype_name, wall_ms=wall_ms, device_ms=device_ms,
          device_busy_share=device_ms / wall_ms, dcn_kernel_ms=dcn_ms,
-         dcn_share_of_device=dcn_ms / device_ms, top_ops=top(ops, 12),
-         top_kernels=top(kernels, 12))
+         dcn_share_of_device=dcn_ms / device_ms, top_ops=top_events(ops, 12),
+         top_kernels=top_events(kernels, 12))
 
 
 def km3d_parity_phase(torch, system):
@@ -604,6 +810,214 @@ def km3d_parity_phase(torch, system):
     emit('km3d_parity', batch=1, dtype='float32', tf32=False, n_valid=n_valid,
          max_box_abs_err=box_err, max_centre_rel_err=centre_rel, raw_rel_err=raw_err,
          max_score_abs_err=float((out_gpu['scores'] - out_cpu['scores']).abs().max()))
+
+
+N_TRAIN_WARMUP = 2   # warm-up steps before a timed training run
+N_FALL_STEPS = 10    # steps on one repeated batch, in which the loss must fall
+TRAIN_EPOCH = 10.0   # the epoch fed to the loss (rampup weight of the position terms)
+
+
+def train_batches(torch, n, batch_size, image_hw, seed):
+    """n distinct synthetic KM3D training batches (ported target builder,
+    numpy generator ``seed``), moved to the card before any timing."""
+    from visualdet3d_tpu_torch.testing import km3d_training_batch
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        b = km3d_training_batch(rng, batch_size, image_hw)
+        out.append({'images': torch.as_tensor(b['images'], device='cuda'),
+                    'P2': torch.as_tensor(b['P2'], device='cuda'),
+                    'gts': {k: torch.as_tensor(v, device='cuda') for k, v in b['gts'].items()}})
+    return out
+
+
+def km3d_train_phase(torch, dc, compute_dtype):
+    """The KM3D training step (``build_km3d_trainer``) at batch 16,
+    384x1280: ms per step and img/s over N_BATCHES distinct batches after
+    N_TRAIN_WARMUP warm-up steps, ending in ``synchronize()``; the DCN
+    forward and backward launches of that run (16 forward, 16 dx, 16 dW per
+    step); peak memory; a profiler breakdown of one step; then N_FALL_STEPS
+    steps on one repeated batch, in which the loss must fall."""
+    from visualdet3d_tpu_torch.entry import KM3D_IMAGE_HW, build_km3d_trainer
+    from visualdet3d_tpu_torch.testing import prepare_km3d_for_training
+    name = compute_dtype or 'float32'
+    system, state, step = build_km3d_trainer(device='cuda', compute_dtype=compute_dtype,
+                                             batch_size=BATCH)
+    batches = train_batches(torch, N_TRAIN_WARMUP + N_BATCHES, BATCH, KM3D_IMAGE_HW, seed=24)
+    # running statistics set to the batch's, offsets of std 2 px, the head
+    # calibrated: every DCN interpolates, the position solve is well posed
+    prepare_km3d_for_training(system, batches[0]['images'][:4],
+                              torch.Generator().manual_seed(23))
+    for b in batches[:N_TRAIN_WARMUP]:
+        step(b, TRAIN_EPOCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    dc.reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = [step(b, TRAIN_EPOCH) for b in batches[N_TRAIN_WARMUP:]]
+    torch.cuda.synchronize()
+    ms_step = (time.perf_counter() - t0) * 1e3 / N_BATCHES
+    launches = dict(dc.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(launches == dict.fromkeys(dc.LAUNCHES, DCN_PER_FORWARD * N_BATCHES),
+          f'km3d_train {name}: {launches} DCN launches for {N_BATCHES} steps (expected '
+          f'{DCN_PER_FORWARD} forward, {DCN_PER_FORWARD} dx and {DCN_PER_FORWARD} dW per step)')
+    losses = [float(m['total']) for m in metrics]
+    check(all(np.isfinite(losses)), f'km3d_train {name}: non-finite losses {losses}')
+    check(state.optimizer.count == state.step == N_TRAIN_WARMUP + N_BATCHES,
+          f'km3d_train {name}: {state.optimizer.count} updates in {state.step} steps')
+    for p in system.net.parameters():
+        check(p.dtype == torch.float32 and bool(torch.isfinite(p).all()),
+              f'km3d_train {name}: a master parameter is {p.dtype} or non-finite')
+    for buf in system.net.buffers():
+        check(not buf.is_floating_point() or buf.dtype == torch.float32,
+              f'km3d_train {name}: a running statistic is {buf.dtype}')
+
+    wall_ms, kernels, ops, device_ms = device_profile(
+        torch, lambda: step(batches[N_TRAIN_WARMUP], TRAIN_EPOCH))
+    dcn = {kind: [e for e in kernels if f'{kind}<' in e.key or f'{kind}I' in e.key]
+           for kind in ('deform_conv_kernel', 'deform_conv_bwd_input_kernel',
+                        'deform_conv_bwd_weight_kernel')}
+    counts = {kind: sum(e.count for e in evs) for kind, evs in dcn.items()}
+    check(all(c == DCN_PER_FORWARD for c in counts.values()),
+          f'km3d_train {name} profile: DCN kernels in one step {counts}')
+    dcn_ms = {kind: sum(e.self_device_time_total for e in evs) / 1e3 for kind, evs in dcn.items()}
+
+    # the loss on one repeated batch falls
+    fall = [float(step(batches[-1], TRAIN_EPOCH)['total']) for _ in range(N_FALL_STEPS)]
+    check(all(np.isfinite(fall)) and fall[-1] < fall[0],
+          f'km3d_train {name}: the loss did not fall over {N_FALL_STEPS} steps on one batch: {fall}')
+    result = dict(compute_dtype=name, batch=BATCH, image_hw=list(KM3D_IMAGE_HW),
+                  ms_per_step=ms_step, img_per_s=BATCH / ms_step * 1e3, losses=losses,
+                  launches=launches, launches_per_step={k: v / N_BATCHES for k, v in launches.items()},
+                  peak_memory_gb=peak_gb, profile_wall_ms=wall_ms, device_ms=device_ms,
+                  device_busy_share=device_ms / wall_ms,
+                  device_busy_share_of_timed_step=device_ms / ms_step, dcn_kernel_ms=dcn_ms,
+                  dcn_kernels_per_step=counts,
+                  dcn_share_of_device=sum(dcn_ms.values()) / device_ms,
+                  loss_on_one_batch=fall, top_ops=top_events(ops, 14),
+                  top_kernels=top_events(kernels, 14))
+    emit('km3d_train', **result)
+    del system, state, step, batches
+    torch.cuda.empty_cache()
+    return result
+
+
+def km3d_train_parity_phase(torch):
+    """One f32 training step (TF32 off) on the card against the same step on
+    the CPU, same weights and batch (2 images at 384x1280; running
+    statistics set to the batch's, offset convs seeded to 0.5 px, the head
+    as initialised).
+
+    Self-calibrated, as the JAX package gates its sharded gradients: at
+    random init a BN network's gradients move by percents under any
+    last-bit change (the DCN's corner choice, ReLU kinks and the position
+    solve turn rounding differences into gradient differences; a conv bias
+    before BN has a true gradient of 0), and the card and the CPU sum the
+    convs (cuDNN, oneDNN) and the DCN gradients (atomics, scatter_add) in
+    other orders. The noise floor is the CPU's own gradient with the input
+    images moved by up to two f32 ulps (x * (1 + 2^-22 u), u uniform in
+    [-1, 1]). Gates: each loss term within max(8x the floor's difference,
+    2e-4 of its value); the largest elementwise gradient difference within
+    8x the floor's (and 5e-2 of the largest gradient); the norm-wise
+    gradient difference over all parameters (||g_card - g_cpu|| / ||g_cpu||)
+    within 3x the floor's; each of the 32 DCN leaves (the DCN weights and the
+    offset convs' weights, which the aggregate gates cannot see) norm-wise
+    within 4x the larger of its own floor and the all-parameter floor (the
+    well-conditioned check of the DCN's gradients is
+    ``deform_module_grad_phase``); the running statistics after the step within
+    1e-4 of their largest value; the parameters after the Adam step within
+    2.5 * lr (a first Adam step moves each element by lr * g / (|g| + eps),
+    so the sign of a near-zero gradient costs up to 2 * lr).
+
+    A first version took the CPU step on the reversed batch as the floor;
+    oneDNN's CPU results hardly move under that (1e-7 norm-wise), so it
+    measured no rounding noise at all."""
+    from visualdet3d_tpu_torch.entry import KM3D_IMAGE_HW, build_km3d_system, build_km3d_trainer
+    from visualdet3d_tpu_torch.testing import prepare_km3d_for_training
+    batch = train_batches(torch, 1, 2, KM3D_IMAGE_HW, seed=25)[0]
+    gpu, gpu_state, gpu_step = build_km3d_trainer(device='cuda', batch_size=2)
+    prepare_km3d_for_training(gpu, batch['images'], torch.Generator().manual_seed(23),
+                              offset_std=0.5, calibrate_head=False)
+    init = {k: v.cpu() for k, v in gpu.net.state_dict().items()}
+    cpu, cpu_state, cpu_step = build_km3d_trainer(device='cpu', batch_size=2)
+    cpu.net.load_state_dict(init)
+    cpu.weights_changed()
+    lr = cpu_state.optimizer.schedule(0)
+    m_gpu = {k: float(v) for k, v in gpu_step(batch, TRAIN_EPOCH).items()}
+    cpu_batch = {'images': batch['images'].cpu(), 'P2': batch['P2'].cpu(),
+                 'gts': {k: v.cpu() for k, v in batch['gts'].items()}}
+    t0 = time.perf_counter()
+    m_cpu = {k: float(v) for k, v in cpu_step(cpu_batch, TRAIN_EPOCH).items()}
+    cpu_s = time.perf_counter() - t0
+    # the noise floor: the CPU's gradients, same weights, the images moved
+    # by up to two f32 ulps
+    floor_sys = build_km3d_system(device='cpu')
+    floor_sys.net.load_state_dict(init)
+    u = torch.rand(cpu_batch['images'].shape, generator=torch.Generator().manual_seed(26))
+    moved = cpu_batch['images'] * (1 + 2.0 ** -22 * (2 * u - 1))
+    loss_moved, terms_moved = floor_sys.loss(moved, cpu_batch['gts'], cpu_batch['P2'],
+                                           epoch=TRAIN_EPOCH)
+    loss_moved.backward()
+    m_moved = {k: float(v.detach()) for k, v in terms_moved.items()}
+    m_moved['total'] = float(loss_moved.detach())
+
+    loss_err = {k: abs(m_gpu[k] - v) / max(abs(v), 1e-30) for k, v in m_cpu.items()}
+    loss_floor = {k: abs(m_moved[k] - v) / max(abs(v), 1e-30) for k, v in m_cpu.items()}
+    bad = {k: (loss_err[k], loss_floor[k]) for k in m_cpu
+           if loss_err[k] > max(8 * loss_floor[k], 2e-4)}
+    check(not bad, f'km3d_train_parity: loss terms differ beyond the floor {bad}')
+
+    def grad(p):  # parameters the loss does not reach have no .grad
+        return (torch.zeros_like(p) if p.grad is None else p.grad).detach().double().cpu()
+    names = [n for n, _ in cpu.net.named_parameters()]
+    g_gpu = [grad(p) for p in gpu.net.parameters()]
+    g_cpu = [grad(p) for p in cpu.net.parameters()]
+    g_moved = [grad(p) for p in floor_sys.net.parameters()]
+    worst = max(float((a - b).abs().max()) for a, b in zip(g_gpu, g_cpu))
+    floor = max(float((a - b).abs().max()) for a, b in zip(g_moved, g_cpu))
+    gmax = max(float(b.abs().max()) for b in g_cpu)
+    den = sum(float(b.norm()) ** 2 for b in g_cpu)
+    rel = (sum(float((a - b).norm()) ** 2 for a, b in zip(g_gpu, g_cpu)) / den) ** 0.5
+    rel_floor = (sum(float((a - b).norm()) ** 2 for a, b in zip(g_moved, g_cpu)) / den) ** 0.5
+    per_leaf = sorted(((float((a - b).norm() / b.norm().clamp_min(1e-30)), n)
+                       for a, b, n in zip(g_gpu, g_cpu, names)), reverse=True)
+    check(worst <= max(8 * floor, 1e-5 * gmax) and worst <= 5e-2 * gmax and rel <= 3 * rel_floor,
+          f'km3d_train_parity: gradients differ: max abs {worst} (floor {floor}, gmax {gmax}), '
+          f'norm-wise {rel} (floor {rel_floor})')
+    # the DCN leaves one by one (they carry a small share of the total
+    # norm): each DCN weight and offset conv within 4x the larger of its own
+    # floor and the all-parameter floor
+    dcn_leaf = {}
+    for a, b, m, n in zip(g_gpu, g_cpu, g_moved, names):
+        if n.endswith('ModulatedDeformConv_0.weight') or n.endswith('ModulatedDeformConv_0.Conv_0.weight'):
+            den_leaf = b.norm().clamp_min(1e-30)
+            dcn_leaf[n] = (float((a - b).norm() / den_leaf), float((m - b).norm() / den_leaf))
+    bad = {n: e for n, e in dcn_leaf.items() if e[0] > 4 * max(e[1], rel_floor)}
+    check(len(dcn_leaf) == 2 * DCN_PER_FORWARD and not bad,
+          f'km3d_train_parity: {len(dcn_leaf)} DCN leaves, these differ beyond their floor '
+          f'(error, floor): {bad}')
+    dcn_worst = sorted(((e / max(f, rel_floor), e, f, n) for n, (e, f) in dcn_leaf.items()),
+                       reverse=True)[:4]
+    param_err = max(float((pg.detach().cpu() - pc.detach()).abs().max())
+                    for pg, pc in zip(gpu.net.parameters(), cpu.net.parameters()))
+    check(param_err <= 2.5 * lr, f'km3d_train_parity: parameters after the step differ by '
+                                 f'{param_err} (lr {lr})')
+    stats_err = max(float((bg.cpu() - bc).abs().max() / bc.abs().max().clamp_min(1e-30))
+                    for bg, bc in zip(gpu.net.buffers(), cpu.net.buffers())
+                    if bg.is_floating_point())
+    check(stats_err <= 1e-4, f'km3d_train_parity: running statistics differ by {stats_err}')
+    emit('km3d_train_parity', batch=2, image_hw=list(KM3D_IMAGE_HW), dtype='float32',
+         tf32=False, loss_rel_err=loss_err, loss_rel_err_floor=loss_floor,
+         grad_max_abs_err=worst, grad_max_abs_err_floor=floor, grad_max=gmax,
+         grad_rel_err_all=rel, grad_rel_err_all_floor=rel_floor,
+         grad_rel_err_worst_leaves=per_leaf[:4],
+         grad_rel_err_median_leaf=statistics.median(e for e, _ in per_leaf),
+         dcn_leaf_worst_ratio_err_floor=dcn_worst,
+         dcn_leaf_max_rel_err=max(e for e, _ in dcn_leaf.values()),
+         param_max_abs_err=param_err, lr=lr, running_stats_rel_err=stats_err,
+         cpu_step_s=cpu_s, total=m_gpu['total'])
 
 
 def main() -> int:
@@ -663,6 +1077,15 @@ def main() -> int:
         km3d_profile_phase(torch, km3d, batch, P2, dtype_name)
         del batch
     km3d_parity_phase(torch, km3d)
+    del km3d
+    torch.cuda.empty_cache()
+
+    dcn_bwd = deform_bwd_kernel_phase(torch, dc, peaks)
+    deform_bwd_edge_phase(torch, dc)
+    deform_module_grad_phase(torch)
+    trains = {name: km3d_train_phase(torch, dc, cd)
+              for name, cd in (('bfloat16', 'bfloat16'), ('float32', None))}
+    km3d_train_parity_phase(torch)
 
     dtype_of = {'f32': 'float32', 'bf16': 'bfloat16'}
     replaces = {  # the TPU kernel bodies _corr_kernel_eyes and _corr_kernel
@@ -691,7 +1114,22 @@ def main() -> int:
             max_abs_err=r['max_abs_err'], ms=r['ms'], plain_ms=r['plain_ms'],
             bound_ms=r['bound_ms'], bound_by=r['bound_by'], library_ms=None,
             dense_conv_ms=r['dense_conv_ms'],
+            launches_in_training=trains[dtype_of[dt]]['launches']['modulated_deform_conv'],
             per_forward='the 16 DCNs of one KM3D forward, batch 16 (shapes weighted by count)',
+            per_shape=r['per_shape']))
+    for dt, r in dcn_bwd.items():  # the TPU kernel body _lerp_matmul_bwd_kernel (bf16)
+        bwd_launches = {k: trains[dtype_of[dt]]['launches'][f'modulated_deform_conv_backward_{k}']
+                        for k in ('input', 'weight')}
+        summary.append(dict(
+            name=f'modulated_deform_conv_backward[{dt}]', route='cuda',
+            source='visualdet3d_tpu_torch/csrc/deform_conv.cu',
+            replaces='visualdet3d_tpu/ops/deform_conv.py:663',
+            launches=sum(bwd_launches.values()), launches_by_kernel=bwd_launches,
+            max_abs_err=r['max_abs_err'], ms=r['ms'], plain_ms=r['plain_ms'],
+            bound_ms=r['bound_ms'], bound_by=r['bound_by'], library_ms=None,
+            dx_atomic_adds=r['atomics'],
+            per_forward='the backward of the 16 DCNs of one KM3D training step, batch 16 '
+                        '(shapes weighted by count): 16 dx and 16 dW kernel launches',
             per_shape=r['per_shape']))
     print(json.dumps({'kernels': summary}), flush=True)
     print(smi, flush=True)

@@ -165,7 +165,7 @@ def test_cpu_tensors_take_the_plain_path_without_launching():
     args = [torch.from_numpy(a) for a in _inputs(rng, 1, 4, 5, 3, 2, 1.0)]
     dc.reset_launch_counts()
     assert torch.equal(dc.modulated_deform_conv(*args), dc.modulated_deform_conv_plain(*args))
-    assert dc.LAUNCHES == {'modulated_deform_conv': 0}
+    assert set(dc.LAUNCHES.values()) == {0}
 
 
 def test_non_cpu_tensor_never_takes_the_plain_path():

@@ -3,8 +3,8 @@
 * Nothing under ``visualdet3d_tpu_torch/``, nor ``chip_smoke.py``, imports
   JAX, flax, optax or the JAX package. The scan is static (an AST walk),
   because this test process has JAX imported already.
-* The entry points run on the card by default and raise without CUDA
-  instead of running on the CPU.
+* The entry points (inference and the KM3D trainer) run on the card by
+  default and raise without CUDA instead of running on the CPU.
 * Kernels build from the package's sources only (``csrc/correlation.cu``,
   ``csrc/deform_conv.cu``), rebuild when a source changes, and raise when
   ``nvcc`` is missing.
@@ -98,6 +98,32 @@ def test_km3d_entry_point_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         entry_lib.build_km3d_system()
+
+
+@pytest.mark.parametrize('compute_dtype', [None, 'bfloat16'])
+def test_km3d_trainer_entry_point_raises_without_cuda(monkeypatch, compute_dtype):
+    from visualdet3d_tpu_torch import entry as entry_lib
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        entry_lib.build_km3d_trainer(compute_dtype=compute_dtype)
+
+
+def test_km3d_trainer_runs_on_the_cpu_when_asked():
+    """``device='cpu'`` builds the trainer on the CPU (the plain DCN under
+    autograd), with the configured Adam and MultiStepLR schedule."""
+    from visualdet3d_tpu_torch import entry as entry_lib
+    system, state, step = entry_lib.build_km3d_trainer(device='cpu', batch_size=16)
+    assert next(system.net.parameters()).device.type == 'cpu'
+    assert isinstance(state.optimizer.torch_optimizer, torch.optim.Adam)
+    per_epoch = state.optimizer.schedule  # 232 updates an epoch at batch 16
+    assert per_epoch(0) == pytest.approx(1.25e-4)
+    assert per_epoch(90 * 232) == pytest.approx(1.25e-5)
+    assert per_epoch(120 * 232) == pytest.approx(1.25e-6)
+    assert callable(step) and state.step == 0
+    # the step takes batches of the size the schedule counts in
+    with pytest.raises(ValueError, match='a batch of 2 images'):
+        step({'images': torch.zeros((2, 8, 8, 3)), 'gts': {}, 'P2': torch.zeros((2, 3, 4))}, 0.0)
+    assert state.step == 0
 
 
 def test_every_kernel_source_is_in_the_package():

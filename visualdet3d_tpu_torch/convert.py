@@ -66,7 +66,8 @@ def flax_to_state_dict(variables: Mapping, skip: Sequence[str] = ()
             state[f'{module}.{_LEAF[key]}' if module else _LEAF[key]] = torch.tensor(
                 np.ascontiguousarray(arr))
     for module in bn_modules:
-        state[f'{module}.num_batches_tracked'] = torch.tensor(0, dtype=torch.long)
+        key = f'{module}.num_batches_tracked' if module else 'num_batches_tracked'
+        state[key] = torch.tensor(0, dtype=torch.long)
     return state, skipped
 
 

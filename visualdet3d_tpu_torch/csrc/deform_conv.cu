@@ -1,4 +1,6 @@
-// Modulated deformable convolution (DCNv2) forward for NVIDIA Hopper (sm_90a).
+// Modulated deformable convolution (DCNv2) forward and backward for NVIDIA
+// Hopper (sm_90a). The forward is described here; the backward after the
+// forward's launcher.
 //
 // Replaces the TPU kernels visualdet3d_tpu/ops/deform_conv.py::_lerp_matmul_kernel
 // (bf16, launched by _lerp_matmul_pallas) and ::_lerp_matmul_f32_kernel (f32,
@@ -132,15 +134,15 @@ __device__ __forceinline__ void store_vals(T* p, const float (&v)[V]) {
   }
 }
 
-// The sampled [kTileP x chunk] tile of channels c0.., V channels a thread
-// at a time (the 8 threads of a bf16 pixel row read 128 contiguous bytes of
-// each corner). With V > 1 the caller guarantees C_in % V == 0, so a group
-// is wholly inside or wholly outside C_in.
-template <typename T, int V>
+// The sampled [kTileP x CHUNK] tile of channels c0.. (row stride A_LD), V
+// channels a thread at a time (the 8 threads of a bf16 pixel row read 128
+// contiguous bytes of each corner). With V > 1 the caller guarantees
+// C_in % V == 0, so a group is wholly inside or wholly outside C_in.
+template <typename T, int V, int CHUNK = Tiles<T>::chunk, int A_LD = Tiles<T>::a_ld>
 __device__ __forceinline__ void gather_tile(const T* __restrict__ xb, int C_in, int c0,
                                             const int (&s_idx)[4][kTileP],
                                             const float (&s_wt)[4][kTileP], T* s_a, int tid) {
-  constexpr int chunk = Tiles<T>::chunk, a_ld = Tiles<T>::a_ld, groups = chunk / V;
+  constexpr int chunk = CHUNK, a_ld = A_LD, groups = chunk / V;
   for (int e = tid; e < kTileP * groups; e += kThreads) {
     const int pl = e / groups, cl = (e - pl * groups) * V;
     const int c = c0 + cl;
@@ -194,6 +196,43 @@ __device__ __forceinline__ void load_weight_tile(const T* __restrict__ wk, int C
   }
 }
 
+// The corner table entry of output pixel p (of image b, flat index pix =
+// b*P + p) and tap k: the four corner pixels (y0,x0) (y0,x0+1) (y0+1,x0)
+// (y0+1,x0+1) as indices into the image (-1 for a corner outside the
+// unpadded image: it contributes 0) and the four lerp weights 1-fx, fx,
+// (1-fy)*mask, fy*mask, formed in T as the plain version forms them.
+template <typename T>
+__device__ __forceinline__ void corner_entry(const T* __restrict__ offset,
+                                             const T* __restrict__ mask, long long pix, int p,
+                                             int k, int H, int W, int Wo, int kw, int stride,
+                                             int pad, int dil, int off_stride, int mask_stride,
+                                             int (&idx)[4], float (&wt)[4]) {
+  const int ho = p / Wo, wo = p - ho * Wo;
+  const float dy = to_f32(offset[pix * off_stride + 2 * k]);
+  const float dx = to_f32(offset[pix * off_stride + 2 * k + 1]);
+  const float m = to_f32(mask[pix * mask_stride + k]);
+  const float py = (float)(ho * stride - pad + (k / kw) * dil) + dy;
+  const float px = (float)(wo * stride - pad + (k % kw) * dil) + dx;
+  const float fy0 = floorf(py), fx0 = floorf(px);
+  // fractional parts, then the lerp weights, rounded to T as the plain
+  // version forms them in the input dtype
+  const float fy = round_to<T>(py - fy0), fx = round_to<T>(px - fx0);
+  wt[0] = round_to<T>(__fsub_rn(1.f, fx));
+  wt[1] = fx;
+  wt[2] = round_to<T>(__fmul_rn(round_to<T>(__fsub_rn(1.f, fy)), m));
+  wt[3] = round_to<T>(__fmul_rn(fy, m));
+  // clamping to [-2, H] / [-2, W] keeps each corner's inside/outside
+  // verdict and makes the integer cast safe (NaN goes to -2)
+  const int y0 = (int)fminf(fmaxf(fy0, -2.f), (float)H);
+  const int x0 = (int)fminf(fmaxf(fx0, -2.f), (float)W);
+  const bool y0_in = y0 >= 0 && y0 < H, y1_in = y0 + 1 >= 0 && y0 + 1 < H;
+  const bool x0_in = x0 >= 0 && x0 < W, x1_in = x0 + 1 >= 0 && x0 + 1 < W;
+  idx[0] = y0_in && x0_in ? y0 * W + x0 : -1;
+  idx[1] = y0_in && x1_in ? y0 * W + x0 + 1 : -1;
+  idx[2] = y1_in && x0_in ? (y0 + 1) * W + x0 : -1;
+  idx[3] = y1_in && x1_in ? (y0 + 1) * W + x0 + 1 : -1;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 deform_conv_kernel(const T* __restrict__ x, const T* __restrict__ offset,
@@ -241,39 +280,17 @@ deform_conv_kernel(const T* __restrict__ x, const T* __restrict__ offset,
     __syncthreads();  // the previous group's corner tables are no longer read
     for (int e = tid; e < n_taps * kTileP; e += kThreads) {
       const int kl = e / kTileP, pl = e - kl * kTileP;
-      const int k = k0 + kl, p = p0 + pl;
-      int i00 = -1, i01 = -1, i10 = -1, i11 = -1;
-      float w0 = 0.f, w1 = 0.f, w2 = 0.f, w3 = 0.f;
-      if (p < P) {
-        const int ho = p / Wo, wo = p - ho * Wo;
-        const long long pix = b * P + p;
-        const float dy = to_f32(offset[pix * off_stride + 2 * k]);
-        const float dx = to_f32(offset[pix * off_stride + 2 * k + 1]);
-        const float m = to_f32(mask[pix * mask_stride + k]);
-        const float py = (float)(ho * stride - pad + (k / kw) * dil) + dy;
-        const float px = (float)(wo * stride - pad + (k % kw) * dil) + dx;
-        const float fy0 = floorf(py), fx0 = floorf(px);
-        // fractional parts, then the lerp weights, rounded to T as the plain
-        // version forms them in the input dtype
-        const float fy = round_to<T>(py - fy0), fx = round_to<T>(px - fx0);
-        w0 = round_to<T>(__fsub_rn(1.f, fx));
-        w1 = fx;
-        w2 = round_to<T>(__fmul_rn(round_to<T>(__fsub_rn(1.f, fy)), m));
-        w3 = round_to<T>(__fmul_rn(fy, m));
-        // clamping to [-2, H] / [-2, W] keeps each corner's inside/outside
-        // verdict and makes the integer cast safe (NaN goes to -2)
-        const int y0 = (int)fminf(fmaxf(fy0, -2.f), (float)H);
-        const int x0 = (int)fminf(fmaxf(fx0, -2.f), (float)W);
-        const bool y0_in = y0 >= 0 && y0 < H, y1_in = y0 + 1 >= 0 && y0 + 1 < H;
-        const bool x0_in = x0 >= 0 && x0 < W, x1_in = x0 + 1 >= 0 && x0 + 1 < W;
-        if (y0_in && x0_in) i00 = y0 * W + x0;
-        if (y0_in && x1_in) i01 = y0 * W + x0 + 1;
-        if (y1_in && x0_in) i10 = (y0 + 1) * W + x0;
-        if (y1_in && x1_in) i11 = (y0 + 1) * W + x0 + 1;
+      const int p = p0 + pl;
+      int idx[4] = {-1, -1, -1, -1};
+      float wt[4] = {0.f, 0.f, 0.f, 0.f};
+      if (p < P)
+        corner_entry<T>(offset, mask, b * P + p, p, k0 + kl, H, W, Wo, kw, stride, pad, dil,
+                        off_stride, mask_stride, idx, wt);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        s_idx[kl][q][pl] = idx[q];
+        s_wt[kl][q][pl] = wt[q];
       }
-      s_idx[kl][0][pl] = i00; s_idx[kl][1][pl] = i01;
-      s_idx[kl][2][pl] = i10; s_idx[kl][3][pl] = i11;
-      s_wt[kl][0][pl] = w0; s_wt[kl][1][pl] = w1; s_wt[kl][2][pl] = w2; s_wt[kl][3][pl] = w3;
     }
     for (int kl = 0; kl < n_taps; ++kl) {
       const T* wk = weight + (long long)(k0 + kl) * C_in * C_out;
@@ -384,6 +401,486 @@ int launch(const void* x, const void* offset, const void* mask, const void* weig
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Backward (replaces the TPU kernel _lerp_matmul_bwd_kernel, launched by
+// _packed_conv_bwd, with the XLA gather before it and the bf16 row scatter
+// after it). With ds = dy . W_k^T (f32 accumulate of T products), per output
+// pixel p, tap k and input channel c:
+//   dW_k[c,:]  += sampled[p,k,c] * dy[p,:]           (kernel B, below)
+//   dvx0 = ds*(1-fx), dvx1 = ds*fx                    (kernel A)
+//   d(1-fx) += ds*vx0, d(fx) += ds*vx1,
+//   d((1-fy)m) += dvx0*v00 + dvx1*v01, d(fy m) += dvx0*v10 + dvx1*v11,
+//   dx[corner] += dvx * (1-fy)m or dvx * fy m        (f32 atomics)
+// The four lerp-weight gradients go out per (pixel, tap) in f32; the wrapper
+// carries them to d_offset and d_mask through the same torch ops that form
+// the weights in the plain version. sampled is recomputed exactly as the
+// forward rounds it (bf16 in the bf16 kernel), so dW is the exact vjp of
+// what the forward multiplied; ds stays f32, as in the TPU kernel.
+//
+// What bounds it: twice the forward's products (ds and dW), and the dx
+// scatter, 4 corners x K taps x C_in adds per output pixel. The TPU kernel's
+// u32 packing, taps-outer grid with a dW block revisited across pixel steps,
+// and its VMEM fallback answered TPU costs; none is kept. The design, simple
+// first:
+//   * kernel A, one block per (image, 64 output pixels): per tap, the corner
+//     table; per 64-channel chunk of C_in, the ds tile [64 x 64] on WMMA bf16
+//     / 4x4 FMA f32 from staged dy and W_k tiles, kept in shared memory; then
+//     each thread takes (pixel, 16 bytes of channels), gathers the four
+//     corners, adds into dx with 16-byte float4 atomics (sm_90) and reduces
+//     the four weight gradients over the pixel's lanes with warp shuffles;
+//   * kernel B, one block per (tap, 64 C_in, 64 C_out) and a share of the
+//     64-pixel tiles of the batch: it re-gathers the sampled tile, stages
+//     the dy tile beside it and accumulates sampled^T . dy in registers
+//     (WMMA bf16 / FMA f32); one f32 atomic per output element at the end.
+// dx and dW are f32 buffers the wrapper zeroes; it rounds dx once.
+// ---------------------------------------------------------------------------
+
+constexpr int kTileC = 64;  // input channels per backward tile
+constexpr int kDsLd = kTileC + 4;
+
+template <typename T> struct BwdTiles;
+template <> struct BwdTiles<float> {
+  static constexpr int o_chunk = 32;        // C_out per step of the ds product
+  static constexpr int dy_ld = o_chunk + 1;  // s_dy [kTileP][dy_ld]
+  static constexpr int w_rows = o_chunk;     // s_w = W_k^T chunk [o_chunk][w_ld]
+  static constexpr int w_ld = kTileC + 4;
+  static constexpr int a_ld = kTileC + 4;    // kernel B: sampled [kTileP][a_ld]
+  static constexpr int b_ld = kTileO + 4;    // kernel B: dy [kTileP][b_ld]
+};
+template <> struct BwdTiles<__nv_bfloat16> {
+  static constexpr int o_chunk = 64;
+  static constexpr int dy_ld = o_chunk + 8;  // row_major A
+  static constexpr int w_rows = kTileC;      // s_w = W_k chunk [kTileC][w_ld], col_major B
+  static constexpr int w_ld = o_chunk + 8;
+  static constexpr int a_ld = kTileC + 8;
+  static constexpr int b_ld = kTileO + 8;
+};
+
+// dst[r][cc] = src[r * ld_src + col0 + cc] for r < rows_valid and
+// col0 + cc < cols, else 0: R rows x C columns, V columns a thread at a time
+// (cols % V == 0 and 16-byte aligned rows when V > 1).
+template <typename T, int V, int R, int C, int DST_LD>
+__device__ __forceinline__ void stage_tile(const T* __restrict__ src, long long ld_src,
+                                           long long rows_valid, int col0, int cols, T* dst,
+                                           int tid) {
+  constexpr int groups = C / V;
+  for (int e = tid; e < R * groups; e += kThreads) {
+    const int r = e / groups, cc = (e - r * groups) * V;
+    float v[V];
+    if (r < rows_valid && col0 + cc < cols) {
+      load_vals<T, V>(src + r * ld_src + col0 + cc, v);
+    } else {
+#pragma unroll
+      for (int j = 0; j < V; ++j) v[j] = 0.f;
+    }
+    if constexpr ((DST_LD * sizeof(T)) % 16 == 0) {
+      store_vals<T, V>(dst + r * DST_LD + cc, v);
+    } else {
+#pragma unroll
+      for (int j = 0; j < V; ++j) dst[r * DST_LD + cc + j] = from_f32<T>(v[j]);
+    }
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void atomic_add_vals(float* p, const float (&v)[V]) {
+#if __CUDA_ARCH__ >= 900
+  if constexpr (V % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < V; j += 4)
+      atomicAdd(reinterpret_cast<float4*>(p + j), make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]));
+    return;
+  }
+#endif
+#pragma unroll
+  for (int j = 0; j < V; ++j) atomicAdd(p + j, v[j]);
+}
+
+// kernel A's elementwise stage for channels c0.. of one tap: dx atomics and
+// the per-pixel sums of the four lerp-weight gradients (into s_dwts). With
+// V > 1 the caller guarantees C_in % V == 0.
+template <typename T, int V>
+__device__ __forceinline__ void bwd_scatter_tile(const T* __restrict__ xb, float* __restrict__ dxb,
+                                                 int C_in, int c0, const int (&s_idx)[4][kTileP],
+                                                 const float (&s_wt)[4][kTileP],
+                                                 const float* s_ds, float (&s_dwts)[4][kTileP],
+                                                 int tid) {
+  constexpr int groups = kTileC / V;
+  constexpr int lanes = groups < 32 ? groups : 32;  // adjacent lanes of one pixel
+  // kTileP * groups is a multiple of kThreads: every lane reaches the shuffles
+  for (int e = tid; e < kTileP * groups; e += kThreads) {
+    const int pl = e / groups, cl = (e - pl * groups) * V;
+    const int c = c0 + cl;
+    float sum[4] = {0.f, 0.f, 0.f, 0.f};
+    if (c < C_in) {
+      int idx[4];
+      float corner[4][V];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        idx[q] = s_idx[q][pl];
+        if (idx[q] >= 0) {
+          load_vals<T, V>(xb + (long long)idx[q] * C_in + c, corner[q]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < V; ++j) corner[q][j] = 0.f;
+        }
+      }
+      const float wx0 = s_wt[0][pl], wx1 = s_wt[1][pl];
+      const float wy0 = s_wt[2][pl], wy1 = s_wt[3][pl];
+      float d[4][V];
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float ds = s_ds[pl * kDsLd + cl + j];
+        const float vx0 = __fadd_rn(__fmul_rn(corner[0][j], wy0), __fmul_rn(corner[2][j], wy1));
+        const float vx1 = __fadd_rn(__fmul_rn(corner[1][j], wy0), __fmul_rn(corner[3][j], wy1));
+        const float dvx0 = ds * wx0, dvx1 = ds * wx1;
+        sum[0] += ds * vx0;
+        sum[1] += ds * vx1;
+        sum[2] += dvx0 * corner[0][j] + dvx1 * corner[1][j];
+        sum[3] += dvx0 * corner[2][j] + dvx1 * corner[3][j];
+        d[0][j] = dvx0 * wy0;
+        d[1][j] = dvx1 * wy0;
+        d[2][j] = dvx0 * wy1;
+        d[3][j] = dvx1 * wy1;
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (idx[q] >= 0) atomic_add_vals<V>(dxb + (long long)idx[q] * C_in + c, d[q]);
+    }
+#pragma unroll
+    for (int s = lanes / 2; s > 0; s >>= 1)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) sum[q] += __shfl_xor_sync(0xffffffffu, sum[q], s);
+    if ((tid & (lanes - 1)) == 0)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) atomicAdd(&s_dwts[q][pl], sum[q]);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+deform_conv_bwd_input_kernel(const T* __restrict__ x, const T* __restrict__ offset,
+                             const T* __restrict__ mask, const T* __restrict__ weight,
+                             const T* __restrict__ dy, float* __restrict__ dx,
+                             float* __restrict__ dwts, int H, int W, int C_in, int Ho, int Wo,
+                             int C_out, int kh, int kw, int stride, int pad, int dil,
+                             int off_stride, int mask_stride, bool vec_x, bool vec_o) {
+  using BT = BwdTiles<T>;
+  constexpr int oc = BT::o_chunk, dy_ld = BT::dy_ld, w_ld = BT::w_ld;
+  constexpr int kVec = 16 / sizeof(T);
+  __shared__ __align__(128) T s_dy[kTileP * dy_ld];
+  __shared__ __align__(128) T s_w[BT::w_rows * w_ld];
+  __shared__ __align__(128) float s_ds[kTileP * kDsLd];
+  __shared__ int s_idx[4][kTileP];
+  __shared__ float s_wt[4][kTileP];
+  __shared__ float s_dwts[4][kTileP];
+
+  const int tid = threadIdx.x, warp = tid / 32;
+  const int p0 = blockIdx.x * kTileP;
+  const long long b = blockIdx.y;
+  const int P = Ho * Wo;
+  const int K = kh * kw;
+  const int n_rows = min(kTileP, P - p0);
+  const T* xb = x + b * H * W * (long long)C_in;
+  float* dxb = dx + b * H * W * (long long)C_in;
+  const T* dyb = dy + (b * P + p0) * (long long)C_out;  // rows p0.. of this image
+
+  using namespace nvcuda;
+  float acc[4][4];
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> frag_c[2];
+
+  for (int k = 0; k < K; ++k) {
+    __syncthreads();  // the previous tap's tables and sums are no longer read
+    if (tid < kTileP) {
+      int idx[4] = {-1, -1, -1, -1};
+      float wt[4] = {0.f, 0.f, 0.f, 0.f};
+      if (tid < n_rows)
+        corner_entry<T>(offset, mask, b * P + p0 + tid, p0 + tid, k, H, W, Wo, kw, stride, pad,
+                        dil, off_stride, mask_stride, idx, wt);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        s_idx[q][tid] = idx[q];
+        s_wt[q][tid] = wt[q];
+        s_dwts[q][tid] = 0.f;
+      }
+    }
+    const T* wk = weight + (long long)k * C_in * C_out;
+
+    for (int c0 = 0; c0 < C_in; c0 += kTileC) {
+      // ds [kTileP x kTileC] = dy [kTileP x C_out] . W_k[c0.., :]^T
+      if constexpr (std::is_same<T, float>::value) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+      } else {
+        wmma::fill_fragment(frag_c[0], 0.f);
+        wmma::fill_fragment(frag_c[1], 0.f);
+      }
+      for (int o0 = 0; o0 < C_out; o0 += oc) {
+        __syncthreads();  // the previous step's tiles, and s_ds, are consumed
+        if (vec_o) {
+          stage_tile<T, kVec, kTileP, oc, dy_ld>(dyb, C_out, n_rows, o0, C_out, s_dy, tid);
+        } else {
+          stage_tile<T, 1, kTileP, oc, dy_ld>(dyb, C_out, n_rows, o0, C_out, s_dy, tid);
+        }
+        if constexpr (std::is_same<T, float>::value) {
+          // W_k^T chunk: s_w[o][c] (consecutive threads read consecutive o)
+          for (int e = tid; e < kTileC * oc; e += kThreads) {
+            const int cl = e / oc, ol = e - cl * oc;
+            const int c = c0 + cl, o = o0 + ol;
+            s_w[ol * w_ld + cl] = (c < C_in && o < C_out) ? wk[(long long)c * C_out + o] : 0.f;
+          }
+        } else if (vec_o) {
+          stage_tile<T, kVec, kTileC, oc, w_ld>(wk + (long long)c0 * C_out, C_out, C_in - c0,
+                                                o0, C_out, s_w, tid);
+        } else {
+          stage_tile<T, 1, kTileC, oc, w_ld>(wk + (long long)c0 * C_out, C_out, C_in - c0, o0,
+                                             C_out, s_w, tid);
+        }
+        __syncthreads();
+        if constexpr (std::is_same<T, float>::value) {
+          // thread owns pixels ty + 16i and channels 4tx + j
+          const int tx = tid & 15, ty = tid >> 4;
+#pragma unroll 4
+          for (int ol = 0; ol < oc; ++ol) {
+            const float4 bv = *reinterpret_cast<const float4*>(s_w + ol * w_ld + 4 * tx);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const float av = s_dy[(ty + 16 * i) * dy_ld + ol];
+              acc[i][0] = fmaf(av, bv.x, acc[i][0]);
+              acc[i][1] = fmaf(av, bv.y, acc[i][1]);
+              acc[i][2] = fmaf(av, bv.z, acc[i][2]);
+              acc[i][3] = fmaf(av, bv.w, acc[i][3]);
+            }
+          }
+        } else {
+          // warp owns the 16 x 32 tile at pixels 16*(warp/2), channels 32*(warp%2)
+          const int row = 16 * (warp >> 1), col = 32 * (warp & 1);
+#pragma unroll
+          for (int kk = 0; kk < oc; kk += 16) {
+            wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
+            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;
+            wmma::load_matrix_sync(fa, s_dy + row * dy_ld + kk, dy_ld);
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              wmma::load_matrix_sync(fb, s_w + (col + 16 * j) * w_ld + kk, w_ld);
+              wmma::mma_sync(frag_c[j], fa, fb, frag_c[j]);
+            }
+          }
+        }
+      }
+      if constexpr (std::is_same<T, float>::value) {
+        const int tx = tid & 15, ty = tid >> 4;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          *reinterpret_cast<float4*>(s_ds + (ty + 16 * i) * kDsLd + 4 * tx) =
+              make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      } else {
+        const int row = 16 * (warp >> 1), col = 32 * (warp & 1);
+        wmma::store_matrix_sync(s_ds + row * kDsLd + col, frag_c[0], kDsLd, wmma::mem_row_major);
+        wmma::store_matrix_sync(s_ds + row * kDsLd + col + 16, frag_c[1], kDsLd,
+                                wmma::mem_row_major);
+      }
+      __syncthreads();
+      if (vec_x) {
+        bwd_scatter_tile<T, kVec>(xb, dxb, C_in, c0, s_idx, s_wt, s_ds, s_dwts, tid);
+      } else {
+        bwd_scatter_tile<T, 1>(xb, dxb, C_in, c0, s_idx, s_wt, s_ds, s_dwts, tid);
+      }
+    }
+    __syncthreads();
+    if (tid < n_rows) {
+      float4 v = make_float4(s_dwts[0][tid], s_dwts[1][tid], s_dwts[2][tid], s_dwts[3][tid]);
+      *reinterpret_cast<float4*>(dwts + ((b * P + p0 + tid) * K + k) * 4) = v;
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+deform_conv_bwd_weight_kernel(const T* __restrict__ x, const T* __restrict__ offset,
+                              const T* __restrict__ mask, const T* __restrict__ dy,
+                              float* __restrict__ dw, int B, int H, int W, int C_in, int Ho,
+                              int Wo, int C_out, int kh, int kw, int stride, int pad, int dil,
+                              int off_stride, int mask_stride, int n_ct, int n_ot,
+                              int tiles_per_split, bool vec_x, bool vec_o) {
+  using BT = BwdTiles<T>;
+  constexpr int a_ld = BT::a_ld, b_ld = BT::b_ld;
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int tile_bytes = (int)sizeof(T) * kTileP * (a_ld + b_ld);
+  constexpr int out_bytes = (int)sizeof(float) * kTileC * kDsLd;
+  __shared__ __align__(128) unsigned char staging[tile_bytes > out_bytes ? tile_bytes : out_bytes];
+  __shared__ int s_idx[4][kTileP];
+  __shared__ float s_wt[4][kTileP];
+  T* s_a = reinterpret_cast<T*>(staging);  // [kTileP][a_ld] sampled
+  T* s_b = s_a + kTileP * a_ld;            // [kTileP][b_ld] dy
+
+  const int tid = threadIdx.x, warp = tid / 32;
+  const int per_tap = n_ct * n_ot;
+  const int k = blockIdx.x / per_tap, rem = blockIdx.x - k * per_tap;
+  const int c0 = (rem / n_ot) * kTileC, o0 = (rem % n_ot) * kTileO;
+  const int P = Ho * Wo;
+  const long long N = (long long)B * P;  // output pixels of the batch
+  const long long n_tiles = (N + kTileP - 1) / kTileP;
+  const long long t_end = min(n_tiles, (long long)(blockIdx.y + 1) * tiles_per_split);
+
+  using namespace nvcuda;
+  float acc[4][4];
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> frag_c[2];
+  if constexpr (std::is_same<T, float>::value) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  } else {
+    wmma::fill_fragment(frag_c[0], 0.f);
+    wmma::fill_fragment(frag_c[1], 0.f);
+  }
+
+  for (long long t = (long long)blockIdx.y * tiles_per_split; t < t_end; ++t) {
+    const long long q0 = t * kTileP;
+    __syncthreads();  // the previous tile's tables and staged tiles are consumed
+    if (tid < kTileP) {
+      int idx[4] = {-1, -1, -1, -1};
+      float wt[4] = {0.f, 0.f, 0.f, 0.f};
+      const long long q = q0 + tid;
+      if (q < N) {
+        const long long bq = q / P;
+        corner_entry<T>(offset, mask, q, (int)(q - bq * P), k, H, W, Wo, kw, stride, pad, dil,
+                        off_stride, mask_stride, idx, wt);
+        // absolute pixel indices into the batch
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (idx[j] >= 0) idx[j] += (int)(bq * H * W);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s_idx[j][tid] = idx[j];
+        s_wt[j][tid] = wt[j];
+      }
+    }
+    __syncthreads();
+    if (vec_x) {
+      gather_tile<T, kVec, kTileC, a_ld>(x, C_in, c0, s_idx, s_wt, s_a, tid);
+    } else {
+      gather_tile<T, 1, kTileC, a_ld>(x, C_in, c0, s_idx, s_wt, s_a, tid);
+    }
+    if (vec_o) {
+      stage_tile<T, kVec, kTileP, kTileO, b_ld>(dy + q0 * C_out, C_out, N - q0, o0, C_out, s_b,
+                                                tid);
+    } else {
+      stage_tile<T, 1, kTileP, kTileO, b_ld>(dy + q0 * C_out, C_out, N - q0, o0, C_out, s_b, tid);
+    }
+    __syncthreads();
+    if constexpr (std::is_same<T, float>::value) {
+      // thread owns input channels ty + 16i and output channels 4tx + j
+      const int tx = tid & 15, ty = tid >> 4;
+#pragma unroll 4
+      for (int pl = 0; pl < kTileP; ++pl) {
+        const float4 bv = *reinterpret_cast<const float4*>(s_b + pl * b_ld + 4 * tx);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float av = s_a[pl * a_ld + ty + 16 * i];
+          acc[i][0] = fmaf(av, bv.x, acc[i][0]);
+          acc[i][1] = fmaf(av, bv.y, acc[i][1]);
+          acc[i][2] = fmaf(av, bv.z, acc[i][2]);
+          acc[i][3] = fmaf(av, bv.w, acc[i][3]);
+        }
+      }
+    } else {
+      // warp owns the 16 x 32 tile at input channels 16*(warp/2), outputs 32*(warp%2)
+      const int row = 16 * (warp >> 1), col = 32 * (warp & 1);
+#pragma unroll
+      for (int kk = 0; kk < kTileP; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major> fa;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
+        wmma::load_matrix_sync(fa, s_a + kk * a_ld + row, a_ld);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          wmma::load_matrix_sync(fb, s_b + kk * b_ld + col + 16 * j, b_ld);
+          wmma::mma_sync(frag_c[j], fa, fb, frag_c[j]);
+        }
+      }
+    }
+  }
+
+  // epilogue: one f32 atomic per element of the [64 x 64] block of dW_k
+  float* dwk = dw + (long long)k * C_in * C_out;
+  if constexpr (std::is_same<T, float>::value) {
+    const int tx = tid & 15, ty = tid >> 4;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = c0 + ty + 16 * i;
+      if (c >= C_in) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int o = o0 + 4 * tx + j;
+        if (o < C_out) atomicAdd(dwk + (long long)c * C_out + o, acc[i][j]);
+      }
+    }
+  } else {
+    float* s_c = reinterpret_cast<float*>(staging);  // [kTileC][kDsLd]
+    __syncthreads();  // the last tile's staged values are consumed
+    const int row = 16 * (warp >> 1), col = 32 * (warp & 1);
+    wmma::store_matrix_sync(s_c + row * kDsLd + col, frag_c[0], kDsLd, wmma::mem_row_major);
+    wmma::store_matrix_sync(s_c + row * kDsLd + col + 16, frag_c[1], kDsLd, wmma::mem_row_major);
+    __syncthreads();
+    for (int e = tid; e < kTileC * kTileO; e += kThreads) {
+      const int cl = e / kTileO, ol = e - cl * kTileO;
+      const int c = c0 + cl, o = o0 + ol;
+      if (c < C_in && o < C_out) atomicAdd(dwk + (long long)c * C_out + o, s_c[cl * kDsLd + ol]);
+    }
+  }
+}
+
+template <typename T>
+int launch_backward(const void* x, const void* offset, const void* mask, const void* weight,
+                    const void* dy, void* dx, void* dwts, void* dw, int B, int H, int W,
+                    int C_in, int Ho, int Wo, int C_out, int kh, int kw, int stride, int pad,
+                    int dil, int off_stride, int mask_stride, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || C_in <= 0 || Ho <= 0 || Wo <= 0 || C_out <= 0 ||
+      kh <= 0 || kw <= 0 || stride <= 0 || dil <= 0 || pad < 0 ||
+      off_stride < 2 * kh * kw || mask_stride < kh * kw)
+    return (int)cudaErrorInvalidValue;
+  const long long P = (long long)Ho * Wo;
+  const long long n_tiles = ((long long)B * P + kTileP - 1) / kTileP;
+  const int n_ct = (C_in + kTileC - 1) / kTileC, n_ot = (C_out + kTileO - 1) / kTileO;
+  const long long base_blocks = (long long)kh * kw * n_ct * n_ot;
+  if ((P + kTileP - 1) / kTileP > 2147483647ll || B > 65535 || base_blocks > 2147483647ll ||
+      (long long)B * H * W > (1ll << 31) || (long long)H * W * C_in > (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  constexpr int vec = 16 / sizeof(T);
+  const bool vec_x = C_in % vec == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(dx) % 16 == 0;
+  const bool vec_o = C_out % vec == 0 && reinterpret_cast<uintptr_t>(dy) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(weight) % 16 == 0;
+  if (reinterpret_cast<uintptr_t>(dwts) % 16 != 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid_a((unsigned)((P + kTileP - 1) / kTileP), B);
+  deform_conv_bwd_input_kernel<T><<<grid_a, kThreads, 0, (cudaStream_t)stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(offset), static_cast<const T*>(mask),
+      static_cast<const T*>(weight), static_cast<const T*>(dy), static_cast<float*>(dx),
+      static_cast<float*>(dwts), H, W, C_in, Ho, Wo, C_out, kh, kw, stride, pad, dil,
+      off_stride, mask_stride, vec_x, vec_o);
+  const int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  // about four blocks per SM: split the batch's pixel tiles between blocks
+  // of the same (tap, C_in tile, C_out tile)
+  int device = 0, n_sm = 132;
+  if (cudaGetDevice(&device) == cudaSuccess)
+    cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+  long long splits = (4ll * n_sm + base_blocks - 1) / base_blocks;
+  splits = splits < 1 ? 1 : (splits > n_tiles ? n_tiles : splits);
+  const long long per_split = (n_tiles + splits - 1) / splits;
+  splits = (n_tiles + per_split - 1) / per_split;
+  const dim3 grid_b((unsigned)base_blocks, (unsigned)splits);
+  deform_conv_bwd_weight_kernel<T><<<grid_b, kThreads, 0, (cudaStream_t)stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(offset), static_cast<const T*>(mask),
+      static_cast<const T*>(dy), static_cast<float*>(dw), B, H, W, C_in, Ho, Wo, C_out, kh, kw,
+      stride, pad, dil, off_stride, mask_stride, n_ct, n_ot, (int)per_split, vec_x, vec_o);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -405,6 +902,27 @@ int vd3d_modulated_deform_conv_bf16(const void* x, const void* offset, const voi
   return launch<__nv_bfloat16>(x, offset, mask, weight, bias, out, B, H, W, C_in, Ho, Wo,
                                C_out, kh, kw, stride, pad, dil, off_stride, mask_stride,
                                stream);
+}
+
+// Backward: x, offset, mask and W as in the forward, dy [B,Ho,Wo,C_out]
+// contiguous; dx [B,H,W,C_in] and dw [K,C_in,C_out] f32, zeroed by the
+// caller; dwts [B,Ho,Wo,K,4] f32 (every entry written): the gradients of
+// 1-fx, fx, (1-fy)*mask and fy*mask.
+int vd3d_modulated_deform_conv_backward_f32(
+    const void* x, const void* offset, const void* mask, const void* weight, const void* dy,
+    void* dx, void* dwts, void* dw, int B, int H, int W, int C_in, int Ho, int Wo, int C_out,
+    int kh, int kw, int stride, int pad, int dil, int off_stride, int mask_stride, void* stream) {
+  return launch_backward<float>(x, offset, mask, weight, dy, dx, dwts, dw, B, H, W, C_in, Ho, Wo,
+                                C_out, kh, kw, stride, pad, dil, off_stride, mask_stride, stream);
+}
+
+int vd3d_modulated_deform_conv_backward_bf16(
+    const void* x, const void* offset, const void* mask, const void* weight, const void* dy,
+    void* dx, void* dwts, void* dw, int B, int H, int W, int C_in, int Ho, int Wo, int C_out,
+    int kh, int kw, int stride, int pad, int dil, int off_stride, int mask_stride, void* stream) {
+  return launch_backward<__nv_bfloat16>(x, offset, mask, weight, dy, dx, dwts, dw, B, H, W, C_in,
+                                        Ho, Wo, C_out, kh, kw, stride, pad, dil, off_stride,
+                                        mask_stride, stream);
 }
 
 const char* vd3d_cuda_error_string(int code) {

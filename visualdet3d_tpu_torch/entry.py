@@ -9,28 +9,28 @@ seed; the anchor priors are synthetic.
 ``build_km3d_system()`` is the KM3D system of ``configs/km3d.py`` (DLA-34,
 the DCN neck on the CUDA deformable-conv kernel, ``head_features=256``) for
 384x1280 images (``KM3D_IMAGE_HW``), random weights from a seed.
+
+``build_km3d_trainer()`` is its training step: Adam, lr 1.25e-4,
+MultiStepLR at epochs 90 and 120, f32 or bf16 mixed precision, every DCN's
+forward and backward on the CUDA kernels.
 """
 from __future__ import annotations
 
+import math
 import os
 from typing import Optional, Union
 
-import numpy as np
 import torch
 
 from visualdet3d_tpu_torch.device import resolve_device
 from visualdet3d_tpu_torch.ops.kernel_build import BUILD_DIR
 from visualdet3d_tpu_torch.registry import DETECTOR_DICT
 from visualdet3d_tpu_torch.testing import (
-    km3d_detector_cfg, stereo3d_detector_cfg, write_synthetic_priors)
+    KITTI_P2, km3d_detector_cfg, km3d_train_cfg, stereo3d_detector_cfg, write_synthetic_priors)
 
 IMAGE_HW = (288, 1280)
 KM3D_IMAGE_HW = (384, 1280)
-KITTI_P2 = np.array([
-    [721.5377, 0.0, 609.5593, 44.85728],
-    [0.0, 721.5377, 72.854, 0.2163791],
-    [0.0, 0.0, 1.0, 0.002745884],
-], np.float32)
+KITTI_TRAIN_FRAMES = 3712  # the chen split's training frames (splits/chen_split/train.txt)
 
 
 def build_system(depth: int = 34, device: Optional[Union[str, torch.device]] = None,
@@ -59,6 +59,37 @@ def build_km3d_system(device: Optional[Union[str, torch.device]] = None):
     device = resolve_device(device)
     cfg = km3d_detector_cfg()
     return DETECTOR_DICT[cfg.name](cfg, device=device)
+
+
+def build_km3d_trainer(device: Optional[Union[str, torch.device]] = None,
+                       compute_dtype: Optional[str] = None, batch_size: int = 16):
+    """KM3D training on ``device`` (the card unless the caller names
+    another): returns ``(system, state, step)``. ``system`` is
+    :func:`build_km3d_system`'s; ``state`` holds the Adam optimizer of
+    ``configs/km3d.py`` (an epoch is the chen split's training frames at
+    ``batch_size``); ``step(batch, epoch)`` takes ``{'images', 'gts', 'P2'}``
+    (``testing.km3d_training_batch``) of ``batch_size`` images, raising on
+    another size, and makes one update in place, returning the loss terms.
+    ``compute_dtype='bfloat16'`` is the mixed-precision policy
+    (``pipelines/train_state.py``)."""
+    from visualdet3d_tpu_torch.pipelines import trainers  # noqa: F401  (registers train_rtm3d)
+    from visualdet3d_tpu_torch.pipelines.train_state import TrainState
+    from visualdet3d_tpu_torch.registry import PIPELINE_DICT
+    from visualdet3d_tpu_torch.solver.optimizers import build_optimizer
+
+    system = build_km3d_system(device)
+    cfg = km3d_train_cfg(steps_per_epoch=math.ceil(KITTI_TRAIN_FRAMES / batch_size))
+    state = TrainState(build_optimizer(system.net.parameters(), cfg.optimizer, cfg.scheduler,
+                                       cfg.steps_per_epoch))
+    train_step = PIPELINE_DICT['train_rtm3d'](system, compute_dtype=compute_dtype)
+
+    def step(batch, epoch: float):
+        n = batch['images'].shape[0]
+        if n != batch_size:
+            raise ValueError(f'a batch of {n} images for a trainer whose epoch is counted in '
+                             f'batches of {batch_size}')
+        return train_step(state, dict(batch, epoch=epoch))
+    return system, state, step
 
 
 def entry(device: Optional[Union[str, torch.device]] = None):

@@ -1,10 +1,37 @@
-"""Box geometry on tensors (counterpart of the 2-D box helpers in
-``visualdet3d_tpu/geometry.py``). Leading batch dimensions broadcast."""
+"""Box geometry (counterpart of ``visualdet3d_tpu/geometry.py``): the 2-D
+box helpers on tensors (leading batch dimensions broadcast), and the 3-D
+corner matrix and alpha/theta conversions on numpy arrays or floats, for
+the host-side target builders."""
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
+
+# corner order of the 3-D box projection (the order the keypoint heads and
+# the 9-point RTM3D targets use): half-extents' signs per (x, y, z)
+CORNER_MATRIX = np.array(
+    [[-1, -1, -1],
+     [1, -1, -1],
+     [1, 1, -1],
+     [1, 1, 1],
+     [1, -1, 1],
+     [-1, -1, 1],
+     [-1, 1, 1],
+     [-1, 1, -1]], dtype=np.float32)  # [8, 3]
+
+
+def alpha2theta_3d(alpha, x, z, P2):
+    """Observation angle alpha -> yaw theta from the 3-D position (x, z)."""
+    offset = P2[..., 0, 3] / P2[..., 0, 0]
+    return alpha + np.arctan2(x + offset, z)
+
+
+def theta2alpha_3d(theta, x, z, P2):
+    """Yaw theta -> observation angle alpha from the 3-D position (x, z)."""
+    offset = P2[..., 0, 3] / P2[..., 0, 0]
+    return theta - np.arctan2(x + offset, z)
 
 
 def calc_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -101,7 +101,9 @@ class Tree(nn.Module):
     them to size its root). As in the JAX package (and the reference), a
     tree always projects its own ``bottom`` for the residual; with
     ``levels > 1`` that residual is unused, so the projection's parameters
-    exist (the bridge loads them) but it is not computed.
+    exist (the bridge loads them) and it is computed only in train mode,
+    without gradient, for the running statistics of its BatchNorm, which
+    flax updates there too.
     """
 
     def __init__(self, levels: int, in_channels: int, features: int, block: str = 'basic',
@@ -137,6 +139,9 @@ class Tree(nn.Module):
             x1 = self.tree1(x, residual)
             x2 = self.tree2(x1)
             return self.root([x2, x1] + children)
+        if self.project and self.training:
+            with torch.no_grad():
+                self.BatchNorm_0(self.project_conv(bottom))
         x1 = self.tree1(x)
         children.append(x1)
         return self.tree2(x1, children=children)

@@ -18,9 +18,42 @@ import torch.nn.functional as F
 from visualdet3d_tpu_torch.ops.deform_conv import modulated_deform_conv
 
 
-def bn2d(features: int) -> nn.BatchNorm2d:
-    """flax ``BatchNorm(momentum=0.9, epsilon=1e-5)``: torch momentum 0.1."""
-    return nn.BatchNorm2d(features, eps=1e-5, momentum=0.1)
+class BatchNorm2d(nn.BatchNorm2d):
+    """flax ``BatchNorm(momentum=0.9, epsilon=1e-5)``.
+
+    In eval mode: ``nn.BatchNorm2d`` on the running statistics. In train
+    mode it normalises with the batch statistics (the biased variance, as
+    both frameworks do; ``F.batch_norm`` and its backward) and updates the
+    running statistics as flax does: ``r = 0.9 r + 0.1 s`` with the batch
+    mean and the *biased* batch variance ``E[x^2] - E[x]^2``, computed in
+    f32 and clipped at 0 (``nn.BatchNorm2d`` would take the unbiased one,
+    n/(n-1) larger). The output keeps the input's dtype: under the
+    mixed-precision policy a bf16 input with bf16 scale and bias gives a
+    bf16 output while the statistics and the running buffers stay f32.
+    Scale and bias enter in f32, so the normalisation is computed in f32
+    and rounded once, as flax promotes them (an all-bf16 ``F.batch_norm``
+    on the CPU rounds the per-channel factors to bf16, an error that does
+    not average out across a channel).
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        y = F.batch_norm(x, None, None, self.weight.float(), self.bias.float(), True, 0.0,
+                         self.eps)
+        with torch.no_grad():
+            xf = x.float()
+            mean = xf.mean(dim=(0, 2, 3))
+            var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp(min=0.0)
+            self.running_mean.mul_(0.9).add_(0.1 * mean)
+            self.running_var.mul_(0.9).add_(0.1 * var)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
+def bn2d(features: int) -> BatchNorm2d:
+    """flax ``BatchNorm(momentum=0.9, epsilon=1e-5)`` (see ``BatchNorm2d``)."""
+    return BatchNorm2d(features, eps=1e-5, momentum=0.1)
 
 
 def same_padding(kernel_size: int, dilation: int = 1) -> int:

@@ -1,15 +1,16 @@
-"""KM3D inference (counterpart of ``visualdet3d_tpu/models/detectors/km3d.py``):
+"""KM3D (counterpart of ``visualdet3d_tpu/models/detectors/km3d.py``):
 center-based monocular 3D detection, the DLA trunk with the deformable
-upsampling neck to stride 4 (16 DCNs, the CUDA kernel on the card), the
-per-branch head towers and the heatmap decode with NMS on the device.
+upsampling neck to stride 4 (16 DCNs, the CUDA kernels on the card, forward
+and backward), the per-branch head towers, the training loss
+(``KM3D.loss``) and the heatmap decode with NMS on the device.
 
 Modules take NCHW tensors in channels_last memory format; the head's maps
-go to the decode as NHWC views, the JAX package's layout. MonoFlex, the
-``resnet`` core and training come with later slices.
+go to the loss and the decode as NHWC views, the JAX package's layout.
+MonoFlex and the ``resnet`` core come with later slices.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+from typing import Callable, Dict, Optional, Union
 
 import torch
 from torch import nn
@@ -80,6 +81,30 @@ class KM3D(InferenceMixin):
         net.KM3DHeadNet_0.reset_out_convs(generator)
         self.net = channels_last_(net.to(self.device)).eval()
         self._init_inference_cache()
+
+    def loss(self, images, gts, P2, epoch: float = 100.0,
+             apply_fn: Optional[Callable] = None):
+        """The KM3D loss of a batch: ``(loss, loss_dict)``, differentiable in
+        the network's parameters. images [B, H, W, 3], gts the target
+        builder's arrays stacked over the batch, P2 [B, 3, 4]; ``epoch``
+        feeds the rampup weight of the position terms. The network runs in
+        train mode (batch statistics, running statistics updated) and
+        returns to eval mode after, so ``predict`` keeps the running
+        statistics. ``apply_fn(net, images)`` runs the
+        network (the mixed-precision policy passes its own); the head's maps
+        are upcast to f32 before the loss."""
+        apply_fn = apply_fn or (lambda net, x: net(x))
+        x = self._images(images, torch.float32)
+        self.net.train()
+        try:
+            output = apply_fn(self.net, x)
+        finally:
+            self.net.eval()
+        output = {k: v.float().permute(0, 2, 3, 1) for k, v in output.items()}
+        gts = {k: torch.as_tensor(v, device=self.device) for k, v in gts.items()}
+        P2 = torch.as_tensor(P2, dtype=torch.float32, device=self.device)
+        return km3d_lib.km3d_loss(output, gts, P2, epoch, images.shape[2] // 4,
+                                  rampup_length=self.loss_cfg.get('rampup_length', 100))
 
     def _images(self, images: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         """[B, H, W, 3] images -> NCHW channels_last in ``dtype`` on the device."""

@@ -1,7 +1,8 @@
-"""KM3D (RTM3D-style) center-based head, inference half (counterpart of
-``visualdet3d_tpu/models/heads/km3d_head.py``): the per-branch conv towers
-and the heatmap decode to 3D boxes. The losses come with the KM3D training
-slice.
+"""KM3D (RTM3D-style) center-based head (counterpart of
+``visualdet3d_tpu/models/heads/km3d_head.py``): the per-branch conv towers,
+the losses (CornerNet focal heatmap loss, depth-weighted keypoint L1, masked
+L1s, the rotation-bin loss and the IoU3D-supervised position loss with its
+exp-rampup weight) and the heatmap decode to 3D boxes.
 
 The JAX package decodes one image at a time and ``vmap``s the decoder over
 the batch; here the decode is written for a batch, with every op
@@ -52,6 +53,92 @@ class KM3DHeadNet(nn.Module):
         return {name: getattr(self, f'{name}_out')(F.relu(getattr(self, f'{name}_conv1')(x)))
                 for name, _ in self.head_dict}
 
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+def neg_loss(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    """CornerNet focal loss on heatmaps with over-confidence clamps.
+    pred (raw logits) / gt: [B, H, W, C]."""
+    pos_inds = (gt == 1.0).to(pred.dtype)
+    neg_inds = (gt < 1.0).to(pred.dtype)
+    neg_weights = (1.0 - gt) ** 4
+    pred_prob = torch.sigmoid(pred)
+
+    pos_loss = F.logsigmoid(pred) * (1 - pred_prob) ** 2 * pos_inds
+    pos_loss = torch.where(pred_prob > 0.99, 0.0, pos_loss)
+    neg_loss_ = F.logsigmoid(-pred) * pred_prob ** 2 * neg_weights * neg_inds
+    neg_loss_ = torch.where(pred_prob < 0.01, 0.0, neg_loss_)
+
+    num_pos = pos_inds.sum()
+    pos_sum = pos_loss.sum()
+    neg_sum = neg_loss_.sum()
+    return torch.where(num_pos == 0, -neg_sum, -(pos_sum + neg_sum) / num_pos.clamp(min=1))
+
+
+def reg_weighted_l1_loss(output, mask, ind, target, dep):
+    """Depth-weighted keypoint L1."""
+    dep = dep[..., 0]
+    dep = torch.where(dep < 5, dep * 0.01, torch.log10((dep - 4).clamp(min=1e-6)) + 0.1)
+    pred = rtm.transpose_and_gather_feat(output, ind)
+    mask = mask.to(pred.dtype)
+    loss = (pred * mask - target * mask).abs()
+    loss = loss.sum(dim=2) * dep
+    return loss.sum() / (mask.sum() + 1e-4)
+
+
+def reg_l1_loss(output, mask, ind, target):
+    """Masked L1."""
+    pred = rtm.transpose_and_gather_feat(output, ind)
+    mask = mask[..., None].expand(pred.shape).to(pred.dtype)
+    return (pred * mask - target * mask).abs().sum() / (mask.sum() + 1e-4)
+
+
+def exp_rampup(epoch, rampup_length: int = 100):
+    epoch = torch.as_tensor(epoch, dtype=torch.float32).clamp(0.0, rampup_length)
+    phase = 1.0 - epoch / rampup_length
+    return torch.exp(-5.0 * phase * phase)
+
+
+LOSS_WEIGHTS = {'hm_loss': 1, 'hp_loss': 1, 'hm_hp_loss': 1, 'hp_offset_loss': 1,
+                'wh_loss': 0.1, 'off_loss': 1, 'dim_loss': 2, 'rot_loss': 0.2}
+
+
+def km3d_loss(output: Dict[str, torch.Tensor], annotations: Dict[str, torch.Tensor],
+              P2: torch.Tensor, epoch, output_w: int, rampup_length: int = 100):
+    """The full KM3D loss: (total, the per-term dict with ``total_loss``).
+    output: NHWC f32 maps; annotations: the target builder's tensors."""
+    ann = annotations
+    ind = ann['ind'].long()
+    hm_loss = neg_loss(output['hm'], ann['hm'])
+    hp_loss = reg_weighted_l1_loss(output['hps'], ann['hps_mask'], ind, ann['hps'], ann['dep'])
+    wh_loss = reg_l1_loss(output['wh'], ann['reg_mask'], ind, ann['wh'])
+    dim_loss = reg_l1_loss(output['dim'], ann['reg_mask'], ind, ann['dim'])
+    rot_pred = rtm.transpose_and_gather_feat(output['rot'], ind)
+    rot_loss = rtm.compute_rot_loss(rot_pred, ann['rotbin'], ann['rotres'],
+                                    ann['reg_mask'][..., None])
+    off_loss = reg_l1_loss(output['reg'], ann['reg_mask'], ind, ann['reg'])
+    hp_offset_loss = reg_l1_loss(output['hp_offset'], ann['hp_mask'], ann['hp_ind'].long(),
+                                 ann['hp_offset'])
+    hm_hp_loss = neg_loss(output['hm_hp'], ann['hm_hp'])
+    coor_loss, prob_loss, box_score = rtm.position_loss(output, ann, P2, output_w)
+
+    ramp = exp_rampup(epoch, rampup_length).to(hm_loss.device)
+    loss_stats = {'hm_loss': hm_loss, 'hp_loss': hp_loss,
+                  'hm_hp_loss': hm_hp_loss, 'hp_offset_loss': hp_offset_loss,
+                  'wh_loss': wh_loss, 'off_loss': off_loss, 'dim_loss': dim_loss,
+                  'rot_loss': rot_loss, 'prob_loss': prob_loss,
+                  'box_score': box_score, 'coor_loss': coor_loss}
+    weight = dict(LOSS_WEIGHTS, prob_loss=ramp, coor_loss=ramp)
+    loss = sum(loss_stats[k] * w for k, w in weight.items())
+    loss_stats['total_loss'] = loss
+    return loss, loss_stats
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
 
 def km3d_decode(output: Dict[str, torch.Tensor], P2: torch.Tensor, image_hw,
                 score_thr: float = 0.1, nms_iou_thr: float = 0.5, top_k: int = 100,

@@ -1,9 +1,10 @@
-"""RTM3D/KM3D utilities, inference half (counterpart of
-``visualdet3d_tpu/models/heads/rtm3d_utils.py``): heatmap max-pool NMS,
-top-K peak extraction, feature gathering by flat indices, the multibin
-alpha decode and the batched 16x3 least-squares 3D position solve. Maps are
-NHWC ``[B, H, W, C]``, as in the JAX package. The losses and the target
-builders come with the KM3D training slice.
+"""RTM3D/KM3D utilities (counterpart of
+``visualdet3d_tpu/models/heads/rtm3d_utils.py``). Host side (numpy): the
+gaussian heatmap stamping of the target builder. Device side (torch): heatmap
+max-pool NMS, top-K peak extraction, feature gathering by flat indices, the
+rotation-bin loss, the multibin alpha decode, the batched 16x3
+least-squares 3D position solve and the IoU3D-supervised position loss.
+Maps are NHWC ``[B, H, W, C]``, as in the JAX package.
 
 Ties: ``jax.lax.top_k`` puts the lower index first among equal values, and
 after ``heatmap_nms`` most of a map is exactly 0, so ties are the rule.
@@ -17,10 +18,66 @@ batch size).
 from __future__ import annotations
 
 import math
+from typing import Dict
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from visualdet3d_tpu_torch.ops.rotated_iou import aligned_boxes_iou3d
+
+
+# ---------------------------------------------------------------------------
+# host-side target helpers (numpy)
+# ---------------------------------------------------------------------------
+
+def gaussian_radius(det_size, min_overlap: float = 0.7) -> float:
+    """CornerNet gaussian radius."""
+    height, width = det_size
+    a1 = 1
+    b1 = height + width
+    c1 = width * height * (1 - min_overlap) / (1 + min_overlap)
+    sq1 = np.sqrt(b1 ** 2 - 4 * a1 * c1)
+    r1 = (b1 + sq1) / 2
+    a2 = 4
+    b2 = 2 * (height + width)
+    c2 = (1 - min_overlap) * width * height
+    sq2 = np.sqrt(b2 ** 2 - 4 * a2 * c2)
+    r2 = (b2 + sq2) / 2
+    a3 = 4 * min_overlap
+    b3 = -2 * min_overlap * (height + width)
+    c3 = (min_overlap - 1) * width * height
+    sq3 = np.sqrt(b3 ** 2 - 4 * a3 * c3)
+    r3 = (b3 + sq3) / 2
+    return min(r1, r2, r3)
+
+
+def gaussian_2d(shape, sigma: float = 1.0) -> np.ndarray:
+    m, n = [(ss - 1.0) / 2.0 for ss in shape]
+    y, x = np.ogrid[-m:m + 1, -n:n + 1]
+    h = np.exp(-(x * x + y * y) / (2 * sigma * sigma))
+    h[h < np.finfo(h.dtype).eps * h.max()] = 0
+    return h
+
+
+def gen_hm_radius(heatmap: np.ndarray, center, radius: int, k: float = 1.0):
+    """Stamp a gaussian peak into heatmap [H, W] in place."""
+    diameter = 2 * radius + 1
+    gaussian = gaussian_2d((diameter, diameter), sigma=diameter / 6)
+    x, y = int(center[0]), int(center[1])
+    height, width = heatmap.shape[:2]
+    left, right = min(x, radius), min(width - x, radius + 1)
+    top, bottom = min(y, radius), min(height - y, radius + 1)
+    masked_heatmap = heatmap[y - top:y + bottom, x - left:x + right]
+    masked_gaussian = gaussian[radius - top:radius + bottom, radius - left:radius + right]
+    if min(masked_gaussian.shape) > 0 and min(masked_heatmap.shape) > 0:
+        np.maximum(masked_heatmap, masked_gaussian * k, out=masked_heatmap)
+    return heatmap
+
+
+# ---------------------------------------------------------------------------
+# device-side ops (torch, NHWC)
+# ---------------------------------------------------------------------------
 
 
 def heatmap_nms(heat: torch.Tensor, kernel: int = 3) -> torch.Tensor:
@@ -70,6 +127,43 @@ def topk_channel(scores: torch.Tensor, k: int = 40):
     per_class = scores.permute(0, 3, 1, 2).reshape(b, c, h * w)
     topk_scores, topk_inds = _topk(per_class, k)
     return topk_scores, topk_inds, (topk_inds // w).float(), (topk_inds % w).float()
+
+
+def _masked_cross_entropy(logits: torch.Tensor, target: torch.Tensor,
+                          mask: torch.Tensor) -> torch.Tensor:
+    """CE over all rows with logits zeroed where mask == 0 (masked rows
+    contribute the constant log(2) with zero gradient)."""
+    logp = torch.log_softmax(logits * mask, dim=-1)
+    return -logp.gather(-1, target[:, None])[:, 0].mean()
+
+
+def _smooth_l1(x, y):
+    d = (x - y).abs()
+    return torch.where(d < 1.0, 0.5 * d * d, d - 0.5)
+
+
+def compute_rot_loss(output: torch.Tensor, target_bin: torch.Tensor, target_res: torch.Tensor,
+                     mask: torch.Tensor) -> torch.Tensor:
+    """output [*, 8] = [bin1_cls(2), bin1_sin, bin1_cos, bin2_cls(2),
+    bin2_sin, bin2_cos]; target_bin [*, 2]; target_res [*, 2]; mask [*, 1]."""
+    output = output.reshape(-1, 8)
+    target_bin = target_bin.reshape(-1, 2).long()
+    target_res = target_res.reshape(-1, 2)
+    mask = mask.reshape(-1, 1).to(output.dtype)
+
+    loss_bin1 = _masked_cross_entropy(output[:, 0:2], target_bin[:, 0], mask)
+    loss_bin2 = _masked_cross_entropy(output[:, 4:6], target_bin[:, 1], mask)
+
+    def res_branch(sin_idx, cos_idx, bin_col):
+        sel = (target_bin[:, bin_col] != 0).to(output.dtype)
+        denom = sel.sum().clamp(min=1.0)
+        loss_sin = (_smooth_l1(output[:, sin_idx], torch.sin(target_res[:, bin_col]))
+                    * sel).sum() / denom
+        loss_cos = (_smooth_l1(output[:, cos_idx], torch.cos(target_res[:, bin_col]))
+                    * sel).sum() / denom
+        return torch.where(sel.sum() > 0, loss_sin + loss_cos, 0.0)
+
+    return loss_bin1 + loss_bin2 + res_branch(2, 3, 0) + res_branch(6, 7, 1)
 
 
 def _solve3x3(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -170,3 +264,47 @@ def gen_position(kps: torch.Tensor, dim: torch.Tensor, rot: torch.Tensor,
     position = _solve3x3(m, normal[..., 3])                               # [B, K, 3]
     position = torch.cat([position[..., :1] - off_set[:, None, None], position[..., 1:]], -1)
     return position, rot_y[..., None], alpha_pre[..., None], kps
+
+
+def position_loss(output: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
+                  calib: torch.Tensor, output_w: int):
+    """IoU3D-supervised position and confidence loss. output maps are NHWC;
+    batch carries the RTM3D targets. Returns (coor_loss, prob_loss,
+    box_score_mean). No gradient flows through rot or the 3-D IoU."""
+    ind = batch['ind'].long()
+    dim = transpose_and_gather_feat(output['dim'], ind)
+    rot = transpose_and_gather_feat(output['rot'], ind).detach()
+    prob = transpose_and_gather_feat(output['prob'], ind)
+    kps = transpose_and_gather_feat(output['hps'], ind)
+
+    b, c = dim.shape[0], dim.shape[1]
+    mask = batch['hps_mask'].float()  # [B, C, 18]
+
+    cys = (ind // output_w).float()
+    cxs = (ind % output_w).float()
+    kps = torch.stack([kps[..., 0::2] + cxs[..., None], kps[..., 1::2] + cys[..., None]],
+                      dim=-1).reshape(kps.shape)
+
+    position, rot_y, _, _ = gen_position(kps * 4, dim, rot, calib)
+
+    loss_mask = (mask.sum(dim=2) > 15).float()
+    dim_neg = dim < 0
+    dim = dim.clamp(0, 10)
+    dim_ok = 1.0 - (dim_neg.sum(dim=2) > 0).float()
+
+    loss_norm = torch.linalg.norm(position - batch['location'], dim=2)
+    mask_num = (loss_mask != 0).sum()
+    coor_loss = (loss_norm * loss_mask).sum() / (mask_num + 1)
+
+    dim_gt = torch.where(dim_neg, 0.0, batch['dim'])
+    with torch.no_grad():
+        box_pred = torch.cat([position, dim, rot_y], dim=2).reshape(b * c, 7)
+        gt_box = torch.cat([batch['location'], dim_gt, batch['ori']], dim=2).reshape(b * c, 7)
+        # aligned-pair 3D IoU
+        box_score = aligned_boxes_iou3d(box_pred, gt_box).reshape(b, c)
+    prob = prob[..., 0]
+    box_score = box_score * loss_mask * dim_ok
+    loss_prob = -(box_score * F.logsigmoid(prob) + (1 - box_score) * F.logsigmoid(-prob))
+    loss_prob = (loss_prob * loss_mask * dim_ok).sum() / (mask_num + 1)
+    box_score_mean = (box_score * loss_mask).sum() / (mask_num + 1e-3)
+    return coor_loss, loss_prob, box_score_mean

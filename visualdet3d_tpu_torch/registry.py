@@ -1,7 +1,8 @@
 """Name -> class registries (counterpart of ``visualdet3d_tpu/registry.py``).
 
 The port keeps its own instances: the JAX package's registries already hold
-``Stereo3D`` and friends, and registering a name twice raises.
+``Stereo3D`` and friends, and registering a name twice raises. Importing
+``visualdet3d_tpu_torch.pipelines.trainers`` fills ``PIPELINE_DICT``.
 """
 from __future__ import annotations
 
@@ -56,3 +57,4 @@ class Registry:
 
 BACKBONE_DICT = Registry('backbones')
 DETECTOR_DICT = Registry('detectors')
+PIPELINE_DICT = Registry('pipelines')

@@ -1,7 +1,8 @@
 """Synthetic fixtures for smoke runs and tests (counterpart of
 ``visualdet3d_tpu/testing.py``): the YOLOStereo3D and KM3D configs,
-synthetic anchor priors, and seeded values for the zero-initialised
-prediction, offset and heatmap convs of a random-weight model."""
+synthetic anchor priors, seeded values for the zero-initialised
+prediction, offset and heatmap convs of a random-weight model, and a
+synthetic KM3D training batch built by the ported target builder."""
 from __future__ import annotations
 
 import contextlib
@@ -11,6 +12,14 @@ import numpy as np
 import torch
 
 from visualdet3d_tpu_torch.config import EasyDict as edict
+
+# the KITTI left camera's projection matrix (P2) for 384x1280 input
+KITTI_P2 = np.array([
+    [721.5377, 0.0, 609.5593, 44.85728],
+    [0.0, 721.5377, 72.854, 0.2163791],
+    [0.0, 0.0, 1.0, 0.002745884],
+], np.float32)
+KITTI_P2_HW = (384, 1280)
 
 
 def write_synthetic_priors(preprocessed_path: str, obj_types, num_scales: int = 16,
@@ -188,6 +197,48 @@ def seed_offset_convs(system, generator: torch.Generator, scale: float, images) 
     system.weights_changed()
 
 
+@torch.no_grad()
+def calibrate_batch_statistics(system, images) -> None:
+    """Set every BatchNorm's running statistics to the batch statistics
+    (mean, biased variance) of its input on these images, layer after
+    layer, so that eval mode normalises them as train mode does. A
+    random-weight model's running statistics (0 and 1) are far from its
+    batch statistics; seeding and calibrating convs in eval mode would then
+    tune them for a regime training never sees (a DCN whose offsets leave
+    the image in train mode gives a constant channel, and train-mode BN
+    divides its last-bit noise by sqrt(eps))."""
+    from visualdet3d_tpu_torch.models.blocks import BatchNorm2d
+
+    def set_stats(bn, inputs):
+        x = inputs[0].float()
+        bn.running_mean.copy_(x.mean(dim=(0, 2, 3)))
+        bn.running_var.copy_(x.var(dim=(0, 2, 3), unbiased=False))
+
+    hooks = [m.register_forward_pre_hook(set_stats) for m in system.net.modules()
+             if isinstance(m, BatchNorm2d)]
+    try:
+        system.net(system._images(images, torch.float32))
+    finally:
+        for h in hooks:
+            h.remove()
+    system.weights_changed()
+
+
+@torch.no_grad()
+def prepare_km3d_for_training(system, images, generator: torch.Generator,
+                              offset_std: float = 2.0, calibrate_head: bool = True) -> None:
+    """A random-weight KM3D made ready to train on ``images``: running
+    statistics set to the batch statistics, the offset convs seeded to
+    offsets of std ``offset_std`` px, the statistics set again (the seeded
+    offsets change the features) and, if ``calibrate_head``, the head's
+    output convs calibrated (``calibrate_head_convs``)."""
+    calibrate_batch_statistics(system, images)
+    seed_offset_convs(system, generator, offset_std, images)
+    calibrate_batch_statistics(system, images)
+    if calibrate_head:
+        calibrate_head_convs(system, images, generator)
+
+
 # statistics of the head's output maps after calibrate_head_convs, (mean, std)
 # over a batch, in map units: heatmap logits around the 0.1 score threshold
 # (sigmoid(-2.197), 1.9 std above the mean, so ~3% of the map and a share of
@@ -227,3 +278,66 @@ def calibrate_head_convs(system, images, generator: torch.Generator) -> None:
         conv.weight.mul_(a)
         conv.bias.fill_(mean - a * float(preds.mean()))
     system.weights_changed()
+
+
+def km3d_train_cfg(steps_per_epoch: int = 1) -> edict:
+    """The optimizer and schedule of ``configs/km3d.py``: Adam, lr 1.25e-4,
+    no weight decay, no clipping, MultiStepLR at epochs 90 and 120 (x0.1),
+    stepped per epoch of ``steps_per_epoch`` updates."""
+    return edict(
+        optimizer=edict(type_name='adam', keywords=edict(lr=1.25e-4, weight_decay=0),
+                        clipped_gradient_norm=None),
+        scheduler=edict(type_name='MultiStepLR',
+                        keywords=edict(milestones=[90, 120], gamma=0.1)),
+        steps_per_epoch=steps_per_epoch,
+    )
+
+
+def _synthetic_objects(rng: np.random.Generator, n: int, P2: np.ndarray, image_hw):
+    """n Cars placed so that their projected 3-D boxes lie inside the
+    image; the 2-D box is the projected corners' extent."""
+    from visualdet3d_tpu_torch.data.kitti.dataset.km3d_dataset import (
+        RTM3D_CORNERS, _project_corners)
+    from visualdet3d_tpu_torch.data.kitti.kittidata import KittiObj
+    from visualdet3d_tpu_torch.geometry import theta2alpha_3d
+    h_img, w_img = image_hw
+    objs = []
+    while len(objs) < n:
+        o = KittiObj()
+        o.type, o.truncated, o.occluded = 'Car', 0.0, 0
+        o.h, o.w, o.l = (float(v) for v in rng.normal((1.53, 1.63, 3.88), (0.1, 0.08, 0.3)))
+        o.z = float(rng.uniform(8.0, 40.0))
+        u = rng.uniform(0.15, 0.85) * w_img
+        o.x = float((u - P2[0, 2]) * o.z / P2[0, 0] - P2[0, 3] / P2[0, 0])
+        o.y = float(rng.normal(1.65, 0.1))
+        o.ry = float(rng.uniform(-np.pi, np.pi))
+        o.alpha = float(theta2alpha_3d(o.ry, o.x, o.z, P2))
+        _, homo = _project_corners(P2, [o], RTM3D_CORNERS)
+        uv = homo[0, :8, :2]
+        if uv.min() < 1 or uv[:, 0].max() > w_img - 2 or uv[:, 1].max() > h_img - 2:
+            continue
+        o.bbox_l, o.bbox_t = float(uv[:, 0].min()), float(uv[:, 1].min())
+        o.bbox_r, o.bbox_b = float(uv[:, 0].max()), float(uv[:, 1].max())
+        objs.append(o)
+    return objs
+
+
+def km3d_training_batch(rng: np.random.Generator, batch_size: int, image_hw,
+                        objects_per_image=(2, 6), obj_types=('Car',), max_objects: int = 32):
+    """A synthetic KM3D training batch: normal-noise images, the KITTI P2
+    scaled to ``image_hw``, a few Cars per image whose projected boxes lie
+    inside it, and their targets from the ported target builder and
+    ``collate_fn``: ``{'images', 'P2', 'gts'}`` as numpy arrays."""
+    from visualdet3d_tpu_torch.data.kitti.dataset.km3d_dataset import RTM3DTargetBuilder
+    builder = RTM3DTargetBuilder(obj_types, max_objects)
+    P2 = KITTI_P2.copy()
+    P2[0] *= image_hw[1] / KITTI_P2_HW[1]
+    P2[1] *= image_hw[0] / KITTI_P2_HW[0]
+    items = []
+    for _ in range(batch_size):
+        objs = _synthetic_objects(rng, int(rng.integers(*objects_per_image, endpoint=True)), P2,
+                                  image_hw)
+        image = rng.standard_normal((*image_hw, 3), dtype=np.float32)
+        items.append({'image': image, 'calib': P2.copy(),
+                      'label': builder.build_target(image_hw, P2, objs)})
+    return RTM3DTargetBuilder.collate_fn(items)
