@@ -10,8 +10,8 @@ each printed as one JSON line:
 
 1. device: the card (``nvidia-smi`` name and power limit) and the build of
    every CUDA kernel of the paths from the sources in the checkout
-   (``csrc/correlation.cu``, ``csrc/deform_conv.cu``, one ``nvcc`` each,
-   started together);
+   (``csrc/correlation.cu``, ``csrc/deform_conv.cu``, ``csrc/int8_conv.cu``,
+   ``csrc/int8_block.cu``, one ``nvcc`` each, started together);
 2. kernel, kernel_edges: both correlation kernels against their plain
    PyTorch version at the stereo path's shapes (batch 16, 288x1280), f32
    and bf16, with their time (CUDA events, median over distinct inputs), the
@@ -50,6 +50,24 @@ each printed as one JSON line:
    DCN forward, 16 dx and 16 dW backward launches per step, peak memory, a
    profiler breakdown of one step, and the loss falling over 10 steps on one
    batch; one f32 step on the card against the same step on the CPU.
+8. int8 inference (``entry.build_int8_system``: Stereo3D at 288x1280, BN
+   folded, calibrated, ``int8_all``): int8_conv_edges (the int8 conv kernel
+   B8 and the activation quantize kernel against their plain versions on
+   1x1, stride 2, dilation 2, asymmetric padding, channel tails, +-127, and
+   the wrappers' refusals); int8_probe (the int8 probes K9a/b/c of
+   ``tools/probe_pallas_int8.py`` at their shapes and seeds, bit-exact,
+   beside ``torch._int_mm``); int8_slice in three modes (every conv on its
+   own, layer1's blocks on the fused kernel K8, and the same folded network
+   in bf16): ms per batch 16, fps, bs1 p50, peak memory, valid detections,
+   the launches of B8, the quantize, K8 and K1 per predict, a profile;
+   int8_conv_kernel (B8 at every conv shape of the batch-16 predict,
+   collected by hooks: s32 bit-exact, the f32 and bf16 epilogues, its time
+   against cuDNN's bf16 conv of the same shape, the bound; the quantize
+   kernel at each input); int8_block_kernel and int8_block_edges (K8 on the
+   real layer1 entries and input at batch 16, and ragged tiles, against its
+   plain version with the JAX package's block gate); int8_parity (the
+   artifact quantized on the CPU, batch-1 int8 predict on the card against
+   the CPU's, with the JAX package's decode gates).
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
@@ -1020,6 +1038,545 @@ def km3d_train_parity_phase(torch):
          cpu_step_s=cpu_s, total=m_gpu['total'])
 
 
+# ---------------------------------------------------------------------------
+# int8 inference (slice 4): the int8 conv kernel (B8, also the K9 probes) and
+# the fused int8 BasicBlock kernel (K8)
+# ---------------------------------------------------------------------------
+
+INT8_TOPS = 1979e12  # H100 SXM dense int8 tensor-core peak (NVIDIA data sheet)
+
+
+def int8_peak(part):
+    return INT8_TOPS if part == 'SXM' else 1513e12  # the PCIe part's dense int8 peak
+
+
+def int8_conv_shapes(torch, system, batch):
+    """The conv shapes of one int8 predict (every ``Int8Conv2d`` of the int8
+    copy without fused blocks), with their counts per predict, from hooks."""
+    from visualdet3d_tpu_torch.models.quant import Int8Conv2d
+    system.cfg.inference_dtype = 'int8'
+    system.cfg.int8_block = None
+    net = system.inference_net()
+    seen = {}
+    handles = []
+    for mod in net.modules():
+        if isinstance(mod, Int8Conv2d):
+            def pre(m, args):
+                b, c, h, w = args[0].shape
+                n, kh, kw, _ = m.kernel_q.shape
+                key = (b, h, w, c, n, kh, kw, m.stride, m.padding, m.dilation, m.bias is not None)
+                seen[key] = seen.get(key, 0) + 1
+            handles.append(mod.register_forward_pre_hook(pre))
+    system.predict(*batch)
+    torch.cuda.synchronize()
+    for h in handles:
+        h.remove()
+    return seen
+
+
+def int8_conv_check(torch, ic, xq, wq, stride, padding, dilation, bias, what):
+    """B8 against its plain version on the same inputs: the s32 sums
+    bit-exact; the f32 epilogue within 1e-6 relative; bf16 within one bf16
+    ulp of the plain bf16 value. Returns the largest f32 abs error."""
+    gen = torch.Generator(device='cuda').manual_seed(11)
+    n = wq.shape[0]
+    scale = torch.rand((n,), generator=gen, device='cuda') * 1e-3 + 1e-5
+    raw = ic.int8_conv2d(xq, wq, stride, padding, dilation)
+    ref = ic.int8_conv2d_plain(xq, wq, stride, padding, dilation)
+    torch.cuda.synchronize()
+    check(raw.dtype == torch.int32 and raw.shape == ref.shape and torch.equal(raw, ref),
+          f'int8_conv2d {what}: s32 sums differ from the exact sums in '
+          f'{int((raw != ref).sum()) if raw.shape == ref.shape else "shape"} places')
+    f32 = ic.int8_conv2d(xq, wq, stride, padding, dilation, scale, bias, torch.float32)
+    f32_ref = ic.int8_conv2d_plain(xq, wq, stride, padding, dilation, scale, bias, torch.float32)
+    err = (f32 - f32_ref).abs()
+    check(bool((err <= 1e-6 * f32_ref.abs()).all()),
+          f'int8_conv2d {what}: f32 epilogue off by {float(err.max())} (1e-6 relative)')
+    bf = ic.int8_conv2d(xq, wq, stride, padding, dilation, scale, bias, torch.bfloat16)
+    bf_ref = f32_ref.to(torch.bfloat16).float()
+    berr = (bf.float() - bf_ref).abs()
+    check(bool((berr <= bf16_ulp(bf_ref)).all()),
+          f'int8_conv2d {what}: bf16 epilogue off by {float(berr.max())} (one bf16 ulp)')
+    return float(err.max())
+
+
+def quantize_phase_shape(torch, ic, shape, part):
+    """The activation quantize kernel against its plain version on a bf16
+    activation of ``shape`` (NHWC), bit-exact; its time, the plain version's
+    (torch's five elementwise passes) and the bytes bound (2 bytes read, 1
+    written per element)."""
+    gen = torch.Generator(device='cuda').manual_seed(17)
+    xs = [(torch.randn(shape, generator=gen, device='cuda') * 3).to(torch.bfloat16)
+          for _ in range(N_KERNEL_RUNS)]
+    inv = torch.tensor(127 / 9.0, device='cuda')
+    got, ref = ic.quantize_act(xs[0], inv), ic.quantize_act_plain(xs[0], inv)
+    torch.cuda.synchronize()
+    check(got.dtype == torch.int8 and torch.equal(got, ref),
+          f'int8_quantize {shape}: differs from the plain version in '
+          f'{int((got != ref).sum())} places')
+    n = xs[0].numel()
+    return dict(ms=cuda_ms(lambda t: ic.quantize_act(t, inv), xs),
+                plain_ms=cuda_ms(lambda t: ic.quantize_act_plain(t, inv), xs),
+                bound_ms=3 * n / CARD_PEAKS[part][0] * 1e3)
+
+
+def int8_conv_kernel_phase(torch, ic, shapes, part):
+    """B8 at every conv shape of the batch-16 int8 predict: bit-exact s32,
+    the epilogues, its time in the main path's mode (bf16 out), the plain
+    version's, a cuDNN bf16 conv of the same shape (a yardstick, not the
+    same function) and the bound."""
+    import torch.nn.functional as F
+    bw = CARD_PEAKS[part][0]
+    gen = torch.Generator(device='cuda').manual_seed(12)
+    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, ops=0, bytes=0,
+                 max_abs_err=0.0)
+    quant = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    bound_by = {'bytes': 0.0, 'operations': 0.0}
+    per_shape = []
+    for (b, h, w, c, n, kh, kw, stride, padding, dilation, has_bias), count in sorted(shapes.items()):
+        runs = max(3, N_KERNEL_RUNS // 2)
+        xs = [torch.randint(-127, 128, (b, h, w, c), generator=gen, device='cuda',
+                            dtype=torch.int8) for _ in range(runs)]
+        wq = torch.randint(-127, 128, (n, kh, kw, c), generator=gen, device='cuda', dtype=torch.int8)
+        scale = torch.rand((n,), generator=gen, device='cuda') * 1e-3
+        bias = torch.randn((n,), generator=gen, device='cuda') if has_bias else None
+        what = (f'{b}x{h}x{w}x{c}->{n} k{kh}x{kw} s{stride} p{padding} d{dilation}'
+                f'{" +bias" if has_bias else ""}')
+        err = int8_conv_check(torch, ic, xs[0], wq, stride, padding, dilation, bias, what)
+        q = quantize_phase_shape(torch, ic, (b, h, w, c), part)
+        for key in ('ms', 'plain_ms', 'bound_ms'):
+            quant[key] += count * q[key]
+        fn = lambda x: ic.int8_conv2d(x, wq, stride, padding, dilation, scale, bias, torch.bfloat16)
+        ms = cuda_ms(fn, xs)
+        plain_ms = cuda_ms(lambda x: ic.int8_conv2d_plain(x, wq, stride, padding, dilation, scale,
+                                                          bias, torch.bfloat16), xs[:3], warmup=1)
+        # cuDNN's bf16 conv of the same shape, channels_last (not the same function)
+        xf = [x.permute(0, 3, 1, 2).to(torch.bfloat16) for x in xs]
+        wf = wq.permute(0, 3, 1, 2).to(torch.bfloat16)
+        bf = bias.to(torch.bfloat16) if bias is not None else None
+        pad = (padding[0][0], padding[1][0])
+        library_ms = cuda_ms(lambda x: F.conv2d(x, wf, bf, stride, pad, dilation), xf)
+        ho, wo = ic.output_hw(h, w, kh, kw, stride, padding, dilation)
+        ops = 2 * b * ho * wo * n * kh * kw * c
+        nbytes = b * h * w * c + n * kh * kw * c + b * ho * wo * n * 2 + 4 * n * (2 if has_bias else 1)
+        bytes_ms, ops_ms = nbytes / bw * 1e3, ops / int8_peak(part) * 1e3
+        bound = max(bytes_ms, ops_ms)
+        per_shape.append(dict(shape=what, per_predict=count, ms=ms, plain_ms=plain_ms,
+                              cudnn_bf16_ms=library_ms, bound_ms=bound,
+                              bound_by='bytes' if bytes_ms >= ops_ms else 'operations',
+                              tops=ops / ms / 1e9, max_abs_err_f32=err))
+        total['ms'] += count * ms
+        total['plain_ms'] += count * plain_ms
+        total['library_ms'] += count * library_ms
+        total['bound_ms'] += count * bound
+        total['ops'] += count * ops
+        total['bytes'] += count * nbytes
+        total['max_abs_err'] = max(total['max_abs_err'], err)
+        bound_by['bytes' if bytes_ms >= ops_ms else 'operations'] += count * bound
+        emit('int8_conv_kernel', kernel='int8_conv2d', **per_shape[-1])
+        del xs, xf
+    total['bound_by'] = max(bound_by, key=bound_by.get)
+    total['per_shape'] = per_shape
+    total['quantize'] = quant
+    emit('int8_quantize_per_forward', batch=BATCH, **quant)
+    emit('int8_conv_kernel_per_forward', batch=BATCH, shapes=len(per_shape),
+         launches_per_predict=sum(shapes.values()), **{k: v for k, v in total.items()
+                                                       if k != 'per_shape'})
+    return total
+
+
+def int8_conv_edge_phase(torch, ic):
+    """Cases the main path does not reach, and the wrapper's refusals."""
+    gen = torch.Generator(device='cuda').manual_seed(13)
+
+    def rand(shape):
+        return torch.randint(-127, 128, shape, generator=gen, device='cuda', dtype=torch.int8)
+
+    cases = [  # (name, B, H, W, C_in, C_out, k, stride, padding, dilation, bias)
+        ('1x1', 2, 9, 13, 64, 64, 1, 1, ((0, 0), (0, 0)), 1, True),
+        ('3x3 stride 2', 2, 17, 23, 64, 128, 3, 2, ((1, 1), (1, 1)), 1, False),
+        ('1x1 stride 2', 2, 17, 23, 64, 128, 1, 2, ((0, 0), (0, 0)), 1, False),
+        ('dilation 2', 2, 12, 20, 64, 64, 3, 1, ((2, 2), (2, 2)), 2, True),
+        ('asymmetric padding, 2x2', 1, 10, 14, 32, 16, 2, 1, ((0, 1), (1, 0)), 1, False),
+        ('C_in 72 -> 72', 2, 7, 9, 72, 72, 3, 1, ((1, 1), (1, 1)), 1, False),
+        ('C_in 72 -> 144', 2, 18, 40, 72, 144, 3, 1, ((1, 1), (1, 1)), 1, True),
+        ('C_out 576', 1, 18, 80, 256, 576, 3, 1, ((1, 1), (1, 1)), 1, True),
+        ('C_in 12 (4-byte copies)', 2, 11, 11, 12, 24, 3, 1, ((1, 1), (1, 1)), 1, False),
+        ('C_in 7 (1-byte copies)', 2, 11, 11, 7, 5, 3, 1, ((1, 1), (1, 1)), 1, True),
+        ('C_in 8 (8-byte copies)', 1, 5, 6, 8, 9, 3, 2, ((1, 1), (1, 1)), 1, False),
+        ('batch 1, W 1', 1, 7, 1, 64, 64, 3, 1, ((1, 1), (1, 1)), 1, False),
+        ('H 1', 3, 1, 33, 64, 64, 3, 1, ((1, 1), (1, 1)), 1, False),
+        ('padding wider than the image', 1, 2, 3, 64, 64, 3, 1, ((3, 3), (3, 3)), 1, False),
+    ]
+    for name, b, h, w, c, n, k, s, pad, d, has_bias in cases:
+        bias = torch.randn((n,), generator=gen, device='cuda') if has_bias else None
+        int8_conv_check(torch, ic, rand((b, h, w, c)), rand((n, k, k, c)), (s, s), pad, (d, d),
+                        bias, name)
+    # +-127 everywhere at the widest K of the path (9 x 1408): the largest sums
+    for sign in (1, -1):
+        xq = torch.full((1, 4, 5, 1408), 127, dtype=torch.int8, device='cuda')
+        wq = torch.full((8, 3, 3, 1408), 127 * sign, dtype=torch.int8, device='cuda')
+        int8_conv_check(torch, ic, xq, wq, (1, 1), ((1, 1), (1, 1)), (1, 1), None, f'+-127 {sign}')
+        acc = ic.int8_conv2d(xq, wq, padding=((1, 1), (1, 1)))
+        check(int(acc[0, 1, 1, 0]) == sign * 9 * 1408 * 127 * 127, 'int8_conv2d: extreme sum')
+    cases = [c[0] for c in cases] + ['+-127 at K = 9 x 1408']
+    for shape, per_channel in (((3, 5, 7, 72), True), ((1, 1, 1, 3), False), ((2, 9, 13, 64), True)):
+        x = torch.randn(shape, generator=gen, device='cuda') * 40
+        inv = (torch.rand((shape[-1],) if per_channel else (), generator=gen, device='cuda') + 0.5)
+        for xx in (x, x.to(torch.bfloat16)):
+            check(torch.equal(ic.quantize_act(xx, inv), ic.quantize_act_plain(xx, inv)),
+                  f'int8_quantize {shape} {xx.dtype} per-channel {per_channel}: differs')
+    cases += ['quantize: per-channel scales, f32 and bf16, ragged sizes, saturation']
+
+    xq, wq = rand((2, 8, 8, 64)), rand((64, 3, 3, 64))
+    refusals = [
+        ('non-contiguous input', lambda: ic.int8_conv2d(xq.permute(0, 2, 1, 3), wq)),
+        ('float input', lambda: ic.int8_conv2d(xq.float(), wq)),
+        ('uint8 weights', lambda: ic.int8_conv2d(xq, wq.to(torch.uint8))),
+        ('channel mismatch', lambda: ic.int8_conv2d(xq, wq[..., :32].contiguous())),
+        ('bf16 scale', lambda: ic.int8_conv2d(xq, wq, scale=torch.ones(64, device='cuda',
+                                                                       dtype=torch.bfloat16),
+                                              out_dtype=torch.float32)),
+        ('CPU weights', lambda: ic.int8_conv2d(xq, wq.cpu())),
+        ('non-contiguous quantize input', lambda: ic.quantize_act(
+            torch.ones((2, 8, 8, 64), device='cuda').permute(0, 2, 1, 3), torch.ones((), device='cuda'))),
+        ('int8 quantize input', lambda: ic.quantize_act(xq, torch.ones((), device='cuda'))),
+        ('mismatched quantize scales', lambda: ic.quantize_act(
+            torch.ones((2, 8), device='cuda'), torch.ones((3,), device='cuda'))),
+    ]
+    for what, call in refusals:
+        try:
+            call()
+        except (TypeError, ValueError):
+            continue
+        fail(f'int8_conv2d accepted a {what}')
+    emit('int8_conv_edges', ok=True, cases=cases, refused=[r[0] for r in refusals])
+
+
+def int8_probe_phase(torch, ic, part):
+    """The int8 probes of tools/probe_pallas_int8.py at their shapes and seeds
+    (default_rng(0)), through the int8 conv kernel, bit-exact against an int64
+    reference: (a) the s8 GEMM [2560, 576] x [576, 64] as a 1x1 conv over 2560
+    pixels; (b) the 9-tap shifted accumulate sum_i x[m + s_i] . w_i as the
+    same kernel on the concatenation of the 9 shifted slices (the concat in
+    torch, timed with it); (c) the concat-576 dot, the same function, the
+    kernel alone on the concatenated slices. Beside (a), torch._int_mm."""
+    bw = CARD_PEAKS[part][0]
+    M, K, C = 2560, 576, 64
+    rng = np.random.default_rng(0)
+    a_np = rng.integers(-127, 128, (M, K), dtype=np.int8)
+    b_np = rng.integers(-127, 128, (K, C), dtype=np.int8)
+    R = M + 648
+    x_np = rng.integers(-127, 128, (R, C), dtype=np.int8)
+    w_np = rng.integers(-127, 128, (9, C, C), dtype=np.int8)
+    shifts = [0, 1, 2, 322, 323, 324, 644, 645, 646]
+    ref_a = a_np.astype(np.int64) @ b_np.astype(np.int64)
+    ref_b = sum(x_np[s:s + M].astype(np.int64) @ w_np[i].astype(np.int64)
+                for i, s in enumerate(shifts))
+
+    a = torch.from_numpy(a_np).cuda()
+    b = torch.from_numpy(b_np).cuda()
+    x = torch.from_numpy(x_np).cuda()
+    w576 = torch.from_numpy(np.concatenate(list(w_np), axis=0)).cuda()  # [576, 64]
+    wa = b.t().contiguous().view(C, 1, 1, K)
+    wb = w576.t().contiguous().view(C, 1, 1, 9 * C)
+
+    def gemm(lhs, wt):
+        return ic.int8_conv2d(lhs.view(1, 1, M, -1), wt).view(M, C)
+
+    def taps(xx):
+        return gemm(torch.cat([xx[s:s + M] for s in shifts], dim=1), wb)
+
+    cat = torch.cat([x[s:s + M] for s in shifts], dim=1)
+    outs = {'a': (gemm(a, wa), ref_a), 'b': (taps(x), ref_b), 'c': (gemm(cat, wb), ref_b)}
+    torch.cuda.synchronize()
+    for k, (got, ref) in outs.items():
+        check(np.array_equal(got.cpu().numpy().astype(np.int64), ref),
+              f'int8 probe ({k}): not bit-exact against the int64 reference')
+    gen = torch.Generator(device='cuda').manual_seed(14)
+    a_in = [torch.randint(-127, 128, (M, K), generator=gen, device='cuda', dtype=torch.int8)
+            for _ in range(N_KERNEL_RUNS)]
+    x_in = [torch.randint(-127, 128, (R, C), generator=gen, device='cuda', dtype=torch.int8)
+            for _ in range(N_KERNEL_RUNS)]
+    cat_in = [torch.cat([xx[s:s + M] for s in shifts], dim=1) for xx in x_in]
+    ops = 2 * M * K * C
+    nbytes = M * K + K * C + M * C * 4
+    bound = max(nbytes / bw, ops / int8_peak(part)) * 1e3
+    bound_by = 'bytes' if nbytes / bw >= ops / int8_peak(part) else 'operations'
+    res = {
+        'a': cuda_ms(lambda t: gemm(t, wa), a_in),
+        'b': cuda_ms(taps, x_in),
+        'c': cuda_ms(lambda t: gemm(t, wb), cat_in),
+    }
+    int_mm_ms = cuda_ms(lambda t: torch._int_mm(t, b), a_in)
+    plain_ms = cuda_ms(lambda t: ic.int8_conv2d_plain(t.view(1, 1, M, K), wa), a_in[:3], warmup=1)
+    out = dict(ms=res['a'], probe_ms=res, gops={k: ops / v / 1e6 for k, v in res.items()},
+               int_mm_ms=int_mm_ms, int_mm_gops=ops / int_mm_ms / 1e6, plain_ms=plain_ms,
+               bound_ms=bound, bound_by=bound_by, exact=True)
+    emit('int8_probe', shape=[M, K, C], **out)
+    return out
+
+
+def block_entry(system, path=('ResNet_0', 'layer1_0')):
+    from visualdet3d_tpu_torch.models.quant import collect_block_entries
+    return collect_block_entries(system.int8_quant)[path]
+
+
+def int8_block_check(torch, ib, xq, w1, w2, params, what):
+    """K8 against its plain version on the same inputs, f32 and bf16 out: the
+    gate of the JAX package's block test, at most 0.1% of the elements beyond
+    1e-4 of the output's scale and none beyond 0.02 of it (isolated int8
+    levels of h can flip at round ties; the s32 sums themselves are exact)."""
+    stats = {}
+    for dt in (torch.float32, torch.bfloat16):
+        got = ib.int8_basic_block(xq, w1, w2, params, dt).float()
+        ref = ib.int8_basic_block_plain(xq, w1, w2, params, dt).float()
+        torch.cuda.synchronize()
+        scale = float(ref.abs().max()) or 1.0
+        d = (got - ref).abs()
+        frac = float((d > 1e-4 * scale).float().mean())
+        check(frac <= 1e-3 and float(d.max()) <= 0.02 * scale,
+              f'int8_basic_block {what} {dt}: {frac:.2e} of the elements beyond 1e-4 of the scale '
+              f'{scale}, largest difference {float(d.max())}')
+        stats[str(dt).split('.')[-1]] = dict(frac_beyond=frac, max_abs_err=float(d.max()),
+                                             scale=scale, exact_share=float((d == 0).float().mean()))
+    return stats
+
+
+def int8_block_kernel_phase(torch, ib, system, layer1_input, part):
+    """K8 at the main path's geometry (batch 16: 32 x 72 x 320 x 64) on the
+    real layer1_0 entries and its real quantized input, against its plain
+    version; its time, the plain version's, two cuDNN bf16 3x3 convs of the
+    same shape (a yardstick, not the same function) and the bound."""
+    import torch.nn.functional as F
+    from visualdet3d_tpu_torch.ops.int8_conv import quantize_act
+    bw = CARD_PEAKS[part][0]
+    be = block_entry(system)
+    w1, w2 = be['e1']['kernel_q'], be['e2']['kernel_q']
+    params = ib.block_params(be['e1'], be['e2'], be['bn1_scale'], be['bn1_shift'],
+                             be['bn2_scale'], be['bn2_shift'])
+    inv = 1.0 / be['e1']['act_scale'].float()
+    x_nhwc = layer1_input.permute(0, 2, 3, 1).contiguous()
+    xq = quantize_act(x_nhwc, inv)
+    stats = int8_block_check(torch, ib, xq, w1, w2, params, 'layer1_0 at batch 16')
+    gen = torch.Generator(device='cuda').manual_seed(15)
+    xs = [xq] + [quantize_act(x_nhwc * (1 + 0.05 * torch.randn((), generator=gen, device='cuda')),
+                              inv) for _ in range(N_KERNEL_RUNS - 1)]
+    ms = cuda_ms(lambda t: ib.int8_basic_block(t, w1, w2, params, torch.bfloat16), xs)
+    plain_ms = cuda_ms(lambda t: ib.int8_basic_block_plain(t, w1, w2, params, torch.bfloat16),
+                       xs[:3], warmup=1)
+    xf = [t.permute(0, 3, 1, 2).to(torch.bfloat16) for t in xs]
+    wf1, wf2 = (w.permute(0, 3, 1, 2).to(torch.bfloat16) for w in (w1, w2))
+    cudnn_ms = cuda_ms(lambda t: F.conv2d(F.conv2d(t, wf1, padding=1), wf2, padding=1), xf)
+    b, h, w, c = xq.shape
+    ops = 2 * 2 * b * h * w * 9 * c * c
+    nbytes = b * h * w * c + 2 * 9 * c * c + 6 * c * 4 + b * h * w * c * 2
+    bytes_ms, ops_ms = nbytes / bw * 1e3, ops / int8_peak(part) * 1e3
+    out = dict(shape=[b, h, w, c], ms=ms, plain_ms=plain_ms, cudnn_bf16_two_convs_ms=cudnn_ms,
+               bound_ms=max(bytes_ms, ops_ms), bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms,
+               bound_by='bytes' if bytes_ms >= ops_ms else 'operations', tops=ops / ms / 1e9,
+               max_abs_err=stats['float32']['max_abs_err'], gate=stats)
+    emit('int8_block_kernel', kernel='int8_basic_block', **out)
+    return out
+
+
+def int8_block_edge_phase(torch, ib, system):
+    """K8 where tiles are ragged: H and W not multiples of the 8 x 32 tile,
+    batch 1, W = 1, H = 1; and the wrapper's refusals."""
+    be = block_entry(system)
+    w1, w2 = be['e1']['kernel_q'], be['e2']['kernel_q']
+    params = ib.block_params(be['e1'], be['e2'], be['bn1_scale'], be['bn1_shift'],
+                             be['bn2_scale'], be['bn2_shift'])
+    gen = torch.Generator(device='cuda').manual_seed(16)
+    cases = [(2, 13, 45), (1, 72, 320), (1, 9, 1), (3, 1, 70), (1, 8, 32), (2, 17, 33)]
+    for b, h, w in cases:
+        xq = torch.randint(-40, 41, (b, h, w, 64), generator=gen, device='cuda', dtype=torch.int8)
+        int8_block_check(torch, ib, xq, w1, w2, params, f'{b}x{h}x{w}')
+    xq = torch.randint(-40, 41, (2, 8, 8, 64), generator=gen, device='cuda', dtype=torch.int8)
+    refusals = [
+        ('32 channels', lambda: ib.int8_basic_block(xq[..., :32].contiguous(), w1, w2, params)),
+        ('non-contiguous input', lambda: ib.int8_basic_block(xq.permute(0, 2, 1, 3), w1, w2, params)),
+        ('float input', lambda: ib.int8_basic_block(xq.float(), w1, w2, params)),
+        ('bf16 params', lambda: ib.int8_basic_block(xq, w1, w2, params.to(torch.bfloat16))),
+        ('int8 output', lambda: ib.int8_basic_block(xq, w1, w2, params, torch.int8)),
+    ]
+    for what, call in refusals:
+        try:
+            call()
+        except (TypeError, ValueError):
+            continue
+        fail(f'int8_basic_block accepted a {what}')
+    emit('int8_block_edges', ok=True, cases=[f'{b}x{h}x{w}' for b, h, w in cases],
+         refused=[r[0] for r in refusals])
+
+
+def int8_slice_phase(torch, cv, ic, ib, system, mode):
+    """The int8 path (``entry.build_int8_system``) at batch 16 over distinct
+    request batches, ``mode`` one of 'int8' (every conv on its own),
+    'int8+K8' (``int8_block='pallas'``) or 'bfloat16' (the same folded
+    network in bf16, for comparison): ms per batch, fps, bs1 p50, peak
+    memory, valid detections, finite outputs, and the launches of B8, K8
+    and K1 in that run (the counts set to 0 just before it)."""
+    from visualdet3d_tpu_torch.entry import IMAGE_HW, KITTI_P2
+    from visualdet3d_tpu_torch.models.quant import collect_block_entries, flatten_quant
+    system.cfg.inference_dtype = 'bfloat16' if mode == 'bfloat16' else 'int8'
+    system.cfg.int8_block = 'pallas' if mode == 'int8+K8' else None
+    gen = torch.Generator(device='cuda').manual_seed(3)
+    batches = [(torch.randn((BATCH, *IMAGE_HW, 3), generator=gen, device='cuda'),
+                torch.randn((BATCH, *IMAGE_HW, 3), generator=gen, device='cuda'))
+               for _ in range(N_BATCHES + 1)]
+    P2 = torch.as_tensor(np.tile(KITTI_P2, (BATCH, 1, 1)), device='cuda')
+    system.predict(*batches[0], P2)  # warm-up: the int8 copy, cuDNN algorithm choice
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    for mod in (cv, ic, ib):
+        mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = [system.predict(left, right, P2) for left, right in batches[1:]]
+    torch.cuda.synchronize()
+    ms_batch = (time.perf_counter() - t0) * 1e3 / N_BATCHES
+    launches = {'int8_conv2d': ic.LAUNCHES['int8_conv2d'],
+                'int8_quantize': ic.LAUNCHES['int8_quantize'],
+                'int8_basic_block': ib.LAUNCHES['int8_basic_block'],
+                'correlation_volume_interleaved': cv.LAUNCHES['correlation_volume_interleaved']}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    n_convs = len(flatten_quant(system.int8_quant))
+    n_fused = sum(1 for be in collect_block_entries(system.int8_quant).values()
+                  if be['e1']['kernel_q'].shape[0] == 64)
+    expected = {'int8': (n_convs, 0), 'int8+K8': (n_convs - 2 * n_fused, n_fused),
+                'bfloat16': (0, 0)}[mode]
+    per_predict = {k: v / N_BATCHES for k, v in launches.items()}
+    check(per_predict['correlation_volume_interleaved'] == 2
+          and (per_predict['int8_conv2d'], per_predict['int8_basic_block']) == expected
+          and per_predict['int8_quantize'] == sum(expected),
+          f'{mode}: launches per predict {per_predict}, expected B8/K8 {expected}, one '
+          f'quantize for each and 2 K1')
+    if mode == 'int8+K8':
+        check(n_fused == 3, f'{mode}: {n_fused} fused 64-channel blocks, expected layer1\'s 3')
+    n_valid = [int(o['valid'].sum()) for o in outs]
+    for o in outs:
+        check(o['bboxes'].shape == (BATCH, 32, 11) and o['scores'].shape == (BATCH, 32),
+              f'{mode}: output shapes {o["bboxes"].shape} {o["scores"].shape}')
+        for key in ('scores', 'bboxes'):
+            check(bool(torch.isfinite(o[key]).all()), f'{mode}: non-finite {key}')
+    check(min(n_valid) > 0, f'{mode}: a batch with no valid detection {n_valid}')
+
+    P21 = P2[:1]
+    ones = [(left[:1].clone(), right[:1].clone()) for left, right in batches]
+    system.predict(*ones[0], P21)
+    lats = []
+    for i in range(N_BS1):
+        left, right = ones[i % len(ones)]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        system.predict(left, right, P21)
+        torch.cuda.synchronize()
+        lats.append((time.perf_counter() - t) * 1e3)
+
+    system.predict(*batches[1], P2)
+    torch.cuda.synchronize()
+    wall_ms, kernels, ops, device_ms = device_profile(torch, lambda: system.predict(*batches[1], P2))
+    result = dict(mode=mode, batch=BATCH, image_hw=list(IMAGE_HW), ms_per_batch=ms_batch,
+                  fps=BATCH / ms_batch * 1e3, bs1_p50_ms=statistics.median(lats), bs1_ms=lats,
+                  valid_per_batch=n_valid, launches=launches, launches_per_predict=per_predict,
+                  peak_memory_gb=peak_gb, profile_wall_ms=wall_ms, profile_device_ms=device_ms,
+                  device_busy_share=device_ms / wall_ms, top_ops=top_events(ops, 12),
+                  top_kernels=top_events(kernels, 12))
+    emit('int8_slice', **result)
+    return result, batches[1], P2
+
+
+def layer1_input(torch, system, batch, P2):
+    """The bf16 input of ResNet_0.layer1_0 in the int8 predict (a hook)."""
+    system.cfg.inference_dtype = 'int8'
+    system.cfg.int8_block = 'pallas'
+    net = system.inference_net()
+    got = []
+    h = net.ResNet_0.layer1_0.register_forward_pre_hook(lambda m, a: got.append(a[0].clone()))
+    system.predict(*batch, P2)
+    h.remove()
+    return got[0]
+
+
+def int8_parity_phase(torch):
+    """The artifact quantized once on the CPU (``build_int8_system(device=
+    'cpu')``) and moved to the card: the batch-1 int8 predict on the card
+    against the CPU's, self-calibrated.
+
+    An int8 network is chaotic at the level of its quantization noise: a
+    last-bit difference before a quantize flips an int8 level now and then,
+    and each flip moves the next layer's inputs enough to flip more. So the
+    floor is the CPU against itself on images of which 1% of the pixels
+    moved by one bf16 ulp. Gates: raw outputs within 1.5x that floor (and
+    within 5e-2 of their largest value, the JAX package's int8-against-f32
+    bound); the valid counts within 2; of the CPU's valid boxes, the share
+    the card matches (IoU > 0.7, score within 0.05, the JAX package's decode
+    gate box by box) at least the floor's share less 0.1, and at least half.
+    The card's int8 predict against its own f32 predict is held to the JAX
+    package's 5e-2 too.
+    """
+    from visualdet3d_tpu_torch.entry import IMAGE_HW, KITTI_P2, build_int8_system, build_system
+    t0 = time.perf_counter()
+    cpu = build_int8_system(device='cpu')
+    cpu_build_s = time.perf_counter() - t0
+    gpu = build_system(device='cuda')
+    gpu.net.load_state_dict({k: v.cuda() for k, v in cpu.net.state_dict().items()})
+    gpu.set_int8_quant(cpu.int8_quant)
+    rng = np.random.default_rng(4)
+    left = torch.from_numpy(rng.standard_normal((1, *IMAGE_HW, 3)).astype(np.float32))
+    right = torch.from_numpy(rng.standard_normal((1, *IMAGE_HW, 3)).astype(np.float32))
+    moved = torch.from_numpy(rng.random(left.shape) < 0.01)
+    left_moved = torch.where(moved, left.to(torch.bfloat16).float() * (1 + 2 ** -7), left)
+    P2 = torch.from_numpy(KITTI_P2[None])
+
+    def run(system, dtype, impl, images):
+        system.cfg.inference_dtype, system.cfg.int8_block = dtype, impl
+        raw = system.predict_raw(images, right)
+        out = system.decode(*raw, P2.to(system.device), IMAGE_HW, 32, default_nms_iou_thr=0.4)
+        return [t.float().cpu() for t in raw], {k: v[0].cpu() for k, v in out.items()}
+
+    def compare(got, ref):
+        (raw_g, out_g), (raw_r, out_r) = got, ref
+        rel = [float((g - r).abs().max() / r.abs().max()) for g, r in zip(raw_g, raw_r)]
+        vg, vr = out_g['valid'], out_r['valid']
+        bg, br = out_g['bboxes'][vg, :4], out_r['bboxes'][vr, :4]
+        lt = torch.maximum(br[:, None, :2], bg[None, :, :2])
+        rb = torch.minimum(br[:, None, 2:4], bg[None, :, 2:4])
+        inter = (rb - lt).clamp_min(0).prod(-1)
+        area = lambda x: (x[..., 2] - x[..., 0]) * (x[..., 3] - x[..., 1])
+        iou = inter / (area(br)[:, None] + area(bg)[None] - inter).clamp_min(1e-6)
+        score_ok = (out_r['scores'][vr][:, None] - out_g['scores'][vg][None]).abs() < 0.05
+        matched = ((iou > 0.7) & score_ok).any(1).float().mean() if len(bg) and len(br) else 0.0
+        return dict(raw_rel_err_cls_reg=rel, n_valid=[int(vg.sum()), int(vr.sum())],
+                    matched_share=float(matched))
+
+    result, failures = {}, []
+    for impl in (None, 'pallas'):
+        name = impl or 'per_conv'
+        t0 = time.perf_counter()
+        ref = run(cpu, 'int8', impl, left)
+        floor = compare(run(cpu, 'int8', impl, left_moved), ref)
+        cpu_s = time.perf_counter() - t0
+        card = compare(run(gpu, 'int8', impl, left), ref)
+        result[name] = dict(card_vs_cpu=card, cpu_vs_cpu_moved=floor, cpu_s=cpu_s)
+        raw_ok = all(e <= min(1.5 * f, 5e-2) for e, f in zip(card['raw_rel_err_cls_reg'],
+                                                             floor['raw_rel_err_cls_reg']))
+        n_g, n_c = card['n_valid']
+        if not (raw_ok and n_c > 0 and abs(n_g - n_c) <= 2
+                and card['matched_share'] >= max(floor['matched_share'] - 0.1, 0.5)):
+            failures.append(f'{name}: card {card} against the floor {floor}')
+    f32 = run(gpu, 'float32', None, left)
+    int8_vs_f32 = compare(run(gpu, 'int8', None, left), f32)
+    if max(int8_vs_f32['raw_rel_err_cls_reg']) > 5e-2:
+        failures.append(f'int8 against f32 on the card: {int8_vs_f32}')
+    emit('int8_parity', batch=1, cpu_build_s=cpu_build_s, card_int8_vs_card_f32=int8_vs_f32,
+         **result)
+    check(not failures, 'int8_parity: ' + '; '.join(failures))
+    del gpu
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1028,7 +1585,10 @@ def main() -> int:
         from visualdet3d_tpu_torch.entry import IMAGE_HW, build_system
         from visualdet3d_tpu_torch.ops import cost_volume as cv
         from visualdet3d_tpu_torch.ops import deform_conv as dc
+        from visualdet3d_tpu_torch.ops import int8_block as ib
+        from visualdet3d_tpu_torch.ops import int8_conv as ic
         from visualdet3d_tpu_torch.ops import kernel_build
+        from visualdet3d_tpu_torch.entry import build_int8_system
         from visualdet3d_tpu_torch.testing import calibrate_prediction_convs
     except ImportError as e:
         fail(f'cannot import the port ({e}); run from the root of the repository')
@@ -1041,7 +1601,7 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     part, peaks = card_peaks(name)
     t0 = time.perf_counter()
-    libs = kernel_build.build(['correlation', 'deform_conv'])
+    libs = kernel_build.build(['correlation', 'deform_conv', 'int8_conv', 'int8_block'])
     build_s = time.perf_counter() - t0
     ptxas = [line.strip() for so in libs.values()
              for line in so.with_name(so.name + '.log').read_text().splitlines()
@@ -1067,6 +1627,20 @@ def main() -> int:
     parity_phase(torch, system)
     del system
     torch.cuda.empty_cache()
+
+    int8_conv_edge_phase(torch, ic)
+    probe = int8_probe_phase(torch, ic, part)
+    system = build_int8_system(device='cuda')
+    int8_slices = {}
+    for mode in ('int8', 'int8+K8', 'bfloat16'):
+        int8_slices[mode], batch, P2 = int8_slice_phase(torch, cv, ic, ib, system, mode)
+    shapes = int8_conv_shapes(torch, system, (*batch, P2))
+    b8 = int8_conv_kernel_phase(torch, ic, shapes, part)
+    k8 = int8_block_kernel_phase(torch, ib, system, layer1_input(torch, system, batch, P2), part)
+    int8_block_edge_phase(torch, ib, system)
+    del system, batch
+    torch.cuda.empty_cache()
+    int8_parity_phase(torch)
 
     dcn = deform_kernel_phase(torch, dc, peaks)
     deform_edge_phase(torch, dc)
@@ -1131,6 +1705,43 @@ def main() -> int:
             per_forward='the backward of the 16 DCNs of one KM3D training step, batch 16 '
                         '(shapes weighted by count): 16 dx and 16 dW kernel launches',
             per_shape=r['per_shape']))
+    summary.append(dict(
+        name='int8_conv2d', route='cuda', source='visualdet3d_tpu_torch/csrc/int8_conv.cu',
+        replaces='visualdet3d_tpu/models/quant.py:295 (XLA s8 conv_general_dilated; no Pallas '
+                 'kernel)',
+        launches=int8_slices['int8']['launches']['int8_conv2d'],
+        launches_with_fused_blocks=int8_slices['int8+K8']['launches']['int8_conv2d'],
+        max_abs_err=b8['max_abs_err'], ms=b8['ms'], plain_ms=b8['plain_ms'],
+        bound_ms=b8['bound_ms'], bound_by=b8['bound_by'], library_ms=b8['library_ms'],
+        library='cuDNN bf16 conv of the same shapes (not the same function)',
+        per_forward='every quantized conv of one batch-16 int8 predict, bf16 out '
+                    '(shapes weighted by count)', per_shape=b8['per_shape']))
+    summary.append(dict(
+        name='int8_quantize', route='cuda', source='visualdet3d_tpu_torch/csrc/int8_conv.cu',
+        replaces='visualdet3d_tpu/models/quant.py:396 (XLA elementwise _quantize_act; no Pallas '
+                 'kernel)',
+        launches=int8_slices['int8']['launches']['int8_quantize'],
+        max_abs_err=0.0, ms=b8['quantize']['ms'], plain_ms=b8['quantize']['plain_ms'],
+        bound_ms=b8['quantize']['bound_ms'], bound_by='bytes', library_ms=None,
+        per_forward='the input of every quantized conv of one batch-16 int8 predict, bf16 in'))
+    summary.append(dict(
+        name='int8_conv2d[K9 probes]', route='cuda',
+        source='visualdet3d_tpu_torch/csrc/int8_conv.cu',
+        replaces='tools/probe_pallas_int8.py:34 (and :56, :85)',
+        launches=int8_slices['int8']['launches']['int8_conv2d'],
+        max_abs_err=0.0, ms=probe['ms'], plain_ms=probe['plain_ms'], bound_ms=probe['bound_ms'],
+        bound_by=probe['bound_by'], library_ms=probe['int_mm_ms'], library='torch._int_mm',
+        probe_ms=probe['probe_ms'], gops=probe['gops'],
+        per_forward='(a) [2560, 576] x [576, 64] s8 -> s32; launches: the same kernel on the '
+                    'int8 path'))
+    summary.append(dict(
+        name='int8_basic_block', route='cuda', source='visualdet3d_tpu_torch/csrc/int8_block.cu',
+        replaces='visualdet3d_tpu/ops/int8_block.py:54',
+        launches=int8_slices['int8+K8']['launches']['int8_basic_block'],
+        max_abs_err=k8['max_abs_err'], ms=k8['ms'], plain_ms=k8['plain_ms'],
+        bound_ms=k8['bound_ms'], bound_by=k8['bound_by'], library_ms=None,
+        cudnn_bf16_two_convs_ms=k8['cudnn_bf16_two_convs_ms'],
+        per_forward='one layer1 block at batch 16 (32 x 72 x 320 x 64), bf16 out'))
     print(json.dumps({'kernels': summary}), flush=True)
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': name,

@@ -6,8 +6,11 @@
 * The entry points (inference and the KM3D trainer) run on the card by
   default and raise without CUDA instead of running on the CPU.
 * Kernels build from the package's sources only (``csrc/correlation.cu``,
-  ``csrc/deform_conv.cu``), rebuild when a source changes, and raise when
-  ``nvcc`` is missing.
+  ``csrc/deform_conv.cu``, ``csrc/int8_conv.cu``, ``csrc/int8_block.cu``),
+  include nothing but CUDA's headers and the package's own, rebuild when a
+  source changes, and raise when ``nvcc`` is missing.
+* The int8 path has no ``try`` that catches: a kernel that fails to build or
+  launch raises, and never gives way to the plain version.
 """
 import ast
 import pathlib
@@ -128,7 +131,39 @@ def test_km3d_trainer_runs_on_the_cpu_when_asked():
 
 def test_every_kernel_source_is_in_the_package():
     names = sorted(p.stem for p in kernel_build.CSRC_DIR.glob('*.cu'))
-    assert names == ['correlation', 'deform_conv']
+    assert names == ['correlation', 'deform_conv', 'int8_block', 'int8_conv']
     for name in names:
         src = (kernel_build.CSRC_DIR / f'{name}.cu').read_text()
         assert 'extern "C"' in src and 'vd3d_cuda_error_string' in src
+
+
+def test_kernel_sources_include_only_cuda_and_their_own_headers():
+    own = {p.name for p in kernel_build.CSRC_DIR.glob('*.cuh')}
+    assert own == {'int8_common.cuh'}
+    for src in sorted(kernel_build.CSRC_DIR.glob('*.cu*')):
+        for line in src.read_text().splitlines():
+            if not line.startswith('#include'):
+                continue
+            header = line.split(None, 1)[1].strip()
+            if header.startswith('"'):
+                assert header.strip('"') in own, (src.name, header)
+            else:
+                assert not any(word in header for word in FORBIDDEN), (src.name, header)
+
+
+INT8_PATH = ('ops/int8_conv.py', 'ops/int8_block.py', 'models/quant.py', 'models/fold_bn.py')
+
+
+@pytest.mark.parametrize('module', INT8_PATH)
+def test_int8_path_has_no_catching_try(module):
+    tree = ast.parse((ROOT / 'visualdet3d_tpu_torch' / module).read_text())
+    handlers = [node.lineno for node in ast.walk(tree)
+                if isinstance(node, ast.Try) and node.handlers]
+    assert handlers == [], f'{module}: try with except at lines {handlers}'
+
+
+def test_int8_entry_point_raises_without_cuda(monkeypatch):
+    from visualdet3d_tpu_torch import entry as entry_lib
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        entry_lib.build_int8_system(int8_block='pallas')

@@ -8,7 +8,12 @@ Conv_0`` is ``ResNet_0.layer1_0.Conv_0``), so the bridge maps path for path:
   depthwise kernel ``[kh, kw, in/groups, out]`` takes the same transpose;
 * BatchNorm ``scale``/``bias`` -> ``weight``/``bias``, ``batch_stats``
   ``mean``/``var`` -> ``running_mean``/``running_var`` (eps 1e-5 on both
-  sides; flax momentum 0.9 is torch momentum 0.1, set by the modules).
+  sides; flax momentum 0.9 is torch momentum 0.1, set by the modules);
+* the int8 ``quant`` collection (``quant_from_flax``) -> the port's int8
+  artifact, keyed by flax path: ``kernel_q`` int8 HWIO -> int8
+  ``[C_out, kh, kw, C_in]`` (the layout the int8 conv kernel reads),
+  ``w_scale``, ``act_scale``, ``bias`` and each ``block_fuse`` entry's
+  ``bn{1,2}_scale``/``bn{1,2}_shift`` as f32.
 
 Leaves are read with ``numpy.asarray``, so a tree of numpy arrays (or of
 anything that converts to them) works; nothing of JAX is imported. The load
@@ -78,3 +83,29 @@ def load_flax_variables(module: nn.Module, variables: Mapping,
     state, skipped = flax_to_state_dict(variables, skip)
     module.load_state_dict(state, strict=True)
     return skipped
+
+
+def quant_from_flax(quant: Mapping) -> Dict[Tuple[str, ...], Dict[str, torch.Tensor]]:
+    """The JAX package's nested ``quant`` collection -> ``{flax path: entry}``
+    (the port's int8 artifact, ``models/quant.py``)."""
+    out: Dict[Tuple[str, ...], Dict[str, torch.Tensor]] = {}
+
+    def walk(node: Mapping, path: Tuple[str, ...]) -> None:
+        if 'kernel_q' in node or path[-1:] == ('block_fuse',):
+            entry = {}
+            for key, leaf in node.items():
+                arr = np.asarray(leaf)
+                if key == 'kernel_q':
+                    entry[key] = torch.tensor(np.ascontiguousarray(
+                        arr.astype(np.int8).transpose(3, 0, 1, 2)))
+                else:
+                    entry[key] = torch.tensor(np.asarray(arr, np.float32))
+            out[path] = entry
+            return
+        for key, value in node.items():
+            if not isinstance(value, Mapping):
+                raise KeyError(f'no int8 counterpart for quant leaf {"/".join(path + (key,))}')
+            walk(value, path + (str(key),))
+
+    walk(quant, ())
+    return out

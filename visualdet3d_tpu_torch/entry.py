@@ -6,6 +6,13 @@ CUDA correlation volumes, the concat volume, the pyramid, the 1408-channel
 head, decode and NMS, all on the card). Weights are random, made from a
 seed; the anchor priors are synthetic.
 
+``build_int8_system()`` is the same Stereo3D in int8, as
+``configs/stereo3d_int8.py`` runs it (``int8_all``): BN folded, activation
+scales calibrated on two batches of two standard-normal image pairs, the
+convs quantized; every selected conv on the CUDA int8 conv kernel, and with
+``int8_block='pallas'`` layer1's three identity blocks on the fused int8
+block kernel.
+
 ``build_km3d_system()`` is the KM3D system of ``configs/km3d.py`` (DLA-34,
 the DCN neck on the CUDA deformable-conv kernel, ``head_features=256``) for
 384x1280 images (``KM3D_IMAGE_HW``), random weights from a seed.
@@ -26,7 +33,8 @@ from visualdet3d_tpu_torch.device import resolve_device
 from visualdet3d_tpu_torch.ops.kernel_build import BUILD_DIR
 from visualdet3d_tpu_torch.registry import DETECTOR_DICT
 from visualdet3d_tpu_torch.testing import (
-    KITTI_P2, km3d_detector_cfg, km3d_train_cfg, stereo3d_detector_cfg, write_synthetic_priors)
+    KITTI_P2, calibrate_prediction_convs, int8_calibration_batches, km3d_detector_cfg,
+    km3d_train_cfg, stereo3d_detector_cfg, write_synthetic_priors)
 
 IMAGE_HW = (288, 1280)
 KM3D_IMAGE_HW = (384, 1280)
@@ -48,6 +56,30 @@ def build_system(depth: int = 34, device: Optional[Union[str, torch.device]] = N
     write_synthetic_priors(preprocessed, obj_types, num_ratios=3)  # stereo ratios (0.5, 1, 2)
     cfg = stereo3d_detector_cfg(preprocessed, obj_types=obj_types, depth=depth)
     return DETECTOR_DICT[cfg.name](cfg, device=device)
+
+
+def build_int8_system(int8_block=None, device: Optional[Union[str, torch.device]] = None):
+    """:func:`build_system`'s Stereo3D (depth 34) ready for int8 ``predict``
+    at 288x1280 on ``device`` (the card unless the caller names another).
+
+    The zero-initialised prediction convs are seeded first
+    (``testing.calibrate_prediction_convs`` on the first calibration batch,
+    so that decode has detections); then, as the JAX package's ``bench.py``
+    does: fold BN, ``int8_all``, calibrate on ``testing.int8_calibration_batches``
+    (two batches of two pairs, ``default_rng(0)``, KITTI P2) on the system's
+    device, quantize. ``int8_block`` is ``cfg.int8_block`` (None: every conv
+    on its own; ``'pallas'``: the fused block kernel; ``'xla'``: the chain)."""
+    device = resolve_device(device)
+    system = build_system(device=device)
+    batches = int8_calibration_batches(IMAGE_HW)
+    calibrate_prediction_convs(system, batches[0][0], batches[0][1],
+                               torch.Generator().manual_seed(5))
+    system.fold_inference_variables(IMAGE_HW)
+    system.cfg.int8_all = True
+    system.cfg.int8_block = int8_block
+    system.quantize_int8(system.calibrate_int8(batches))
+    system.cfg.inference_dtype = 'int8'
+    return system
 
 
 def build_km3d_system(device: Optional[Union[str, torch.device]] = None):

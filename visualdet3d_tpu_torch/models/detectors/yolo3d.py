@@ -24,7 +24,9 @@ class Yolo3DSystem(InferenceMixin):
 
     ``cfg.inference_dtype = 'bfloat16'`` runs the network in bf16 (decode
     and NMS stay f32, the logits stay bf16 until the top-K gather), as the
-    JAX package's ``_inference_cast`` does for its non-int8 dtypes.
+    JAX package's ``_inference_cast`` does; ``'int8'`` runs the int8 copy of
+    the folded network (``models/quant.py``: ``fold_inference_variables``,
+    ``calibrate_int8``, ``quantize_int8``) with a bf16 remainder.
     """
 
     def __init__(self, network_cfg, device: Optional[Union[str, torch.device]] = None):

@@ -166,8 +166,22 @@ class Stereo3D(Yolo3DSystem):
                 conv.bias.zero_()
         self.net = channels_last_(net.to(self.device)).eval()
 
+    # the prediction convs stay in floats unless cfg.int8_all
+    int8_deny = (('StereoHead_0', 'Conv_0'), ('StereoHead_0', '_ClsBranch_0', 'Conv_2'))
+
     def prediction_convs(self):
         return self.net.StereoHead_0.prediction_convs()
+
+    def _net_inputs(self, image_hw, batch_size: int = 1):
+        img = torch.zeros((batch_size, *image_hw, 3), device=self.device)
+        return self._images(img, torch.float32), self._images(img, torch.float32)
+
+    def int8_calib_inputs(self, batch):
+        return (batch['left_images'], batch['right_images'], batch['P2'])
+
+    def _calib_run(self, batch):
+        left, right = batch[:2]
+        return self.net(self._images(left, torch.float32), self._images(right, torch.float32))
 
     def _images(self, images: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         """[B, H, W, 3] images -> NCHW channels_last in ``dtype`` on the device."""
@@ -177,7 +191,9 @@ class Stereo3D(Yolo3DSystem):
     @torch.inference_mode()
     def predict_raw(self, left_images, right_images):
         """[B, H, W, 3] images -> raw (cls_preds [B, N, C+1], reg_preds
-        [B, N, 12]) in the inference dtype."""
+        [B, N, 12]) in the inference dtype ('int8': the int8 copy of the
+        network on bf16 images, the float remainder, the correlation
+        kernel among it, in bf16)."""
         net = self.inference_net()
         dtype = self.inference_dtype()
         return net(self._images(left_images, dtype), self._images(right_images, dtype))

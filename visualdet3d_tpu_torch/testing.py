@@ -134,6 +134,19 @@ def calibrate_prediction_convs(system, left_images, right_images,
     system.weights_changed()
 
 
+def int8_calibration_batches(image_hw, n_batches: int = 2, batch_size: int = 2, seed: int = 0):
+    """Calibration batches of the int8 stereo path as the JAX package's
+    ``bench.py`` draws them: ``n_batches`` tuples (left, right, P2) of
+    standard-normal f32 image pairs [batch_size, H, W, 3] from
+    ``np.random.default_rng(seed)`` (left, then right, per batch) and the
+    KITTI P2 (numpy)."""
+    rng = np.random.default_rng(seed)
+    P2 = np.tile(KITTI_P2, (batch_size, 1, 1))
+    return [(rng.standard_normal((batch_size, *image_hw, 3)).astype(np.float32),
+             rng.standard_normal((batch_size, *image_hw, 3)).astype(np.float32), P2)
+            for _ in range(n_batches)]
+
+
 def km3d_detector_cfg(obj_types=('Car',), head_features: int = 256, top_k: int = 100) -> edict:
     """The KM3D config (mirrors configs/km3d.py: DLA-34, the RTM3D head dict,
     ``head_features=256``, score_thr 0.1, NMS IoU 0.5, top-K 100)."""
