@@ -29,12 +29,27 @@ each printed as one JSON line:
    its time, the plain version's, a cuDNN dense 3x3 conv of the same shape
    as a reference point, and the bound; then the edge cases (samples wholly
    outside, exactly on -1 and H, ragged tiles, stride 2, dilation 2) and the
-   wrapper's refusals;
+   wrapper's refusals; dcn_alltaps_kernel, dcn_alltaps_edges: the all-taps
+   DCN kernel (K4) at the 16 neck shapes against its plain version and
+   against the per-tap kernel (bit for bit), with its time, the per-tap
+   kernel's and the bound, and edge cases; dcn_premul_kernel,
+   dcn_premul_edges: the lerp-accumulate kernel (K6) against its plain
+   version on the same pre-multiplied table (bit for bit) and the whole
+   premul op (cuBLAS table + K6) against its plain version at the 8 proj
+   shapes, with the times of the table, K6, the op and the per-tap kernel
+   on the same shapes, and edge cases;
 5. km3d_slice, km3d_profile, km3d_parity: ``KM3D.predict`` (DLA-34, the DCN
    neck, ``head_features=256``) at batch 16 in f32 and bf16 over distinct
    request batches, with exactly 16 DCN launches per ``predict``; a
    profiler breakdown with the DCN kernel's share; batch-1 f32 parity of
-   the card against the CPU;
+   the card against the CPU; km3d_dcn_variants: the bf16 predict under the
+   four settings of ``VD3D_DCN_ALLTAPS`` and ``VD3D_DCN_PREMUL`` (off,
+   all-taps, premul, both): fps, bs1 p50, the launches per predict of each
+   DCN forward kernel (16/0/0, 0/16/0, 8/0/8, 0/8/8 on per-tap/all-taps/
+   premul) and the DCN share of a profile; km3d_dcn_variants_parity: batch-1
+   bf16 under both switches against the CPU; then monoflex_slice,
+   monoflex_profile, monoflex_parity: the same for ``MonoFlex.predict``
+   (``entry.build_monoflex_system``);
 6. deform_bwd_kernel, deform_bwd_edges: the DCNv2 backward kernels against
    the plain backward (autograd through the plain forward) at the 7 neck
    shapes, batch 16, f32 and bf16, offsets and mask as channel slices of one
@@ -49,7 +64,10 @@ each printed as one JSON line:
    384x1280) over distinct synthetic batches: ms per step, img/s, exactly 16
    DCN forward, 16 dx and 16 dW backward launches per step, peak memory, a
    profiler breakdown of one step, and the loss falling over 10 steps on one
-   batch; one f32 step on the card against the same step on the CPU.
+   batch; one f32 step on the card against the same step on the CPU;
+   monoflex_train (bf16 mixed precision, then f32): the same for
+   ``entry.build_monoflex_trainer`` at batch 8, and in bf16 one step under
+   ``VD3D_DCN_ALLTAPS=1`` (all-taps forward, the backward kernels).
 8. int8 inference (``entry.build_int8_system``: Stereo3D at 288x1280, BN
    folded, calibrated, ``int8_all``): int8_conv_edges (the int8 conv kernel
    B8 and the activation quantize kernel against their plain versions on
@@ -75,7 +93,9 @@ that line.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -87,6 +107,7 @@ BATCH = 16
 N_BATCHES = 6     # distinct request batches per timed main-path run
 N_KERNEL_RUNS = 10  # distinct inputs per kernel timing
 N_BS1 = 12
+MONOFLEX_BATCH = 8  # configs/monoflex.py's training batch
 
 # (memory bytes/s, f32 FLOP/s outside the tensor cores, bf16 dense FLOP/s),
 # NVIDIA data sheets; the SXM part is the default
@@ -508,6 +529,327 @@ def deform_edge_phase(torch, dc):
     emit('deform_edges', ok=True, cases=sorted(set(cases)), refused=[r[0] for r in refusals])
 
 
+# ---------------------------------------------------------------------------
+# the DCN forward variants (slice 5): all taps per block (K4) and the
+# lerp-accumulate of the pre-multiplied table (K6)
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def dcn_switches(alltaps=False, premul=False):
+    """The JAX package's switches ``VD3D_DCN_ALLTAPS`` and ``VD3D_DCN_PREMUL``
+    set (or cleared) inside a ``with`` block, restored after."""
+    values = {'VD3D_DCN_ALLTAPS': alltaps, 'VD3D_DCN_PREMUL': premul}
+    saved = {key: os.environ.pop(key, None) for key in values}
+    os.environ.update({key: '1' for key, on in values.items() if on})
+    try:
+        yield
+    finally:
+        for key, value in saved.items():
+            os.environ.pop(key, None)
+            if value is not None:
+                os.environ[key] = value
+
+
+def dcn_bf16_check(torch, dc, args, weight, out, ref, pre, what, **conv):
+    """The gate of a bf16 DCN kernel against the plain version: per element,
+    one bf16 ulp of the plain pre-bias output plus one of the output (the
+    sampled values are rounded identically and bf16 products are exact in
+    f32, so the two differ by the order of the f32 sum, which can flip the
+    rounding of the pre-bias output and then of the bias add), plus the
+    f32 summation bound of the two sums, 2 n 2^-23 sum|terms| (n = K C_in
+    products; 2^-23 covers the tensor cores' accumulation as well as the
+    IEEE one): where the K C_in products cancel to an output far below
+    their sizes, the orders alone move the result by bf16 ulps of that
+    small output. sum|terms| is bounded by the plain version on |x| and
+    |W| (the lerp weights and the mask are not negative)."""
+    check(out.shape == ref.shape and out.dtype == ref.dtype == torch.bfloat16,
+          f'{what}: {tuple(out.shape)} {out.dtype} against {tuple(ref.shape)} {ref.dtype}')
+    x, offset, mask = args
+    n = weight.shape[0] * weight.shape[1] * weight.shape[2]
+    mag = dc.modulated_deform_conv_plain(x.abs(), offset, mask, weight.abs(), None,
+                                         **conv).float()
+    err = (out.float() - ref.float()).abs()
+    ok = bool((err <= bf16_ulp(pre.float()) + bf16_ulp(ref.float())
+               + 2 * n * 2.0 ** -23 * mag).all())
+    check(ok, f'{what}: max abs err {float(err.max())} outside one bf16 ulp of the plain '
+              f'pre-bias output + one of the output + the f32 summation bound')
+    return float(err.max())
+
+
+def alltaps_check(torch, dc, args, weight, bias, what, **conv):
+    """K4 against the plain version (``dcn_bf16_check``) and against the
+    per-tap kernel B4 (bits); returns (max abs err to plain, max abs
+    diff to B4, whether K4 and B4 are equal bit for bit)."""
+    out = dc.modulated_deform_conv_alltaps(*args, weight, bias, **conv)
+    ref = dc.modulated_deform_conv_plain(*args, weight, bias, **conv)
+    pre = dc.modulated_deform_conv_plain(*args, weight, None, **conv)
+    with dcn_switches():
+        b4 = dc.modulated_deform_conv(*args, weight, bias, **conv)
+    torch.cuda.synchronize()
+    err = dcn_bf16_check(torch, dc, args, weight, out, ref, pre, what, **conv)
+    return err, float((out.float() - b4.float()).abs().max()), bool(torch.equal(out, b4))
+
+
+def dcn_alltaps_kernel_phase(torch, dc, peaks):
+    """K4 (all taps and every output channel of a pixel tile per block)
+    against its plain version and against B4 at the 16 neck shapes, batch
+    16, bf16; its time, B4's, the plain version's and the bound (that of
+    B4: the same function)."""
+    bw, _, bf16_peak = peaks
+    gen = torch.Generator(device='cuda').manual_seed(31)
+    tot = dict(ms=0.0, b4_ms=0.0, plain_ms=0.0, bytes_ms=0.0, ops_ms=0.0, max_abs_err=0.0,
+               max_abs_diff_b4=0.0, bitwise_equal_b4=True, per_shape={})
+    for count, h, w, c_in, c_out in DCN_SHAPES:
+        for train in (False, True):
+            with dcn_switches(alltaps=True):
+                variant = dc.forward_variant(h * w, c_in, c_out, torch.bfloat16, train)
+            check(variant == 'alltaps', f'alltaps gate: {h}x{w} {c_in}->{c_out} train={train} '
+                                        f'takes {variant}')
+        runs, weight, bias = dcn_inputs(torch, gen, BATCH, h, w, c_in, c_out, torch.bfloat16,
+                                        N_KERNEL_RUNS)
+        what = f'modulated_deform_conv_alltaps bf16 {h}x{w} {c_in}->{c_out}'
+        err, diff, equal = alltaps_check(torch, dc, runs[0], weight, bias, what)
+        ms = cuda_ms(lambda a: dc.modulated_deform_conv_alltaps(*a, weight, bias), runs)
+        with dcn_switches():
+            b4_ms = cuda_ms(lambda a: dc.modulated_deform_conv(*a, weight, bias), runs)
+        plain_ms = cuda_ms(lambda a: dc.modulated_deform_conv_plain(*a, weight, bias), runs[:3],
+                           warmup=1)
+        pixels = BATCH * h * w
+        n_bytes = 2 * (pixels * (c_in + 27 + c_out) + 9 * c_in * c_out + c_out)
+        n_flops = 2 * pixels * 9 * c_in * c_out
+        bytes_ms, ops_ms = n_bytes / bw * 1e3, n_flops / bf16_peak * 1e3
+        shape = dict(count=count, x=[BATCH, h, w, c_in], c_out=c_out, ms=ms, b4_ms=b4_ms,
+                     plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+                     bound_by='bytes' if bytes_ms >= ops_ms else 'operations',
+                     max_abs_err=err, max_abs_diff_b4=diff, bitwise_equal_b4=equal,
+                     tflops=n_flops / (ms * 1e-3) / 1e12)
+        tot['per_shape'][f'{h}x{w} {c_in}->{c_out}'] = shape
+        for key, v in (('ms', ms), ('b4_ms', b4_ms), ('plain_ms', plain_ms),
+                       ('bytes_ms', bytes_ms), ('ops_ms', ops_ms)):
+            tot[key] += count * v
+        tot['max_abs_err'] = max(tot['max_abs_err'], err)
+        tot['max_abs_diff_b4'] = max(tot['max_abs_diff_b4'], diff)
+        tot['bitwise_equal_b4'] = tot['bitwise_equal_b4'] and equal
+        emit('dcn_alltaps_kernel', kernel='modulated_deform_conv_alltaps', dtype='bf16',
+             tolerance='one bf16 ulp of the plain pre-bias output + one of the output + '
+                       '2 n 2^-23 sum|terms|', bytes=n_bytes, flops=n_flops, **shape)
+        del runs
+    tot['bound_ms'] = max(tot['bytes_ms'], tot['ops_ms'])
+    tot['bound_by'] = 'bytes' if tot['bytes_ms'] >= tot['ops_ms'] else 'operations'
+    emit('dcn_alltaps_kernel_per_forward', dtype='bf16', dcn_launches=DCN_PER_FORWARD,
+         **{k: v for k, v in tot.items() if k != 'per_shape'})
+    return tot
+
+
+def dcn_alltaps_edge_phase(torch, dc):
+    """K4 on what the neck shapes do not reach, against its plain version
+    and B4: samples wholly outside, on -1, H - 1 and H, C_out not a
+    multiple of 8 (scalar weight loads) and past 256 (two column groups),
+    C_in not a multiple of 8 (scalar gathers), batch 1, stride 2, dilation
+    2, an unaligned x; and the wrapper's refusal of f32."""
+    gen = torch.Generator(device='cuda').manual_seed(32)
+    bf16 = torch.bfloat16
+    cases, equal = [], []
+    for name, (b, h, w, c_in, c_out), conv, off_std, far in (
+            ('offsets of 20-40 px: wholly outside, output = bias', (2, 10, 14, 64, 64), {}, 0.0,
+             1.0),
+            ('C_out 70: two tiles, scalar weight loads', (2, 7, 9, 64, 70), {}, 2.0, 0.05),
+            ('C_out 320: two column groups', (1, 9, 15, 64, 320), {}, 2.0, 0.05),
+            ('C_in 33: scalar gathers, C_out 5', (2, 7, 9, 33, 5), {}, 3.0, 0.05),
+            ('batch 1, 135 px, C_out 192', (1, 9, 15, 128, 192), {}, 2.0, 0.05),
+            ('stride 2', (2, 10, 14, 64, 64), dict(stride=2), 2.0, 0.05),
+            ('dilation 2', (2, 10, 14, 64, 64), dict(padding=2, dilation=2), 2.0, 0.05)):
+        ho, wo = dc.output_hw(h, w, 3, 3, conv.get('stride', 1), conv.get('padding', 1),
+                              conv.get('dilation', 1))
+        runs, weight, bias = dcn_inputs(torch, gen, b, h, w, c_in, c_out, bf16, 1, ho=ho, wo=wo,
+                                        off_std=off_std, far=far)
+        _, _, eq = alltaps_check(torch, dc, runs[0], weight, bias, f'alltaps edge {name}', **conv)
+        cases.append(name)
+        equal.append(eq)
+    runs, weight, bias = dcn_inputs(torch, gen, 1, 6, 7, 64, 64, bf16, 1, off_std=0.0, far=0.0)
+    x, off, mask = runs[0]
+    off = off.float()
+    off[0, 0, 0, 0::2] = torch.tensor([0, 0, 0, -1, 0, 0, 6, 5, 4.0], device='cuda')
+    off[0, 3, 3, 1::2] = torch.tensor([-3, 3.5, 2, -1, 0, 0, 0.5, 0, 0], device='cuda')
+    _, _, eq = alltaps_check(torch, dc, (x, off.to(bf16), mask), weight, bias, 'alltaps edge -1/H')
+    cases.append('samples on -1, H - 1 and H')
+    equal.append(eq)
+    shifted = torch.empty(x.numel() + 1, dtype=bf16, device='cuda')[1:].view(x.shape)
+    shifted.copy_(x)
+    _, _, eq = alltaps_check(torch, dc, (shifted, off.to(bf16), mask), weight, bias,
+                             'alltaps edge unaligned x')
+    cases.append('x base off 16-byte alignment')
+    equal.append(eq)
+    try:
+        dc.modulated_deform_conv_alltaps(x.float(), off, mask.float(), weight.float(),
+                                         bias.float())
+    except TypeError:
+        pass
+    else:
+        fail('modulated_deform_conv_alltaps took float32 instead of raising TypeError')
+    emit('dcn_alltaps_edges', ok=True, cases=cases, bitwise_equal_b4=equal,
+         refused=['float32'])
+
+
+# the proj DCNs of the neck (C_out < C_in): those the premul variant takes
+DCN_PROJ_SHAPES = tuple(s for s in DCN_SHAPES if s[4] < s[3])
+
+
+def premul_check(torch, dc, args, weight, bias, what, **conv):
+    """K6 against its plain lerp-accumulate on the same table (bit for
+    bit), and the whole premul op (cuBLAS table + K6) against its plain
+    version: at least 99% of the elements within 2 bf16 ulps and every one
+    within 3% of max|out| (the JAX package's gate for two bf16 DCN
+    formulations; the cuBLAS table may differ from the plain one by an ulp
+    where the two sum C_in products in other orders). Returns (share within
+    2 ulps, max abs err of the op)."""
+    kh, kw = weight.shape[:2]
+    y = dc.premul_table(args[0], weight)
+    out = dc.premul_lerp_accumulate(y, *args[1:], bias, (kh, kw), **conv)
+    ref = dc.premul_lerp_accumulate_plain(y, *args[1:], bias, (kh, kw), **conv)
+    torch.cuda.synchronize()
+    check(out.shape == ref.shape and out.dtype == ref.dtype == torch.bfloat16,
+          f'{what}: {tuple(out.shape)} {out.dtype} against {tuple(ref.shape)} {ref.dtype}')
+    if not torch.equal(out, ref):
+        diff = (out.float() - ref.float()).abs()
+        fail(f'{what}: the lerp-accumulate kernel differs from its plain version on the same '
+             f'table at {int((diff > 0).sum())} elements, max {float(diff.max())}')
+    op = dc.modulated_deform_conv_premul(*args, weight, bias, **conv)
+    plain = dc.modulated_deform_conv_premul_plain(*args, weight, bias, **conv)
+    err = (op.float() - plain.float()).abs()
+    share = float((err <= 2 * bf16_ulp(plain.float())).float().mean())
+    max_err = float(err.max())
+    check(share >= 0.99 and max_err <= 0.03 * float(plain.float().abs().max()) + 1e-6,
+          f'{what}: the premul op against its plain version: {share:.4f} of the elements within '
+          f'2 bf16 ulps, max abs err {max_err}')
+    return share, max_err
+
+
+def dcn_premul_kernel_phase(torch, dc, peaks):
+    """K6 against its plain lerp-accumulate (bits) and the premul op against
+    its plain version at the 8 proj shapes of the neck, batch 16, bf16; the
+    time of the table's matmul, of K6, of the op, of B4 on the same shapes,
+    of K6's plain version (on the same tables) and of the op's, and K6's
+    bound (bytes)."""
+    bw, f32_peak, bf16_peak = peaks
+    gen = torch.Generator(device='cuda').manual_seed(33)
+    tot = dict(ms=0.0, table_ms=0.0, op_ms=0.0, b4_ms=0.0, plain_ms=0.0, op_plain_ms=0.0,
+               bytes_ms=0.0,
+               ops_ms=0.0, table_bound_ms=0.0, max_abs_err=0.0, min_share_2ulp=1.0,
+               per_shape={})
+    for count, h, w, c_in, c_out in DCN_PROJ_SHAPES:
+        with dcn_switches(premul=True):
+            variant = dc.forward_variant(h * w, c_in, c_out, torch.bfloat16)
+            check(variant == 'premul', f'premul gate: {h}x{w} {c_in}->{c_out} takes {variant}')
+            train_variant = dc.forward_variant(h * w, c_in, c_out, torch.bfloat16, train=True)
+            check(train_variant == 'per_tap', f'premul gate: {h}x{w} {c_in}->{c_out} train '
+                                              f'takes {train_variant}')
+        runs, weight, bias = dcn_inputs(torch, gen, BATCH, h, w, c_in, c_out, torch.bfloat16,
+                                        N_KERNEL_RUNS)
+        what = f'premul bf16 {h}x{w} {c_in}->{c_out}'
+        share, err = premul_check(torch, dc, runs[0], weight, bias, what)
+        tables = [dc.premul_table(a[0], weight) for a in runs]
+        table_ms = cuda_ms(lambda a: dc.premul_table(a[0], weight), runs)
+        ms = cuda_ms(lambda i: dc.premul_lerp_accumulate(tables[i], *runs[i][1:], bias),
+                     list(range(len(runs))))
+        plain_ms = cuda_ms(lambda i: dc.premul_lerp_accumulate_plain(tables[i], *runs[i][1:],
+                                                                     bias), [0, 1, 2], warmup=1)
+        del tables
+        op_ms = cuda_ms(lambda a: dc.modulated_deform_conv_premul(*a, weight, bias), runs)
+        with dcn_switches():
+            b4_ms = cuda_ms(lambda a: dc.modulated_deform_conv(*a, weight, bias), runs)
+        op_plain_ms = cuda_ms(lambda a: dc.modulated_deform_conv_premul_plain(*a, weight, bias),
+                              runs[:3], warmup=1)
+        pixels = BATCH * h * w
+        # K6: the table read once, offsets + mask, the output, the bias;
+        # 10 f32 operations a (pixel, tap, channel): 6 products, 4 sums
+        n_bytes = 2 * (pixels * 9 * c_out + pixels * 27 + pixels * c_out + c_out)
+        n_flops = 10 * pixels * 9 * c_out
+        bytes_ms, ops_ms = n_bytes / bw * 1e3, n_flops / f32_peak * 1e3
+        table_bound = max(2 * (pixels * c_in + 9 * c_in * c_out + pixels * 9 * c_out) / bw,
+                          2 * pixels * c_in * 9 * c_out / bf16_peak) * 1e3
+        shape = dict(count=count, x=[BATCH, h, w, c_in], c_out=c_out, ms=ms, table_ms=table_ms,
+                     op_ms=op_ms, b4_ms=b4_ms, plain_ms=plain_ms, op_plain_ms=op_plain_ms,
+                     bound_ms=max(bytes_ms, ops_ms),
+                     bound_by='bytes' if bytes_ms >= ops_ms else 'operations',
+                     table_bound_ms=table_bound, max_abs_err=err, share_within_2ulp=share,
+                     lerp_accum_bitwise_equal_plain=True,
+                     achieved_gbps=n_bytes / (ms * 1e-3) / 1e9)
+        tot['per_shape'][f'{h}x{w} {c_in}->{c_out}'] = shape
+        for key, v in (('ms', ms), ('table_ms', table_ms), ('op_ms', op_ms), ('b4_ms', b4_ms),
+                       ('plain_ms', plain_ms), ('op_plain_ms', op_plain_ms),
+                       ('bytes_ms', bytes_ms), ('ops_ms', ops_ms),
+                       ('table_bound_ms', table_bound)):
+            tot[key] += count * v
+        tot['max_abs_err'] = max(tot['max_abs_err'], err)
+        tot['min_share_2ulp'] = min(tot['min_share_2ulp'], share)
+        emit('dcn_premul_kernel', kernel='modulated_deform_conv_premul_accum', dtype='bf16',
+             tolerance='K6 equal to its plain lerp-accumulate on the same table; the op >= 99% '
+                       'within 2 bf16 ulps of its plain version, all within 3% of max|out|',
+             bytes=n_bytes, flops=n_flops, **shape)
+        del runs
+        torch.cuda.empty_cache()
+    tot['bound_ms'] = max(tot['bytes_ms'], tot['ops_ms'])
+    tot['bound_by'] = 'bytes' if tot['bytes_ms'] >= tot['ops_ms'] else 'operations'
+    emit('dcn_premul_kernel_per_forward', dtype='bf16',
+         dcn_launches=sum(s[0] for s in DCN_PROJ_SHAPES),
+         **{k: v for k, v in tot.items() if k != 'per_shape'})
+    return tot
+
+
+def dcn_premul_edge_phase(torch, dc):
+    """K6 (bits against its plain lerp-accumulate) and the premul op on
+    what the proj shapes do not reach: samples wholly outside, on -1, H - 1
+    and H, C_out not a multiple of 8 (scalar loads), batch 1, stride 2,
+    dilation 2, a table whose base is off 16-byte alignment (scalar loads);
+    and the wrapper's refusals."""
+    gen = torch.Generator(device='cuda').manual_seed(34)
+    bf16 = torch.bfloat16
+    cases = []
+    for name, (b, h, w, c_in, c_out), conv, off_std, far in (
+            ('offsets of 20-40 px: wholly outside, output = bias', (2, 10, 14, 128, 64), {},
+             0.0, 1.0),
+            ('C_out 5: scalar loads', (2, 7, 9, 16, 5), {}, 3.0, 0.05),
+            ('batch 1, 135 px, C_out 256', (1, 9, 15, 512, 256), {}, 2.0, 0.05),
+            ('stride 2', (2, 10, 14, 128, 64), dict(stride=2), 2.0, 0.05),
+            ('dilation 2', (2, 10, 14, 128, 64), dict(padding=2, dilation=2), 2.0, 0.05)):
+        ho, wo = dc.output_hw(h, w, 3, 3, conv.get('stride', 1), conv.get('padding', 1),
+                              conv.get('dilation', 1))
+        runs, weight, bias = dcn_inputs(torch, gen, b, h, w, c_in, c_out, bf16, 1, ho=ho, wo=wo,
+                                        off_std=off_std, far=far)
+        premul_check(torch, dc, runs[0], weight, bias, f'premul edge {name}', **conv)
+        cases.append(name)
+    runs, weight, bias = dcn_inputs(torch, gen, 1, 6, 7, 128, 64, bf16, 1, off_std=0.0, far=0.0)
+    x, off, mask = runs[0]
+    off = off.float()
+    off[0, 0, 0, 0::2] = torch.tensor([0, 0, 0, -1, 0, 0, 6, 5, 4.0], device='cuda')
+    off[0, 3, 3, 1::2] = torch.tensor([-3, 3.5, 2, -1, 0, 0, 0.5, 0, 0], device='cuda')
+    off = off.to(bf16)
+    premul_check(torch, dc, (x, off, mask), weight, bias, 'premul edge -1/H')
+    cases.append('samples on -1, H - 1 and H')
+    y = dc.premul_table(x, weight)
+    shifted = torch.empty(y.numel() + 1, dtype=bf16, device='cuda')[1:].view(y.shape)
+    shifted.copy_(y)
+    out = dc.premul_lerp_accumulate(shifted, off, mask, bias)
+    ref = dc.premul_lerp_accumulate_plain(shifted, off, mask, bias)
+    check(torch.equal(out, ref), 'premul edge unaligned table: the kernel differs from its plain '
+                                 'version')
+    cases.append('table base off 16-byte alignment')
+    refusals = (
+        ('a float32 table', TypeError, lambda: dc.premul_lerp_accumulate(y.float(), off, mask)),
+        ('a table of the wrong width', ValueError,
+         lambda: dc.premul_lerp_accumulate(y[..., :-1].contiguous(), off, mask)),
+        ('a CPU mask', ValueError, lambda: dc.premul_lerp_accumulate(y, off, mask.cpu())),
+    )
+    for name, exc, fn in refusals:
+        try:
+            fn()
+        except exc:
+            continue
+        fail(f'premul_lerp_accumulate took {name} instead of raising {exc.__name__}')
+    emit('dcn_premul_edges', ok=True, cases=cases, refused=[r[0] for r in refusals])
+
+
 def bwd_check(torch, dc, args, weight, grad, what, **conv):
     """The backward kernel against the plain backward (autograd through the
     plain forward) on the card, per gradient (dx, d_offset, d_mask, dW).
@@ -706,12 +1048,14 @@ def deform_module_grad_phase(torch):
          tolerance='norm-wise ||card - cpu|| / ||cpu|| <= 1e-4 per tensor', rel_err=errors)
 
 
-def build_km3d(torch):
-    """The published KM3D on the card, random weights from seed 0, its
-    offset convs seeded (std 2 px) and its head calibrated on 4 images."""
-    from visualdet3d_tpu_torch.entry import KM3D_IMAGE_HW, build_km3d_system
+def build_km3d(torch, model='km3d'):
+    """The published KM3D (or MonoFlex) on the card, random weights from
+    seed 0, its offset convs seeded (std 2 px) and its head calibrated on 4
+    images."""
+    from visualdet3d_tpu_torch import entry
+    from visualdet3d_tpu_torch.entry import KM3D_IMAGE_HW
     from visualdet3d_tpu_torch.testing import calibrate_head_convs, seed_offset_convs
-    system = build_km3d_system(device='cuda')
+    system = getattr(entry, f'build_{model}_system')(device='cuda')
     gen = torch.Generator().manual_seed(13)
     calib = torch.randn((4, *KM3D_IMAGE_HW, 3), generator=gen).cuda()
     seed_offset_convs(system, gen, 2.0, calib)
@@ -719,9 +1063,14 @@ def build_km3d(torch):
     return system
 
 
-def km3d_slice_phase(torch, dc, system, dtype_name):
-    """KM3D.predict at batch 16 over distinct request batches; exactly 16
-    DCN launches per predict."""
+DCN_FORWARD_KERNELS = ('modulated_deform_conv', 'modulated_deform_conv_alltaps',
+                       'modulated_deform_conv_premul_accum')
+
+
+def km3d_slice_phase(torch, dc, system, dtype_name, phase='km3d_slice'):
+    """KM3D.predict (or MonoFlex's) at batch 16 over distinct request
+    batches; exactly 16 DCN launches per predict, all on the per-tap
+    kernel (the switches are off)."""
     from visualdet3d_tpu_torch.entry import KITTI_P2, KM3D_IMAGE_HW
     system.cfg.inference_dtype = dtype_name
     gen = torch.Generator(device='cuda').manual_seed(14)
@@ -737,12 +1086,15 @@ def km3d_slice_phase(torch, dc, system, dtype_name):
     outs = [system.predict(images, P2) for images in batches[1:]]
     torch.cuda.synchronize()
     ms_batch = (time.perf_counter() - t0) * 1e3 / N_BATCHES
-    launches = dc.LAUNCHES['modulated_deform_conv']
+    by_kernel = {k: dc.LAUNCHES[k] for k in DCN_FORWARD_KERNELS}
+    launches = by_kernel['modulated_deform_conv']
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    check(launches == DCN_PER_FORWARD * N_BATCHES,
-          f'km3d {dtype_name}: {launches} DCN launches for {N_BATCHES} predict calls '
-          f'(expected {DCN_PER_FORWARD} per call)')
+    check(by_kernel == {'modulated_deform_conv': DCN_PER_FORWARD * N_BATCHES,
+                        'modulated_deform_conv_alltaps': 0,
+                        'modulated_deform_conv_premul_accum': 0},
+          f'{phase} {dtype_name}: DCN launches {by_kernel} for {N_BATCHES} predict calls '
+          f'(expected {DCN_PER_FORWARD} per call on the per-tap kernel)')
     n_valid = [int(o['valid'].sum()) for o in outs]
     for o in outs:
         check(o['bboxes'].shape == (BATCH, 32, 11) and o['scores'].shape == (BATCH, 32),
@@ -766,13 +1118,14 @@ def km3d_slice_phase(torch, dc, system, dtype_name):
                   bs1_p50_ms=statistics.median(lats), bs1_ms=lats,
                   valid_per_batch=n_valid, launches=launches,
                   launches_per_predict=launches / N_BATCHES, peak_memory_gb=peak_gb)
-    emit('km3d_slice', **result)
+    emit(phase, **result)
     return result, batches[1], P2
 
 
-def km3d_profile_phase(torch, system, images, P2, dtype_name):
-    """Device time by op and kernel for one batch-16 KM3D predict, the busy
-    share, and the DCN kernel's share of the device time."""
+def km3d_profile_phase(torch, system, images, P2, dtype_name, phase='km3d_profile'):
+    """Device time by op and kernel for one batch-16 KM3D (or MonoFlex)
+    predict, the busy share, and the DCN kernel's share of the device
+    time."""
     system.cfg.inference_dtype = dtype_name
     system.predict(images, P2)
     torch.cuda.synchronize()
@@ -781,22 +1134,23 @@ def km3d_profile_phase(torch, system, images, P2, dtype_name):
     dcn_ms = sum(e.self_device_time_total for e in dcn) / 1e3
     check(sum(e.count for e in dcn) == DCN_PER_FORWARD,
           f'km3d profile: {sum(e.count for e in dcn)} DCN kernels in one predict')
-    emit('km3d_profile', dtype=dtype_name, wall_ms=wall_ms, device_ms=device_ms,
+    emit(phase, dtype=dtype_name, wall_ms=wall_ms, device_ms=device_ms,
          device_busy_share=device_ms / wall_ms, dcn_kernel_ms=dcn_ms,
          dcn_share_of_device=dcn_ms / device_ms, top_ops=top_events(ops, 12),
          top_kernels=top_events(kernels, 12))
 
 
-def km3d_parity_phase(torch, system):
-    """Batch 1, f32, TF32 off: the card's KM3D against the same weights on
-    the CPU. The same valid set and labels; 2D boxes, dimensions and alpha
+def km3d_parity_phase(torch, system, model='km3d'):
+    """Batch 1, f32, TF32 off: the card's KM3D (or MonoFlex) against the
+    same weights on the CPU. The same valid set and labels; 2D boxes, dimensions and alpha
     within rtol = atol = 1e-3 and the 3D centre within rtol 1e-2 (cuDNN and
     oneDNN sum the convs in different orders; the centre comes from a 3x3
     least-squares solve and a division by depth); raw maps within 1e-3 of
     their largest value."""
-    from visualdet3d_tpu_torch.entry import KITTI_P2, KM3D_IMAGE_HW, build_km3d_system
+    from visualdet3d_tpu_torch import entry
+    from visualdet3d_tpu_torch.entry import KITTI_P2, KM3D_IMAGE_HW
     system.cfg.inference_dtype = 'float32'
-    cpu = build_km3d_system(device='cpu')
+    cpu = getattr(entry, f'build_{model}_system')(device='cpu')
     cpu.net.load_state_dict({k: v.cpu() for k, v in system.net.state_dict().items()})
     cpu.weights_changed()
     rng = np.random.default_rng(15)
@@ -808,26 +1162,136 @@ def km3d_parity_phase(torch, system):
     raw_cpu = cpu.predict_raw(image)
     raw_err = {k: float((raw_gpu[k] - raw_cpu[k]).abs().max() / raw_cpu[k].abs().max())
                for k in raw_cpu}
-    check(max(raw_err.values()) <= 1e-3, f'km3d parity: raw maps differ {raw_err}')
+    check(max(raw_err.values()) <= 1e-3, f'{model} parity: raw maps differ {raw_err}')
     valid = out_cpu['valid']
     n_valid = int(valid.sum())
-    check(n_valid > 0, 'km3d parity: no valid detection at batch 1')
+    check(n_valid > 0, f'{model} parity: no valid detection at batch 1')
     check(torch.equal(out_gpu['valid'], valid),
-          f'km3d parity: valid sets differ: gpu {out_gpu["valid"].nonzero().tolist()} '
+          f'{model} parity: valid sets differ: gpu {out_gpu["valid"].nonzero().tolist()} '
           f'cpu {valid.nonzero().tolist()}')
     check(torch.equal(out_gpu['labels'][valid], out_cpu['labels'][valid]),
-          'km3d parity: labels differ')
+          f'{model} parity: labels differ')
     g, c = out_gpu['bboxes'][valid], out_cpu['bboxes'][valid]
     other = [i for i in range(11) if i not in (4, 5, 6)]
     box_ok = torch.allclose(g[:, other], c[:, other], rtol=1e-3, atol=1e-3)
     centre_ok = torch.allclose(g[:, 4:7], c[:, 4:7], rtol=1e-2, atol=1e-3)
     box_err = float((g[:, other] - c[:, other]).abs().max())
     centre_rel = float(((g[:, 4:7] - c[:, 4:7]).abs() / c[:, 4:7].abs().clamp_min(1e-3)).max())
-    check(box_ok and centre_ok, f'km3d parity: boxes differ by up to {box_err}, '
+    check(box_ok and centre_ok, f'{model} parity: boxes differ by up to {box_err}, '
                                 f'centres by {centre_rel} relative')
-    emit('km3d_parity', batch=1, dtype='float32', tf32=False, n_valid=n_valid,
+    emit(f'{model}_parity', batch=1, dtype='float32', tf32=False, n_valid=n_valid,
          max_box_abs_err=box_err, max_centre_rel_err=centre_rel, raw_rel_err=raw_err,
          max_score_abs_err=float((out_gpu['scores'] - out_cpu['scores']).abs().max()))
+
+
+# setting of the switches -> (dcn_switches arguments, launches per predict of
+# the per-tap, all-taps and premul kernels)
+DCN_VARIANT_SETTINGS = {
+    'off': ({}, (16, 0, 0)),
+    'alltaps': ({'alltaps': True}, (0, 16, 0)),
+    'premul': ({'premul': True}, (8, 0, 8)),
+    'both': ({'alltaps': True, 'premul': True}, (0, 8, 8)),
+}
+DCN_KERNEL_NAMES = {'modulated_deform_conv': 'deform_conv_kernel<',
+                    'modulated_deform_conv_alltaps': 'deform_conv_alltaps_kernel<',
+                    'modulated_deform_conv_premul_accum': 'premul_lerp_accum_kernel<'}
+
+
+def km3d_dcn_variants_phase(torch, dc, system):
+    """KM3D.predict in bf16 at batch 16, 384x1280, under the four settings
+    of the switches (off, all-taps, premul, both), each over the same
+    N_BATCHES distinct request batches: ms per batch, fps, batch-1 p50, the
+    launches per predict of each DCN forward kernel (16/0/0, 0/16/0, 8/0/8,
+    0/8/8 for per-tap/all-taps/premul), and a profile of one predict with
+    the DCN kernels' share of the device time."""
+    from visualdet3d_tpu_torch.entry import KITTI_P2, KM3D_IMAGE_HW
+    system.cfg.inference_dtype = 'bfloat16'
+    gen = torch.Generator(device='cuda').manual_seed(35)
+    batches = [torch.randn((BATCH, *KM3D_IMAGE_HW, 3), generator=gen, device='cuda')
+               for _ in range(N_BATCHES + 1)]
+    P2 = torch.as_tensor(np.tile(KITTI_P2, (BATCH, 1, 1)), device='cuda')
+    ones = [images[:1].clone() for images in batches]
+    results = {}
+    for setting, (switches, expected) in DCN_VARIANT_SETTINGS.items():
+        with dcn_switches(**switches):
+            system.predict(batches[0], P2)  # warm-up
+            torch.cuda.synchronize()
+            dc.reset_launch_counts()
+            t0 = time.perf_counter()
+            outs = [system.predict(images, P2) for images in batches[1:]]
+            torch.cuda.synchronize()
+            ms_batch = (time.perf_counter() - t0) * 1e3 / N_BATCHES
+            launches = {k: dc.LAUNCHES[k] for k in DCN_FORWARD_KERNELS}
+            per_predict = tuple(launches[k] / N_BATCHES for k in DCN_FORWARD_KERNELS)
+            check(per_predict == expected,
+                  f'km3d_dcn_variants {setting}: launches per predict {per_predict} of '
+                  f'{DCN_FORWARD_KERNELS} (expected {expected})')
+            n_valid = [int(o['valid'].sum()) for o in outs]
+            check(min(n_valid) > 0 and all(bool(torch.isfinite(o['bboxes']).all()) for o in outs),
+                  f'km3d_dcn_variants {setting}: valid detections {n_valid} or non-finite boxes')
+            system.predict(ones[0], P2[:1])
+            lats = []
+            for i in range(N_BS1):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                system.predict(ones[i % len(ones)], P2[:1])
+                torch.cuda.synchronize()
+                lats.append((time.perf_counter() - t) * 1e3)
+            wall_ms, kernels, ops, device_ms = device_profile(
+                torch, lambda: system.predict(batches[1], P2))
+        dcn_ms = {k: sum(e.self_device_time_total for e in kernels if name in e.key) / 1e3
+                  for k, name in DCN_KERNEL_NAMES.items()}
+        dcn_calls = {k: sum(e.count for e in kernels if name in e.key)
+                     for k, name in DCN_KERNEL_NAMES.items()}
+        check(tuple(dcn_calls[k] for k in DCN_FORWARD_KERNELS) == expected,
+              f'km3d_dcn_variants {setting} profile: DCN kernels in one predict {dcn_calls}')
+        results[setting] = dict(
+            setting=setting, dtype='bfloat16', batch=BATCH, image_hw=list(KM3D_IMAGE_HW),
+            ms_per_batch=ms_batch, fps=BATCH / ms_batch * 1e3,
+            bs1_p50_ms=statistics.median(lats), valid_per_batch=n_valid, launches=launches,
+            launches_per_predict=dict(zip(DCN_FORWARD_KERNELS, per_predict)),
+            profile_wall_ms=wall_ms, device_ms=device_ms, device_busy_share=device_ms / wall_ms,
+            dcn_kernel_ms=dcn_ms, dcn_share_of_device=sum(dcn_ms.values()) / device_ms,
+            top_kernels=top_events(kernels, 10))
+        emit('km3d_dcn_variants', **results[setting])
+    del batches, ones
+    return results
+
+
+def km3d_dcn_variants_parity_phase(torch, system):
+    """Batch 1, bf16, both switches set: the card's KM3D (K4 at the node
+    DCNs, cuBLAS + K6 at the proj DCNs) against the same weights on the CPU
+    (the plain versions). Each raw map within a norm-wise 3e-2 of the CPU's
+    (the bf16 gate of the CPU tests) or, where more, 1.5x the CPU's own bf16
+    distance to its f32 forward (the bf16 noise floor; cuDNN and oneDNN
+    round bf16 convs at other places); every box finite; the valid counts
+    reported."""
+    from visualdet3d_tpu_torch.entry import KITTI_P2, KM3D_IMAGE_HW, build_km3d_system
+    cpu = build_km3d_system(device='cpu')
+    cpu.net.load_state_dict({k: v.cpu() for k, v in system.net.state_dict().items()})
+    cpu.weights_changed()
+    rng = np.random.default_rng(36)
+    image = torch.from_numpy(rng.standard_normal((1, *KM3D_IMAGE_HW, 3)).astype(np.float32))
+    P2 = torch.from_numpy(KITTI_P2[None])
+    system.cfg.inference_dtype = cpu.cfg.inference_dtype = 'bfloat16'
+    with dcn_switches(alltaps=True, premul=True):
+        raw_gpu = {k: v.float().cpu() for k, v in system.predict_raw(image).items()}
+        raw_cpu = {k: v.float() for k, v in cpu.predict_raw(image).items()}
+        out_gpu = {k: v.cpu() for k, v in system.predict(image, P2).items()}
+        out_cpu = cpu.predict(image, P2)
+    cpu.cfg.inference_dtype = 'float32'
+    raw_f32 = cpu.predict_raw(image)
+    err, floor = {}, {}
+    for k, ref in raw_cpu.items():
+        err[k] = float((raw_gpu[k] - ref).norm() / ref.norm())
+        floor[k] = float((ref - raw_f32[k]).norm() / raw_f32[k].norm())
+    bad = {k: (err[k], floor[k]) for k in err if err[k] > max(3e-2, 1.5 * floor[k])}
+    check(not bad, f'km3d_dcn_variants_parity: raw maps differ beyond the gate (err, floor) {bad}')
+    check(bool(torch.isfinite(out_gpu['bboxes']).all()), 'km3d_dcn_variants_parity: boxes')
+    emit('km3d_dcn_variants_parity', batch=1, dtype='bfloat16', switches='both',
+         tolerance='norm-wise per raw map <= max(3e-2, 1.5 x the CPU bf16-to-f32 distance)',
+         raw_rel_err=err, raw_rel_err_floor=floor,
+         n_valid_card=int(out_gpu['valid'].sum()), n_valid_cpu=int(out_cpu['valid'].sum()))
 
 
 N_TRAIN_WARMUP = 2   # warm-up steps before a timed training run
@@ -835,33 +1299,41 @@ N_FALL_STEPS = 10    # steps on one repeated batch, in which the loss must fall
 TRAIN_EPOCH = 10.0   # the epoch fed to the loss (rampup weight of the position terms)
 
 
-def train_batches(torch, n, batch_size, image_hw, seed):
-    """n distinct synthetic KM3D training batches (ported target builder,
-    numpy generator ``seed``), moved to the card before any timing."""
-    from visualdet3d_tpu_torch.testing import km3d_training_batch
+def train_batches(torch, n, batch_size, image_hw, seed, model='km3d'):
+    """n distinct synthetic KM3D (or MonoFlex) training batches (the ported
+    target builder, numpy generator ``seed``), moved to the card before any
+    timing."""
+    from visualdet3d_tpu_torch import testing
+    make = getattr(testing, f'{model}_training_batch')
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(n):
-        b = km3d_training_batch(rng, batch_size, image_hw)
+        b = make(rng, batch_size, image_hw)
         out.append({'images': torch.as_tensor(b['images'], device='cuda'),
                     'P2': torch.as_tensor(b['P2'], device='cuda'),
                     'gts': {k: torch.as_tensor(v, device='cuda') for k, v in b['gts'].items()}})
     return out
 
 
-def km3d_train_phase(torch, dc, compute_dtype):
-    """The KM3D training step (``build_km3d_trainer``) at batch 16,
-    384x1280: ms per step and img/s over N_BATCHES distinct batches after
-    N_TRAIN_WARMUP warm-up steps, ending in ``synchronize()``; the DCN
-    forward and backward launches of that run (16 forward, 16 dx, 16 dW per
-    step); peak memory; a profiler breakdown of one step; then N_FALL_STEPS
-    steps on one repeated batch, in which the loss must fall."""
-    from visualdet3d_tpu_torch.entry import KM3D_IMAGE_HW, build_km3d_trainer
+def km3d_train_phase(torch, dc, compute_dtype, model='km3d', batch_size=BATCH):
+    """The KM3D (or MonoFlex) training step (``build_km3d_trainer``,
+    ``build_monoflex_trainer``) at ``batch_size``, 384x1280: ms per step and
+    img/s over N_BATCHES distinct batches after N_TRAIN_WARMUP warm-up
+    steps, ending in ``synchronize()``; the DCN forward and backward
+    launches of that run (16 forward on the per-tap kernel, 16 dx, 16 dW
+    per step); peak memory; a profiler breakdown of one step; then
+    N_FALL_STEPS steps on one repeated batch, in which the loss must fall;
+    for MonoFlex, then one step under ``VD3D_DCN_ALLTAPS=1``, whose 16
+    forward launches go to the all-taps kernel and whose backward to K7."""
+    from visualdet3d_tpu_torch import entry
+    from visualdet3d_tpu_torch.entry import KM3D_IMAGE_HW
     from visualdet3d_tpu_torch.testing import prepare_km3d_for_training
     name = compute_dtype or 'float32'
-    system, state, step = build_km3d_trainer(device='cuda', compute_dtype=compute_dtype,
-                                             batch_size=BATCH)
-    batches = train_batches(torch, N_TRAIN_WARMUP + N_BATCHES, BATCH, KM3D_IMAGE_HW, seed=24)
+    phase = f'{model}_train'
+    system, state, step = getattr(entry, f'build_{model}_trainer')(
+        device='cuda', compute_dtype=compute_dtype, batch_size=batch_size)
+    batches = train_batches(torch, N_TRAIN_WARMUP + N_BATCHES, batch_size, KM3D_IMAGE_HW,
+                            seed=24, model=model)
     # running statistics set to the batch's, offsets of std 2 px, the head
     # calibrated: every DCN interpolates, the position solve is well posed
     prepare_km3d_for_training(system, batches[0]['images'][:4],
@@ -878,19 +1350,24 @@ def km3d_train_phase(torch, dc, compute_dtype):
     ms_step = (time.perf_counter() - t0) * 1e3 / N_BATCHES
     launches = dict(dc.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    check(launches == dict.fromkeys(dc.LAUNCHES, DCN_PER_FORWARD * N_BATCHES),
-          f'km3d_train {name}: {launches} DCN launches for {N_BATCHES} steps (expected '
-          f'{DCN_PER_FORWARD} forward, {DCN_PER_FORWARD} dx and {DCN_PER_FORWARD} dW per step)')
+    per_step = {'modulated_deform_conv': DCN_PER_FORWARD, 'modulated_deform_conv_alltaps': 0,
+                'modulated_deform_conv_premul_accum': 0,
+                'modulated_deform_conv_backward_input': DCN_PER_FORWARD,
+                'modulated_deform_conv_backward_weight': DCN_PER_FORWARD}
+    check(launches == {k: v * N_BATCHES for k, v in per_step.items()},
+          f'{phase} {name}: {launches} DCN launches for {N_BATCHES} steps (expected '
+          f'{DCN_PER_FORWARD} per-tap forward, {DCN_PER_FORWARD} dx and {DCN_PER_FORWARD} dW '
+          f'per step)')
     losses = [float(m['total']) for m in metrics]
-    check(all(np.isfinite(losses)), f'km3d_train {name}: non-finite losses {losses}')
+    check(all(np.isfinite(losses)), f'{phase} {name}: non-finite losses {losses}')
     check(state.optimizer.count == state.step == N_TRAIN_WARMUP + N_BATCHES,
-          f'km3d_train {name}: {state.optimizer.count} updates in {state.step} steps')
+          f'{phase} {name}: {state.optimizer.count} updates in {state.step} steps')
     for p in system.net.parameters():
         check(p.dtype == torch.float32 and bool(torch.isfinite(p).all()),
-              f'km3d_train {name}: a master parameter is {p.dtype} or non-finite')
+              f'{phase} {name}: a master parameter is {p.dtype} or non-finite')
     for buf in system.net.buffers():
         check(not buf.is_floating_point() or buf.dtype == torch.float32,
-              f'km3d_train {name}: a running statistic is {buf.dtype}')
+              f'{phase} {name}: a running statistic is {buf.dtype}')
 
     wall_ms, kernels, ops, device_ms = device_profile(
         torch, lambda: step(batches[N_TRAIN_WARMUP], TRAIN_EPOCH))
@@ -899,24 +1376,37 @@ def km3d_train_phase(torch, dc, compute_dtype):
                         'deform_conv_bwd_weight_kernel')}
     counts = {kind: sum(e.count for e in evs) for kind, evs in dcn.items()}
     check(all(c == DCN_PER_FORWARD for c in counts.values()),
-          f'km3d_train {name} profile: DCN kernels in one step {counts}')
+          f'{phase} {name} profile: DCN kernels in one step {counts}')
     dcn_ms = {kind: sum(e.self_device_time_total for e in evs) / 1e3 for kind, evs in dcn.items()}
 
     # the loss on one repeated batch falls
     fall = [float(step(batches[-1], TRAIN_EPOCH)['total']) for _ in range(N_FALL_STEPS)]
     check(all(np.isfinite(fall)) and fall[-1] < fall[0],
-          f'km3d_train {name}: the loss did not fall over {N_FALL_STEPS} steps on one batch: {fall}')
-    result = dict(compute_dtype=name, batch=BATCH, image_hw=list(KM3D_IMAGE_HW),
-                  ms_per_step=ms_step, img_per_s=BATCH / ms_step * 1e3, losses=losses,
+          f'{phase} {name}: the loss did not fall over {N_FALL_STEPS} steps on one batch: {fall}')
+    alltaps = None
+    if model == 'monoflex' and compute_dtype == 'bfloat16':
+        # one step with the all-taps switch (bf16 DCNs): K4 forward, K7 backward
+        dc.reset_launch_counts()
+        with dcn_switches(alltaps=True):
+            loss = float(step(batches[0], TRAIN_EPOCH)['total'])
+        torch.cuda.synchronize()
+        alltaps = dict(dc.LAUNCHES)
+        want = dict(per_step, modulated_deform_conv=0,
+                    modulated_deform_conv_alltaps=DCN_PER_FORWARD)
+        check(alltaps == want and np.isfinite(loss),
+              f'{phase} {name}: one step under VD3D_DCN_ALLTAPS=1 launched {alltaps} '
+              f'(expected {want}), loss {loss}')
+    result = dict(compute_dtype=name, batch=batch_size, image_hw=list(KM3D_IMAGE_HW),
+                  ms_per_step=ms_step, img_per_s=batch_size / ms_step * 1e3, losses=losses,
                   launches=launches, launches_per_step={k: v / N_BATCHES for k, v in launches.items()},
                   peak_memory_gb=peak_gb, profile_wall_ms=wall_ms, device_ms=device_ms,
                   device_busy_share=device_ms / wall_ms,
                   device_busy_share_of_timed_step=device_ms / ms_step, dcn_kernel_ms=dcn_ms,
                   dcn_kernels_per_step=counts,
                   dcn_share_of_device=sum(dcn_ms.values()) / device_ms,
-                  loss_on_one_batch=fall, top_ops=top_events(ops, 14),
-                  top_kernels=top_events(kernels, 14))
-    emit('km3d_train', **result)
+                  loss_on_one_batch=fall, launches_of_one_alltaps_step=alltaps,
+                  top_ops=top_events(ops, 14), top_kernels=top_events(kernels, 14))
+    emit(phase, **result)
     del system, state, step, batches
     torch.cuda.empty_cache()
     return result
@@ -1644,15 +2134,26 @@ def main() -> int:
 
     dcn = deform_kernel_phase(torch, dc, peaks)
     deform_edge_phase(torch, dc)
-    km3d = build_km3d(torch)
-    km3d_slices = {}
-    for dtype_name in ('float32', 'bfloat16'):
-        km3d_slices[dtype_name], batch, P2 = km3d_slice_phase(torch, dc, km3d, dtype_name)
-        km3d_profile_phase(torch, km3d, batch, P2, dtype_name)
-        del batch
-    km3d_parity_phase(torch, km3d)
-    del km3d
-    torch.cuda.empty_cache()
+    alltaps = dcn_alltaps_kernel_phase(torch, dc, peaks)
+    dcn_alltaps_edge_phase(torch, dc)
+    premul = dcn_premul_kernel_phase(torch, dc, peaks)
+    dcn_premul_edge_phase(torch, dc)
+    slices_of = {}
+    for model in ('km3d', 'monoflex'):
+        system = build_km3d(torch, model)
+        slices_of[model] = {}
+        for dtype_name in ('float32', 'bfloat16'):
+            slices_of[model][dtype_name], batch, P2 = km3d_slice_phase(
+                torch, dc, system, dtype_name, phase=f'{model}_slice')
+            km3d_profile_phase(torch, system, batch, P2, dtype_name, phase=f'{model}_profile')
+            del batch
+        km3d_parity_phase(torch, system, model)
+        if model == 'km3d':
+            variants = km3d_dcn_variants_phase(torch, dc, system)
+            km3d_dcn_variants_parity_phase(torch, system)
+        del system
+        torch.cuda.empty_cache()
+    km3d_slices = slices_of['km3d']
 
     dcn_bwd = deform_bwd_kernel_phase(torch, dc, peaks)
     deform_bwd_edge_phase(torch, dc)
@@ -1660,6 +2161,8 @@ def main() -> int:
     trains = {name: km3d_train_phase(torch, dc, cd)
               for name, cd in (('bfloat16', 'bfloat16'), ('float32', None))}
     km3d_train_parity_phase(torch)
+    monoflex_trains = {name: km3d_train_phase(torch, dc, cd, 'monoflex', MONOFLEX_BATCH)
+                       for name, cd in (('bfloat16', 'bfloat16'), ('float32', None))}
 
     dtype_of = {'f32': 'float32', 'bf16': 'bfloat16'}
     replaces = {  # the TPU kernel bodies _corr_kernel_eyes and _corr_kernel
@@ -1685,12 +2188,47 @@ def main() -> int:
             name=f'modulated_deform_conv[{dt}]', route='cuda',
             source='visualdet3d_tpu_torch/csrc/deform_conv.cu', replaces=dcn_replaces[dt],
             launches=km3d_slices[dtype_of[dt]]['launches'],
+            launches_monoflex=slices_of['monoflex'][dtype_of[dt]]['launches'],
             max_abs_err=r['max_abs_err'], ms=r['ms'], plain_ms=r['plain_ms'],
             bound_ms=r['bound_ms'], bound_by=r['bound_by'], library_ms=None,
             dense_conv_ms=r['dense_conv_ms'],
             launches_in_training=trains[dtype_of[dt]]['launches']['modulated_deform_conv'],
+            launches_in_monoflex_training=monoflex_trains[dtype_of[dt]]['launches'][
+                'modulated_deform_conv'],
             per_forward='the 16 DCNs of one KM3D forward, batch 16 (shapes weighted by count)',
             per_shape=r['per_shape']))
+    summary.append(dict(  # the TPU kernel body _lerp_matmul_alltaps_kernel
+        name='modulated_deform_conv_alltaps[bf16]', route='cuda',
+        source='visualdet3d_tpu_torch/csrc/deform_conv.cu',
+        replaces='visualdet3d_tpu/ops/deform_conv.py:255',
+        launches=variants['alltaps']['launches']['modulated_deform_conv_alltaps'],
+        launches_under_both_switches=variants['both']['launches'][
+            'modulated_deform_conv_alltaps'],
+        launches_in_one_monoflex_step=monoflex_trains['bfloat16'][
+            'launches_of_one_alltaps_step']['modulated_deform_conv_alltaps'],
+        max_abs_err=alltaps['max_abs_err'], ms=alltaps['ms'], plain_ms=alltaps['plain_ms'],
+        bound_ms=alltaps['bound_ms'], bound_by=alltaps['bound_by'], library_ms=None,
+        b4_ms=alltaps['b4_ms'], max_abs_diff_b4=alltaps['max_abs_diff_b4'],
+        bitwise_equal_b4=alltaps['bitwise_equal_b4'],
+        per_forward='the 16 DCNs of one KM3D forward, batch 16 (shapes weighted by count); '
+                    'launches: 6 KM3D bf16 predicts under VD3D_DCN_ALLTAPS=1',
+        per_shape=alltaps['per_shape']))
+    summary.append(dict(  # the TPU kernel body _lerp_accum_kernel
+        name='modulated_deform_conv_premul_accum[bf16]', route='cuda',
+        source='visualdet3d_tpu_torch/csrc/deform_conv.cu',
+        replaces='visualdet3d_tpu/ops/deform_conv.py:418',
+        launches=variants['premul']['launches']['modulated_deform_conv_premul_accum'],
+        launches_under_both_switches=variants['both']['launches'][
+            'modulated_deform_conv_premul_accum'],
+        max_abs_err=0.0, ms=premul['ms'], plain_ms=premul['plain_ms'],
+        bound_ms=premul['bound_ms'], bound_by=premul['bound_by'], library_ms=None,
+        table_matmul_ms=premul['table_ms'], table_bound_ms=premul['table_bound_ms'],
+        premul_op_ms=premul['op_ms'], premul_op_plain_ms=premul['op_plain_ms'],
+        premul_op_max_abs_err=premul['max_abs_err'], b4_ms_same_shapes=premul['b4_ms'],
+        per_forward='the 8 proj DCNs of one KM3D forward, batch 16 (shapes weighted by '
+                    'count), given the table; launches: 6 KM3D bf16 predicts under '
+                    'VD3D_DCN_PREMUL=1',
+        per_shape=premul['per_shape']))
     for dt, r in dcn_bwd.items():  # the TPU kernel body _lerp_matmul_bwd_kernel (bf16)
         bwd_launches = {k: trains[dtype_of[dt]]['launches'][f'modulated_deform_conv_backward_{k}']
                         for k in ('input', 'weight')}
@@ -1699,6 +2237,9 @@ def main() -> int:
             source='visualdet3d_tpu_torch/csrc/deform_conv.cu',
             replaces='visualdet3d_tpu/ops/deform_conv.py:663',
             launches=sum(bwd_launches.values()), launches_by_kernel=bwd_launches,
+            launches_in_monoflex_training={
+                k: monoflex_trains[dtype_of[dt]]['launches'][f'modulated_deform_conv_backward_{k}']
+                for k in ('input', 'weight')},
             max_abs_err=r['max_abs_err'], ms=r['ms'], plain_ms=r['plain_ms'],
             bound_ms=r['bound_ms'], bound_by=r['bound_by'], library_ms=None,
             dx_atomic_adds=r['atomics'],

@@ -53,6 +53,17 @@ from visualdet3d_tpu_torch.ops import int8_conv as ic
 from visualdet3d_tpu_torch.registry import DETECTOR_DICT
 import visualdet3d_tpu_torch.models  # noqa: F401
 
+@pytest.fixture(scope='module', autouse=True)
+def one_torch_thread():
+    """Torch on one intra-op thread while this module runs: the tier-1 run
+    puts six workers on one machine, where torch's spinning thread pool
+    costs several times its work (the tensors here are small)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 HW = (64, 160)
 ENV = ('VD3D_INT8_ALL', 'VD3D_INT8_S2D', 'VD3D_INT8_MINCH', 'VD3D_INT8_BLOCK',
        'VD3D_INT8_BLOCK_MAXCH')

@@ -52,6 +52,17 @@ from visualdet3d_tpu_torch.ops import nms as nms_lib
 from visualdet3d_tpu_torch.registry import DETECTOR_DICT
 import visualdet3d_tpu_torch.models  # noqa: F401
 
+@pytest.fixture(scope='module', autouse=True)
+def one_torch_thread():
+    """Torch on one intra-op thread while this module runs: the tier-1 run
+    puts six workers on one machine, where torch's spinning thread pool
+    costs several times its work (the tensors here are small)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 BOX_TOL = dict(rtol=1e-3, atol=1e-3)
 CENTRE_TOL = dict(rtol=1e-2, atol=1e-3)

@@ -62,6 +62,17 @@ from visualdet3d_tpu_torch.registry import DETECTOR_DICT, PIPELINE_DICT
 from visualdet3d_tpu_torch.solver.optimizers import build_optimizer, make_lr_schedule
 import visualdet3d_tpu_torch.models  # noqa: F401
 
+@pytest.fixture(scope='module', autouse=True)
+def one_torch_thread():
+    """Torch on one intra-op thread while this module runs: the tier-1 run
+    puts six workers on one machine, where torch's spinning thread pool
+    costs several times its work (the tensors here are small)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # the JAX package's ops/__init__ exports a function of the module's name
 jax_iou = importlib.import_module('visualdet3d_tpu.ops.rotated_iou')
 
@@ -436,8 +447,9 @@ def step_pair():
     (j_loss, (j_terms, j_stats)), j_grads = grad_fn(variables['params'], batch)
     _, j_grads_flipped = grad_fn(variables['params'], _flipped(batch))
     tx = jax_build_optimizer(train_cfg.optimizer, train_cfg.scheduler, 10)
-    updates, _ = tx.update(j_grads, tx.init(variables['params']), variables['params'])
-    j_params = optax.apply_updates(variables['params'], updates)
+    # jitted: run op by op over the whole parameter tree, optax takes ~25 s
+    j_params = jax.jit(lambda g, p: optax.apply_updates(p, tx.update(g, tx.init(p), p)[0]))(
+        j_grads, variables['params'])
 
     # the port: one step of the registered trainer
     state = TrainState(build_optimizer(tsys.net.parameters(), train_cfg.optimizer,

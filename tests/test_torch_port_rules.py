@@ -3,17 +3,22 @@
 * Nothing under ``visualdet3d_tpu_torch/``, nor ``chip_smoke.py``, imports
   JAX, flax, optax or the JAX package. The scan is static (an AST walk),
   because this test process has JAX imported already.
-* The entry points (inference and the KM3D trainer) run on the card by
-  default and raise without CUDA instead of running on the CPU.
+* The entry points (inference, the KM3D and MonoFlex systems and trainers)
+  run on the card by default and raise without CUDA instead of running on
+  the CPU.
 * Kernels build from the package's sources only (``csrc/correlation.cu``,
   ``csrc/deform_conv.cu``, ``csrc/int8_conv.cu``, ``csrc/int8_block.cu``),
   include nothing but CUDA's headers and the package's own, rebuild when a
   source changes, and raise when ``nvcc`` is missing.
 * The int8 path has no ``try`` that catches: a kernel that fails to build or
   launch raises, and never gives way to the plain version.
+* Every launcher of ``csrc/deform_conv.cu`` is bound by its wrapper, and
+  ``chip_smoke.py``'s ``kernels`` summary names each DCN kernel with the
+  TPU kernel it replaces.
 """
 import ast
 import pathlib
+import re
 
 import pytest
 import torch
@@ -167,3 +172,46 @@ def test_int8_entry_point_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         entry_lib.build_int8_system(int8_block='pallas')
+
+
+@pytest.mark.parametrize('builder', ['build_monoflex_system', 'build_monoflex_trainer'])
+def test_monoflex_entry_points_raise_without_cuda(monkeypatch, builder):
+    from visualdet3d_tpu_torch import entry as entry_lib
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        getattr(entry_lib, builder)()
+
+
+def test_monoflex_trainer_runs_on_the_cpu_when_asked():
+    """``configs/monoflex.py``'s optimizer: Adam, lr 3e-4, clipping at norm
+    35, MultiStepLR at epochs 60 and 80; batches of 8."""
+    from visualdet3d_tpu_torch import entry as entry_lib
+    system, state, step = entry_lib.build_monoflex_trainer(device='cpu')
+    assert type(system).__name__ == 'MonoFlex'
+    assert next(system.net.parameters()).device.type == 'cpu'
+    assert isinstance(state.optimizer.torch_optimizer, torch.optim.Adam)
+    assert state.optimizer.clip_norm == 35.0
+    per_epoch = state.optimizer.schedule  # 464 updates an epoch at batch 8
+    assert per_epoch(0) == pytest.approx(3e-4)
+    assert per_epoch(60 * 464) == pytest.approx(3e-5)
+    assert per_epoch(80 * 464) == pytest.approx(3e-6)
+    with pytest.raises(ValueError, match='a batch of 2 images'):
+        step({'images': torch.zeros((2, 8, 8, 3)), 'gts': {}, 'P2': torch.zeros((2, 3, 4))}, 0.0)
+
+
+def test_deform_conv_launchers_are_bound_and_summarised():
+    src = (kernel_build.CSRC_DIR / 'deform_conv.cu').read_text()
+    launchers = re.findall(r'^int (vd3d_\w+)\(', src, re.M)
+    assert sorted(launchers) == sorted(
+        f'vd3d_{name}' for name in (
+            'modulated_deform_conv_f32', 'modulated_deform_conv_bf16',
+            'modulated_deform_conv_alltaps_bf16', 'premul_lerp_accumulate_bf16',
+            'modulated_deform_conv_backward_f32', 'modulated_deform_conv_backward_bf16'))
+    wrapper = (ROOT / 'visualdet3d_tpu_torch' / 'ops' / 'deform_conv.py').read_text()
+    assert all(f"'{name}'" in wrapper for name in launchers)
+    smoke = (ROOT / 'chip_smoke.py').read_text()
+    for name, body in (('modulated_deform_conv[', 161), ('modulated_deform_conv_alltaps[', 255),
+                       ('modulated_deform_conv_premul_accum[', 418),
+                       ('modulated_deform_conv_backward[', 663)):
+        assert name in smoke, name
+        assert f"'visualdet3d_tpu/ops/deform_conv.py:{body}'" in smoke, body

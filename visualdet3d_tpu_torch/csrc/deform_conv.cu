@@ -4,7 +4,9 @@
 //
 // Replaces the TPU kernels visualdet3d_tpu/ops/deform_conv.py::_lerp_matmul_kernel
 // (bf16, launched by _lerp_matmul_pallas) and ::_lerp_matmul_f32_kernel (f32,
-// _lerp_matmul_f32_pallas), with the XLA gather that fed them:
+// _lerp_matmul_f32_pallas), with the XLA gather that fed them (the all-taps
+// and pre-multiplied forward variants and the backward follow the forward's
+// launcher):
 //
 //   out[b,p,:] = bias + sum_k bilinear_zero(x[b], base_p + tap_k*dil + off[b,p,k])
 //                               * mask[b,p,k] @ W_k          (W_k: [C_in, C_out])
@@ -176,12 +178,12 @@ __device__ __forceinline__ void gather_tile(const T* __restrict__ xb, int C_in, 
   }
 }
 
-// The W_k chunk [chunk x kTileO] of rows c0.. and columns o0.., zero outside
+// The W_k chunk [chunk x COLS] of rows c0.. and columns o0.., zero outside
 // C_in x C_out; V columns a thread at a time (C_out % V == 0 when V > 1).
-template <typename T, int V>
+template <typename T, int V, int COLS = kTileO, int B_LD = Tiles<T>::b_ld>
 __device__ __forceinline__ void load_weight_tile(const T* __restrict__ wk, int C_in, int C_out,
                                                  int c0, int o0, T* s_b, int tid) {
-  constexpr int chunk = Tiles<T>::chunk, b_ld = Tiles<T>::b_ld, groups = kTileO / V;
+  constexpr int chunk = Tiles<T>::chunk, b_ld = B_LD, groups = COLS / V;
   for (int e = tid; e < chunk * groups; e += kThreads) {
     const int cl = e / groups, ol = (e - cl * groups) * V;
     const int c = c0 + cl, o = o0 + ol;
@@ -398,6 +400,314 @@ int launch(const void* x, const void* offset, const void* mask, const void* weig
       static_cast<const T*>(x), static_cast<const T*>(offset), static_cast<const T*>(mask),
       static_cast<const T*>(weight), static_cast<const T*>(bias), static_cast<T*>(out), H, W,
       C_in, Ho, Wo, C_out, kh, kw, stride, pad, dil, off_stride, mask_stride, vec_x, vec_w);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// All-taps forward, bf16 (replaces the TPU kernel
+// visualdet3d_tpu/ops/deform_conv.py::_lerp_matmul_alltaps_kernel, launched by
+// _lerp_matmul_pallas under VD3D_DCN_ALLTAPS=1): the same function as the
+// per-tap kernel above. The TPU kernel's point was one pass over a pixel
+// tile for every tap and every output channel, with the whole tap weight
+// resident; the per-tap kernel above tiles C_out by 64, so at C_out = 256 it
+// gathers and lerps every corner four times. Here:
+//   * one block per (image, 64 output pixels, up to 256 output channels):
+//     the NT = ceil(C_out / 64) <= 4 tiles of 64 channels of a pixel tile
+//     accumulate in the same block, in WMMA registers (each warp keeps
+//     2 * NT 16x16 f32 fragments: 64 values a thread at NT = 4). Past 256
+//     output channels the launch falls back to more blocks, one per 256
+//     channels, each gathering the tile again;
+//   * per tap, the corner table of the 64 pixels (corner_entry);
+//   * per (tap, 64-channel C_in chunk), the sampled [64 x 64] tile gathered
+//     and lerped once (gather_tile) and reused by all NT output tiles; the
+//     W_k chunk [64 x 64 NT] streams through shared memory beside it;
+//   * the per-tap kernel's rounding points and, per output element, its
+//     order of taps, C_in chunks and 16-wide MMA steps on the same
+//     fragments: the two give the same bits.
+// What bounds it is the per-tap kernel's: the tap products. Shared memory:
+// 43 KB of staged tiles at NT = 4 (the epilogue reuses it, one output tile
+// at a time) and 2 KB of corner table, under the 48 KB of static memory.
+// ---------------------------------------------------------------------------
+
+constexpr int kAllTapsMaxTiles = 4;  // 64-channel C_out tiles a block accumulates
+
+template <int NT>
+__global__ void __launch_bounds__(kThreads)
+deform_conv_alltaps_kernel(const __nv_bfloat16* __restrict__ x,
+                           const __nv_bfloat16* __restrict__ offset,
+                           const __nv_bfloat16* __restrict__ mask,
+                           const __nv_bfloat16* __restrict__ weight,
+                           const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ out,
+                           int H, int W, int C_in, int Ho, int Wo, int C_out, int kh, int kw,
+                           int stride, int pad, int dil, int off_stride, int mask_stride,
+                           bool vec_x, bool vec_w) {
+  using T = __nv_bfloat16;
+  constexpr int a_ld = Tiles<T>::a_ld, chunk = Tiles<T>::chunk, c_ld = Tiles<T>::c_ld;
+  constexpr int cols = NT * kTileO, b_ld = cols + 8;
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int tile_bytes = (int)sizeof(T) * (kTileP * a_ld + chunk * b_ld);
+  constexpr int out_bytes = (int)sizeof(float) * kTileP * c_ld;
+  __shared__ __align__(128) unsigned char staging[tile_bytes > out_bytes ? tile_bytes : out_bytes];
+  __shared__ int s_idx[4][kTileP];
+  __shared__ float s_wt[4][kTileP];
+  T* s_a = reinterpret_cast<T*>(staging);  // [kTileP][a_ld] sampled
+  T* s_b = s_a + kTileP * a_ld;            // [chunk][b_ld] W_k chunk, NT tiles wide
+
+  const int tid = threadIdx.x, warp = tid / 32;
+  const int o0 = blockIdx.x * cols;
+  const int p0 = blockIdx.y * kTileP;
+  const long long b = blockIdx.z;
+  const int P = Ho * Wo;
+  const int K = kh * kw;
+  const T* xb = x + b * H * W * (long long)C_in;
+
+  // warp owns, in each output tile t, the 16 x 32 block at rows 16*(warp/2),
+  // columns 64t + 32*(warp%2): the per-tap kernel's fragments
+  using namespace nvcuda;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> frag_c[NT][2];
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    wmma::fill_fragment(frag_c[t][0], 0.f);
+    wmma::fill_fragment(frag_c[t][1], 0.f);
+  }
+  const int row = 16 * (warp >> 1), col = 32 * (warp & 1);
+
+  for (int k = 0; k < K; ++k) {
+    __syncthreads();  // the previous tap's table and tiles are no longer read
+    if (tid < kTileP) {
+      int idx[4] = {-1, -1, -1, -1};
+      float wt[4] = {0.f, 0.f, 0.f, 0.f};
+      if (p0 + tid < P)
+        corner_entry<T>(offset, mask, b * P + p0 + tid, p0 + tid, k, H, W, Wo, kw, stride, pad,
+                        dil, off_stride, mask_stride, idx, wt);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        s_idx[q][tid] = idx[q];
+        s_wt[q][tid] = wt[q];
+      }
+    }
+    const T* wk = weight + (long long)k * C_in * C_out;
+    for (int c0 = 0; c0 < C_in; c0 += chunk) {
+      __syncthreads();  // the corner table written; the previous chunk consumed
+      if (vec_x) {
+        gather_tile<T, kVec>(xb, C_in, c0, s_idx, s_wt, s_a, tid);
+      } else {
+        gather_tile<T, 1>(xb, C_in, c0, s_idx, s_wt, s_a, tid);
+      }
+      if (vec_w) {
+        load_weight_tile<T, kVec, cols, b_ld>(wk, C_in, C_out, c0, o0, s_b, tid);
+      } else {
+        load_weight_tile<T, 1, cols, b_ld>(wk, C_in, C_out, c0, o0, s_b, tid);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < chunk; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
+        wmma::load_matrix_sync(fa, s_a + row * a_ld + kk, a_ld);
+#pragma unroll
+        for (int t = 0; t < NT; ++t)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            wmma::load_matrix_sync(fb, s_b + kk * b_ld + kTileO * t + col + 16 * j, b_ld);
+            wmma::mma_sync(frag_c[t][j], fa, fb, frag_c[t][j]);
+          }
+      }
+    }
+  }
+
+  // epilogue, one output tile at a time through shared memory: round to
+  // bf16, then + bias in bf16
+  float* s_c = reinterpret_cast<float*>(staging);  // [kTileP][c_ld]
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    __syncthreads();  // the last chunk's tiles, or the previous output tile, are consumed
+    wmma::store_matrix_sync(s_c + row * c_ld + col, frag_c[t][0], c_ld, wmma::mem_row_major);
+    wmma::store_matrix_sync(s_c + row * c_ld + col + 16, frag_c[t][1], c_ld, wmma::mem_row_major);
+    __syncthreads();
+    for (int e = tid; e < kTileP * kTileO; e += kThreads) {
+      const int pl = e / kTileO, ol = e - pl * kTileO;
+      const int p = p0 + pl, o = o0 + kTileO * t + ol;
+      if (p >= P || o >= C_out) continue;
+      float v = round_to<T>(s_c[pl * c_ld + ol]);
+      if (bias != nullptr) v = __fadd_rn(v, to_f32(bias[o]));
+      out[(b * P + p) * C_out + o] = from_f32<T>(v);
+    }
+  }
+}
+
+int launch_alltaps(const void* x, const void* offset, const void* mask, const void* weight,
+                   const void* bias, void* out, int B, int H, int W, int C_in, int Ho, int Wo,
+                   int C_out, int kh, int kw, int stride, int pad, int dil, int off_stride,
+                   int mask_stride, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || C_in <= 0 || Ho <= 0 || Wo <= 0 || C_out <= 0 ||
+      kh <= 0 || kw <= 0 || stride <= 0 || dil <= 0 || pad < 0 ||
+      off_stride < 2 * kh * kw || mask_stride < kh * kw)
+    return (int)cudaErrorInvalidValue;
+  const long long P = (long long)Ho * Wo;
+  const int tiles = (C_out + kTileO - 1) / kTileO;
+  const int nt = tiles < kAllTapsMaxTiles ? tiles : kAllTapsMaxTiles;
+  const dim3 grid((C_out + nt * kTileO - 1) / (nt * kTileO), (unsigned)((P + kTileP - 1) / kTileP),
+                  B);
+  if (grid.y > 65535 || grid.z > 65535 || (long long)H * W * C_in > (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  const bool vec_x = C_in % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool vec_w = C_out % 8 == 0 && reinterpret_cast<uintptr_t>(weight) % 16 == 0;
+  using T = __nv_bfloat16;
+#define VD3D_ALLTAPS_LAUNCH(NT_)                                                             \
+  deform_conv_alltaps_kernel<NT_><<<grid, kThreads, 0, (cudaStream_t)stream>>>(             \
+      static_cast<const T*>(x), static_cast<const T*>(offset), static_cast<const T*>(mask), \
+      static_cast<const T*>(weight), static_cast<const T*>(bias), static_cast<T*>(out), H, W, \
+      C_in, Ho, Wo, C_out, kh, kw, stride, pad, dil, off_stride, mask_stride, vec_x, vec_w)
+  switch (nt) {
+    case 1: VD3D_ALLTAPS_LAUNCH(1); break;
+    case 2: VD3D_ALLTAPS_LAUNCH(2); break;
+    case 3: VD3D_ALLTAPS_LAUNCH(3); break;
+    default: VD3D_ALLTAPS_LAUNCH(4); break;
+  }
+#undef VD3D_ALLTAPS_LAUNCH
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Lerp-accumulate over the pre-multiplied table, bf16 (replaces the TPU
+// kernel visualdet3d_tpu/ops/deform_conv.py::_lerp_accum_kernel, launched by
+// _premul_conv_impl under VD3D_DCN_PREMUL=1, with the XLA gather and the u32
+// row-pair packing and per-tap transpose before it):
+//
+//   out[b,p,:] = bias + sum_k bilinear_zero(Y[b,:,:,k,:], base_p + tap_k*dil + off[b,p,k])
+//                              * mask[b,p,k]            (Y = x @ W_k, [B,H,W,K,C_out])
+//
+// the bilinear sample of each tap's C_out slice of Y, in f32, summed over
+// the taps in f32 in tap order, rounded once to bf16, then + bias in bf16
+// (the sampled value is not rounded: the TPU kernel accumulates it in f32).
+// Y comes from one matmul in the wrapper ([B*H*W, C_in] x [C_in, K*C_out]);
+// its [B, H*W, K*C_out] layout needs no transpose: tap k of a corner pixel
+// is a contiguous C_out slice.
+//
+// What bounds it: bytes. There is no product, only four corners lerped per
+// (pixel, tap, channel): Y read once (plus offsets, mask and the output)
+// over the memory rate; each Y element is read by up to four neighbouring
+// samples a tap, from L2. The design, simple first:
+//   * one block per (image, 32 output pixels), 256 threads;
+//   * the corner tables of all K taps of the block's pixels built once
+//     (corner_entry, as the other kernels) in dynamic shared memory
+//     (K * 32 * 32 bytes: 9 KB at K = 9);
+//   * each thread takes (pixel, 16 bytes = 8 channels of C_out; scalar where
+//     C_out % 8 != 0 or Y is not 16-byte aligned), keeps 8 f32 accumulators
+//     in registers across the K taps, reads the four corners of each tap as
+//     16-byte loads and lerps them with the explicitly rounded products and
+//     sums of the other kernels (__fmul_rn/__fadd_rn), so that it equals its
+//     plain version bit for bit.
+// ---------------------------------------------------------------------------
+
+constexpr int kPremulTileP = 32;  // output pixels per block
+
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+premul_lerp_accum_kernel(const __nv_bfloat16* __restrict__ y,
+                         const __nv_bfloat16* __restrict__ offset,
+                         const __nv_bfloat16* __restrict__ mask,
+                         const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ out,
+                         int H, int W, int Ho, int Wo, int C_out, int kh, int kw, int stride,
+                         int pad, int dil, int off_stride, int mask_stride) {
+  using T = __nv_bfloat16;
+  constexpr int tp = kPremulTileP;
+  extern __shared__ __align__(16) unsigned char premul_smem[];
+  const int K = kh * kw;
+  int* s_idx = reinterpret_cast<int*>(premul_smem);  // [K][4][tp]
+  float* s_wt = reinterpret_cast<float*>(s_idx + K * 4 * tp);  // [K][4][tp]
+
+  const int tid = threadIdx.x;
+  const int p0 = blockIdx.x * tp;
+  const long long b = blockIdx.y;
+  const int P = Ho * Wo;
+  const long long row = (long long)K * C_out;  // one pixel of Y
+  const T* yb = y + b * H * W * row;
+
+  for (int e = tid; e < K * tp; e += kThreads) {
+    const int k = e / tp, pl = e - k * tp;
+    int idx[4] = {-1, -1, -1, -1};
+    float wt[4] = {0.f, 0.f, 0.f, 0.f};
+    if (p0 + pl < P)
+      corner_entry<T>(offset, mask, b * P + p0 + pl, p0 + pl, k, H, W, Wo, kw, stride, pad, dil,
+                      off_stride, mask_stride, idx, wt);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      s_idx[(k * 4 + q) * tp + pl] = idx[q];
+      s_wt[(k * 4 + q) * tp + pl] = wt[q];
+    }
+  }
+  __syncthreads();
+
+  const int groups = (C_out + V - 1) / V;  // with V > 1, C_out % V == 0
+  for (int e = tid; e < tp * groups; e += kThreads) {
+    const int pl = e / groups, c = (e - pl * groups) * V;
+    const int p = p0 + pl;
+    if (p >= P) continue;
+    float acc[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) acc[j] = 0.f;
+    for (int k = 0; k < K; ++k) {
+      float corner[4][V];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int idx = s_idx[(k * 4 + q) * tp + pl];
+        if (idx >= 0) {
+          load_vals<T, V>(yb + idx * row + (long long)k * C_out + c, corner[q]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < V; ++j) corner[q][j] = 0.f;
+        }
+      }
+      const float wx0 = s_wt[(k * 4 + 0) * tp + pl], wx1 = s_wt[(k * 4 + 1) * tp + pl];
+      const float wy0 = s_wt[(k * 4 + 2) * tp + pl], wy1 = s_wt[(k * 4 + 3) * tp + pl];
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float vx0 = __fadd_rn(__fmul_rn(corner[0][j], wy0), __fmul_rn(corner[2][j], wy1));
+        const float vx1 = __fadd_rn(__fmul_rn(corner[1][j], wy0), __fmul_rn(corner[3][j], wy1));
+        acc[j] = __fadd_rn(acc[j], __fadd_rn(__fmul_rn(vx0, wx0), __fmul_rn(vx1, wx1)));
+      }
+    }
+    float v[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      v[j] = round_to<T>(acc[j]);
+      if (bias != nullptr) v[j] = __fadd_rn(v[j], to_f32(bias[c + j]));
+    }
+    store_vals<T, V>(out + (b * P + p) * (long long)C_out + c, v);
+  }
+}
+
+int launch_premul(const void* y, const void* offset, const void* mask, const void* bias,
+                  void* out, int B, int H, int W, int Ho, int Wo, int C_out, int kh, int kw,
+                  int stride, int pad, int dil, int off_stride, int mask_stride, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || Ho <= 0 || Wo <= 0 || C_out <= 0 || kh <= 0 || kw <= 0 ||
+      stride <= 0 || dil <= 0 || pad < 0 || off_stride < 2 * kh * kw || mask_stride < kh * kw)
+    return (int)cudaErrorInvalidValue;
+  const long long P = (long long)Ho * Wo;
+  const int smem = kh * kw * kPremulTileP * 8 * (int)sizeof(int);
+  const long long tiles = (P + kPremulTileP - 1) / kPremulTileP;
+  if (smem > 48 * 1024 || tiles > 2147483647ll || B > 65535 ||
+      (long long)H * W * kh * kw * C_out > (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)tiles, B);
+  // 16-byte loads and stores where every C_out slice of Y and every output
+  // row starts 16-byte aligned
+  const bool vec = C_out % 8 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  using T = __nv_bfloat16;
+  if (vec) {
+    premul_lerp_accum_kernel<8><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+        static_cast<const T*>(y), static_cast<const T*>(offset), static_cast<const T*>(mask),
+        static_cast<const T*>(bias), static_cast<T*>(out), H, W, Ho, Wo, C_out, kh, kw, stride,
+        pad, dil, off_stride, mask_stride);
+  } else {
+    premul_lerp_accum_kernel<1><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+        static_cast<const T*>(y), static_cast<const T*>(offset), static_cast<const T*>(mask),
+        static_cast<const T*>(bias), static_cast<T*>(out), H, W, Ho, Wo, C_out, kh, kw, stride,
+        pad, dil, off_stride, mask_stride);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -902,6 +1212,27 @@ int vd3d_modulated_deform_conv_bf16(const void* x, const void* offset, const voi
   return launch<__nv_bfloat16>(x, offset, mask, weight, bias, out, B, H, W, C_in, Ho, Wo,
                                C_out, kh, kw, stride, pad, dil, off_stride, mask_stride,
                                stream);
+}
+
+// The all-taps forward: arguments as the per-tap one.
+int vd3d_modulated_deform_conv_alltaps_bf16(const void* x, const void* offset, const void* mask,
+                                            const void* weight, const void* bias, void* out,
+                                            int B, int H, int W, int C_in, int Ho, int Wo,
+                                            int C_out, int kh, int kw, int stride, int pad,
+                                            int dil, int off_stride, int mask_stride,
+                                            void* stream) {
+  return launch_alltaps(x, offset, mask, weight, bias, out, B, H, W, C_in, Ho, Wo, C_out, kh, kw,
+                        stride, pad, dil, off_stride, mask_stride, stream);
+}
+
+// The lerp-accumulate: y [B,H,W,K*C_out] contiguous (Y = x @ W'), offsets and
+// mask as in the forward, bias [C_out] or null, out [B,Ho,Wo,C_out].
+int vd3d_premul_lerp_accumulate_bf16(const void* y, const void* offset, const void* mask,
+                                     const void* bias, void* out, int B, int H, int W, int Ho,
+                                     int Wo, int C_out, int kh, int kw, int stride, int pad,
+                                     int dil, int off_stride, int mask_stride, void* stream) {
+  return launch_premul(y, offset, mask, bias, out, B, H, W, Ho, Wo, C_out, kh, kw, stride, pad,
+                       dil, off_stride, mask_stride, stream);
 }
 
 // Backward: x, offset, mask and W as in the forward, dy [B,Ho,Wo,C_out]

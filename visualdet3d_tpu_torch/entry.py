@@ -20,6 +20,15 @@ the DCN neck on the CUDA deformable-conv kernel, ``head_features=256``) for
 ``build_km3d_trainer()`` is its training step: Adam, lr 1.25e-4,
 MultiStepLR at epochs 90 and 120, f32 or bf16 mixed precision, every DCN's
 forward and backward on the CUDA kernels.
+
+``build_monoflex_system()`` and ``build_monoflex_trainer()`` are the same
+for MonoFlex (``configs/monoflex.py``: the KM3D network with MonoFlex's head
+branches, decode and loss; Adam, lr 3e-4, gradients clipped to norm 35,
+MultiStepLR at epochs 60 and 80, batch 8).
+
+Under ``VD3D_DCN_ALLTAPS=1`` and ``VD3D_DCN_PREMUL=1`` the DCNs take the
+forward variants the JAX package's switches select
+(``ops/deform_conv.forward_variant``).
 """
 from __future__ import annotations
 
@@ -34,7 +43,8 @@ from visualdet3d_tpu_torch.ops.kernel_build import BUILD_DIR
 from visualdet3d_tpu_torch.registry import DETECTOR_DICT
 from visualdet3d_tpu_torch.testing import (
     KITTI_P2, calibrate_prediction_convs, int8_calibration_batches, km3d_detector_cfg,
-    km3d_train_cfg, stereo3d_detector_cfg, write_synthetic_priors)
+    km3d_train_cfg, monoflex_detector_cfg, monoflex_train_cfg, stereo3d_detector_cfg,
+    write_synthetic_priors)
 
 IMAGE_HW = (288, 1280)
 KM3D_IMAGE_HW = (384, 1280)
@@ -93,6 +103,38 @@ def build_km3d_system(device: Optional[Union[str, torch.device]] = None):
     return DETECTOR_DICT[cfg.name](cfg, device=device)
 
 
+def build_monoflex_system(device: Optional[Union[str, torch.device]] = None):
+    """The published MonoFlex (Car; DLA-34, ``head_features=256``, top-K
+    100) with random weights from seed 0 on ``device`` (the card unless the
+    caller names another)."""
+    import visualdet3d_tpu_torch.models  # noqa: F401  (registers MonoFlex)
+
+    device = resolve_device(device)
+    cfg = monoflex_detector_cfg()
+    return DETECTOR_DICT[cfg.name](cfg, device=device)
+
+
+def _rtm3d_trainer(system, train_cfg, compute_dtype: Optional[str], batch_size: int):
+    """``(system, state, step)`` of the rtm3d trainer for ``system`` with the
+    optimizer and schedule of ``train_cfg``."""
+    from visualdet3d_tpu_torch.pipelines import trainers  # noqa: F401  (registers train_rtm3d)
+    from visualdet3d_tpu_torch.pipelines.train_state import TrainState
+    from visualdet3d_tpu_torch.registry import PIPELINE_DICT
+    from visualdet3d_tpu_torch.solver.optimizers import build_optimizer
+
+    state = TrainState(build_optimizer(system.net.parameters(), train_cfg.optimizer,
+                                       train_cfg.scheduler, train_cfg.steps_per_epoch))
+    train_step = PIPELINE_DICT['train_rtm3d'](system, compute_dtype=compute_dtype)
+
+    def step(batch, epoch: float):
+        n = batch['images'].shape[0]
+        if n != batch_size:
+            raise ValueError(f'a batch of {n} images for a trainer whose epoch is counted in '
+                             f'batches of {batch_size}')
+        return train_step(state, dict(batch, epoch=epoch))
+    return system, state, step
+
+
 def build_km3d_trainer(device: Optional[Union[str, torch.device]] = None,
                        compute_dtype: Optional[str] = None, batch_size: int = 16):
     """KM3D training on ``device`` (the card unless the caller names
@@ -104,24 +146,19 @@ def build_km3d_trainer(device: Optional[Union[str, torch.device]] = None,
     another size, and makes one update in place, returning the loss terms.
     ``compute_dtype='bfloat16'`` is the mixed-precision policy
     (``pipelines/train_state.py``)."""
-    from visualdet3d_tpu_torch.pipelines import trainers  # noqa: F401  (registers train_rtm3d)
-    from visualdet3d_tpu_torch.pipelines.train_state import TrainState
-    from visualdet3d_tpu_torch.registry import PIPELINE_DICT
-    from visualdet3d_tpu_torch.solver.optimizers import build_optimizer
-
-    system = build_km3d_system(device)
     cfg = km3d_train_cfg(steps_per_epoch=math.ceil(KITTI_TRAIN_FRAMES / batch_size))
-    state = TrainState(build_optimizer(system.net.parameters(), cfg.optimizer, cfg.scheduler,
-                                       cfg.steps_per_epoch))
-    train_step = PIPELINE_DICT['train_rtm3d'](system, compute_dtype=compute_dtype)
+    return _rtm3d_trainer(build_km3d_system(device), cfg, compute_dtype, batch_size)
 
-    def step(batch, epoch: float):
-        n = batch['images'].shape[0]
-        if n != batch_size:
-            raise ValueError(f'a batch of {n} images for a trainer whose epoch is counted in '
-                             f'batches of {batch_size}')
-        return train_step(state, dict(batch, epoch=epoch))
-    return system, state, step
+
+def build_monoflex_trainer(device: Optional[Union[str, torch.device]] = None,
+                           compute_dtype: Optional[str] = None, batch_size: int = 8):
+    """MonoFlex training on ``device``, as :func:`build_km3d_trainer`:
+    :func:`build_monoflex_system`'s system, the optimizer of
+    ``configs/monoflex.py`` (Adam, lr 3e-4, clipping at norm 35, MultiStepLR
+    at epochs 60 and 80), batches of ``batch_size`` images
+    (``testing.monoflex_training_batch``)."""
+    cfg = monoflex_train_cfg(steps_per_epoch=math.ceil(KITTI_TRAIN_FRAMES / batch_size))
+    return _rtm3d_trainer(build_monoflex_system(device), cfg, compute_dtype, batch_size)
 
 
 def entry(device: Optional[Union[str, torch.device]] = None):

@@ -178,7 +178,8 @@ class ModulatedDeformConv(nn.Module):
         mask = torch.sigmoid(om[..., 2 * k:])
         out = modulated_deform_conv(x.permute(0, 2, 3, 1), offset, mask,
                                     self.weight.permute(2, 3, 1, 0), self.bias,
-                                    padding=self.pad, dilation=self.dilation)
+                                    padding=self.pad, dilation=self.dilation,
+                                    train=self.training)
         return out.permute(0, 3, 1, 2)
 
 

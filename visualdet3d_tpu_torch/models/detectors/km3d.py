@@ -1,12 +1,13 @@
-"""KM3D (counterpart of ``visualdet3d_tpu/models/detectors/km3d.py``):
+"""KM3D and MonoFlex (counterpart of ``visualdet3d_tpu/models/detectors/km3d.py``):
 center-based monocular 3D detection, the DLA trunk with the deformable
 upsampling neck to stride 4 (16 DCNs, the CUDA kernels on the card, forward
 and backward), the per-branch head towers, the training loss
-(``KM3D.loss``) and the heatmap decode with NMS on the device.
+(``KM3D.loss``) and the heatmap decode with NMS on the device. ``MonoFlex``
+is the same network with its own head branches, loss and decode.
 
 Modules take NCHW tensors in channels_last memory format; the head's maps
 go to the loss and the decode as NHWC views, the JAX package's layout.
-MonoFlex and the ``resnet`` core come with later slices.
+The ``resnet`` core comes with a later slice.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from visualdet3d_tpu_torch.models.backbones.dla import dlanet
 from visualdet3d_tpu_torch.models.backbones.dla_utils import DLASegUpsample
 from visualdet3d_tpu_torch.models.blocks import channels_last_, flax_default_init_
 from visualdet3d_tpu_torch.models.heads import km3d_head as km3d_lib
+from visualdet3d_tpu_torch.models.heads import monoflex_head as monoflex_lib
 from visualdet3d_tpu_torch.models.quant import InferenceMixin
 from visualdet3d_tpu_torch.registry import DETECTOR_DICT
 
@@ -63,13 +65,16 @@ class KM3D(InferenceMixin):
     """The KM3D system: the network with its weights on the system's device,
     ``predict`` and ``predict_raw``."""
 
+    decode_fn = staticmethod(km3d_lib.km3d_decode)
+    default_head_dict = km3d_lib.DEFAULT_HEAD_DICT
+
     def __init__(self, network_cfg, device: Optional[Union[str, torch.device]] = None):
         self.cfg = network_cfg
         self.device = resolve_device(device)
         self.obj_types = list(network_cfg.obj_types)
         head_cfg = network_cfg.head
         layer_cfg = dict(head_cfg.get('layer_cfg', {}))
-        head_dict = dict(layer_cfg.get('head_dict', km3d_lib.DEFAULT_HEAD_DICT))
+        head_dict = dict(layer_cfg.get('head_dict', self.default_head_dict))
         head_dict['hm'] = len(self.obj_types)
         self.head_dict = tuple(sorted(head_dict.items()))
         self.loss_cfg = head_cfg.get('loss_cfg', {})
@@ -84,7 +89,7 @@ class KM3D(InferenceMixin):
 
     def loss(self, images, gts, P2, epoch: float = 100.0,
              apply_fn: Optional[Callable] = None):
-        """The KM3D loss of a batch: ``(loss, loss_dict)``, differentiable in
+        """The loss of a batch: ``(loss, loss_dict)``, differentiable in
         the network's parameters. images [B, H, W, 3], gts the target
         builder's arrays stacked over the batch, P2 [B, 3, 4]; ``epoch``
         feeds the rampup weight of the position terms. The network runs in
@@ -103,7 +108,11 @@ class KM3D(InferenceMixin):
         output = {k: v.float().permute(0, 2, 3, 1) for k, v in output.items()}
         gts = {k: torch.as_tensor(v, device=self.device) for k, v in gts.items()}
         P2 = torch.as_tensor(P2, dtype=torch.float32, device=self.device)
-        return km3d_lib.km3d_loss(output, gts, P2, epoch, images.shape[2] // 4,
+        return self._loss_terms(output, gts, P2, epoch, images.shape[2] // 4)
+
+    def _loss_terms(self, output, gts, P2, epoch, output_w: int):
+        """The KM3D loss of the head's NHWC f32 maps."""
+        return km3d_lib.km3d_loss(output, gts, P2, epoch, output_w,
                                   rampup_length=self.loss_cfg.get('rampup_length', 100))
 
     def _images(self, images: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -129,7 +138,7 @@ class KM3D(InferenceMixin):
         image_hw = (images.shape[1], images.shape[2])
         P2 = torch.as_tensor(P2, dtype=torch.float32, device=self.device)
         output = {k: v.float() for k, v in self.predict_raw(images).items()}
-        return km3d_lib.km3d_decode(
+        return self.decode_fn(
             output, P2, image_hw,
             score_thr=self.test_cfg.get('score_thr', 0.1),
             nms_iou_thr=self.test_cfg.get('nms_iou_thr', 0.5),
@@ -137,3 +146,19 @@ class KM3D(InferenceMixin):
             max_detections=max_detections,
             # the reference reads the misspelt key, so its NMS is class-agnostic
             cls_agnostic=self.test_cfg.get('cls_agnositc', True))
+
+
+@DETECTOR_DICT.register_module
+class MonoFlex(KM3D):
+    """The MonoFlex system: KM3D's network and ``predict`` with MonoFlex's
+    head branches, decode and loss (``loss_cfg`` keys
+    ``uncertainty_range`` and ``uncertainty_weight``)."""
+
+    decode_fn = staticmethod(monoflex_lib.monoflex_decode)
+    default_head_dict = monoflex_lib.MONOFLEX_HEAD_DICT
+
+    def _loss_terms(self, output, gts, P2, epoch, output_w: int):
+        return monoflex_lib.monoflex_loss(
+            output, gts, P2, epoch,
+            uncertainty_range=tuple(self.loss_cfg.get('uncertainty_range', (-10.0, 10.0))),
+            uncertainty_weight=self.loss_cfg.get('uncertainty_weight', 1.0))

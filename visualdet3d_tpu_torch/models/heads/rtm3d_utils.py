@@ -2,8 +2,9 @@
 ``visualdet3d_tpu/models/heads/rtm3d_utils.py``). Host side (numpy): the
 gaussian heatmap stamping of the target builder. Device side (torch): heatmap
 max-pool NMS, top-K peak extraction, feature gathering by flat indices, the
-rotation-bin loss, the multibin alpha decode, the batched 16x3
-least-squares 3D position solve and the IoU3D-supervised position loss.
+rotation-bin loss, the multibin alpha decode, MonoFlex's two depth decodes,
+the batched 16x3 least-squares 3D position solve and the IoU3D-supervised
+position loss.
 Maps are NHWC ``[B, H, W, C]``, as in the JAX package.
 
 Ties: ``jax.lax.top_k`` puts the lower index first among equal values, and
@@ -209,6 +210,36 @@ def decode_alpha_from_bins(rot: torch.Tensor) -> torch.Tensor:
     alpha1 = torch.atan(rot[..., 2] / rot[..., 3]) - 0.5 * math.pi
     alpha2 = torch.atan(rot[..., 6] / rot[..., 7]) + 0.5 * math.pi
     return alpha1 * alpha_idx + alpha2 * (1 - alpha_idx)
+
+
+def decode_depth_inv_sigmoid(depth: torch.Tensor) -> torch.Tensor:
+    """MonoFlex's direct depth: exp(-x)."""
+    return torch.exp(-depth)
+
+
+def decode_depth_from_keypoints(keypoints: torch.Tensor, dimensions: torch.Tensor,
+                                calib: torch.Tensor, down_ratio: int = 4,
+                                min_depth: float = 0.1, max_depth: float = 100.0,
+                                eps: float = 1e-8) -> torch.Tensor:
+    """MonoFlex keypoint depths. keypoints [*, 10, 2] (stride-4 map units);
+    dimensions [*, 3] (w, h, l); calib [*, 3, 4] -> [*, 3] depths: from the
+    center pair (the bottom and top face centers) and the mean of each
+    diagonal group. Each group pairs a bottom corner with the top corner
+    above it: (7, 3) with (0, 4), (2, 6) with (1, 5). No gradient flows into
+    the predicted height."""
+    pred_h = dimensions[..., 1].detach()
+    center_height = keypoints[..., 8, 1] - keypoints[..., 9, 1]
+    corner_02 = keypoints[..., [7, 3], 1] - keypoints[..., [0, 4], 1]
+    corner_13 = keypoints[..., [2, 6], 1] - keypoints[..., [1, 5], 1]
+
+    f = calib[..., 0, 0]
+    center_depth = f * pred_h / (F.relu(center_height) * down_ratio + eps)
+    corner_02_depth = ((f * pred_h)[..., None] /
+                       (F.relu(corner_02) * down_ratio + eps)).mean(dim=-1)
+    corner_13_depth = ((f * pred_h)[..., None] /
+                       (F.relu(corner_13) * down_ratio + eps)).mean(dim=-1)
+    depths = torch.stack([center_depth, corner_02_depth, corner_13_depth], dim=-1)
+    return depths.clamp(min_depth, max_depth)
 
 
 def gen_position(kps: torch.Tensor, dim: torch.Tensor, rot: torch.Tensor,

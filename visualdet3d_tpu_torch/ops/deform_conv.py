@@ -6,12 +6,24 @@ row-major, mask ``[B, Ho, Wo, K]`` (post-sigmoid), weight HWIO.
 
 The forward and the backward are the hand-written CUDA kernels of
 ``csrc/deform_conv.cu`` (they replace the Pallas kernels
-``_lerp_matmul_kernel`` (bf16 forward), ``_lerp_matmul_f32_kernel`` (f32
-forward) and ``_lerp_matmul_bwd_kernel`` (the backward, here also
-instantiated in f32)), joined by a ``torch.autograd.Function``. The wrappers
-take the plain PyTorch version only for tensors on the CPU (the backward:
-autograd through the plain forward); a CUDA tensor launches the kernel or
-raises. Launches are counted in ``LAUNCHES``.
+``_lerp_matmul_kernel`` (bf16 forward), ``_lerp_matmul_alltaps_kernel``
+(the same bf16 forward, all taps and all output channels of a pixel tile in
+one block), ``_lerp_matmul_f32_kernel`` (f32 forward), ``_lerp_accum_kernel``
+(the lerp-accumulate of a table pre-multiplied by the tap weights) and
+``_lerp_matmul_bwd_kernel`` (the backward, here also instantiated in f32)),
+joined by a ``torch.autograd.Function``. The wrappers take the plain
+PyTorch version only for tensors on the CPU (the backward: autograd through
+the plain forward); a CUDA tensor launches the kernel or raises. Launches
+are counted in ``LAUNCHES``.
+
+Forward variants (:func:`forward_variant`), chosen per call as the JAX
+package chooses them: the environment switches ``VD3D_DCN_PREMUL=1`` and
+``VD3D_DCN_ALLTAPS=1`` (read at call time; the JAX package reads them at
+trace time) and the JAX package's gates select ``'premul'`` (bf16
+inference, ``C_out < C_in``: ``Y = x @ W'`` for all taps at once, then
+the lerp of ``Y``'s corners summed over taps; a different rounding: the
+sampled value is not rounded to bf16), ``'alltaps'`` (the same function as
+the per-tap kernel) or ``'per_tap'``.
 
 Rounding points (those of the JAX packed paths, which the kernels keep):
 sample coordinates in f32 from the offsets cast to f32; the fractional
@@ -34,6 +46,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -43,13 +56,17 @@ from visualdet3d_tpu_torch.ops import kernel_build
 # launches of the CUDA kernels, one key per kernel (a backward call
 # launches two: dx and the lerp-weight gradients, then dW); reset with
 # reset_launch_counts()
-LAUNCHES = {'modulated_deform_conv': 0, 'modulated_deform_conv_backward_input': 0,
+LAUNCHES = {'modulated_deform_conv': 0, 'modulated_deform_conv_alltaps': 0,
+            'modulated_deform_conv_premul_accum': 0,
+            'modulated_deform_conv_backward_input': 0,
             'modulated_deform_conv_backward_weight': 0}
 
 _ENTRY = {torch.float32: 'vd3d_modulated_deform_conv_f32',
           torch.bfloat16: 'vd3d_modulated_deform_conv_bf16'}
 _BWD_ENTRY = {torch.float32: 'vd3d_modulated_deform_conv_backward_f32',
               torch.bfloat16: 'vd3d_modulated_deform_conv_backward_bf16'}
+_ALLTAPS_ENTRY = 'vd3d_modulated_deform_conv_alltaps_bf16'
+_PREMUL_ENTRY = 'vd3d_premul_lerp_accumulate_bf16'
 
 
 def reset_launch_counts() -> None:
@@ -62,6 +79,49 @@ def output_hw(h: int, w: int, kh: int, kw: int, stride: int, padding: int,
     ho = (h + 2 * padding - dilation * (kh - 1) - 1) // stride + 1
     wo = (w + 2 * padding - dilation * (kw - 1) - 1) // stride + 1
     return ho, wo
+
+
+def _tpu_tile_fits(hw: int, per_row: int, budget: int, fixed: int = 0) -> bool:
+    """Whether a JAX Pallas forward kernel finds a pixel tile for ``hw``
+    output pixels: its smallest tile, 8 rows, must divide ``hw``, and its
+    VMEM use (``per_row`` bytes a row plus ``fixed``) must fit ``budget``
+    (``_pick_pixrows``, ``_pick_pixrows_alltaps``)."""
+    return hw % 8 == 0 and 8 * per_row + fixed <= budget
+
+
+def forward_variant(hw: int, c_in: int, c_out: int, dtype: torch.dtype, train: bool = False,
+                    taps: int = 9) -> str:
+    """The forward variant for a DCN of ``hw`` output pixels and ``taps``
+    kernel taps: ``'premul'``, ``'alltaps'`` or ``'per_tap'``, as the JAX
+    package's ``modulated_deform_conv`` chooses its Pallas kernel.
+
+    ``VD3D_DCN_PREMUL=1``: bf16 inference (not ``train``) with
+    ``C_out % 64 == 0`` and ``C_out < C_in`` takes the pre-multiplied
+    table (``_premul_ok``). ``VD3D_DCN_ALLTAPS=1``: the other bf16 calls on
+    the JAX packed path (``_packed_ok``: ``C_in % 64 == 0``), training too,
+    whose tap weights take at most 4 MiB in bf16, take all taps per block
+    (``_pick_pixrows_alltaps``). f32 always takes the per-tap kernel.
+
+    The pixel-count and VMEM conditions are TPU tiling gates (8-row tiles,
+    the TPU kernels' VMEM budgets; every neck DCN of the ported models
+    passes the budgets): the port's kernels do not need them and keep them
+    only so as to compute the same function as the JAX package at every
+    shape, the premul variant rounding differently from the others.
+    """
+    if dtype != torch.bfloat16:
+        return 'per_tap'
+    packed_row = lambda c, co: 2 * (2 * c * 4 + 128 * 4) + 5 * 2 * c * 4 + max(co, 128) * 6
+    if (os.environ.get('VD3D_DCN_PREMUL') == '1' and not train and c_out % 64 == 0
+            and c_out < c_in and _tpu_tile_fits(hw, packed_row(c_out, c_out), 8 << 20)):
+        return 'premul'
+    w_bytes = taps * c_in * c_out * 2
+    alltaps_row = (2 * taps * 2 * c_in * 4 + 2 * taps * 128 * 2 + 4 * 2 * c_in * 4
+                   + c_out * 6)
+    if (os.environ.get('VD3D_DCN_ALLTAPS') == '1' and c_in % 64 == 0
+            and _tpu_tile_fits(hw, packed_row(c_in, c_out), 8 << 20)
+            and w_bytes <= 4 << 20 and _tpu_tile_fits(hw, alltaps_row, 10 << 20, w_bytes)):
+        return 'alltaps'
+    return 'per_tap'
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -100,6 +160,37 @@ def _lerp_weights(offset: torch.Tensor, mask: torch.Tensor, ho: int, wo: int, kh
     return y0.detach(), x0.detach(), weights
 
 
+def _corners(offset: torch.Tensor, mask: torch.Tensor, h: int, w: int, kh: int, kw: int,
+             stride: int, padding: int, dilation: int, dtype: torch.dtype):
+    """The integer corners (y0, x0) [B, Ho, Wo, K] of every tap's sample,
+    clamped before the integer cast (|offset| may be huge; [-2, H] keeps
+    every corner's inside/outside verdict), and the four lerp weights."""
+    ho, wo = offset.shape[1:3]
+    y0, x0, weights = _lerp_weights(offset, mask, ho, wo, kh, kw, stride, padding, dilation,
+                                    dtype)
+    return y0.clamp(-2, h).long(), x0.clamp(-2, w).long(), weights
+
+
+def _sample_tap(table: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor, weights, k: int,
+                h: int, w: int) -> torch.Tensor:
+    """Tap k's bilinear sample of ``table`` [B, H*W, C] (the image, or the
+    pre-multiplied table's tap-k slice): the y lerp of each corner column,
+    then the x lerp, each product and sum rounded on its own; a corner
+    outside the image contributes 0. Returns [B, Ho*Wo, C]."""
+    b, c = table.shape[0], table.shape[-1]
+    yk, xk = y0[..., k], x0[..., k]
+    wx0, wx1, wy0, wy1 = (t[..., k].reshape(b, -1, 1) for t in weights)
+
+    def corner(yy, xx):
+        inside = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+        idx = (yy.clamp(0, h - 1) * w + xx.clamp(0, w - 1)).reshape(b, -1)
+        v = table.gather(1, idx[..., None].expand(-1, -1, c))
+        return torch.where(inside.reshape(b, -1, 1), v, 0.0)
+    vx0 = corner(yk, xk) * wy0 + corner(yk + 1, xk) * wy1
+    vx1 = corner(yk, xk + 1) * wy0 + corner(yk + 1, xk + 1) * wy1
+    return vx0 * wx0 + vx1 * wx1
+
+
 def modulated_deform_conv_plain(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
                                 weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
                                 stride: int = 1, padding: int = 1,
@@ -108,35 +199,19 @@ def modulated_deform_conv_plain(x: torch.Tensor, offset: torch.Tensor, mask: tor
     the module docstring), differentiable by autograd; f64 inputs compute in
     f64 throughout. x [B, H, W, C_in],
     offset [B, Ho, Wo, 2K], mask [B, Ho, Wo, K], weight [kh, kw, C_in, C_out],
-    bias [C_out] -> [B, Ho, Wo, C_out] in x's dtype."""
+    bias [C_out] -> [B, Ho, Wo, C_out] in x's dtype. The plain version of
+    the per-tap and the all-taps kernels, which compute the same function."""
     b, h, w, c_in = x.shape
     kh, kw, _, c_out = weight.shape
     ho, wo = output_hw(h, w, kh, kw, stride, padding, dilation)
     dtype = x.dtype
-    y0, x0, (wx0, wx1, wy0, wy1) = _lerp_weights(offset, mask, ho, wo, kh, kw, stride,
-                                                 padding, dilation, dtype)
-    # clamp before the integer cast (|offset| may be huge); [-2, H] keeps
-    # every corner's inside/outside verdict
-    y0 = y0.clamp(-2, h).long()
-    x0 = x0.clamp(-2, w).long()
-
+    y0, x0, weights = _corners(offset, mask, h, w, kh, kw, stride, padding, dilation, dtype)
     acc_dtype = _acc_dtype(dtype)
     flat = x.reshape(b, h * w, c_in).to(acc_dtype)
     wk = weight.reshape(kh * kw, c_in, c_out).to(acc_dtype)
     acc = torch.zeros((b, ho * wo, c_out), dtype=acc_dtype, device=x.device)
     for k in range(kh * kw):
-        def corner(yy, xx):
-            inside = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
-            idx = (yy.clamp(0, h - 1) * w + xx.clamp(0, w - 1)).reshape(b, -1)
-            v = flat.gather(1, idx[..., None].expand(-1, -1, c_in))
-            return torch.where(inside.reshape(b, -1, 1), v, 0.0)
-        yk, xk = y0[..., k], x0[..., k]
-        v00, v01 = corner(yk, xk), corner(yk, xk + 1)
-        v10, v11 = corner(yk + 1, xk), corner(yk + 1, xk + 1)
-        a0, a1 = wy0[..., k].reshape(b, -1, 1), wy1[..., k].reshape(b, -1, 1)
-        vx0 = v00 * a0 + v10 * a1
-        vx1 = v01 * a0 + v11 * a1
-        sampled = vx0 * wx0[..., k].reshape(b, -1, 1) + vx1 * wx1[..., k].reshape(b, -1, 1)
+        sampled = _sample_tap(flat, y0, x0, weights, k, h, w)
         # bf16: the sampled value is rounded before the tap product; the
         # product of two bf16 values is exact in f32
         sampled = sampled.to(dtype).to(acc_dtype)
@@ -145,6 +220,64 @@ def modulated_deform_conv_plain(x: torch.Tensor, offset: torch.Tensor, mask: tor
     if bias is not None:
         out = out + bias.to(dtype)
     return out
+
+
+def _premul_weight(weight: torch.Tensor) -> torch.Tensor:
+    """weight [kh, kw, C_in, C_out] -> W' [C_in, K*C_out], tap-major columns."""
+    kh, kw, c_in, c_out = weight.shape
+    return weight.reshape(kh * kw, c_in, c_out).permute(1, 0, 2).reshape(c_in, -1)
+
+
+def premul_table_plain(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """The pre-multiplied table ``Y = x @ W'`` [B, H, W, K*C_out] of x
+    [B, H, W, C_in] and weight [kh, kw, C_in, C_out]: the products summed in
+    f32 (exact for bf16 values) and rounded once to x's dtype, as the JAX
+    package's einsum with a bf16 result. ``Y[..., k*C_out:(k+1)*C_out]`` is
+    ``x @ W_k``."""
+    acc_dtype = _acc_dtype(x.dtype)
+    return (x.to(acc_dtype) @ _premul_weight(weight).to(acc_dtype)).to(x.dtype)
+
+
+def premul_lerp_accumulate_plain(y: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
+                                 bias: Optional[torch.Tensor] = None,
+                                 kernel_size: Tuple[int, int] = (3, 3), stride: int = 1,
+                                 padding: int = 1, dilation: int = 1) -> torch.Tensor:
+    """The plain version of the lerp-accumulate kernel: for each tap k, the
+    bilinear sample of ``Y``'s tap-k slice at the tap's deformed position
+    (the lerp of ``_sample_tap``, in f32, not rounded), summed over taps in
+    f32 in tap order, rounded once to Y's dtype, then ``+ bias`` in that
+    dtype. y [B, H, W, K*C_out] (:func:`premul_table_plain`), offset
+    [B, Ho, Wo, 2K], mask [B, Ho, Wo, K], bias [C_out] -> [B, Ho, Wo, C_out]."""
+    b, h, w, kc = y.shape
+    kh, kw = kernel_size
+    k_taps = kh * kw
+    c_out = kc // k_taps
+    ho, wo = output_hw(h, w, kh, kw, stride, padding, dilation)
+    dtype = y.dtype
+    y0, x0, weights = _corners(offset, mask, h, w, kh, kw, stride, padding, dilation, dtype)
+    acc_dtype = _acc_dtype(dtype)
+    table = y.reshape(b, h * w, k_taps, c_out).to(acc_dtype)
+    acc = torch.zeros((b, ho * wo, c_out), dtype=acc_dtype, device=y.device)
+    for k in range(k_taps):
+        acc = acc + _sample_tap(table[:, :, k], y0, x0, weights, k, h, w)
+    out = acc.to(dtype).reshape(b, ho, wo, c_out)
+    if bias is not None:
+        out = out + bias.to(dtype)
+    return out
+
+
+def modulated_deform_conv_premul_plain(x: torch.Tensor, offset: torch.Tensor,
+                                       mask: torch.Tensor, weight: torch.Tensor,
+                                       bias: Optional[torch.Tensor] = None, stride: int = 1,
+                                       padding: int = 1, dilation: int = 1) -> torch.Tensor:
+    """Plain PyTorch version of the pre-multiplied DCNv2 forward (the JAX
+    package's ``_premul_conv``): bilinear sampling is linear, so
+    ``lerp(x) @ W_k == lerp(x @ W_k)`` up to rounding; the table is formed
+    first, then lerped and summed over taps. Arguments as
+    :func:`modulated_deform_conv_plain`."""
+    kh, kw = weight.shape[:2]
+    return premul_lerp_accumulate_plain(premul_table_plain(x, weight), offset, mask, bias,
+                                        (kh, kw), stride, padding, dilation)
 
 
 def modulated_deform_conv_backward_plain(x: torch.Tensor, offset: torch.Tensor,
@@ -171,6 +304,12 @@ def _deform_conv_lib() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 14 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+    lib_fn = getattr(lib, _ALLTAPS_ENTRY)
+    lib_fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
+    lib_fn.restype = ctypes.c_int
+    lib_fn = getattr(lib, _PREMUL_ENTRY)
+    lib_fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+    lib_fn.restype = ctypes.c_int
     lib.vd3d_cuda_error_string.argtypes = [ctypes.c_int]
     lib.vd3d_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -230,50 +369,162 @@ def _kernel_dims(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     return b, h, w, c_in, ho, wo, c_out, kh, kw, off_stride, mask_stride
 
 
-def _launch(entry: str, what: str, pointers, dims, conv, x: torch.Tensor,
-            weight: torch.Tensor) -> None:
-    """Launch a kernel of the library on x's device and current stream;
-    raise if the launch was refused."""
-    b, h, w, c_in, ho, wo, c_out, kh, kw, off_stride, mask_stride = dims
+def _call(entry: str, what: str, args, device: torch.device, detail: str) -> None:
+    """Call a launcher of the library on ``device``'s current stream; raise
+    if the launch was refused."""
     lib = _deform_conv_lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = getattr(lib, entry)(*pointers, b, h, w, c_in, ho, wo, c_out, kh, kw, *conv,
-                                 off_stride, mask_stride, stream)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, entry)(*args, stream)
     if rc != 0:
         raise RuntimeError(f'{what} kernel launch failed: '
                            f'{lib.vd3d_cuda_error_string(rc).decode()} (cudaError {rc}); '
-                           f'x {tuple(x.shape)} weight {tuple(weight.shape)} '
-                           f'stride/padding/dilation {conv} dtype {x.dtype}')
+                           f'{detail}')
 
 
-def _forward_kernel(x, offset, mask, weight, bias, stride, padding, dilation) -> torch.Tensor:
+def _launch(entry: str, what: str, pointers, dims, conv, x: torch.Tensor,
+            weight: torch.Tensor) -> None:
+    """Launch a forward or backward kernel of the library on x's device."""
+    b, h, w, c_in, ho, wo, c_out, kh, kw, off_stride, mask_stride = dims
+    _call(entry, what, (*pointers, b, h, w, c_in, ho, wo, c_out, kh, kw, *conv, off_stride,
+                        mask_stride), x.device,
+          f'x {tuple(x.shape)} weight {tuple(weight.shape)} '
+          f'stride/padding/dilation {conv} dtype {x.dtype}')
+
+
+def _forward_kernel(x, offset, mask, weight, bias, stride, padding, dilation,
+                    alltaps: bool = False) -> torch.Tensor:
+    """The per-tap forward kernel (bf16 and f32), or with ``alltaps`` the
+    all-taps one (bf16)."""
     dims = _kernel_dims(x, offset, mask, weight, bias, stride, padding, dilation,
                         'modulated_deform_conv')
     b, _, _, c_in, ho, wo, c_out, kh, kw = dims[:9]
+    if alltaps and x.dtype != torch.bfloat16:
+        raise TypeError(f'modulated_deform_conv: the all-taps kernel takes bfloat16, got {x.dtype}')
     wk = weight.reshape(kh * kw * c_in, c_out).contiguous()
     if bias is not None:
         bias = bias.contiguous()
     out = torch.empty((b, ho, wo, c_out), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    _launch(_ENTRY[x.dtype], 'deformable-conv',
+    _launch(_ALLTAPS_ENTRY if alltaps else _ENTRY[x.dtype], 'deformable-conv',
             (x.data_ptr(), offset.data_ptr(), mask.data_ptr(), wk.data_ptr(),
              None if bias is None else bias.data_ptr(), out.data_ptr()),
             dims, (stride, padding, dilation), x, weight)
-    LAUNCHES['modulated_deform_conv'] += 1
+    LAUNCHES['modulated_deform_conv_alltaps' if alltaps else 'modulated_deform_conv'] += 1
     return out
 
 
+def premul_table(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """``Y = x @ W'`` [B, H, W, K*C_out]: :func:`premul_table_plain` for CPU
+    tensors; on the card one ``torch.matmul`` in x's dtype (cuBLAS, f32
+    accumulation), the counterpart of the JAX package's einsum outside its
+    Pallas kernel."""
+    if x.device.type == 'cpu' and weight.device.type == 'cpu':
+        return premul_table_plain(x, weight)
+    _check_cuda_input(x, 'premul_table(x)', x.dtype)
+    _check_cuda_input(weight, 'premul_table(weight)', x.dtype)
+    b, h, w, c_in = x.shape
+    return torch.matmul(x.reshape(b * h * w, c_in), _premul_weight(weight)).reshape(b, h, w, -1)
+
+
+def premul_lerp_accumulate(y: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
+                           bias: Optional[torch.Tensor] = None,
+                           kernel_size: Tuple[int, int] = (3, 3), stride: int = 1,
+                           padding: int = 1, dilation: int = 1) -> torch.Tensor:
+    """The lerp-accumulate over the pre-multiplied table ``y``
+    [B, H, W, K*C_out] (the TPU ``_lerp_accum_kernel``):
+    :func:`premul_lerp_accumulate_plain` for CPU tensors, the CUDA kernel
+    (bf16) on the card. Offsets and mask as in :func:`modulated_deform_conv`
+    (strided NHWC pixels allowed); returns [B, Ho, Wo, C_out]."""
+    tensors = [y, offset, mask] + ([] if bias is None else [bias])
+    if all(t.device.type == 'cpu' for t in tensors):
+        return premul_lerp_accumulate_plain(y, offset, mask, bias, kernel_size, stride,
+                                            padding, dilation)
+    what = 'premul_lerp_accumulate'
+    if y.dtype != torch.bfloat16:
+        raise TypeError(f'{what}: the kernel takes bfloat16, got {y.dtype}')
+    for t, name in zip(tensors, ('y', 'offset', 'mask', 'bias')):
+        _check_cuda_input(t, f'{what}({name})', y.dtype)
+        if t.device != y.device:
+            raise ValueError(f'{what}({name}) is on {t.device}, y on {y.device}')
+    kh, kw = kernel_size
+    k = kh * kw
+    if y.dim() != 4 or not y.is_contiguous() or y.shape[-1] % k:
+        raise ValueError(f'{what}(y): expected a contiguous [B, H, W, {k} * C_out] tensor, got '
+                         f'{tuple(y.shape)} with strides {y.stride()}')
+    b, h, w, kc = y.shape
+    c_out = kc // k
+    ho, wo = output_hw(h, w, kh, kw, stride, padding, dilation)
+    off_stride = pixel_stride(offset, (b, ho, wo, 2 * k), f'{what}(offset)')
+    mask_stride = pixel_stride(mask, (b, ho, wo, k), f'{what}(mask)')
+    if bias is not None:
+        if tuple(bias.shape) != (c_out,):
+            raise ValueError(f'{what}(bias): expected ({c_out},), got {tuple(bias.shape)}')
+        bias = bias.contiguous()
+    out = torch.empty((b, ho, wo, c_out), dtype=y.dtype, device=y.device)
+    if out.numel() == 0:
+        return out
+    _call(_PREMUL_ENTRY, what,
+          (y.data_ptr(), offset.data_ptr(), mask.data_ptr(),
+           None if bias is None else bias.data_ptr(), out.data_ptr(), b, h, w, ho, wo, c_out,
+           kh, kw, stride, padding, dilation, off_stride, mask_stride), y.device,
+          f'y {tuple(y.shape)} kernel {kernel_size} stride/padding/dilation '
+          f'{(stride, padding, dilation)}')
+    LAUNCHES['modulated_deform_conv_premul_accum'] += 1
+    return out
+
+
+def modulated_deform_conv_alltaps(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
+                                  weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                                  stride: int = 1, padding: int = 1,
+                                  dilation: int = 1) -> torch.Tensor:
+    """The all-taps forward whatever the switches and gates say: the CUDA
+    kernel (bf16) on the card, :func:`modulated_deform_conv_plain` (the same
+    function) for CPU tensors. No gradient: :func:`modulated_deform_conv`
+    is the differentiable op."""
+    tensors = [x, offset, mask, weight] + ([] if bias is None else [bias])
+    if all(t.device.type == 'cpu' for t in tensors):
+        return modulated_deform_conv_plain(x, offset, mask, weight, bias, stride, padding,
+                                           dilation)
+    return _forward_kernel(x, offset, mask, weight, bias, stride, padding, dilation,
+                           alltaps=True)
+
+
+def modulated_deform_conv_premul(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
+                                 weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                                 stride: int = 1, padding: int = 1,
+                                 dilation: int = 1) -> torch.Tensor:
+    """The pre-multiplied forward whatever the switches and gates say:
+    :func:`premul_table` then :func:`premul_lerp_accumulate` (cuBLAS and
+    the CUDA kernel on the card, :func:`modulated_deform_conv_premul_plain`
+    for CPU tensors). No gradient: :func:`modulated_deform_conv` is the
+    differentiable op."""
+    tensors = [x, offset, mask, weight] + ([] if bias is None else [bias])
+    if all(t.device.type == 'cpu' for t in tensors):
+        return modulated_deform_conv_premul_plain(x, offset, mask, weight, bias, stride,
+                                                  padding, dilation)
+    kh, kw = weight.shape[:2]
+    return premul_lerp_accumulate(premul_table(x, weight), offset, mask, bias, (kh, kw), stride,
+                                  padding, dilation)
+
+
 class _ModulatedDeformConv(torch.autograd.Function):
-    """The forward kernel, with the backward kernel as its gradient."""
+    """A forward variant (the kernels on the card; the premul variant's
+    plain version on the CPU), with the DCN backward as its gradient (the
+    backward kernel on the card, the plain backward on the CPU), as the JAX
+    package's premul path takes the pairs formulation's vjp."""
 
     @staticmethod
-    def forward(ctx, x, offset, mask, weight, bias, stride, padding, dilation):
+    def forward(ctx, x, offset, mask, weight, bias, stride, padding, dilation, variant):
         ctx.conv = (stride, padding, dilation)
         ctx.has_bias = bias is not None
         ctx.save_for_backward(x, offset, mask, weight)
-        return _forward_kernel(x, offset, mask, weight, bias, stride, padding, dilation)
+        if variant == 'premul':
+            return modulated_deform_conv_premul(x, offset, mask, weight, bias, stride, padding,
+                                                dilation)
+        return _forward_kernel(x, offset, mask, weight, bias, stride, padding, dilation,
+                               alltaps=variant == 'alltaps')
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -281,28 +532,38 @@ class _ModulatedDeformConv(torch.autograd.Function):
         dx, d_offset, d_mask, d_weight = modulated_deform_conv_backward(
             x, offset, mask, weight, grad_out, *ctx.conv)
         d_bias = grad_out.sum(dim=(0, 1, 2)) if ctx.has_bias else None
-        return dx, d_offset, d_mask, d_weight, d_bias, None, None, None
+        return dx, d_offset, d_mask, d_weight, d_bias, None, None, None, None
 
 
 def modulated_deform_conv(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
                           weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
-                          stride: int = 1, padding: int = 1, dilation: int = 1) -> torch.Tensor:
+                          stride: int = 1, padding: int = 1, dilation: int = 1,
+                          train: bool = False) -> torch.Tensor:
     """Modulated deformable conv (DCNv2), JAX layouts (see the module
-    docstring), differentiable in every tensor argument. On the card the
-    CUDA kernels (the TPU ``_lerp_matmul_kernel`` / ``_lerp_matmul_f32_kernel``
-    forward, ``_lerp_matmul_bwd_kernel`` backward); the plain version, under
-    autograd, for CPU tensors.
+    docstring), differentiable in every tensor argument. The forward variant
+    is :func:`forward_variant`'s (``train`` as the JAX op's: the premul
+    variant is inference only). On the card the CUDA kernels (the TPU
+    ``_lerp_matmul_kernel`` / ``_lerp_matmul_alltaps_kernel`` /
+    ``_lerp_matmul_f32_kernel`` / ``_lerp_accum_kernel`` forward,
+    ``_lerp_matmul_bwd_kernel`` backward); for CPU tensors the plain
+    versions (the per-tap one under autograd).
 
     On the card the weight is re-laid out to ``[K, C_in, C_out]`` on every
     call (a copy of at most 4.7 MB in the KM3D neck, ~3 us of bandwidth),
     not cached: a cache keyed on the tensor would go stale when weights are
     changed in place.
     """
+    variant = 'per_tap'
+    if x.dim() == 4 and weight.dim() == 4:
+        kh, kw, c_in, c_out = weight.shape
+        ho, wo = output_hw(x.shape[1], x.shape[2], kh, kw, stride, padding, dilation)
+        variant = forward_variant(ho * wo, c_in, c_out, x.dtype, train, kh * kw)
     tensors = [x, offset, mask, weight] + ([] if bias is None else [bias])
-    if all(t.device.type == 'cpu' for t in tensors):
+    if variant != 'premul' and all(t.device.type == 'cpu' for t in tensors):
         return modulated_deform_conv_plain(x, offset, mask, weight, bias, stride, padding,
                                            dilation)
-    return _ModulatedDeformConv.apply(x, offset, mask, weight, bias, stride, padding, dilation)
+    return _ModulatedDeformConv.apply(x, offset, mask, weight, bias, stride, padding, dilation,
+                                      variant)
 
 
 def modulated_deform_conv_backward(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,

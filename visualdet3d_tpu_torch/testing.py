@@ -1,8 +1,9 @@
 """Synthetic fixtures for smoke runs and tests (counterpart of
-``visualdet3d_tpu/testing.py``): the YOLOStereo3D and KM3D configs,
-synthetic anchor priors, seeded values for the zero-initialised
-prediction, offset and heatmap convs of a random-weight model, and a
-synthetic KM3D training batch built by the ported target builder."""
+``visualdet3d_tpu/testing.py``): the YOLOStereo3D, KM3D and MonoFlex
+configs, synthetic anchor priors, seeded values for the zero-initialised
+prediction, offset and heatmap convs of a random-weight model, and
+synthetic KM3D and MonoFlex training batches built by the ported target
+builders."""
 from __future__ import annotations
 
 import contextlib
@@ -172,6 +173,34 @@ def km3d_detector_cfg(obj_types=('Car',), head_features: int = 256, top_k: int =
     )
 
 
+def monoflex_detector_cfg(obj_types=('Car',), head_features: int = 256,
+                          top_k: int = 100) -> edict:
+    """The MonoFlex config (mirrors configs/monoflex.py: DLA-34, the MonoFlex
+    head dict, ``head_features=256``, 32 objects, the uncertainty range and
+    weight of its loss, score_thr 0.1, NMS IoU 0.5, top-K 100)."""
+    obj_types = list(obj_types)
+    return edict(
+        obj_types=obj_types,
+        name='MonoFlex',
+        backbone=edict(name='dla', depth=34),
+        head=edict(
+            num_classes=len(obj_types),
+            num_joints=10,
+            max_objects=32,
+            layer_cfg=edict(
+                input_features=64,
+                head_features=head_features,
+                head_dict={'hm': len(obj_types), 'bbox2d': 4, 'hps': 20, 'rot': 8, 'dim': 3,
+                           'depth': 1, 'depth_uncertainty': 1, 'corner_uncertainty': 3,
+                           'reg': 2},
+            ),
+            loss_cfg=edict(uncertainty_range=[-10, 10], uncertainty_weight=1.0),
+            test_cfg=edict(score_thr=0.1, cls_agnostic=True, nms_iou_thr=0.5, top_k=top_k,
+                           post_optimization=False),
+        ),
+    )
+
+
 @torch.no_grad()
 def seed_offset_convs(system, generator: torch.Generator, scale: float, images) -> None:
     """Give the zero-initialised offset convs of every ``ModulatedDeformConv``
@@ -255,17 +284,21 @@ def prepare_km3d_for_training(system, images, generator: torch.Generator,
 # statistics of the head's output maps after calibrate_head_convs, (mean, std)
 # over a batch, in map units: heatmap logits around the 0.1 score threshold
 # (sigmoid(-2.197), 1.9 std above the mean, so ~3% of the map and a share of
-# its peaks score above it, spread, not on it); box sizes of a few
-# stride-4 cells, dimensions around a car's metres, keypoints a few cells
-# from their center
+# its peaks score above it, spread, not on it); box sizes (MonoFlex: the
+# distances from the center to the box's sides) of a few stride-4 cells,
+# dimensions around a car's metres, keypoints a few cells from their
+# center; MonoFlex's depth logit around exp(-x) = 20 m and its log
+# uncertainties around 0
 HEAD_OUTPUT_STATS = {'hm': (-5.0, 1.5), 'hm_hp': (-5.0, 1.5), 'wh': (6.0, 2.0),
                      'hps': (0.0, 4.0), 'rot': (0.0, 1.0), 'dim': (2.0, 1.0),
-                     'prob': (0.0, 1.0), 'reg': (0.5, 0.2), 'hp_offset': (0.5, 0.2)}
+                     'prob': (0.0, 1.0), 'reg': (0.5, 0.2), 'hp_offset': (0.5, 0.2),
+                     'bbox2d': (4.0, 1.5), 'depth': (-3.0, 0.5),
+                     'depth_uncertainty': (0.0, 0.5), 'corner_uncertainty': (0.0, 0.5)}
 
 
 @torch.no_grad()
 def calibrate_head_convs(system, images, generator: torch.Generator) -> None:
-    """Give every ``{name}_out`` conv of the KM3D head seeded weights scaled
+    """Give every ``{name}_out`` conv of the KM3D or MonoFlex head seeded weights scaled
     so that on these images its outputs have the mean and std of
     ``HEAD_OUTPUT_STATS``.
 
@@ -306,6 +339,19 @@ def km3d_train_cfg(steps_per_epoch: int = 1) -> edict:
     )
 
 
+def monoflex_train_cfg(steps_per_epoch: int = 1) -> edict:
+    """The optimizer and schedule of ``configs/monoflex.py``: Adam, lr 3e-4,
+    no weight decay, gradients clipped to norm 35, MultiStepLR at epochs 60
+    and 80 (x0.1), stepped per epoch of ``steps_per_epoch`` updates."""
+    return edict(
+        optimizer=edict(type_name='adam', keywords=edict(lr=3e-4, weight_decay=0),
+                        clipped_gradient_norm=35.0),
+        scheduler=edict(type_name='MultiStepLR',
+                        keywords=edict(milestones=[60, 80], gamma=0.1)),
+        steps_per_epoch=steps_per_epoch,
+    )
+
+
 def _synthetic_objects(rng: np.random.Generator, n: int, P2: np.ndarray, image_hw):
     """n Cars placed so that their projected 3-D boxes lie inside the
     image; the 2-D box is the projected corners' extent."""
@@ -335,14 +381,11 @@ def _synthetic_objects(rng: np.random.Generator, n: int, P2: np.ndarray, image_h
     return objs
 
 
-def km3d_training_batch(rng: np.random.Generator, batch_size: int, image_hw,
-                        objects_per_image=(2, 6), obj_types=('Car',), max_objects: int = 32):
-    """A synthetic KM3D training batch: normal-noise images, the KITTI P2
-    scaled to ``image_hw``, a few Cars per image whose projected boxes lie
-    inside it, and their targets from the ported target builder and
-    ``collate_fn``: ``{'images', 'P2', 'gts'}`` as numpy arrays."""
-    from visualdet3d_tpu_torch.data.kitti.dataset.km3d_dataset import RTM3DTargetBuilder
-    builder = RTM3DTargetBuilder(obj_types, max_objects)
+def _training_batch(builder, rng: np.random.Generator, batch_size: int, image_hw,
+                    objects_per_image) -> dict:
+    """Normal-noise images, the KITTI P2 scaled to ``image_hw``, a few Cars
+    per image whose projected boxes lie inside it, and their targets from
+    ``builder``, collated: ``{'images', 'P2', 'gts'}`` as numpy arrays."""
     P2 = KITTI_P2.copy()
     P2[0] *= image_hw[1] / KITTI_P2_HW[1]
     P2[1] *= image_hw[0] / KITTI_P2_HW[0]
@@ -353,4 +396,23 @@ def km3d_training_batch(rng: np.random.Generator, batch_size: int, image_hw,
         image = rng.standard_normal((*image_hw, 3), dtype=np.float32)
         items.append({'image': image, 'calib': P2.copy(),
                       'label': builder.build_target(image_hw, P2, objs)})
-    return RTM3DTargetBuilder.collate_fn(items)
+    return builder.collate_fn(items)
+
+
+def km3d_training_batch(rng: np.random.Generator, batch_size: int, image_hw,
+                        objects_per_image=(2, 6), obj_types=('Car',), max_objects: int = 32):
+    """A synthetic KM3D training batch (``_training_batch``) with targets
+    from the ported KM3D target builder and ``collate_fn``."""
+    from visualdet3d_tpu_torch.data.kitti.dataset.km3d_dataset import RTM3DTargetBuilder
+    return _training_batch(RTM3DTargetBuilder(obj_types, max_objects), rng, batch_size,
+                           image_hw, objects_per_image)
+
+
+def monoflex_training_batch(rng: np.random.Generator, batch_size: int, image_hw,
+                            objects_per_image=(2, 6), obj_types=('Car',),
+                            max_objects: int = 32):
+    """A synthetic MonoFlex training batch (``_training_batch``) with
+    targets from the ported MonoFlex target builder."""
+    from visualdet3d_tpu_torch.data.kitti.dataset.km3d_dataset import MonoFlexTargetBuilder
+    return _training_batch(MonoFlexTargetBuilder(obj_types, max_objects), rng, batch_size,
+                           image_hw, objects_per_image)
