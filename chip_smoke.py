@@ -53,9 +53,11 @@ each printed as one JSON line:
 6. deform_bwd_kernel, deform_bwd_edges: the DCNv2 backward kernels against
    the plain backward (autograd through the plain forward) at the 7 neck
    shapes, batch 16, f32 and bf16, offsets and mask as channel slices of one
-   [B,Ho,Wo,27] tensor, with their time, the plain version's and the bound;
-   then edge cases (samples wholly outside, a zero mask, C_in 512, ragged
-   tiles, stride 2, dilation 2, an unaligned x) and the wrapper's refusals;
+   [B,Ho,Wo,27] tensor, with their time, the plain version's, the bound and
+   the dx adds in device memory (``dx_window_spill``); then edge cases
+   (samples wholly outside, a zero mask, C_in 512, ragged tiles, stride 2,
+   dilation 2, offsets of exactly +-R, +-(R - 0.5) and +-(R + 1) around the
+   dx window on clipped tiles, an unaligned x) and the wrapper's refusals;
    deform_module_grad: the gradients of the whole DCN module (offset conv,
    slices, sigmoid, both kernels) on the card against the CPU, f32, with
    offsets kept away from the integer corners;
@@ -70,18 +72,26 @@ each printed as one JSON line:
    ``VD3D_DCN_ALLTAPS=1`` (all-taps forward, the backward kernels).
 8. int8 inference (``entry.build_int8_system``: Stereo3D at 288x1280, BN
    folded, calibrated, ``int8_all``): int8_conv_edges (the int8 conv kernel
-   B8 and the activation quantize kernel against their plain versions on
-   1x1, stride 2, dilation 2, asymmetric padding, channel tails, +-127, and
-   the wrappers' refusals); int8_probe (the int8 probes K9a/b/c of
-   ``tools/probe_pallas_int8.py`` at their shapes and seeds, bit-exact,
-   beside ``torch._int_mm``); int8_slice in three modes (every conv on its
-   own, layer1's blocks on the fused kernel K8, and the same folded network
-   in bf16): ms per batch 16, fps, bs1 p50, peak memory, valid detections,
-   the launches of B8, the quantize, K8 and K1 per predict, a profile;
-   int8_conv_kernel (B8 at every conv shape of the batch-16 predict,
-   collected by hooks: s32 bit-exact, the f32 and bf16 epilogues, its time
-   against cuDNN's bf16 conv of the same shape, the bound; the quantize
-   kernel at each input); int8_block_kernel and int8_block_edges (K8 on the
+   B8 and the activation quantize kernel against their plain versions: on
+   the wgmma path split K under each epilogue, M and N off the tile, K
+   tails, boxes over the image's edge; on the cp.async path C_in 72 and 16,
+   an unaligned base, stride 2; 1x1, dilation 2, asymmetric padding,
+   channel tails, +-127, and the wrappers' refusals); int8_probe (the int8
+   probes K9a/b/c of ``tools/probe_pallas_int8.py`` at their shapes and
+   seeds, bit-exact, beside ``torch._int_mm``, CUDA events and CUDA-graph
+   device times); int8_slice in three modes (every conv on its own,
+   layer1's blocks on the fused kernel K8, and the same folded network in
+   bf16): ms per batch 16, fps, bs1 p50, peak memory, valid detections, the
+   launches of B8 (per path), the quantize, K8 and K1 per predict, a
+   profile; int8_conv_kernel (B8 at every conv shape of the batch-16
+   predict, collected by hooks: its plan, s32 bit-exact, the f32 and bf16
+   epilogues, its time against cuDNN's bf16 conv of the same shape and,
+   at 1x1 stride-1 shapes, ``torch._int_mm``, the bound; the quantize
+   kernel at each input); int8_plan, int8_plan_predict (B8's plan against
+   its variants, split K, no split and the cp.async path, at K9(a) and at
+   the batch-1 predict's shapes, bit-exact under each, event and device
+   times, and the int8 predict at batch 1 and 16 under each);
+   int8_block_kernel and int8_block_edges (K8 on the
    real layer1 entries and input at batch 16, and ragged tiles, against its
    plain version with the JAX package's block gate); int8_parity (the
    artifact quantized on the CPU, batch-1 int8 predict on the card against
@@ -151,6 +161,31 @@ def cuda_ms(fn, inputs, warmup: int = 2):
         times.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in times)
+
+
+def graph_ms(fn, inputs, reps: int = 20):
+    """Median device time of fn(x) over distinct inputs, in ms: each call
+    captured once in a CUDA graph (after a warm-up call outside it) and
+    replayed ``reps`` times between two CUDA events, so that no host time
+    is in it."""
+    import torch
+    times = []
+    for x in inputs:
+        fn(x)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn(x)
+        graph.replay()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+        del graph
+    return statistics.median(times)
 
 
 def bf16_ulp(v):
@@ -895,6 +930,21 @@ def bwd_check(torch, dc, args, weight, grad, what, **conv):
     return max(e['abs'] for e in errs.values()), tol, errs
 
 
+# dx adds in device memory (dx_window_spill): the window design's (spilled
+# corners + flushed window cells), a design without a window's (every corner
+# inside the image), and 4 K C_in per output pixel (all_corners, every
+# corner counted whether inside or not);
+# 'kernel': the adds of the dx kernel that runs (the window design in bf16,
+# the row design in f32)
+DX_ADD_KEYS = ('kernel', 'global_adds', 'spilled', 'window', 'corner_adds', 'all_corners')
+
+
+def dx_adds(torch, dc, dtype, offset, h, w, c_in):
+    adds = dc.dx_window_spill(offset, h, w, c_in)
+    adds['kernel'] = adds['global_adds' if dtype == torch.bfloat16 else 'corner_adds']
+    return adds
+
+
 def deform_bwd_kernel_phase(torch, dc, peaks):
     """The DCN backward kernels against the plain backward at the KM3D
     neck's 7 shapes, batch 16, f32 and bf16, offsets and mask as channel
@@ -905,7 +955,7 @@ def deform_bwd_kernel_phase(torch, dc, peaks):
     results = {}
     for dt, dtype in (('f32', torch.float32), ('bf16', torch.bfloat16)):
         tot = dict(ms=0.0, plain_ms=0.0, bytes_ms=0.0, ops_ms=0.0, max_abs_err=0.0,
-                   atomics=0, per_shape={})
+                   dx_adds=dict.fromkeys(DX_ADD_KEYS, 0), per_shape={})
         for count, h, w, c_in, c_out in DCN_SHAPES:
             runs, weight, _ = dcn_inputs(torch, gen, BATCH, h, w, c_in, c_out, dtype,
                                          N_KERNEL_RUNS)
@@ -922,18 +972,22 @@ def deform_bwd_kernel_phase(torch, dc, peaks):
             # read x, offset + mask, W and dy once; write dx, d_offset + d_mask and dW once
             n_bytes = isz * (2 * pixels * (c_in + 27) + 2 * 9 * c_in * c_out + pixels * c_out)
             n_flops = 4 * pixels * 9 * c_in * c_out  # ds = dy . W_k^T and dW
-            atomics = pixels * 9 * 4 * c_in           # f32 adds into dx
+            # f32 adds into dx in device memory, counted on these offsets
+            adds = dx_adds(torch, dc, dtype, runs[0][1], h, w, c_in)
             bytes_ms = n_bytes / bw * 1e3
             ops_ms = n_flops / (f32_peak if dt == 'f32' else bf16_peak) * 1e3
             shape = dict(count=count, x=[BATCH, h, w, c_in], c_out=c_out, ms=ms,
                          plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
                          bound_by='bytes' if bytes_ms >= ops_ms else 'operations',
-                         dx_atomic_adds=atomics, max_abs_err=max_err, errors=errs,
+                         dx_adds={k: adds[k] for k in DX_ADD_KEYS}, dx_tile=adds['tile'],
+                         dx_window=adds['window_hw'], max_abs_err=max_err, errors=errs,
                          tflops=n_flops / (ms * 1e-3) / 1e12)
             tot['per_shape'][f'{h}x{w} {c_in}->{c_out}'] = shape
             for key, v in (('ms', ms), ('plain_ms', plain_ms), ('bytes_ms', bytes_ms),
-                           ('ops_ms', ops_ms), ('atomics', atomics)):
+                           ('ops_ms', ops_ms)):
                 tot[key] += count * v
+            for key in DX_ADD_KEYS:
+                tot['dx_adds'][key] += count * adds[key]
             tot['max_abs_err'] = max(tot['max_abs_err'], max_err)
             emit('deform_bwd_kernel', kernel='modulated_deform_conv_backward', dtype=dt,
                  tolerance=tol, bytes=n_bytes, flops=n_flops, **shape)
@@ -974,6 +1028,24 @@ def deform_bwd_edge_phase(torch, dc):
             grad = torch.randn((b, ho, wo, c_out), generator=gen, device='cuda').to(dtype)
             bwd_check(torch, dc, (x, off, mask), weight, grad, f'edge {name} {dtype}', **conv)
             cases.append(name)
+        # the dx window's edges at 13x21 (8x8 tiles clipped by Ho and Wo, every
+        # window over the image's edge): offsets of exactly +-R (every corner
+        # in the window), +-(R - 0.5), and +-(R + 1) (corners past it: the
+        # spill into dx)
+        R = dc.DX_WINDOW_RADIUS
+        for name, val, spills in (('offsets of exactly +-R', R, False),
+                                  ('offsets of +-(R - 0.5)', R - 0.5, False),
+                                  ('offsets of +-(R + 1)', R + 1, True)):
+            runs, weight, _ = dcn_inputs(torch, gen, 2, 13, 21, 64, 32, dtype, 1)
+            x, off, mask = runs[0]
+            sign = torch.where(torch.rand(off.shape, generator=gen, device='cuda') < 0.5, -1.0, 1.0)
+            off.copy_((sign * val).to(dtype))  # in place: off stays a slice of the 27 channels
+            adds = dc.dx_window_spill(off, 13, 21, 64)
+            check(adds['tile'] == (8, 8) and (adds['spilled'] > 0) == spills,
+                  f'edge {name}: tile {adds["tile"]}, {adds["spilled"]} spilled adds')
+            grad = torch.randn((2, 13, 21, 32), generator=gen, device='cuda').to(dtype)
+            bwd_check(torch, dc, (x, off, mask), weight, grad, f'edge {name} {dtype}')
+            cases.append(f'{name} (13x21: clipped 8x8 tiles, windows over the edge)')
         # a contiguous x whose base is off 16-byte alignment: scalar loads
         runs, weight, _ = dcn_inputs(torch, gen, 2, 9, 11, 64, 64, dtype, 1)
         x, off, mask = runs[0]
@@ -1371,9 +1443,12 @@ def km3d_train_phase(torch, dc, compute_dtype, model='km3d', batch_size=BATCH):
 
     wall_ms, kernels, ops, device_ms = device_profile(
         torch, lambda: step(batches[N_TRAIN_WARMUP], TRAIN_EPOCH))
-    dcn = {kind: [e for e in kernels if f'{kind}<' in e.key or f'{kind}I' in e.key]
-           for kind in ('deform_conv_kernel', 'deform_conv_bwd_input_kernel',
-                        'deform_conv_bwd_weight_kernel')}
+    # each kind by its name's prefix: the dx kernel is
+    # deform_conv_bwd_input_window_kernel (bf16) or deform_conv_bwd_input_kernel (f32)
+    prefix = {'deform_conv_kernel': ('deform_conv_kernel<', 'deform_conv_kernelI'),
+              'deform_conv_bwd_input_kernel': ('deform_conv_bwd_input_',),
+              'deform_conv_bwd_weight_kernel': ('deform_conv_bwd_weight_kernel',)}
+    dcn = {kind: [e for e in kernels if any(p in e.key for p in prefix[kind])] for kind in prefix}
     counts = {kind: sum(e.count for e in evs) for kind, evs in dcn.items()}
     check(all(c == DCN_PER_FORWARD for c in counts.values()),
           f'{phase} {name} profile: DCN kernels in one step {counts}')
@@ -1646,13 +1721,21 @@ def int8_conv_kernel_phase(torch, ic, shapes, part):
         bf = bias.to(torch.bfloat16) if bias is not None else None
         pad = (padding[0][0], padding[1][0])
         library_ms = cuda_ms(lambda x: F.conv2d(x, wf, bf, stride, pad, dilation), xf)
+        int_mm_ms = None
+        if (kh, kw) == (1, 1) and tuple(stride) == (1, 1) and padding == ((0, 0), (0, 0)):
+            # the same function's s32 sums as one library GEMM
+            wt = wq.view(n, c).t().contiguous()
+            int_mm_ms = cuda_ms(lambda x: torch._int_mm(x.view(-1, c), wt), xs)
+        plan = ic.plan_int8_conv(b, h, w, c, n, kh, kw, tuple(stride), padding, tuple(dilation),
+                                 sms=torch.cuda.get_device_properties(0).multi_processor_count)
         ho, wo = ic.output_hw(h, w, kh, kw, stride, padding, dilation)
         ops = 2 * b * ho * wo * n * kh * kw * c
         nbytes = b * h * w * c + n * kh * kw * c + b * ho * wo * n * 2 + 4 * n * (2 if has_bias else 1)
         bytes_ms, ops_ms = nbytes / bw * 1e3, ops / int8_peak(part) * 1e3
         bound = max(bytes_ms, ops_ms)
         per_shape.append(dict(shape=what, per_predict=count, ms=ms, plain_ms=plain_ms,
-                              cudnn_bf16_ms=library_ms, bound_ms=bound,
+                              cudnn_bf16_ms=library_ms, int_mm_ms=int_mm_ms,
+                              path=plan.path, plan=plan._asdict(), bound_ms=bound,
                               bound_by='bytes' if bytes_ms >= ops_ms else 'operations',
                               tops=ops / ms / 1e9, max_abs_err_f32=err))
         total['ms'] += count * ms
@@ -1698,6 +1781,70 @@ def int8_conv_edge_phase(torch, ic):
         ('H 1', 3, 1, 33, 64, 64, 3, 1, ((1, 1), (1, 1)), 1, False),
         ('padding wider than the image', 1, 2, 3, 64, 64, 3, 1, ((3, 3), (3, 3)), 1, False),
     ]
+    # the wgmma path's edges, each with the plan it must take: split K (under
+    # each epilogue: int8_conv_check runs all three), a ragged M, N = 64 and
+    # N off the tile, K tails (chunks of 32 with a zero-filled tail), boxes
+    # over the image's edge, and shapes the TMA unit cannot take; every
+    # wgmma case whose tiles are fewer than the SMs runs with split K forced
+    # too
+    wgmma_cases = [  # (name, B, H, W, C_in, C_out, k, padding, dilation, path, split K)
+        ('split K: 1x1 over 640 px, C_in 8192', 1, 1, 640, 8192, 64, 1, ((0, 0), (0, 0)), 1,
+         'wgmma', True),
+        ('split K: 3x3, 6x20 px, 1408 -> 256 (+bias)', 1, 6, 20, 1408, 256, 3,
+         ((1, 1), (1, 1)), 1, 'wgmma', True),
+        ('1x1 over 2560 px, C_in 576 (K9(a))', 1, 1, 2560, 576, 64, 1, ((0, 0), (0, 0)), 1,
+         'wgmma', False),
+        ('M off the tile: 7x9 px, 3 images, 64 -> 64', 3, 7, 9, 64, 64, 3, ((1, 1), (1, 1)), 1,
+         'wgmma', False),
+        ('N 64 at 72x320 (the layer1 shape, batch 2)', 2, 72, 320, 64, 64, 3, ((1, 1), (1, 1)),
+         1, 'wgmma', False),
+        ('N off the tile: 200', 12, 18, 80, 256, 200, 3, ((1, 1), (1, 1)), 1, 'wgmma',
+         False),
+        ('N 5', 2, 9, 11, 64, 5, 3, ((1, 1), (1, 1)), 1, 'wgmma', False),
+        ('K tail: C_in 48 (32-byte chunks, the last half zero-filled)', 2, 17, 23, 48, 96, 3,
+         ((1, 1), (1, 1)), 1, 'wgmma', False),
+        ('K tail: C_in 288 (32-byte chunks)', 4, 18, 80, 288, 288, 3, ((1, 1), (1, 1)), 1,
+         'wgmma', False),
+        ('C_in 96 at 36x160', 4, 36, 160, 96, 96, 3, ((1, 1), (1, 1)), 1, 'wgmma', False),
+        ('boxes over the edge: padding 3, dilation 2', 2, 13, 29, 128, 128, 3,
+         ((3, 2), (1, 3)), 2, 'wgmma', False),
+        ('cp.async: C_in 72 at 36x160', 2, 36, 160, 72, 72, 3, ((1, 1), (1, 1)), 1, 'cp_async',
+         False),
+        ('cp.async: C_in 16', 2, 11, 13, 16, 64, 3, ((1, 1), (1, 1)), 1, 'cp_async', False),
+    ]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    forced = []
+    for name, b, h, w, c, n, k, pad, d, path, split in wgmma_cases:
+        plan = ic.plan_int8_conv(b, h, w, c, n, k, k, (1, 1), pad, (d, d), sms=sms)
+        check(plan.path == path and (plan.split > 1) == split,
+              f'int8_conv2d {name}: plan {plan}, expected the {path} path, split {split}')
+        ic.reset_launch_counts()
+        bias = torch.randn((n,), generator=gen, device='cuda')
+        int8_conv_check(torch, ic, rand((b, h, w, c)), rand((n, k, k, c)), (1, 1), pad, (d, d),
+                        bias, name)
+        key = f'int8_conv2d_{path}{"_splitk" if split else ""}'
+        check(ic.LAUNCHES[key] == ic.LAUNCHES['int8_conv2d'] == 3,
+              f'int8_conv2d {name}: launches {ic.LAUNCHES}, expected 3 on {key}')
+        if path == 'wgmma' and not split and plan.m_tiles * plan.n_tiles < sms:
+            ic.reset_launch_counts()
+            with int8_plan_variant(ic, 'split'):
+                int8_conv_check(torch, ic, rand((b, h, w, c)), rand((n, k, k, c)), (1, 1), pad,
+                                (d, d), bias, f'{name}, split K forced')
+            check(ic.LAUNCHES['int8_conv2d_wgmma_splitk'] == 3,
+                  f'int8_conv2d {name}, split K forced: launches {ic.LAUNCHES}')
+            forced.append(name)
+    for n in (70, 144):
+        int8_conv_check(torch, ic, rand((2, 18, 80, 256)), rand((n, 3, 3, 256)), (1, 1),
+                        ((1, 1), (1, 1)), (1, 1), None, f'N {n}')
+    # a base off 16-byte alignment goes to the cp.async path
+    x = rand((2, 9, 13, 64))
+    shifted = torch.empty(x.numel() + 1, dtype=torch.int8, device='cuda')[1:].view(x.shape)
+    shifted.copy_(x)
+    ic.reset_launch_counts()
+    int8_conv_check(torch, ic, shifted, rand((64, 3, 3, 64)), (1, 1), ((1, 1), (1, 1)), (1, 1),
+                    None, 'unaligned input base')
+    check(ic.LAUNCHES['int8_conv2d_cp_async'] == 3,
+          f'int8_conv2d with an unaligned base: launches {ic.LAUNCHES}, expected the cp.async path')
     for name, b, h, w, c, n, k, s, pad, d, has_bias in cases:
         bias = torch.randn((n,), generator=gen, device='cuda') if has_bias else None
         int8_conv_check(torch, ic, rand((b, h, w, c)), rand((n, k, k, c)), (s, s), pad, (d, d),
@@ -1709,7 +1856,8 @@ def int8_conv_edge_phase(torch, ic):
         int8_conv_check(torch, ic, xq, wq, (1, 1), ((1, 1), (1, 1)), (1, 1), None, f'+-127 {sign}')
         acc = ic.int8_conv2d(xq, wq, padding=((1, 1), (1, 1)))
         check(int(acc[0, 1, 1, 0]) == sign * 9 * 1408 * 127 * 127, 'int8_conv2d: extreme sum')
-    cases = [c[0] for c in cases] + ['+-127 at K = 9 x 1408']
+    cases = [c[0] for c in wgmma_cases] + [f'{c}, split K forced' for c in forced] + \
+        ['N 70, 144', 'unaligned input base'] + [c[0] for c in cases] + ['+-127 at K = 9 x 1408']
     for shape, per_channel in (((3, 5, 7, 72), True), ((1, 1, 1, 3), False), ((2, 9, 13, 64), True)):
         x = torch.randn(shape, generator=gen, device='cuda') * 40
         inv = (torch.rand((shape[-1],) if per_channel else (), generator=gen, device='cuda') + 0.5)
@@ -1799,11 +1947,118 @@ def int8_probe_phase(torch, ic, part):
         'c': cuda_ms(lambda t: gemm(t, wb), cat_in),
     }
     int_mm_ms = cuda_ms(lambda t: torch._int_mm(t, b), a_in)
+    # device time alone (CUDA graphs), in turns: at this size both calls'
+    # event times are mostly host time
+    graph = {}
+    for who in ('int_mm', 'b8', 'b8', 'int_mm'):
+        fn = (lambda t: torch._int_mm(t, b)) if who == 'int_mm' else (lambda t: gemm(t, wa))
+        graph.setdefault(who, []).append(graph_ms(fn, a_in[:4]))
+    graph = {k: statistics.mean(v) for k, v in graph.items()}
     plain_ms = cuda_ms(lambda t: ic.int8_conv2d_plain(t.view(1, 1, M, K), wa), a_in[:3], warmup=1)
     out = dict(ms=res['a'], probe_ms=res, gops={k: ops / v / 1e6 for k, v in res.items()},
                int_mm_ms=int_mm_ms, int_mm_gops=ops / int_mm_ms / 1e6, plain_ms=plain_ms,
+               graph_ms=graph['b8'], int_mm_graph_ms=graph['int_mm'],
+               plan=ic.plan_int8_conv(1, 1, M, K, C, 1, 1)._asdict(),
                bound_ms=bound, bound_by=bound_by, exact=True)
     emit('int8_probe', shape=[M, K, C], **out)
+    return out
+
+
+@contextlib.contextmanager
+def int8_plan_variant(ic, variant):
+    """Every int8 conv in the block on one variant of its plan: 'plan' (as
+    planned), 'split' (the wgmma path, K split wherever the tiles are fewer
+    than the SMs), 'unsplit' (the wgmma path, K never split) or 'cp_async'
+    (the cp.async path, the mma.sync design, for every shape)."""
+    planned = ic.plan_int8_conv
+
+    def plan(*args, **kwargs):
+        if variant == 'cp_async':
+            return planned(*args, **kwargs)._replace(path='cp_async')
+        return planned(*args, split_k={'split': True, 'unsplit': False}.get(variant), **kwargs)
+    ic.plan_int8_conv = plan
+    try:
+        yield
+    finally:
+        ic.plan_int8_conv = planned
+
+
+INT8_PLAN_TURNS = ('split', 'unsplit', 'cp_async', 'plan', 'plan', 'cp_async', 'unsplit', 'split')
+N_PLAN_BS1 = 30
+
+
+def int8_plan_phase(torch, ic, system, batch, P2):
+    """B8's plan against its alternatives on the same inputs, in turns (each
+    variant twice, the mean): at K9(a) (raw s32) and at every conv shape of
+    the batch-1 int8 predict (bf16 out; at batch 1 the tiles of most shapes
+    do not fill the card), each conv split, unsplit and on the cp.async path,
+    bit-exact under each, with CUDA events (what a caller pays: the host's
+    time included) and CUDA graphs (device time); then the whole int8
+    predict, every conv on its own, at batch 1 (p50 of 2 x N_PLAN_BS1 calls:
+    host-bound, so noisier than the batch-16 numbers) and at batch 16 (host
+    clock over N_BATCHES calls) under each variant."""
+    gen = torch.Generator(device='cuda').manual_seed(15)
+    left, right = batch
+    one = (left[:1].clone(), right[:1].clone(), P2[:1])
+    shapes = sorted(int8_conv_shapes(torch, system, one).items())
+    k9a = (1, 1, 2560, 576, 64, 1, 1, (1, 1), ((0, 0), (0, 0)), (1, 1), False)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_shape = []
+    for key, count in [(k9a, 0)] + shapes:
+        b, h, w, c, n, kh, kw, stride, padding, dilation, has_bias = key
+        xs = [torch.randint(-127, 128, (b, h, w, c), generator=gen, device='cuda',
+                            dtype=torch.int8) for _ in range(4)]
+        wq = torch.randint(-127, 128, (n, kh, kw, c), generator=gen, device='cuda', dtype=torch.int8)
+        bias = torch.randn((n,), generator=gen, device='cuda') if has_bias else None
+        if key == k9a:
+            what, fn = 'K9(a) [2560, 576] x [576, 64] s32', lambda x: ic.int8_conv2d(x, wq)
+        else:
+            what = (f'{b}x{h}x{w}x{c}->{n} k{kh}x{kw}{" +bias" if has_bias else ""}')
+            scale = torch.rand((n,), generator=gen, device='cuda') * 1e-3
+            fn = lambda x: ic.int8_conv2d(x, wq, stride, padding, dilation, scale, bias,
+                                          torch.bfloat16)
+        plan = ic.plan_int8_conv(b, h, w, c, n, kh, kw, tuple(stride), padding, tuple(dilation),
+                                 sms=sms)
+        got = {}
+        for variant in INT8_PLAN_TURNS:
+            with int8_plan_variant(ic, variant):
+                if variant not in got:
+                    int8_conv_check(torch, ic, xs[0], wq, stride, padding, dilation, bias,
+                                    f'{what} ({variant})')
+                got.setdefault(variant, []).append((cuda_ms(fn, xs), graph_ms(fn, xs[:3])))
+        row = dict(shape=what, per_predict_bs1=count, planned=dict(
+            path=plan.path, split=plan.split, grid=plan.grid, tiles=plan.m_tiles * plan.n_tiles))
+        for variant, runs in got.items():
+            row[variant] = dict(ms=statistics.mean(r[0] for r in runs),
+                                graph_ms=statistics.mean(r[1] for r in runs))
+        per_shape.append(row)
+        emit('int8_plan', **row)
+        del xs
+    system.cfg.inference_dtype = 'int8'
+    system.cfg.int8_block = None
+    predict = {}
+    for variant in INT8_PLAN_TURNS:
+        with int8_plan_variant(ic, variant):
+            system.predict(*one)
+            system.predict(left, right, P2)
+            lats = []
+            for _ in range(N_PLAN_BS1):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                system.predict(*one)
+                torch.cuda.synchronize()
+                lats.append((time.perf_counter() - t) * 1e3)
+            t0 = time.perf_counter()
+            for _ in range(N_BATCHES):
+                system.predict(left, right, P2)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / N_BATCHES
+        predict.setdefault(variant, []).append((lats, ms))
+    predict = {v: dict(bs1_p50_ms=statistics.median(t for r in runs for t in r[0]),
+                       ms_per_batch=statistics.mean(r[1] for r in runs))
+               for v, runs in predict.items()}
+    out = dict(per_shape=per_shape, predict=predict)
+    emit('int8_plan_predict', batch=BATCH, **predict)
     return out
 
 
@@ -1926,8 +2181,7 @@ def int8_slice_phase(torch, cv, ic, ib, system, mode):
     outs = [system.predict(left, right, P2) for left, right in batches[1:]]
     torch.cuda.synchronize()
     ms_batch = (time.perf_counter() - t0) * 1e3 / N_BATCHES
-    launches = {'int8_conv2d': ic.LAUNCHES['int8_conv2d'],
-                'int8_quantize': ic.LAUNCHES['int8_quantize'],
+    launches = {**ic.LAUNCHES,
                 'int8_basic_block': ib.LAUNCHES['int8_basic_block'],
                 'correlation_volume_interleaved': cv.LAUNCHES['correlation_volume_interleaved']}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1938,11 +2192,13 @@ def int8_slice_phase(torch, cv, ic, ib, system, mode):
     expected = {'int8': (n_convs, 0), 'int8+K8': (n_convs - 2 * n_fused, n_fused),
                 'bfloat16': (0, 0)}[mode]
     per_predict = {k: v / N_BATCHES for k, v in launches.items()}
+    by_path = sum(per_predict[f'int8_conv2d_{k}'] for k in ('wgmma', 'wgmma_splitk', 'cp_async'))
     check(per_predict['correlation_volume_interleaved'] == 2
           and (per_predict['int8_conv2d'], per_predict['int8_basic_block']) == expected
-          and per_predict['int8_quantize'] == sum(expected),
-          f'{mode}: launches per predict {per_predict}, expected B8/K8 {expected}, one '
-          f'quantize for each and 2 K1')
+          and per_predict['int8_quantize'] == sum(expected) and by_path == expected[0]
+          and (mode == 'bfloat16' or per_predict['int8_conv2d_wgmma'] > 0),
+          f'{mode}: launches per predict {per_predict}, expected B8/K8 {expected} (B8 on the '
+          f'wgmma path among them), one quantize for each and 2 K1')
     if mode == 'int8+K8':
         check(n_fused == 3, f'{mode}: {n_fused} fused 64-channel blocks, expected layer1\'s 3')
     n_valid = [int(o['valid'].sum()) for o in outs]
@@ -2126,6 +2382,7 @@ def main() -> int:
         int8_slices[mode], batch, P2 = int8_slice_phase(torch, cv, ic, ib, system, mode)
     shapes = int8_conv_shapes(torch, system, (*batch, P2))
     b8 = int8_conv_kernel_phase(torch, ic, shapes, part)
+    b8_plan = int8_plan_phase(torch, ic, system, batch, P2)
     k8 = int8_block_kernel_phase(torch, ib, system, layer1_input(torch, system, batch, P2), part)
     int8_block_edge_phase(torch, ib, system)
     del system, batch
@@ -2242,7 +2499,7 @@ def main() -> int:
                 for k in ('input', 'weight')},
             max_abs_err=r['max_abs_err'], ms=r['ms'], plain_ms=r['plain_ms'],
             bound_ms=r['bound_ms'], bound_by=r['bound_by'], library_ms=None,
-            dx_atomic_adds=r['atomics'],
+            dx_adds_per_step=r['dx_adds'],
             per_forward='the backward of the 16 DCNs of one KM3D training step, batch 16 '
                         '(shapes weighted by count): 16 dx and 16 dW kernel launches',
             per_shape=r['per_shape']))
@@ -2255,6 +2512,9 @@ def main() -> int:
         max_abs_err=b8['max_abs_err'], ms=b8['ms'], plain_ms=b8['plain_ms'],
         bound_ms=b8['bound_ms'], bound_by=b8['bound_by'], library_ms=b8['library_ms'],
         library='cuDNN bf16 conv of the same shapes (not the same function)',
+        launches_by_path={k: int8_slices['int8']['launches'][f'int8_conv2d_{k}']
+                          for k in ('wgmma', 'wgmma_splitk', 'cp_async')},
+        int8_predict_by_plan_variant=b8_plan['predict'],
         per_forward='every quantized conv of one batch-16 int8 predict, bf16 out '
                     '(shapes weighted by count)', per_shape=b8['per_shape']))
     summary.append(dict(
@@ -2272,7 +2532,8 @@ def main() -> int:
         launches=int8_slices['int8']['launches']['int8_conv2d'],
         max_abs_err=0.0, ms=probe['ms'], plain_ms=probe['plain_ms'], bound_ms=probe['bound_ms'],
         bound_by=probe['bound_by'], library_ms=probe['int_mm_ms'], library='torch._int_mm',
-        probe_ms=probe['probe_ms'], gops=probe['gops'],
+        probe_ms=probe['probe_ms'], gops=probe['gops'], graph_ms=probe['graph_ms'],
+        int_mm_graph_ms=probe['int_mm_graph_ms'],
         per_forward='(a) [2560, 576] x [576, 64] s8 -> s32; launches: the same kernel on the '
                     'int8 path'))
     summary.append(dict(

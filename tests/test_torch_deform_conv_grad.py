@@ -125,15 +125,30 @@ def test_plain_path_gradcheck_f64():
     assert torch.autograd.gradcheck(dc.modulated_deform_conv, leaves, eps=1e-6, atol=1e-6)
 
 
-def _kernel_formulation(x, offset, mask, weight, grad, stride=1, padding=1, dilation=1):
+def _kernel_formulation(x, offset, mask, weight, grad, stride=1, padding=1, dilation=1,
+                        radius=None):
     """The backward kernels' arithmetic written in torch (f32): per tap,
     ds = dy . W_k^T, the four corner gradients scattered into dx, the four
     lerp-weight gradients summed over channels and carried to d_offset and
     d_mask by ``_lerp_weights`` under autograd, dW from the sampled values
-    rounded as the forward rounds them."""
+    rounded as the forward rounds them. With ``radius``, the dx kernel's
+    window: a corner that lands in the window of its pixel's tile
+    (``dc.dx_plan``, ``dc.dx_window``) is added there, any other into dx
+    (the spill), and every tile's window is then added into dx (the flush),
+    only its cells inside the image."""
     b, h, w, c = x.shape
     kh, kw, _, co = weight.shape
     ho, wo = dc.output_hw(h, w, kh, kw, stride, padding, dilation)
+    if radius is not None:
+        th, tw = dc.dx_plan(ho, wo)
+        win_h, win_w = dc.dx_window((th, tw), kh, kw, stride, dilation, radius)
+        tiles_y, tiles_x = -(-ho // th), -(-wo // tw)
+        oy = torch.arange(ho).view(ho, 1).expand(ho, wo).reshape(-1)
+        ox = torch.arange(wo).view(1, wo).expand(ho, wo).reshape(-1)
+        tile = (oy // th) * tiles_x + ox // tw          # [P]
+        org_y = (oy // th) * th * stride - padding - radius  # the tile's window origin
+        org_x = (ox // tw) * tw * stride - padding - radius
+        win = torch.zeros(b, tiles_y * tiles_x * win_h * win_w, c)
     y0, x0, (wx0, wx1, wy0, wy1) = dc._lerp_weights(offset, mask, ho, wo, kh, kw, stride,
                                                     padding, dilation, x.dtype)
     y0, x0 = y0.clamp(-2, h).long(), x0.clamp(-2, w).long()
@@ -163,7 +178,24 @@ def _kernel_formulation(x, offset, mask, weight, grad, stride=1, padding=1, dila
                                      (dvx0 * v2 + dvx1 * v3).sum(-1)], -1)
         for idx, inside, d in ((i0, m0, dvx0 * a0), (i1, m1, dvx1 * a0),
                                (i2, m2, dvx0 * a1), (i3, m3, dvx1 * a1)):
-            dx.scatter_add_(1, idx, d * inside)
+            if radius is None:
+                dx.scatter_add_(1, idx, d * inside)
+                continue
+            yy, xx = idx[..., 0] // w, idx[..., 0] % w  # inside corners: their own pixel
+            ry, rx = yy - org_y, xx - org_x
+            in_win = ((ry >= 0) & (ry < win_h) & (rx >= 0) & (rx < win_w)).unsqueeze(-1)
+            cell = ((tile * win_h) + ry.clamp(0, win_h - 1)) * win_w + rx.clamp(0, win_w - 1)
+            win.scatter_add_(1, cell.unsqueeze(-1).expand(-1, -1, c), d * (inside & in_win))
+            dx.scatter_add_(1, idx, d * (inside & ~in_win))
+    if radius is not None:  # the flush: each window cell inside the image into dx
+        t = torch.arange(tiles_y * tiles_x)
+        y = ((t // tiles_x) * th * stride - padding - radius).view(-1, 1, 1) + \
+            torch.arange(win_h).view(1, -1, 1)
+        xw = ((t % tiles_x) * tw * stride - padding - radius).view(-1, 1, 1) + \
+            torch.arange(win_w).view(1, 1, -1)
+        inside = ((y >= 0) & (y < h) & (xw >= 0) & (xw < w)).reshape(-1)
+        target = (y.clamp(0, h - 1) * w + xw.clamp(0, w - 1)).reshape(-1)
+        dx.index_add_(1, target[inside], win[:, inside])
     with torch.enable_grad():
         off = offset.detach().requires_grad_()
         msk = mask.detach().requires_grad_()
@@ -188,6 +220,60 @@ def test_kernel_formulation_equals_autograd(conv):
     for name, o, r in zip(NAMES, out, ref):
         assert o.shape == r.shape and o.dtype == r.dtype, name
         torch.testing.assert_close(o, r, rtol=0, atol=1e-5 * float(r.abs().max()), msg=name)
+
+
+@pytest.mark.parametrize('conv', [{}, dict(stride=2), dict(padding=2, dilation=2)],
+                         ids=['plain', 'stride2', 'dilation2'])
+def test_kernel_window_formulation_equals_autograd(conv):
+    """The dx kernel's window (2-D tiles of 64 output pixels, a window of
+    +-R px in shared memory, the spill beyond it, the flush) equals autograd
+    through the plain forward (f32, within 1e-5 of each gradient's max),
+    with offsets that straddle R (uniform in +-(R + 1.5): some corners in
+    the window, some spilled) on a map of clipped tiles."""
+    r = dc.DX_WINDOW_RADIUS
+    args, grad = _inputs(5, b=2, h=19, w=21, c_in=5, c_out=6, off_scale=r + 1.5, conv=conv)
+    x, off, mask, weight, _ = (torch.from_numpy(a) for a in args)
+    grad = torch.from_numpy(grad)
+    ho, wo = off.shape[1:3]
+    spill = dc.dx_window_spill(off, 19, 21, 5, **conv)
+    assert spill['spilled'] > 0 and spill['window'] > 0, spill
+    assert ho % dc.dx_plan(ho, wo)[0] or wo % dc.dx_plan(ho, wo)[1]  # a clipped tile
+    ref = dc.modulated_deform_conv_backward_plain(x, off, mask, weight, grad, **conv)
+    out = _kernel_formulation(x, off, mask, weight, grad, radius=r, **conv)
+    for name, o, r_ in zip(NAMES, out, ref):
+        assert o.shape == r_.shape and o.dtype == r_.dtype, name
+        torch.testing.assert_close(o, r_, rtol=0, atol=1e-5 * float(r_.abs().max()), msg=name)
+
+
+def test_dx_window_spill_counts_by_hand():
+    """The device-memory adds of the dx kernel, counted by hand on a 24x24
+    map (3x3 tiles of 8x8, windows of 19x19 from -5): zero offsets sample
+    the integer grid, so per axis the corners y0 = o - 1 + k and y0 + 1
+    fall inside the image 70 and 69 times and every corner lands in its
+    window: (70 + 69)^2 corner adds a channel, none spilled, and per axis
+    the tiles touch 10, 11 and 9 rows, (10 + 11 + 9)^2 window cells. One
+    tap of pixel (0, 0) moved 16 px down samples rows 15 and 16 of column
+    0 (column -1 is outside): two corners in the image, both outside its
+    tile's window (rows -5..13), and its old corner (0, 0) lost."""
+    c_in = 3
+    off = torch.zeros((1, 24, 24, 18))
+    got = dc.dx_window_spill(off, 24, 24, c_in)
+    assert got['tile'] == (8, 8) and got['window_hw'] == (19, 19)
+    assert got['corner_adds'] == 139 ** 2 * c_in and got['spilled'] == 0
+    assert got['window'] == 30 ** 2 * c_in == got['global_adds']
+    assert got['all_corners'] == 24 * 24 * 36 * c_in
+    off[0, 0, 0, 0] = 16.0  # dy of tap 0 at pixel (0, 0)
+    got = dc.dx_window_spill(off, 24, 24, c_in)
+    assert got['spilled'] == 2 * c_in
+    assert got['corner_adds'] == (139 ** 2 + 1) * c_in
+    assert got['global_adds'] == (2 + 30 ** 2) * c_in
+
+
+def test_dx_plan_takes_the_tile_with_fewer_blocks():
+    assert dc.dx_plan(24, 80) == (8, 8)
+    assert dc.dx_plan(12, 40) == (4, 16)  # 3 x 3 tiles of 4x16 against 2 x 5 of 8x8
+    assert dc.dx_window((8, 8), 3, 3, 1, 1, 4) == (19, 19)
+    assert dc.dx_window((8, 8), 3, 3, 2, 2, 4) == (28, 28)
 
 
 def test_backward_wrapper_on_cpu_takes_the_plain_backward():

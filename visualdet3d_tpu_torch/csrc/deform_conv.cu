@@ -198,17 +198,16 @@ __device__ __forceinline__ void load_weight_tile(const T* __restrict__ wk, int C
   }
 }
 
-// The corner table entry of output pixel p (of image b, flat index pix =
-// b*P + p) and tap k: the four corner pixels (y0,x0) (y0,x0+1) (y0+1,x0)
-// (y0+1,x0+1) as indices into the image (-1 for a corner outside the
-// unpadded image: it contributes 0) and the four lerp weights 1-fx, fx,
+// The corner origin of output pixel p (of image b, flat index pix = b*P +
+// p) and tap k: (y0, x0), clamped to [-2, H] x [-2, W] (which keeps every
+// corner's inside/outside verdict), and the four lerp weights 1-fx, fx,
 // (1-fy)*mask, fy*mask, formed in T as the plain version forms them.
 template <typename T>
-__device__ __forceinline__ void corner_entry(const T* __restrict__ offset,
-                                             const T* __restrict__ mask, long long pix, int p,
-                                             int k, int H, int W, int Wo, int kw, int stride,
-                                             int pad, int dil, int off_stride, int mask_stride,
-                                             int (&idx)[4], float (&wt)[4]) {
+__device__ __forceinline__ void corner_origin(const T* __restrict__ offset,
+                                              const T* __restrict__ mask, long long pix, int p,
+                                              int k, int H, int W, int Wo, int kw, int stride,
+                                              int pad, int dil, int off_stride, int mask_stride,
+                                              int& y0, int& x0, float (&wt)[4]) {
   const int ho = p / Wo, wo = p - ho * Wo;
   const float dy = to_f32(offset[pix * off_stride + 2 * k]);
   const float dx = to_f32(offset[pix * off_stride + 2 * k + 1]);
@@ -223,10 +222,24 @@ __device__ __forceinline__ void corner_entry(const T* __restrict__ offset,
   wt[1] = fx;
   wt[2] = round_to<T>(__fmul_rn(round_to<T>(__fsub_rn(1.f, fy)), m));
   wt[3] = round_to<T>(__fmul_rn(fy, m));
-  // clamping to [-2, H] / [-2, W] keeps each corner's inside/outside
-  // verdict and makes the integer cast safe (NaN goes to -2)
-  const int y0 = (int)fminf(fmaxf(fy0, -2.f), (float)H);
-  const int x0 = (int)fminf(fmaxf(fx0, -2.f), (float)W);
+  // the integer cast is safe after the clamp (NaN goes to -2)
+  y0 = (int)fminf(fmaxf(fy0, -2.f), (float)H);
+  x0 = (int)fminf(fmaxf(fx0, -2.f), (float)W);
+}
+
+// The corner table entry of output pixel p and tap k: the four corner
+// pixels (y0,x0) (y0,x0+1) (y0+1,x0) (y0+1,x0+1) as indices into the image
+// (-1 for a corner outside the unpadded image: it contributes 0) and the
+// four lerp weights (corner_origin).
+template <typename T>
+__device__ __forceinline__ void corner_entry(const T* __restrict__ offset,
+                                             const T* __restrict__ mask, long long pix, int p,
+                                             int k, int H, int W, int Wo, int kw, int stride,
+                                             int pad, int dil, int off_stride, int mask_stride,
+                                             int (&idx)[4], float (&wt)[4]) {
+  int y0, x0;
+  corner_origin<T>(offset, mask, pix, p, k, H, W, Wo, kw, stride, pad, dil, off_stride,
+                   mask_stride, y0, x0, wt);
   const bool y0_in = y0 >= 0 && y0 < H, y1_in = y0 + 1 >= 0 && y0 + 1 < H;
   const bool x0_in = x0 >= 0 && x0 < W, x1_in = x0 + 1 >= 0 && x0 + 1 < W;
   idx[0] = y0_in && x0_in ? y0 * W + x0 : -1;
@@ -727,17 +740,20 @@ int launch_premul(const void* y, const void* offset, const void* mask, const voi
 // forward rounds it (bf16 in the bf16 kernel), so dW is the exact vjp of
 // what the forward multiplied; ds stays f32, as in the TPU kernel.
 //
-// What bounds it: twice the forward's products (ds and dW), and the dx
-// scatter, 4 corners x K taps x C_in adds per output pixel. The TPU kernel's
-// u32 packing, taps-outer grid with a dW block revisited across pixel steps,
-// and its VMEM fallback answered TPU costs; none is kept. The design, simple
-// first:
-//   * kernel A, one block per (image, 64 output pixels): per tap, the corner
-//     table; per 64-channel chunk of C_in, the ds tile [64 x 64] on WMMA bf16
-//     / 4x4 FMA f32 from staged dy and W_k tiles, kept in shared memory; then
-//     each thread takes (pixel, 16 bytes of channels), gathers the four
-//     corners, adds into dx with 16-byte float4 atomics (sm_90) and reduces
-//     the four weight gradients over the pixel's lanes with warp shuffles;
+// What bounds it: twice the forward's products (ds and dW), the gather of
+// the four corners of x for every (pixel, tap, channel), as in the forward,
+// and the dx scatter, 4 corners x K taps x C_in adds per output pixel (10.33
+// G a KM3D training step at batch 16). Most of the four corners of the nine
+// taps of neighbouring pixels fall on the same few input pixels. The TPU
+// kernel's u32 packing, taps-outer grid with a dW block revisited across
+// pixel steps, and its VMEM fallback answered TPU costs; none is kept.
+//   * kernel A (dx and the lerp-weight gradients): in bf16, one block per
+//     (image, 2-D tile of 64 output pixels) sums each corner's gradients
+//     for a 16-channel chunk of C_in in a shared-memory window of the input
+//     pixels that the tile's taps reach with offsets up to +-R, and adds the
+//     window into dx once; in f32 the row design, which adds every corner
+//     into dx itself, is the faster; both are described before their kernels
+//     below;
 //   * kernel B, one block per (tap, 64 C_in, 64 C_out) and a share of the
 //     64-pixel tiles of the batch: it re-gathers the sampled tile, stages
 //     the dy tile beside it and accumulates sampled^T . dy in registers
@@ -806,9 +822,21 @@ __device__ __forceinline__ void atomic_add_vals(float* p, const float (&v)[V]) {
   for (int j = 0; j < V; ++j) atomicAdd(p + j, v[j]);
 }
 
-// kernel A's elementwise stage for channels c0.. of one tap: dx atomics and
-// the per-pixel sums of the four lerp-weight gradients (into s_dwts). With
-// V > 1 the caller guarantees C_in % V == 0.
+// ---------------------------------------------------------------------------
+// The dx pass in f32: a block per (image, run of 64 output pixels along the
+// rows); per tap the corner table, per 64-channel chunk of C_in the ds tile
+// [64 x 64] (4x4 FMA a thread) from staged dy and W_k tiles, then each
+// thread takes (pixel, 4 channels), gathers the four corners, adds into dx
+// with float4 atomics in device memory and sums the four weight gradients
+// over the pixel's lanes. In f32 this row design beats the window design
+// below (on an H100, 29 against 59-65 ms over a KM3D training step's 16
+// DCNs: the window design's f32 ds products and its shared memory, one
+// block an SM at most shapes, cost more than the device atomics it saves).
+// ---------------------------------------------------------------------------
+
+// Its elementwise stage for channels c0.. of one tap: dx atomics and the
+// per-pixel sums of the four lerp-weight gradients (into s_dwts). With V > 1
+// the caller guarantees C_in % V == 0.
 template <typename T, int V>
 __device__ __forceinline__ void bwd_scatter_tile(const T* __restrict__ xb, float* __restrict__ dxb,
                                                  int C_in, int c0, const int (&s_idx)[4][kTileP],
@@ -1007,6 +1035,540 @@ deform_conv_bwd_input_kernel(const T* __restrict__ x, const T* __restrict__ offs
   }
 }
 
+// ---------------------------------------------------------------------------
+// The dx pass in bf16 on a shared-memory window.
+//
+// A block owns a 2-D tile of 64 output pixels (8x8, or 4x16 where that
+// covers the map with fewer tiles) of one image. The input pixels that the
+// tile's taps reach with offsets up to +-R (the plan in ops/deform_conv.py,
+// dx_plan, passes R) form a window of
+//   win_h = (tile_h - 1) * stride + (kh - 1) * dil + 2R + 2
+// rows (and as many columns). Once per block, every corner of every (pixel,
+// tap) that lands inside the image is put in the bucket of its window cell,
+// or in the spill bucket when it lies outside the window (an offset beyond
+// +-R): a counting sort in shared memory with integer atomics. Then per
+// chunk of 16 input channels:
+//   * the chunk's channels of x over the window, and the W_k chunks of as
+//     many taps as shared memory holds with two blocks an SM, arrive by
+//     cp.async (all copies of a round in flight at once);
+//   * ds_k = dy . W_k^T [64 x 16] for every tap k, two taps at a time on the
+//     two halves of the block (WMMA), from the dy tile staged once per
+//     block, kept in shared memory for all taps (f32);
+//   * the four lerp-weight gradients: a thread per (tap, pixel) reads the
+//     four corners from the window (from x for a corner outside it) and sums
+//     over the chunk into per-(tap, pixel) sums that live in shared memory
+//     across chunks and are written once;
+//   * dx: a thread per window cell adds the gradients of the corners in the
+//     cell's bucket in registers, 16 channels, then adds them into dx with
+//     float4 atomics (halos overlap the neighbouring blocks' windows); cells
+//     no corner reached are skipped; the spilled corners go to dx with
+//     float4 atomics each.
+// No float atomic touches shared memory. The sums are the same terms as the
+// plain version's in another order. On an H100 at the KM3D neck's shapes
+// this moves 5.7x fewer adds into device memory than the row design and
+// runs a little faster than it in bf16; in f32 the row design above is
+// faster and runs instead. What bounds it is latency: 16 warps an SM
+// (shared memory and 123 registers a thread) wait on cp.async copies,
+// barriers and shared-memory reads in every phase.
+// ---------------------------------------------------------------------------
+
+constexpr int kDxChunk = 16;           // input channels per chunk
+constexpr int kDxDsLd = kDxChunk + 4;  // row of the ds tiles, floats
+constexpr int kDxMaxOut = 256;         // output channels of dy staged at once
+constexpr int kDxPixels = 64;          // output pixels per block
+// shared memory of a block for two an SM: (228 KB less 1 KB a block) / 2
+constexpr int kDxSmemTarget = (228 * 1024 - 2 * 1024) / 2;
+constexpr int kDxMaxTaps = 9;          // taps of one round
+constexpr int kPackNone = -1;
+
+struct DxGeom {
+  int tile_h, tile_w, tiles_x, radius, win_h, win_w, oc_max, dy_ld, w_ld, w_buf, n_oc, taps;
+  int off_ds, off_dy, off_w, off_x, off_pack, off_wt, off_dwts, off_cnt, off_first, off_ent,
+      smem;
+};
+
+__host__ __device__ constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
+
+// Shared memory of the dx kernel: ds of all taps, the dy tile, the chunk's
+// channels of x over the window, the W_k chunks of the taps of one round (as many as keep the block within
+// kDxSmemTarget, or within twice that where the rest alone exceeds it; at
+// least 1, at most kDxMaxTaps), per (tap, pixel) the
+// corner origin, the four lerp weights and their gradient sums, and the
+// corner buckets.
+template <typename T>
+DxGeom dx_geometry(int Ho, int Wo, int C_out, int K, int kh, int kw, int stride, int dil,
+                   int tile_w, int radius) {
+  static_assert(std::is_same<T, __nv_bfloat16>::value, "the window kernel is bf16");
+  DxGeom g;
+  g.tile_w = tile_w;
+  g.tile_h = kDxPixels / tile_w;
+  g.tiles_x = (Wo + tile_w - 1) / tile_w;
+  g.radius = radius;
+  g.win_h = radius < 0 ? 0 : (g.tile_h - 1) * stride + (kh - 1) * dil + 2 * radius + 2;
+  g.win_w = radius < 0 ? 0 : (g.tile_w - 1) * stride + (kw - 1) * dil + 2 * radius + 2;
+  g.oc_max = round_up(C_out, 16) < kDxMaxOut ? round_up(C_out, 16) : kDxMaxOut;
+  g.n_oc = (C_out + g.oc_max - 1) / g.oc_max;
+  g.dy_ld = g.oc_max + 8;
+  g.w_ld = g.oc_max + 8;           // W_k [chunk][oc]
+  g.w_buf = kDxChunk * g.w_ld;     // elements of one tap's chunk
+  const int buckets = g.win_h * g.win_w + 1;       // the cells, then the spill
+  for (int pass = 0; pass < 2; ++pass) {  // the layout without W, then with its taps
+    int off = 0;
+    g.off_ds = off;
+    off = round_up(off + (int)sizeof(float) * K * kDxPixels * kDxDsLd, 128);
+    g.off_dy = off;
+    off = round_up(off + (int)sizeof(T) * kDxPixels * g.dy_ld, 128);
+    g.off_x = off;  // the chunk's channels of x over the window
+    off = round_up(off + (int)sizeof(T) * g.win_h * g.win_w * kDxChunk, 128);
+    g.off_pack = off;
+    off = round_up(off + (int)sizeof(int) * K * kDxPixels, 128);
+    g.off_wt = off;
+    off = round_up(off + (int)sizeof(float) * K * 4 * kDxPixels, 128);
+    g.off_dwts = off;
+    off = round_up(off + (int)sizeof(float) * K * 4 * kDxPixels, 128);
+    g.off_cnt = off;
+    off = round_up(off + (int)sizeof(int) * buckets, 128);
+    g.off_first = off;
+    off = round_up(off + (int)sizeof(int) * (buckets + 1), 128);
+    g.off_ent = off;
+    off = round_up(off + (int)sizeof(short) * K * kDxPixels * 4, 128);
+    if (pass == 0) {
+      // where not even one tap keeps two blocks an SM, fill one block's share
+      const int per_tap = (int)sizeof(T) * g.w_buf;
+      g.taps = (kDxSmemTarget - off - 128) / per_tap;
+      if (g.taps < 1) g.taps = (2 * kDxSmemTarget - off - 128) / per_tap;
+      const int most = K < kDxMaxTaps ? K : kDxMaxTaps;
+      g.taps = g.taps < 1 ? 1 : (g.taps > most ? most : g.taps);
+    } else {
+      g.off_w = off;
+      g.smem = round_up(off + (int)sizeof(T) * g.taps * g.w_buf, 128);
+    }
+  }
+  return g;
+}
+
+// Rows of the dy tile: output channels o0 .. o0 + oc_max of the block's
+// pixels (zero outside the map and past C_out), V channels a thread at a
+// time (C_out % V == 0 when V > 1).
+template <typename T, int V>
+__device__ __forceinline__ void stage_dy(const T* __restrict__ dyb, int C_out, int Wo, int Ho,
+                                         int oy0, int ox0, const DxGeom& g, int o0, T* s_dy,
+                                         int tid) {
+  const int groups = g.oc_max / V;
+  for (int e = tid; e < kDxPixels * groups; e += kThreads) {
+    const int pl = e / groups, ol = (e - pl * groups) * V;
+    const int oy = oy0 + pl / g.tile_w, ox = ox0 + pl % g.tile_w, o = o0 + ol;
+    float v[V];
+    if (oy < Ho && ox < Wo && o < C_out) {
+      load_vals<T, V>(dyb + ((long long)oy * Wo + ox) * C_out + o, v);
+    } else {
+#pragma unroll
+      for (int j = 0; j < V; ++j) v[j] = 0.f;
+    }
+    store_vals<T, V>(s_dy + pl * g.dy_ld + ol, v);
+  }
+}
+
+// V consecutive values of shared memory as f32 (one 16-byte load when V =
+// 16 / sizeof(T)).
+template <typename T, int V>
+__device__ __forceinline__ void load_shared_vals(const T* p, float (&out)[V]) {
+  if constexpr (V * sizeof(T) == 16) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const T* t = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int j = 0; j < V; ++j) out[j] = to_f32(t[j]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j) out[j] = to_f32(p[j]);
+  }
+}
+
+// Asynchronous copies into shared memory (cp.async), BYTES = 4 or 16; with
+// pred false nothing is read and the destination is zero-filled.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem, bool pred) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
+                 "r"(pred ? 16 : 0));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(gmem),
+                 "r"(pred ? 4 : 0));
+  }
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// stage_w's copies issued as cp.async and left in flight, 16 bytes a copy
+// (C_out % 8 == 0, 16-byte aligned rows).
+template <typename T>
+__device__ __forceinline__ void stage_w_async(const T* __restrict__ wk, int C_in, int C_out,
+                                              int c0, int o0, const DxGeom& g, T* s_w, int tid) {
+  const int groups = g.oc_max / 8;
+  for (int e = tid; e < kDxChunk * groups; e += kThreads) {
+    const int cl = e / groups, ol = (e - cl * groups) * 8;
+    const int c = c0 + cl, o = o0 + ol;
+    const bool ok = c < C_in && o < C_out;
+    cp_async<16>(s_w + cl * g.w_ld + ol, ok ? wk + (long long)c * C_out + o : wk, ok);
+  }
+}
+
+// The chunk's channels c0.. of x over the window (zero outside the image and
+// past C_in), as cp.async left in flight: [cell][chunk], 16 bytes a copy
+// (C_in % (16 / sizeof(T)) == 0, 16-byte aligned x).
+template <typename T>
+__device__ __forceinline__ void stage_x_async(const T* __restrict__ xb, int H, int W, int C_in,
+                                              int c0, int org_y, int org_x, const DxGeom& g,
+                                              T* s_x, int tid) {
+  constexpr int kC = kDxChunk, kV = 16 / (int)sizeof(T), kPieces = kC / kV;
+  for (int e = tid; e < g.win_h * g.win_w * kPieces; e += kThreads) {
+    const int cell = e / kPieces, cl = (e - cell * kPieces) * kV;
+    const int y = org_y + cell / g.win_w, x = org_x + cell % g.win_w, c = c0 + cl;
+    const bool ok = y >= 0 && y < H && x >= 0 && x < W && c < C_in;
+    cp_async<16>(s_x + cell * kC + cl, ok ? xb + ((long long)y * W + x) * C_in + c : xb, ok);
+  }
+}
+
+// The W_k chunk of input channels c0.. and output channels o0.. (zero
+// outside C_in x C_out) as [chunk][oc], a col-major B of ds = dy . W^T, V
+// columns a thread at a time (C_out % V == 0 when V > 1).
+template <typename T, int V>
+__device__ __forceinline__ void stage_w(const T* __restrict__ wk, int C_in, int C_out, int c0,
+                                        int o0, const DxGeom& g, T* s_w, int tid) {
+  const int groups = g.oc_max / V;
+  for (int e = tid; e < kDxChunk * groups; e += kThreads) {
+    const int cl = e / groups, ol = (e - cl * groups) * V;
+    const int c = c0 + cl, o = o0 + ol;
+    float v[V];
+    if (c < C_in && o < C_out) {
+      load_vals<T, V>(wk + (long long)c * C_out + o, v);
+    } else {
+#pragma unroll
+      for (int j = 0; j < V; ++j) v[j] = 0.f;
+    }
+    store_vals<T, V>(s_w + cl * g.w_ld + ol, v);
+  }
+}
+
+// The four lerp-weight gradient sums of channels c0.. (one chunk) for every
+// (tap, pixel), one thread each: the four corners of x come from the chunk's
+// window (s_x, when given and the corner lies in it) or from x, V channels a
+// load. With V > 1 the caller guarantees C_in % V == 0 and 16-byte aligned
+// rows.
+template <typename T, int V>
+__device__ __forceinline__ void dx_weight_grads(const T* __restrict__ xb, int H, int W, int C_in,
+                                                int c0, int K, const int* s_pack,
+                                                const float* s_wt, const float* s_ds,
+                                                float* s_dwts, const T* s_x, int org_y,
+                                                int org_x, const DxGeom& g, int tid) {
+  for (int kp = tid; kp < K * kDxPixels; kp += kThreads) {  // kp = k * kDxPixels + pl
+    const int pack = s_pack[kp];
+    if (pack == kPackNone) continue;
+    const int k = kp / kDxPixels, pl = kp - k * kDxPixels;
+    const int y0 = (pack >> 16) - 2, x0 = (pack & 0xffff) - 2;
+    const float* wt = s_wt + k * 4 * kDxPixels + pl;
+    const float wx0 = wt[0], wx1 = wt[kDxPixels];
+    const float wy0 = wt[2 * kDxPixels], wy1 = wt[3 * kDxPixels];
+    // where each corner's channels come from: the window, x, or nowhere (0)
+    const T* src[4];
+    bool shared[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int y = y0 + (q >> 1), x = x0 + (q & 1);
+      const int ry = y - org_y, rx = x - org_x;
+      shared[q] = s_x != nullptr && ry >= 0 && ry < g.win_h && rx >= 0 && rx < g.win_w;
+      src[q] = shared[q] ? s_x + (ry * g.win_w + rx) * kDxChunk
+               : (y >= 0 && y < H && x >= 0 && x < W) ? xb + ((long long)y * W + x) * C_in + c0
+                                                      : nullptr;
+    }
+    float sum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 1
+    for (int cl = 0; cl < kDxChunk; cl += V) {
+      if (c0 + cl >= C_in) break;
+      float corner[4][V];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (src[q] == nullptr) {
+#pragma unroll
+          for (int j = 0; j < V; ++j) corner[q][j] = 0.f;
+        } else if (shared[q]) {
+          load_shared_vals<T, V>(src[q] + cl, corner[q]);
+        } else {
+          load_vals<T, V>(src[q] + cl, corner[q]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float ds = s_ds[kp * kDxDsLd + cl + j];
+        const float vx0 = __fadd_rn(__fmul_rn(corner[0][j], wy0), __fmul_rn(corner[2][j], wy1));
+        const float vx1 = __fadd_rn(__fmul_rn(corner[1][j], wy0), __fmul_rn(corner[3][j], wy1));
+        const float dvx0 = ds * wx0, dvx1 = ds * wx1;
+        sum[0] += ds * vx0;
+        sum[1] += ds * vx1;
+        sum[2] += dvx0 * corner[0][j] + dvx1 * corner[1][j];
+        sum[3] += dvx0 * corner[2][j] + dvx1 * corner[3][j];
+      }
+    }
+    // one thread per (tap, pixel) and chunk: a plain sum across chunks
+#pragma unroll
+    for (int q = 0; q < 4; ++q) s_dwts[(k * 4 + q) * kDxPixels + pl] += sum[q];
+  }
+}
+
+// The gradient of corner q of (tap, pixel) kp at 4 channels cl.. of the
+// chunk: ds * (1-fx or fx) * ((1-fy)m or fy m), rounded as the plain version.
+template <int LD>
+__device__ __forceinline__ float4 corner_grad(const float* s_ds, const float* s_wt, int kp, int q,
+                                              int cl) {
+  const int k = kp / kDxPixels, pl = kp - k * kDxPixels;
+  const float wx = s_wt[(k * 4 + (q & 1)) * kDxPixels + pl];
+  const float wy = s_wt[(k * 4 + 2 + (q >> 1)) * kDxPixels + pl];
+  const float4 ds = *reinterpret_cast<const float4*>(s_ds + kp * LD + cl);
+  return make_float4((ds.x * wx) * wy, (ds.y * wx) * wy, (ds.z * wx) * wy, (ds.w * wx) * wy);
+}
+
+__device__ __forceinline__ void add_dx4(float* dst, float4 v, int c, int C_in, bool vec_dx) {
+  if (vec_dx) {
+    const float a[4] = {v.x, v.y, v.z, v.w};
+    atomic_add_vals<4>(dst, a);
+  } else {
+    if (c < C_in) atomicAdd(dst, v.x);
+    if (c + 1 < C_in) atomicAdd(dst + 1, v.y);
+    if (c + 2 < C_in) atomicAdd(dst + 2, v.z);
+    if (c + 3 < C_in) atomicAdd(dst + 3, v.w);
+  }
+}
+
+// ds_k [64 x chunk] = dy [64 x oc_max] . W_k[chunk, :]^T for taps k0 and, if
+// n = 2, k0 + 1 (W_k chunks at s_w, s_w + w_buf), into s_ds, or added to it
+// (add: a later piece of dy), on WMMA: warp owns row tile warp % 4 of tap
+// k0 + warp / 4 (one accumulator a warp).
+__device__ __forceinline__ void ds_pair(const __nv_bfloat16* s_dy, const __nv_bfloat16* s_w,
+                                        float* s_ds, int k0, int n, bool add, const DxGeom& g,
+                                        int tid) {
+  using namespace nvcuda;
+  const int warp = tid / 32, row = 16 * (warp & 3), h = warp >> 2;
+  if (h >= n) return;
+  float* ds = s_ds + ((k0 + h) * kDxPixels + row) * kDxDsLd;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+  if (add) {
+    wmma::load_matrix_sync(acc, ds, kDxDsLd, wmma::mem_row_major);
+  } else {
+    wmma::fill_fragment(acc, 0.f);
+  }
+  for (int kk = 0; kk < g.oc_max; kk += 16) {
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
+    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;
+    wmma::load_matrix_sync(fa, s_dy + row * g.dy_ld + kk, g.dy_ld);
+    wmma::load_matrix_sync(fb, s_w + h * g.w_buf + kk, g.w_ld);
+    wmma::mma_sync(acc, fa, fb, acc);
+  }
+  wmma::store_matrix_sync(ds, acc, kDxDsLd, wmma::mem_row_major);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+deform_conv_bwd_input_window_kernel(const T* __restrict__ x, const T* __restrict__ offset,
+                             const T* __restrict__ mask, const T* __restrict__ weight,
+                             const T* __restrict__ dy, float* __restrict__ dx,
+                             float* __restrict__ dwts, int H, int W, int C_in, int Ho, int Wo,
+                             int C_out, int kh, int kw, int stride, int pad, int dil,
+                             int off_stride, int mask_stride, bool vec_x, bool vec_o,
+                             bool vec_dx, DxGeom g) {
+  static_assert(std::is_same<T, __nv_bfloat16>::value, "the window kernel is bf16");
+  constexpr int kVec = 16 / sizeof(T);
+  extern __shared__ __align__(128) unsigned char dx_smem[];
+  float* s_ds = reinterpret_cast<float*>(dx_smem + g.off_ds);  // [K][64][chunk + 4]
+  T* s_dy = reinterpret_cast<T*>(dx_smem + g.off_dy);
+  T* s_w = reinterpret_cast<T*>(dx_smem + g.off_w);  // the round's taps' chunks
+  T* s_x = reinterpret_cast<T*>(dx_smem + g.off_x);  // x over the window
+  int* s_pack = reinterpret_cast<int*>(dx_smem + g.off_pack);
+  float* s_wt = reinterpret_cast<float*>(dx_smem + g.off_wt);
+  float* s_dwts = reinterpret_cast<float*>(dx_smem + g.off_dwts);
+  int* s_cnt = reinterpret_cast<int*>(dx_smem + g.off_cnt);      // [buckets]
+  int* s_first = reinterpret_cast<int*>(dx_smem + g.off_first);  // [buckets + 1]
+  short* s_ent = reinterpret_cast<short*>(dx_smem + g.off_ent);  // corners by bucket
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int oy0 = (blockIdx.x / g.tiles_x) * g.tile_h;
+  const int ox0 = (blockIdx.x % g.tiles_x) * g.tile_w;
+  const long long b = blockIdx.y;
+  const int P = Ho * Wo;
+  const int K = kh * kw;
+  const int org_y = oy0 * stride - pad - g.radius, org_x = ox0 * stride - pad - g.radius;
+  const int cells = g.win_h * g.win_w, buckets = cells + 1;  // bucket `cells`: the spill
+  const T* xb = x + b * H * W * (long long)C_in;
+  float* dxb = dx + b * H * W * (long long)C_in;
+  const T* dyb = dy + b * P * (long long)C_out;
+
+  // per (tap, pixel): the corner origin (packed, kPackNone outside the
+  // output), the four lerp weights; their gradient sums start at 0
+  for (int e = tid; e < K * kDxPixels; e += kThreads) {
+    const int k = e / kDxPixels, pl = e - k * kDxPixels;
+    const int oy = oy0 + pl / g.tile_w, ox = ox0 + pl % g.tile_w;
+    int pack = kPackNone;
+    float wt[4] = {0.f, 0.f, 0.f, 0.f};
+    if (oy < Ho && ox < Wo) {
+      const int p = oy * Wo + ox;
+      int y0, x0;
+      corner_origin<T>(offset, mask, b * P + p, p, k, H, W, Wo, kw, stride, pad, dil, off_stride,
+                       mask_stride, y0, x0, wt);
+      pack = ((y0 + 2) << 16) | (x0 + 2);
+    }
+    s_pack[e] = pack;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      s_wt[(k * 4 + q) * kDxPixels + pl] = wt[q];
+      s_dwts[(k * 4 + q) * kDxPixels + pl] = 0.f;
+    }
+  }
+  for (int e = tid; e < buckets; e += kThreads) s_cnt[e] = 0;
+  if (g.n_oc == 1) {  // the dy tile, once per block
+    if (vec_o) {
+      stage_dy<T, kVec>(dyb, C_out, Wo, Ho, oy0, ox0, g, 0, s_dy, tid);
+    } else {
+      stage_dy<T, 1>(dyb, C_out, Wo, Ho, oy0, ox0, g, 0, s_dy, tid);
+    }
+  }
+  __syncthreads();
+
+  // the corners by bucket: count, scan, place (corner e = (k * 64 + pl) * 4 + q)
+  auto bucket_of = [&](int e) -> int {
+    const int pack = s_pack[e >> 2];
+    if (pack == kPackNone) return -1;
+    const int y = (pack >> 16) - 2 + ((e & 3) >> 1), xx = (pack & 0xffff) - 2 + (e & 1);
+    if (y < 0 || y >= H || xx < 0 || xx >= W) return -1;  // contributes nothing
+    const int ry = y - org_y, rx = xx - org_x;
+    return ry >= 0 && ry < g.win_h && rx >= 0 && rx < g.win_w ? ry * g.win_w + rx : cells;
+  };
+  for (int e = tid; e < K * kDxPixels * 4; e += kThreads) {
+    const int bk = bucket_of(e);
+    if (bk >= 0) atomicAdd(&s_cnt[bk], 1);
+  }
+  __syncthreads();
+  if (warp == 0) {  // exclusive scan of the counts
+    const int per = (buckets + 31) / 32, lo = lane * per;
+    const int hi = lo + per < buckets ? lo + per : buckets;
+    int local = 0;
+    for (int i = lo; i < hi; ++i) local += s_cnt[i];
+    int incl = local;
+#pragma unroll
+    for (int s = 1; s < 32; s <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, s);
+      if (lane >= s) incl += v;
+    }
+    int run = incl - local;
+    for (int i = lo; i < hi; ++i) {
+      const int c = s_cnt[i];
+      s_first[i] = run;
+      s_cnt[i] = 0;  // from here a cursor
+      run += c;
+    }
+    if (lane == 31) s_first[buckets] = incl;
+  }
+  __syncthreads();
+  for (int e = tid; e < K * kDxPixels * 4; e += kThreads) {
+    const int bk = bucket_of(e);
+    if (bk >= 0) s_ent[s_first[bk] + atomicAdd(&s_cnt[bk], 1)] = (short)e;
+  }
+  // (the barrier after the first ds product orders these writes before use)
+
+  using namespace nvcuda;
+  for (int c0 = 0; c0 < C_in; c0 += kDxChunk) {
+    // the chunk's x window: its copies land while the ds products run
+    if (vec_x && cells > 0) stage_x_async<T>(xb, H, W, C_in, c0, org_y, org_x, g, s_x, tid);
+    // ds_k [64 x chunk] = dy [64 x C_out] . W_k[c0.., :]^T for every tap,
+    // g.taps taps a round
+    for (int k0 = 0; k0 < K; k0 += g.taps) {
+      const int n_taps = K - k0 < g.taps ? K - k0 : g.taps;
+      for (int oc = 0; oc < g.n_oc; ++oc) {
+        if (g.n_oc > 1) {
+          __syncthreads();  // the previous piece of dy is consumed
+          if (vec_o) {
+            stage_dy<T, kVec>(dyb, C_out, Wo, Ho, oy0, ox0, g, oc * g.oc_max, s_dy, tid);
+          } else {
+            stage_dy<T, 1>(dyb, C_out, Wo, Ho, oy0, ox0, g, oc * g.oc_max, s_dy, tid);
+          }
+        }
+        for (int h = 0; h < n_taps; ++h) {
+          const T* wk = weight + (long long)(k0 + h) * C_in * C_out;
+          if (vec_o) {  // all of the round's copies in flight at once
+            stage_w_async<T>(wk, C_in, C_out, c0, oc * g.oc_max, g, s_w + h * g.w_buf, tid);
+          } else {
+            stage_w<T, 1>(wk, C_in, C_out, c0, oc * g.oc_max, g, s_w + h * g.w_buf, tid);
+          }
+        }
+        cp_async_wait_all();  // (the x window's copies too, at the first round)
+        __syncthreads();
+        // ds of the round's taps, two at a time (the first piece of dy writes,
+        // later ones add)
+        for (int h = 0; h < n_taps; h += 2)
+          ds_pair(s_dy, s_w + h * g.w_buf, s_ds, k0 + h, n_taps - h < 2 ? 1 : 2, oc > 0, g, tid);
+        if (g.n_oc > 1 || k0 + n_taps < K) __syncthreads();  // s_w (and s_dy, s_ds) consumed
+      }
+    }
+    __syncthreads();  // ds of every tap is in shared memory
+
+    if (vec_x) {
+      dx_weight_grads<T, kVec>(xb, H, W, C_in, c0, K, s_pack, s_wt, s_ds, s_dwts,
+                               cells > 0 ? s_x : nullptr, org_y, org_x, g, tid);
+    } else {
+      dx_weight_grads<T, 1>(xb, H, W, C_in, c0, K, s_pack, s_wt, s_ds, s_dwts, nullptr, org_y,
+                            org_x, g, tid);
+    }
+    // dx: each window cell's corners summed in registers, one thread a cell
+    constexpr int kGroups = kDxChunk / 4;
+    for (int cell = tid; cell < cells; cell += kThreads) {
+      const int first = s_first[cell], last = s_first[cell + 1];
+      if (first == last) continue;
+      float4 sum[kGroups];
+#pragma unroll
+      for (int j = 0; j < kGroups; ++j) sum[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int i = first; i < last; ++i) {
+        const int ent = s_ent[i];
+#pragma unroll
+        for (int j = 0; j < kGroups; ++j) {
+          const float4 d = corner_grad<kDxDsLd>(s_ds, s_wt, ent >> 2, ent & 3, 4 * j);
+          sum[j].x += d.x;
+          sum[j].y += d.y;
+          sum[j].z += d.z;
+          sum[j].w += d.w;
+        }
+      }
+      const int y = org_y + cell / g.win_w, xx = org_x + cell % g.win_w;
+      float* dst = dxb + ((long long)y * W + xx) * C_in + c0;
+#pragma unroll
+      for (int j = 0; j < kGroups; ++j)
+        if (c0 + 4 * j < C_in) add_dx4(dst + 4 * j, sum[j], c0 + 4 * j, C_in, vec_dx);
+    }
+    // the spill: corners outside their window, one add each
+    const int s0 = s_first[cells], n_spill = s_first[cells + 1] - s0;
+    for (int i = tid; i < n_spill; i += kThreads) {
+      const int ent = s_ent[s0 + i], kp = ent >> 2, q = ent & 3;
+      const int pack = s_pack[kp];
+      const int y = (pack >> 16) - 2 + (q >> 1), xx = (pack & 0xffff) - 2 + (q & 1);
+      float* dst = dxb + ((long long)y * W + xx) * C_in + c0;
+#pragma unroll
+      for (int j = 0; j < kGroups; ++j)
+        if (c0 + 4 * j < C_in)
+          add_dx4(dst + 4 * j, corner_grad<kDxDsLd>(s_ds, s_wt, kp, q, 4 * j), c0 + 4 * j,
+                  C_in, vec_dx);
+    }
+    __syncthreads();  // ds is read before the next chunk overwrites it
+  }
+
+  for (int e = tid; e < K * kDxPixels; e += kThreads) {
+    const int k = e / kDxPixels, pl = e - k * kDxPixels;
+    const int oy = oy0 + pl / g.tile_w, ox = ox0 + pl % g.tile_w;
+    if (oy >= Ho || ox >= Wo) continue;
+    const float* sw = s_dwts + k * 4 * kDxPixels + pl;
+    *reinterpret_cast<float4*>(dwts + ((b * P + oy * Wo + ox) * K + k) * 4) =
+        make_float4(sw[0], sw[kDxPixels], sw[2 * kDxPixels], sw[3 * kDxPixels]);
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 deform_conv_bwd_weight_kernel(const T* __restrict__ x, const T* __restrict__ offset,
@@ -1144,14 +1706,48 @@ deform_conv_bwd_weight_kernel(const T* __restrict__ x, const T* __restrict__ off
   }
 }
 
+// Launch the bf16 dx kernel on its window: the geometry, and the window only
+// where it fits in shared memory (else every corner goes to dx).
+template <typename T>
+int launch_dx_window(const void* x, const void* offset, const void* mask, const void* weight,
+                     const void* dy, void* dx, void* dwts, int H, int W, int C_in, int Ho, int Wo,
+                     int C_out, int kh, int kw, int stride, int pad, int dil, int off_stride,
+                     int mask_stride, int tile_w, int radius, bool vec_x, bool vec_o, int B,
+                     void* stream) {
+  constexpr int kMaxSmem = 232448;
+  const bool vec_dx = C_in % 4 == 0 && reinterpret_cast<uintptr_t>(dx) % 16 == 0;
+  DxGeom g = dx_geometry<T>(Ho, Wo, C_out, kh * kw, kh, kw, stride, dil, tile_w, radius);
+  if (g.smem > kMaxSmem)
+    g = dx_geometry<T>(Ho, Wo, C_out, kh * kw, kh, kw, stride, dil, tile_w, -1);
+  if (g.smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  static bool attribute_set = false;
+  if (!attribute_set) {
+    const cudaError_t e = cudaFuncSetAttribute(deform_conv_bwd_input_window_kernel<T>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               kMaxSmem);
+    if (e != cudaSuccess) return (int)e;
+    attribute_set = true;
+  }
+  const long long tiles = (long long)g.tiles_x * ((Ho + g.tile_h - 1) / g.tile_h);
+  const dim3 grid_a((unsigned)tiles, B);
+  deform_conv_bwd_input_window_kernel<T><<<grid_a, kThreads, g.smem, (cudaStream_t)stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(offset), static_cast<const T*>(mask),
+      static_cast<const T*>(weight), static_cast<const T*>(dy), static_cast<float*>(dx),
+      static_cast<float*>(dwts), H, W, C_in, Ho, Wo, C_out, kh, kw, stride, pad, dil,
+      off_stride, mask_stride, vec_x, vec_o, vec_dx, g);
+  return 0;
+}
+
 template <typename T>
 int launch_backward(const void* x, const void* offset, const void* mask, const void* weight,
                     const void* dy, void* dx, void* dwts, void* dw, int B, int H, int W,
                     int C_in, int Ho, int Wo, int C_out, int kh, int kw, int stride, int pad,
-                    int dil, int off_stride, int mask_stride, void* stream) {
+                    int dil, int off_stride, int mask_stride, int tile_w, int radius,
+                    void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || C_in <= 0 || Ho <= 0 || Wo <= 0 || C_out <= 0 ||
       kh <= 0 || kw <= 0 || stride <= 0 || dil <= 0 || pad < 0 ||
-      off_stride < 2 * kh * kw || mask_stride < kh * kw)
+      off_stride < 2 * kh * kw || mask_stride < kh * kw ||
+      (tile_w != 8 && tile_w != 16) || H > 32000 || W > 32000 || kh * kw > 127)
     return (int)cudaErrorInvalidValue;
   const long long P = (long long)Ho * Wo;
   const long long n_tiles = ((long long)B * P + kTileP - 1) / kTileP;
@@ -1166,12 +1762,19 @@ int launch_backward(const void* x, const void* offset, const void* mask, const v
   const bool vec_o = C_out % vec == 0 && reinterpret_cast<uintptr_t>(dy) % 16 == 0 &&
                      reinterpret_cast<uintptr_t>(weight) % 16 == 0;
   if (reinterpret_cast<uintptr_t>(dwts) % 16 != 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid_a((unsigned)((P + kTileP - 1) / kTileP), B);
-  deform_conv_bwd_input_kernel<T><<<grid_a, kThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(offset), static_cast<const T*>(mask),
-      static_cast<const T*>(weight), static_cast<const T*>(dy), static_cast<float*>(dx),
-      static_cast<float*>(dwts), H, W, C_in, Ho, Wo, C_out, kh, kw, stride, pad, dil,
-      off_stride, mask_stride, vec_x, vec_o);
+  if constexpr (std::is_same<T, float>::value) {
+    const dim3 grid_rows((unsigned)((P + kTileP - 1) / kTileP), B);
+    deform_conv_bwd_input_kernel<T><<<grid_rows, kThreads, 0, (cudaStream_t)stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(offset), static_cast<const T*>(mask),
+        static_cast<const T*>(weight), static_cast<const T*>(dy), static_cast<float*>(dx),
+        static_cast<float*>(dwts), H, W, C_in, Ho, Wo, C_out, kh, kw, stride, pad, dil,
+        off_stride, mask_stride, vec_x, vec_o);
+  } else {
+    const int err = launch_dx_window<T>(x, offset, mask, weight, dy, dx, dwts, H, W, C_in, Ho, Wo,
+                                        C_out, kh, kw, stride, pad, dil, off_stride, mask_stride,
+                                        tile_w, radius, vec_x, vec_o, B, stream);
+    if (err != 0) return err;
+  }
   const int err = (int)cudaGetLastError();
   if (err != 0) return err;
   // about four blocks per SM: split the batch's pixel tiles between blocks
@@ -1238,22 +1841,27 @@ int vd3d_premul_lerp_accumulate_bf16(const void* y, const void* offset, const vo
 // Backward: x, offset, mask and W as in the forward, dy [B,Ho,Wo,C_out]
 // contiguous; dx [B,H,W,C_in] and dw [K,C_in,C_out] f32, zeroed by the
 // caller; dwts [B,Ho,Wo,K,4] f32 (every entry written): the gradients of
-// 1-fx, fx, (1-fy)*mask and fy*mask.
+// 1-fx, fx, (1-fy)*mask and fy*mask. The dx kernel's tile is 64 / tile_w
+// x tile_w output pixels (tile_w 8 or 16), its window reaches offsets up to
+// +-radius (radius < 0: no window), as ops/deform_conv.py's dx_plan says.
 int vd3d_modulated_deform_conv_backward_f32(
     const void* x, const void* offset, const void* mask, const void* weight, const void* dy,
     void* dx, void* dwts, void* dw, int B, int H, int W, int C_in, int Ho, int Wo, int C_out,
-    int kh, int kw, int stride, int pad, int dil, int off_stride, int mask_stride, void* stream) {
+    int kh, int kw, int stride, int pad, int dil, int off_stride, int mask_stride, int tile_w,
+    int radius, void* stream) {
   return launch_backward<float>(x, offset, mask, weight, dy, dx, dwts, dw, B, H, W, C_in, Ho, Wo,
-                                C_out, kh, kw, stride, pad, dil, off_stride, mask_stride, stream);
+                                C_out, kh, kw, stride, pad, dil, off_stride, mask_stride, tile_w,
+                                radius, stream);
 }
 
 int vd3d_modulated_deform_conv_backward_bf16(
     const void* x, const void* offset, const void* mask, const void* weight, const void* dy,
     void* dx, void* dwts, void* dw, int B, int H, int W, int C_in, int Ho, int Wo, int C_out,
-    int kh, int kw, int stride, int pad, int dil, int off_stride, int mask_stride, void* stream) {
+    int kh, int kw, int stride, int pad, int dil, int off_stride, int mask_stride, int tile_w,
+    int radius, void* stream) {
   return launch_backward<__nv_bfloat16>(x, offset, mask, weight, dy, dx, dwts, dw, B, H, W, C_in,
                                         Ho, Wo, C_out, kh, kw, stride, pad, dil, off_stride,
-                                        mask_stride, stream);
+                                        mask_stride, tile_w, radius, stream);
 }
 
 const char* vd3d_cuda_error_string(int code) {

@@ -14,7 +14,12 @@ one block), ``_lerp_matmul_f32_kernel`` (f32 forward), ``_lerp_accum_kernel``
 joined by a ``torch.autograd.Function``. The wrappers take the plain
 PyTorch version only for tensors on the CPU (the backward: autograd through
 the plain forward); a CUDA tensor launches the kernel or raises. Launches
-are counted in ``LAUNCHES``.
+are counted in ``LAUNCHES``. The backward's dx kernel in bf16 sums the
+corner gradients of each 2-D tile of 64 output pixels in a shared-memory
+window of the input (offsets up to ``DX_WINDOW_RADIUS`` px; the tile is
+:func:`dx_plan`'s) before it adds them into dx; :func:`dx_window_spill`
+counts its adds into device memory. In f32 it adds every corner into dx
+itself (the faster design there).
 
 Forward variants (:func:`forward_variant`), chosen per call as the JAX
 package chooses them: the environment switches ``VD3D_DCN_PREMUL=1`` and
@@ -293,6 +298,69 @@ def modulated_deform_conv_backward_plain(x: torch.Tensor, offset: torch.Tensor,
         return torch.autograd.grad(out, leaves, grad_out)
 
 
+DX_WINDOW_RADIUS = 4  # the dx kernel's window reaches offsets up to +-4 px
+DX_TILES = ((8, 8), (4, 16))  # output-pixel tiles (rows x columns) of the dx kernel
+
+
+def dx_plan(ho: int, wo: int) -> Tuple[int, int]:
+    """The dx kernel's tile of 64 output pixels, (rows, columns): 8x8, or
+    4x16 where that covers the Ho x Wo map with fewer tiles."""
+    return min(DX_TILES, key=lambda t: (-(-ho // t[0]) * -(-wo // t[1]), t[1]))
+
+
+def dx_window(tile: Tuple[int, int], kh: int, kw: int, stride: int, dilation: int,
+              radius: int = DX_WINDOW_RADIUS) -> Tuple[int, int]:
+    """Rows and columns of a dx tile's window: the input pixels its taps
+    reach with offsets up to +-radius, both corners of the lerp included."""
+    return ((tile[0] - 1) * stride + (kh - 1) * dilation + 2 * radius + 2,
+            (tile[1] - 1) * stride + (kw - 1) * dilation + 2 * radius + 2)
+
+
+def dx_window_spill(offset: torch.Tensor, h: int, w: int, c_in: int, kh: int = 3, kw: int = 3,
+                    stride: int = 1, padding: int = 1, dilation: int = 1,
+                    radius: int = DX_WINDOW_RADIUS) -> dict:
+    """Device-memory adds into dx of the bf16 backward for these offsets
+    [B, Ho, Wo, 2K] (any device), counted as the kernel makes them:
+    ``spilled``, corners inside the image but outside their block's window
+    (one add per channel each); ``window``, the window cells that some
+    corner lands in, added once per channel; ``global_adds``, their sum.
+    Beside them ``corner_adds``, every corner inside the image once per
+    channel (the adds of a kernel without a window, as the f32 one), and
+    ``all_corners``, 4 K C_in per output pixel."""
+    b, ho, wo = offset.shape[:3]
+    k = kh * kw
+    th, tw = dx_plan(ho, wo)
+    win_h, win_w = dx_window((th, tw), kh, kw, stride, dilation, radius)
+    dev = offset.device
+    oy = torch.arange(ho, device=dev).view(1, ho, 1, 1)
+    ox = torch.arange(wo, device=dev).view(1, 1, wo, 1)
+    ky = (torch.arange(k, device=dev) // kw).view(1, 1, 1, k)
+    kx = (torch.arange(k, device=dev) % kw).view(1, 1, 1, k)
+    off = offset.float()
+    y0 = torch.floor((oy * stride - padding + ky * dilation).float() + off[..., 0::2]).long()
+    x0 = torch.floor((ox * stride - padding + kx * dilation).float() + off[..., 1::2]).long()
+    wy0 = (oy // th) * th * stride - padding - radius
+    wx0 = (ox // tw) * tw * stride - padding - radius
+    tiles_x = -(-wo // tw)
+    tile = (torch.arange(b, device=dev).view(b, 1, 1, 1) * -(-ho // th) + oy // th) * tiles_x + \
+        ox // tw
+    corner_adds, spilled, cells = 0, 0, []
+    for cy in (0, 1):
+        for cx in (0, 1):
+            yy, xx = y0 + cy, x0 + cx
+            inside = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+            ry, rx = yy - wy0, xx - wx0
+            in_win = (ry >= 0) & (ry < win_h) & (rx >= 0) & (rx < win_w)
+            corner_adds += int(inside.sum())
+            spilled += int((inside & ~in_win).sum())
+            keep = inside & in_win
+            cells.append(((tile.expand_as(yy) * h + yy) * w + xx)[keep])
+    window = int(torch.unique(torch.cat(cells)).numel())
+    return dict(spilled=spilled * c_in, window=window * c_in,
+                global_adds=(spilled + window) * c_in, corner_adds=corner_adds * c_in,
+                all_corners=b * ho * wo * 4 * k * c_in, tile=(th, tw), window_hw=(win_h, win_w))
+
+
 @functools.lru_cache(maxsize=None)
 def _deform_conv_lib() -> ctypes.CDLL:
     lib = kernel_build.load('deform_conv')
@@ -302,7 +370,7 @@ def _deform_conv_lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     for name in _BWD_ENTRY.values():
         fn = getattr(lib, name)
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 14 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 16 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     lib_fn = getattr(lib, _ALLTAPS_ENTRY)
     lib_fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
@@ -383,11 +451,12 @@ def _call(entry: str, what: str, args, device: torch.device, detail: str) -> Non
 
 
 def _launch(entry: str, what: str, pointers, dims, conv, x: torch.Tensor,
-            weight: torch.Tensor) -> None:
-    """Launch a forward or backward kernel of the library on x's device."""
+            weight: torch.Tensor, extra: Tuple[int, ...] = ()) -> None:
+    """Launch a forward or backward kernel of the library on x's device
+    (``extra``: the launcher's arguments after the pixel strides)."""
     b, h, w, c_in, ho, wo, c_out, kh, kw, off_stride, mask_stride = dims
     _call(entry, what, (*pointers, b, h, w, c_in, ho, wo, c_out, kh, kw, *conv, off_stride,
-                        mask_stride), x.device,
+                        mask_stride, *extra), x.device,
           f'x {tuple(x.shape)} weight {tuple(weight.shape)} '
           f'stride/padding/dilation {conv} dtype {x.dtype}')
 
@@ -602,7 +671,8 @@ def modulated_deform_conv_backward(x: torch.Tensor, offset: torch.Tensor, mask: 
         _launch(_BWD_ENTRY[x.dtype], 'deformable-conv backward',
                 (x.data_ptr(), offset.data_ptr(), mask.data_ptr(), wk.data_ptr(),
                  grad_out.data_ptr(), dx.data_ptr(), dwts.data_ptr(), dw.data_ptr()),
-                dims, (stride, padding, dilation), x, weight)
+                dims, (stride, padding, dilation), x, weight,
+                (dx_plan(ho, wo)[1], DX_WINDOW_RADIUS))
         LAUNCHES['modulated_deform_conv_backward_input'] += 1
         LAUNCHES['modulated_deform_conv_backward_weight'] += 1
     else:
