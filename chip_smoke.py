@@ -53,18 +53,20 @@ each printed as one JSON line:
 6. deform_bwd_kernel, deform_bwd_edges: the DCNv2 backward kernels against
    the plain backward (autograd through the plain forward) at the 7 neck
    shapes, batch 16, f32 and bf16, offsets and mask as channel slices of one
-   [B,Ho,Wo,27] tensor, with their time, the plain version's, the bound and
-   the dx adds in device memory (``dx_window_spill``); then edge cases
-   (samples wholly outside, a zero mask, C_in 512, ragged tiles, stride 2,
-   dilation 2, offsets of exactly +-R, +-(R - 0.5) and +-(R + 1) around the
-   dx window on clipped tiles, an unaligned x) and the wrapper's refusals;
-   deform_module_grad: the gradients of the whole DCN module (offset conv,
-   slices, sigmoid, both kernels) on the card against the CPU, f32, with
+   [B,Ho,Wo,27] tensor, with their time (the whole backward by CUDA events;
+   dx and dW apart by device time from a profiler pass, each beside its own
+   bound), the plain version's, the bound and the dx adds in device memory
+   (``dx_window_spill``); then edge cases (samples wholly outside, a zero
+   mask, C_in 512, ragged tiles, stride 2, dilation 2, offsets of exactly
+   +-R, +-(R - 0.5) and +-(R + 1) around the dx window on clipped tiles, an
+   unaligned x) and the wrapper's refusals; deform_module_grad: the
+   gradients of the whole DCN module (offset conv, slices, sigmoid, both
+   kernels) on the card against the CPU, f32, with
    offsets kept away from the integer corners;
 7. km3d_train (bf16 mixed precision, then f32), km3d_train_parity: the KM3D
    training step of ``entry.build_km3d_trainer`` (Adam, batch 16,
    384x1280) over distinct synthetic batches: ms per step, img/s, exactly 16
-   DCN forward, 16 dx and 16 dW backward launches per step, peak memory, a
+   DCN forward, 16 dx, 16 dW and 16 dW-reduce launches per step, peak memory, a
    profiler breakdown of one step, and the loss falling over 10 steps on one
    batch; one f32 step on the card against the same step on the CPU;
    monoflex_train (bf16 mixed precision, then f32): the same for
@@ -945,16 +947,64 @@ def dx_adds(torch, dc, dtype, offset, h, w, c_in):
     return adds
 
 
+# the backward's kernels by the prefix of their names in a profile: dx (the
+# window kernel in bf16, the row kernel in f32), dW's split sums, their reduce
+BWD_KERNEL_NAMES = {'dx': ('deform_conv_bwd_input_',),
+                    'dw': ('deform_conv_bwd_weight_kernel',),
+                    'dw_reduce': ('deform_conv_bwd_weight_reduce',)}
+
+
+def bwd_device_ms(torch, fn, inputs):
+    """Device ms per call of each backward kernel (BWD_KERNEL_NAMES) over
+    fn(x) for x in inputs, from one profiler pass after one warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn(inputs[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for x in inputs:
+            fn(x)
+        torch.cuda.synchronize()
+    evs = prof.key_averages()
+    out = {}
+    for k, names in BWD_KERNEL_NAMES.items():  # per launch: the profile may drop events
+        hits = [e for e in evs if any(n in e.key for n in names)]
+        n = sum(e.count for e in hits)
+        out[k] = sum(e.self_device_time_total for e in hits) / 1e3 / n if n else 0.0
+    return out
+
+
+def bwd_bounds(pixels, c_in, c_out, isz, peaks, dt):
+    """The least times of the dx and dW kernels at one shape, as (bytes ms,
+    operations ms) each:
+    dx reads x, the offsets and mask, W and dy once and writes dx and the
+    four lerp-weight gradients (f32) once, ds = dy . W_k^T its operations;
+    dW reads x, the offsets and mask and dy once and writes dW (f32) once,
+    sampled^T . dy its operations, 2 pixels 9 C_in C_out each."""
+    bw, f32_peak, bf16_peak = peaks
+    ops_ms = 2 * pixels * 9 * c_in * c_out / (f32_peak if dt == 'f32' else bf16_peak) * 1e3
+    dx_bytes = isz * (pixels * (c_in + 27 + c_out) + 9 * c_in * c_out) + 4 * pixels * (c_in + 36)
+    dw_bytes = isz * pixels * (c_in + 27 + c_out) + 4 * 9 * c_in * c_out
+    return {'dx': (dx_bytes / bw * 1e3, ops_ms), 'dw': (dw_bytes / bw * 1e3, ops_ms)}
+
+
+def bound_of(bytes_ms, ops_ms):
+    return max(bytes_ms, ops_ms), 'bytes' if bytes_ms >= ops_ms else 'operations'
+
+
 def deform_bwd_kernel_phase(torch, dc, peaks):
     """The DCN backward kernels against the plain backward at the KM3D
     neck's 7 shapes, batch 16, f32 and bf16, offsets and mask as channel
     slices of one [B,Ho,Wo,27] tensor; times per shape and per training
-    step (the 16 DCNs, shapes weighted by count)."""
+    step (the 16 DCNs, shapes weighted by count): the whole backward by
+    CUDA events, dx and dW (its split sums and their reduce) apart by device
+    time from a profiler pass, each beside its own bound."""
     bw, f32_peak, bf16_peak = peaks
     gen = torch.Generator(device='cuda').manual_seed(21)
     results = {}
     for dt, dtype in (('f32', torch.float32), ('bf16', torch.bfloat16)):
         tot = dict(ms=0.0, plain_ms=0.0, bytes_ms=0.0, ops_ms=0.0, max_abs_err=0.0,
+                   dx_ms=0.0, dw_ms=0.0, dw_reduce_ms=0.0, dx_bytes_ms=0.0, dx_ops_ms=0.0,
+                   dw_bytes_ms=0.0, dw_ops_ms=0.0, max_abs_err_dx=0.0, max_abs_err_dw=0.0,
                    dx_adds=dict.fromkeys(DX_ADD_KEYS, 0), per_shape={})
         for count, h, w, c_in, c_out in DCN_SHAPES:
             runs, weight, _ = dcn_inputs(torch, gen, BATCH, h, w, c_in, c_out, dtype,
@@ -976,16 +1026,32 @@ def deform_bwd_kernel_phase(torch, dc, peaks):
             adds = dx_adds(torch, dc, dtype, runs[0][1], h, w, c_in)
             bytes_ms = n_bytes / bw * 1e3
             ops_ms = n_flops / (f32_peak if dt == 'f32' else bf16_peak) * 1e3
+            dev = bwd_device_ms(torch, lambda a: dc.modulated_deform_conv_backward(
+                *a[0], weight, a[1]), pairs)
+            bounds = bwd_bounds(pixels, c_in, c_out, isz, peaks, dt)
+            err_of = {k: (e if dt == 'f32' else e['abs']) for k, e in errs.items()}
             shape = dict(count=count, x=[BATCH, h, w, c_in], c_out=c_out, ms=ms,
                          plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
                          bound_by='bytes' if bytes_ms >= ops_ms else 'operations',
+                         dx_ms=dev['dx'], dw_ms=dev['dw'] + dev['dw_reduce'],
+                         dw_reduce_ms=dev['dw_reduce'],
+                         **{f'{k}_{f}': v for k in ('dx', 'dw')
+                            for f, v in zip(('bound_ms', 'bound_by'), bound_of(*bounds[k]))},
+                         dw_splits=dc.dw_plan(dc.dw_stages(BATCH, h, w, dtype), c_in, c_out, 9,
+                                              torch.cuda.get_device_properties(0)
+                                              .multi_processor_count),
                          dx_adds={k: adds[k] for k in DX_ADD_KEYS}, dx_tile=adds['tile'],
                          dx_window=adds['window_hw'], max_abs_err=max_err, errors=errs,
                          tflops=n_flops / (ms * 1e-3) / 1e12)
             tot['per_shape'][f'{h}x{w} {c_in}->{c_out}'] = shape
             for key, v in (('ms', ms), ('plain_ms', plain_ms), ('bytes_ms', bytes_ms),
-                           ('ops_ms', ops_ms)):
+                           ('ops_ms', ops_ms), ('dx_ms', shape['dx_ms']),
+                           ('dw_ms', shape['dw_ms']), ('dw_reduce_ms', dev['dw_reduce']),
+                           ('dx_bytes_ms', bounds['dx'][0]), ('dx_ops_ms', bounds['dx'][1]),
+                           ('dw_bytes_ms', bounds['dw'][0]), ('dw_ops_ms', bounds['dw'][1])):
                 tot[key] += count * v
+            tot['max_abs_err_dx'] = max(tot['max_abs_err_dx'], err_of['dx'])
+            tot['max_abs_err_dw'] = max(tot['max_abs_err_dw'], err_of['d_weight'])
             for key in DX_ADD_KEYS:
                 tot['dx_adds'][key] += count * adds[key]
             tot['max_abs_err'] = max(tot['max_abs_err'], max_err)
@@ -993,10 +1059,12 @@ def deform_bwd_kernel_phase(torch, dc, peaks):
                  tolerance=tol, bytes=n_bytes, flops=n_flops, **shape)
             del runs, grads, pairs
             torch.cuda.empty_cache()
-        tot['bound_ms'] = max(tot['bytes_ms'], tot['ops_ms'])
-        tot['bound_by'] = 'bytes' if tot['bytes_ms'] >= tot['ops_ms'] else 'operations'
+        tot['bound_ms'], tot['bound_by'] = bound_of(tot['bytes_ms'], tot['ops_ms'])
+        for k in ('dx', 'dw'):
+            tot[f'{k}_bound_ms'], tot[f'{k}_bound_by'] = bound_of(tot[f'{k}_bytes_ms'],
+                                                                  tot[f'{k}_ops_ms'])
         results[dt] = tot
-        emit('deform_bwd_kernel_per_step', dtype=dt, dcn_backward_launches=2 * DCN_PER_FORWARD,
+        emit('deform_bwd_kernel_per_step', dtype=dt, dcn_backward_launches=3 * DCN_PER_FORWARD,
              **{k: v for k, v in tot.items() if k != 'per_shape'})
     return results
 
@@ -1425,11 +1493,12 @@ def km3d_train_phase(torch, dc, compute_dtype, model='km3d', batch_size=BATCH):
     per_step = {'modulated_deform_conv': DCN_PER_FORWARD, 'modulated_deform_conv_alltaps': 0,
                 'modulated_deform_conv_premul_accum': 0,
                 'modulated_deform_conv_backward_input': DCN_PER_FORWARD,
-                'modulated_deform_conv_backward_weight': DCN_PER_FORWARD}
+                'modulated_deform_conv_backward_weight': DCN_PER_FORWARD,
+                'modulated_deform_conv_backward_weight_reduce': DCN_PER_FORWARD}
     check(launches == {k: v * N_BATCHES for k, v in per_step.items()},
           f'{phase} {name}: {launches} DCN launches for {N_BATCHES} steps (expected '
-          f'{DCN_PER_FORWARD} per-tap forward, {DCN_PER_FORWARD} dx and {DCN_PER_FORWARD} dW '
-          f'per step)')
+          f'{DCN_PER_FORWARD} per-tap forward, {DCN_PER_FORWARD} dx, {DCN_PER_FORWARD} dW and '
+          f'{DCN_PER_FORWARD} dW reduce per step)')
     losses = [float(m['total']) for m in metrics]
     check(all(np.isfinite(losses)), f'{phase} {name}: non-finite losses {losses}')
     check(state.optimizer.count == state.step == N_TRAIN_WARMUP + N_BATCHES,
@@ -1446,8 +1515,9 @@ def km3d_train_phase(torch, dc, compute_dtype, model='km3d', batch_size=BATCH):
     # each kind by its name's prefix: the dx kernel is
     # deform_conv_bwd_input_window_kernel (bf16) or deform_conv_bwd_input_kernel (f32)
     prefix = {'deform_conv_kernel': ('deform_conv_kernel<', 'deform_conv_kernelI'),
-              'deform_conv_bwd_input_kernel': ('deform_conv_bwd_input_',),
-              'deform_conv_bwd_weight_kernel': ('deform_conv_bwd_weight_kernel',)}
+              'deform_conv_bwd_input_kernel': BWD_KERNEL_NAMES['dx'],
+              'deform_conv_bwd_weight_kernel': BWD_KERNEL_NAMES['dw'],
+              'deform_conv_bwd_weight_reduce_kernel': BWD_KERNEL_NAMES['dw_reduce']}
     dcn = {kind: [e for e in kernels if any(p in e.key for p in prefix[kind])] for kind in prefix}
     counts = {kind: sum(e.count for e in evs) for kind, evs in dcn.items()}
     check(all(c == DCN_PER_FORWARD for c in counts.values()),
@@ -2487,21 +2557,30 @@ def main() -> int:
                     'VD3D_DCN_PREMUL=1',
         per_shape=premul['per_shape']))
     for dt, r in dcn_bwd.items():  # the TPU kernel body _lerp_matmul_bwd_kernel (bf16)
-        bwd_launches = {k: trains[dtype_of[dt]]['launches'][f'modulated_deform_conv_backward_{k}']
-                        for k in ('input', 'weight')}
+        step_launches = trains[dtype_of[dt]]['launches']
+        mono_launches = monoflex_trains[dtype_of[dt]]['launches']
+        common = dict(route='cuda', source='visualdet3d_tpu_torch/csrc/deform_conv.cu',
+                      replaces='visualdet3d_tpu/ops/deform_conv.py:663', library_ms=None,
+                      plain_ms=r['plain_ms'], plain='the whole plain backward (autograd through '
+                      'the plain forward), per step', backward_ms_events=r['ms'],
+                      backward_bound_ms=r['bound_ms'], dx_adds_per_step=r['dx_adds'])
         summary.append(dict(
-            name=f'modulated_deform_conv_backward[{dt}]', route='cuda',
-            source='visualdet3d_tpu_torch/csrc/deform_conv.cu',
-            replaces='visualdet3d_tpu/ops/deform_conv.py:663',
-            launches=sum(bwd_launches.values()), launches_by_kernel=bwd_launches,
-            launches_in_monoflex_training={
-                k: monoflex_trains[dtype_of[dt]]['launches'][f'modulated_deform_conv_backward_{k}']
-                for k in ('input', 'weight')},
-            max_abs_err=r['max_abs_err'], ms=r['ms'], plain_ms=r['plain_ms'],
-            bound_ms=r['bound_ms'], bound_by=r['bound_by'], library_ms=None,
-            dx_adds_per_step=r['dx_adds'],
-            per_forward='the backward of the 16 DCNs of one KM3D training step, batch 16 '
-                        '(shapes weighted by count): 16 dx and 16 dW kernel launches',
+            name=f'modulated_deform_conv_backward_input[{dt}]',
+            launches=step_launches['modulated_deform_conv_backward_input'],
+            launches_in_monoflex_training=mono_launches['modulated_deform_conv_backward_input'],
+            max_abs_err=r['max_abs_err_dx'], ms=r['dx_ms'], bound_ms=r['dx_bound_ms'],
+            bound_by=r['dx_bound_by'], **common,
+            per_forward='the dx kernel of the 16 DCNs of one KM3D training step, batch 16 '
+                        '(shapes weighted by count), device time'))
+        summary.append(dict(
+            name=f'modulated_deform_conv_backward_weight[{dt}]',
+            launches=step_launches['modulated_deform_conv_backward_weight'],
+            launches_of_reduce=step_launches['modulated_deform_conv_backward_weight_reduce'],
+            launches_in_monoflex_training=mono_launches['modulated_deform_conv_backward_weight'],
+            max_abs_err=r['max_abs_err_dw'], ms=r['dw_ms'], reduce_ms=r['dw_reduce_ms'],
+            bound_ms=r['dw_bound_ms'], bound_by=r['dw_bound_by'], **common,
+            per_forward='the dW kernels (split sums and their reduce) of the 16 DCNs of one '
+                        'KM3D training step, batch 16 (shapes weighted by count), device time',
             per_shape=r['per_shape']))
     summary.append(dict(
         name='int8_conv2d', route='cuda', source='visualdet3d_tpu_torch/csrc/int8_conv.cu',

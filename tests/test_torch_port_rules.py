@@ -1,8 +1,9 @@
 """Rules of the port that no parity test shows.
 
-* Nothing under ``visualdet3d_tpu_torch/``, nor ``chip_smoke.py``, imports
-  JAX, flax, optax or the JAX package. The scan is static (an AST walk),
-  because this test process has JAX imported already.
+* Nothing under ``visualdet3d_tpu_torch/``, nor ``chip_smoke.py`` or
+  ``dcn_study.py``, imports JAX, flax, optax or the JAX package. The scan is
+  static (an AST walk), because this test process has JAX imported already.
+  The package imports neither root script.
 * The entry points (inference, the KM3D and MonoFlex systems and trainers)
   run on the card by default and raise without CUDA instead of running on
   the CPU.
@@ -33,8 +34,8 @@ FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'visualdet3d_tpu')
 def _port_sources():
     build = kernel_build.BUILD_DIR  # build outputs, not sources
     files = sorted(p for p in (ROOT / 'visualdet3d_tpu_torch').rglob('*.py')
-                   if build not in p.parents) + [ROOT / 'chip_smoke.py']
-    assert len(files) > 10 and files[-1].exists()
+                   if build not in p.parents) + [ROOT / 'chip_smoke.py', ROOT / 'dcn_study.py']
+    assert len(files) > 10 and all(p.exists() for p in files)
     return files
 
 
@@ -56,6 +57,14 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     offenders = [f'{path.relative_to(ROOT)}: {root}'
                  for path in _port_sources() for root in _imported_roots(path)
                  if root in FORBIDDEN]
+    assert offenders == []
+
+
+def test_package_imports_no_root_script():
+    """The smoke and the study drive the package; it never imports them."""
+    offenders = [f'{path.relative_to(ROOT)}: {root}'
+                 for path in _port_sources() if ROOT / 'visualdet3d_tpu_torch' in path.parents
+                 for root in _imported_roots(path) if root in ('chip_smoke', 'dcn_study')]
     assert offenders == []
 
 
@@ -212,6 +221,7 @@ def test_deform_conv_launchers_are_bound_and_summarised():
     smoke = (ROOT / 'chip_smoke.py').read_text()
     for name, body in (('modulated_deform_conv[', 161), ('modulated_deform_conv_alltaps[', 255),
                        ('modulated_deform_conv_premul_accum[', 418),
-                       ('modulated_deform_conv_backward[', 663)):
+                       ('modulated_deform_conv_backward_input[', 663),
+                       ('modulated_deform_conv_backward_weight[', 663)):
         assert name in smoke, name
         assert f"'visualdet3d_tpu/ops/deform_conv.py:{body}'" in smoke, body

@@ -22,33 +22,28 @@
 // H100 (67 TFLOP/s over 3.35 TB/s = 20) and near the bf16 one (~295). The
 // TPU kernel's u32 row-pair packing, [v00|v01|v10|v11] rows, taps-outer
 // gather layout and VMEM row budgets answered a TPU without an in-kernel
-// gather; none is kept. The design, simple first:
-//   * one block per (image, tile of 64 output pixels, tile of 64 C_out), the
-//     C_out tiles of one pixel tile adjacent in launch order so that their
-//     gathers of the same corners hit L2;
-//   * a loop over taps and over C_in chunks (32 channels in f32, 64 in bf16)
-//     inside the block, in place of the TPU's sequential tap grid axis;
+// gather; none is kept. The design (the second; the first ran one serial loop):
 //   * per (pixel, tap), once: the f32 coordinate, the four corner indices
 //     (-1 for a corner outside the unpadded image: it contributes 0) and the
 //     four lerp weights, formed in the input dtype as the plain version forms
-//     them, built by the whole block for 9 taps at a time and kept in shared
-//     memory;
-//   * the block gathers the four corners itself, 16 bytes of a corner pixel
-//     a thread (8 bf16 or 4 f32 channels; scalar loads where C_in or the
-//     base pointer does not allow it), lerps in f32 with explicitly rounded
+//     them (corner_entry);
+//   * the four corners gathered with 16-byte loads (8 bf16 or 4 f32
+//     channels of a corner pixel; scalar loads where C_in or the base
+//     pointer does not allow it) and lerped in f32 with explicitly rounded
 //     products and sums (__fmul_rn/__fadd_rn: nvcc would otherwise contract
 //     them into FMAs and differ from the plain version before the bf16
-//     rounding), and stages the sampled [64 x chunk] tile in shared memory,
-//     rounded to bf16 in the bf16 kernel where K3 rounds; the W_k chunk
-//     [chunk x 64] is staged beside it;
-//   * accumulation in f32 registers: FMA on the CUDA cores in f32 (4x4
-//     outputs a thread), WMMA 16x16x16 bf16 tensor-core products in bf16
-//     (a 16x32 tile a warp);
+//     rounding), the sampled value rounded to bf16 in the bf16 kernel where
+//     K3 rounds;
+//   * a persistent block per SM whose producer warps gather a tile of 128
+//     or 64 output pixels x 64 (bf16) or 32 (f32) input channels of one
+//     tap into a ring of shared-memory stages, beside the W_k chunk copied
+//     by cp.async, while its consumer warps accumulate the tile's products
+//     over all its output channels (64, 128 or 256) in f32 registers:
+//     mma.sync m16n8k16 in bf16, 8x8 FMA tiles in f32 (the section "gather,
+//     then MMA, pipelined between warps" below);
 //   * an epilogue that rounds to the output dtype, then adds the bias in
 //     that dtype.
-// Shared memory stays under 37 KB for every C_in (it is chunked), so no size
-// needs the opt-in beyond 48 KB. Faster designs (TMA/cp.async pipelining,
-// wgmma, fewer redundant gathers across C_out tiles) are later work.
+// The all-taps (K4) and pre-multiplied (K6) variants keep their own designs.
 //
 // Plain C interface for ctypes; each entry returns the cudaError_t of the
 // launch (0 on success). The launch goes on the caller's stream and does not
@@ -65,7 +60,6 @@ namespace {
 constexpr int kTileP = 64;   // output pixels per block
 constexpr int kTileO = 64;   // output channels per block
 constexpr int kThreads = 256;
-constexpr int kTapGroup = 9;  // taps whose corner tables are built at once
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -81,31 +75,16 @@ template <typename T> __device__ __forceinline__ float round_to(float v) {
   return to_f32(from_f32<T>(v));
 }
 
-// Input channels per staged chunk, and row strides of the staged tiles in
-// elements: multiples of 8 in bf16 (WMMA), and 16-byte rows in both, so that
+// The all-taps kernel's input channels per staged chunk, and row strides of
+// its staged tiles in elements: multiples of 8 (WMMA), 16-byte rows, so that
 // a thread stores its 16-byte group of sampled values at once.
 template <typename T> struct Tiles;
-template <> struct Tiles<float> {
-  static constexpr int chunk = 32;
-  static constexpr int a_ld = chunk + 4;
-  static constexpr int b_ld = kTileO;
-  static constexpr int c_ld = 0;
-};
 template <> struct Tiles<__nv_bfloat16> {
   static constexpr int chunk = 64;
   static constexpr int a_ld = chunk + 8;
   static constexpr int b_ld = kTileO + 8;
   static constexpr int c_ld = kTileO + 4;
 };
-
-template <typename T> __host__ __device__ constexpr int smem_bytes() {
-  return (int)sizeof(T) * (kTileP * Tiles<T>::a_ld + Tiles<T>::chunk * Tiles<T>::b_ld);
-}
-template <typename T> __host__ __device__ constexpr int staging_bytes() {
-  return smem_bytes<T>() > (int)sizeof(float) * kTileP * Tiles<T>::c_ld
-             ? smem_bytes<T>()
-             : (int)sizeof(float) * kTileP * Tiles<T>::c_ld;
-}
 
 // V consecutive values as f32: one 16-byte load when V = 16 / sizeof(T)
 // (the caller guarantees the alignment), else V scalar loads.
@@ -248,147 +227,545 @@ __device__ __forceinline__ void corner_entry(const T* __restrict__ offset,
   idx[3] = y1_in && x1_in ? (y0 + 1) * W + x0 + 1 : -1;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-deform_conv_kernel(const T* __restrict__ x, const T* __restrict__ offset,
-                   const T* __restrict__ mask, const T* __restrict__ weight,
-                   const T* __restrict__ bias, T* __restrict__ out, int H, int W,
-                   int C_in, int Ho, int Wo, int C_out, int kh, int kw, int stride,
-                   int pad, int dil, int off_stride, int mask_stride, bool vec_x,
-                   bool vec_w) {
-  constexpr int a_ld = Tiles<T>::a_ld, b_ld = Tiles<T>::b_ld, chunk = Tiles<T>::chunk;
-  constexpr int kVec = 16 / sizeof(T);
-  __shared__ __align__(128) unsigned char staging[staging_bytes<T>()];
-  // per tap of the group: corners (y0,x0) (y0,x0+1) (y0+1,x0) (y0+1,x0+1) and
-  // the weights 1-fx, fx, (1-fy)*mask, fy*mask
-  __shared__ int s_idx[kTapGroup][4][kTileP];
-  __shared__ float s_wt[kTapGroup][4][kTileP];
-  T* s_a = reinterpret_cast<T*>(staging);  // [kTileP][a_ld] sampled
-  T* s_b = s_a + kTileP * a_ld;            // [chunk][b_ld] W_k chunk
-
-  const int tid = threadIdx.x;
-  const int o0 = blockIdx.x * kTileO;
-  const int p0 = blockIdx.y * kTileP;
-  const long long b = blockIdx.z;
-  const int P = Ho * Wo;
-  const int K = kh * kw;
-  const T* xb = x + b * H * W * (long long)C_in;
-
-  // f32: thread owns pixels ty + 16i and channels 4tx + j (i, j < 4)
-  float acc[4][4];
-  // bf16: warp owns the 16 x 32 tile at rows 16*(warp/2), columns 32*(warp%2)
-  using namespace nvcuda;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> frag_c[2];
-  if constexpr (std::is_same<T, float>::value) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+// Asynchronous copies into shared memory (cp.async), BYTES = 4 or 16; with
+// pred false nothing is read and the destination is zero-filled.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem, bool pred) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
+                 "r"(pred ? 16 : 0));
   } else {
-    wmma::fill_fragment(frag_c[0], 0.f);
-    wmma::fill_fragment(frag_c[1], 0.f);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(gmem),
+                 "r"(pred ? 4 : 0));
   }
-  const int warp = tid / 32;
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
-  for (int k0 = 0; k0 < K; k0 += kTapGroup) {
-    const int n_taps = min(kTapGroup, K - k0);
-    __syncthreads();  // the previous group's corner tables are no longer read
-    for (int e = tid; e < n_taps * kTileP; e += kThreads) {
-      const int kl = e / kTileP, pl = e - kl * kTileP;
-      const int p = p0 + pl;
-      int idx[4] = {-1, -1, -1, -1};
-      float wt[4] = {0.f, 0.f, 0.f, 0.f};
-      if (p < P)
-        corner_entry<T>(offset, mask, b * P + p, p, k0 + kl, H, W, Wo, kw, stride, pad, dil,
-                        off_stride, mask_stride, idx, wt);
+// ---------------------------------------------------------------------------
+// The per-tap forward (K3 in bf16, K5 in f32) and the dW pass of the
+// backward (kernel B, after the dx kernels) share one design: gather, then
+// MMA, pipelined between warps. The first designs ran every block through
+// one serial loop (corner table, barrier, gather and lerp, barrier, a few
+// 16x16x16 MMAs, barrier): on an H100 at the KM3D neck's shapes the gather
+// and the MMA steps each took about half of the time and never overlapped
+// (each phase compiled out in turn), and the dW kernel re-gathered each
+// sampled tile once per 64 output channels. Here a block has two roles:
+//   * producer warps (12 or 8, in groups that take the stages in turn)
+//     fill a ring of kWsStages stages in shared memory: per stage the
+//     sampled tile, gathered with 16-byte loads (four corners of 4 samples
+//     in flight a thread, at element offsets into the image kept in the
+//     corner tables) and lerped with the explicitly rounded products and
+//     sums of gather_tile (rounded to bf16 in the bf16 kernels);
+//   * consumer warps (4 where the block's tile is 64 output channels wide,
+//     else 8) each own a 32 x 64 tile of the block's f32 accumulators and
+//     run the stage's products: mma.sync m16n8k16 (bf16 in, f32
+//     accumulate) with operands loaded by ldmatrix in bf16, an 8 x 8
+//     register tile of FMAs a thread in f32; 8 consumer warps in bf16 also
+//     copy each stage's second operand (a W_k chunk or a dy tile) by
+//     cp.async and build the forward's next corner tables (corner_entry, as
+//     before), work the producers do where the consumers are the busier;
+//   * named barriers hand a stage over (full: producers arrive, consumers
+//     wait; empty: the reverse), so that the gather of the next stages runs
+//     while the tensor cores (or the FMA units) work on this one.
+// A block is 512 threads with one block an SM (up to ~215 KB of dynamic
+// shared memory); every sample is gathered once for all the output
+// channels a block holds (up to 256). The corner tables of all taps of a
+// tile (2 x K x pixels x 32 bytes) bound K: 3x3 kernels fit every shape.
+// ---------------------------------------------------------------------------
+
+constexpr int kWsThreads = 512;  // a block: consumer warps, then producer warps
+constexpr int kWsStages = 4;
+// The producers form groups that fill the stages in turn, so that one
+// group's loads are in flight while another lerps: with 12 producer warps
+// (4 consumers) 3 groups in the forward and 4 in dW, with 8 producer warps
+// 2 (the fastest on an H100 at the KM3D neck's shapes, against 1 to 4 groups).
+__host__ __device__ constexpr int producer_groups(int cw, bool dw) {
+  return cw == 4 ? (dw ? 4 : 3) : 2;
+}
+// named barriers (0 is __syncthreads): stage s is full at 1 + s and empty at
+// 1 + kWsStages + s; the producers' own barrier follows
+constexpr int kBarProducers = 1 + 2 * kWsStages;
+constexpr int kBarConsumers = 2 + 2 * kWsStages;  // the consumers' own barrier
+constexpr int kBarTables = 3 + 2 * kWsStages;     // the next tile's tables are built
+constexpr int kWsMaxSmem = 232448;  // the opt-in limit of a block on sm_90
+
+// Consumer warps (a 32 x 64 accumulator tile each) of a block whose tiles
+// are NT x 64 output channels wide: 4 at NT = 1, where the gather dominates
+// and more warps gather, else 8. The other warps of the block produce.
+// (At NT = 1 in bf16, 8 consumers were 7% slower at the 96x320 forward and
+// 2 were 1.5x slower on an H100.)
+__host__ __device__ constexpr int consumer_warps(int nt) { return nt == 1 ? 4 : 8; }
+
+__device__ __forceinline__ void named_bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void named_bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+__device__ __forceinline__ void mma_bf16_16816(float* c, const unsigned (&a)[4], unsigned b0,
+                                               unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One stage of a consumer warp: its 32 x 64 tile at rows m0, columns n0 of
+// the block's accumulators += A . B over KD steps of the reduction. B is
+// [k][n] (row k at B + k * b_ld); A is [m][k] (A_KMAJOR false: row m at
+// A + m * a_ld) or [k][m] (true). bf16: mma.sync m16n8k16, acc[(i*8+j)*4+e]
+// the fragment of m16 tile i, n8 tile j; f32: lane (mg, ng) = (lane / 8,
+// lane % 8) owns rows m0 + 8 mg + i, columns n0 + 8 ng + j, acc[i*8+j], one
+// FMA per product in k order.
+template <typename T, bool A_KMAJOR, int KD>
+__device__ __forceinline__ void warp_mma_stage(float (&acc)[64], const T* A, int a_ld, const T* B,
+                                               int b_ld, int m0, int n0, int lane) {
+  if constexpr (std::is_same<T, float>::value) {
+    const int mg = lane >> 3, ng = lane & 7;
+#pragma unroll 4
+    for (int k = 0; k < KD; ++k) {
+      float av[8], bv[8];
+      if constexpr (A_KMAJOR) {
+        const float4 lo = *reinterpret_cast<const float4*>(A + k * a_ld + m0 + 8 * mg);
+        const float4 hi = *reinterpret_cast<const float4*>(A + k * a_ld + m0 + 8 * mg + 4);
+        av[0] = lo.x; av[1] = lo.y; av[2] = lo.z; av[3] = lo.w;
+        av[4] = hi.x; av[5] = hi.y; av[6] = hi.z; av[7] = hi.w;
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) av[i] = A[(m0 + 8 * mg + i) * a_ld + k];
+      }
+      const float4 b_lo = *reinterpret_cast<const float4*>(B + k * b_ld + n0 + 8 * ng);
+      const float4 b_hi = *reinterpret_cast<const float4*>(B + k * b_ld + n0 + 8 * ng + 4);
+      bv[0] = b_lo.x; bv[1] = b_lo.y; bv[2] = b_lo.z; bv[3] = b_lo.w;
+      bv[4] = b_hi.x; bv[5] = b_hi.y; bv[6] = b_hi.z; bv[7] = b_hi.w;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i * 8 + j] = fmaf(av[i], bv[j], acc[i * 8 + j]);
+    }
+  } else {
+#pragma unroll
+    for (int k0 = 0; k0 < KD; k0 += 16) {
+      unsigned a[2][4], b[4][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        if constexpr (A_KMAJOR) {
+          ldsm_x4_trans(a[i], A + (k0 + (lane & 7) + (lane >> 4) * 8) * a_ld + m0 + 16 * i +
+                                  ((lane >> 3) & 1) * 8);
+        } else {
+          ldsm_x4(a[i], A + (m0 + 16 * i + (lane & 15)) * a_ld + k0 + (lane >> 4) * 8);
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+        ldsm_x4_trans(b[jj], B + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * b_ld + n0 + 16 * jj +
+                                 (lane >> 4) * 8);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          mma_bf16_16816(acc + (i * 8 + j) * 4, a[i], b[j >> 1][(j & 1) * 2],
+                         b[j >> 1][(j & 1) * 2 + 1]);
+    }
+  }
+}
+
+// Where accumulator e of a consumer lane lies in its warp's 32 x 64 tile:
+// (row, column), for the layouts of warp_mma_stage.
+template <typename T>
+__device__ __forceinline__ void acc_pos(int e, int lane, int& row, int& col) {
+  if constexpr (std::is_same<T, float>::value) {
+    row = 8 * (lane >> 3) + (e >> 3);
+    col = 8 * (lane & 7) + (e & 7);
+  } else {
+    const int i = e >> 5, j = (e >> 2) & 7, f = e & 3;
+    row = 16 * i + (lane >> 2) + (f >> 1) * 8;
+    col = 8 * j + (lane & 3) * 2 + (f & 1);
+  }
+}
+
+// Two adjacent values rounded to T, one store (p aligned to the pair).
+__device__ __forceinline__ void store_pair(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+}
+
+__device__ __forceinline__ int comp(const int4& v, int q) {
+  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+}
+
+// G samples of V channels each (V = 16 / sizeof(T): one 16-byte load a
+// corner; V = 1: scalar loads): corner q of sample g is at xc + off[g].q
+// (xc: the image's base plus the channel; off: the corner pixel's element
+// offset in the image, < 0 or !ok[g]: zero); the four corners of all G
+// samples are loaded before any is used. The lerp is gather_tile's
+// (explicitly rounded products and sums); the results go to dst[g] rounded
+// to T, as one 16-byte store where VEC_DST, else one store a value.
+template <typename T, int V, int G, bool VEC_DST>
+__device__ __forceinline__ void sample_groups(const T* __restrict__ xc, const int4 (&off)[G],
+                                              const float4 (&wt)[G], const bool (&ok)[G],
+                                              T* const (&dst)[G]) {
+  constexpr bool kVec = V * sizeof(T) == 16;
+  using Raw = typename std::conditional<kVec, uint4, T>::type;
+  Raw raw[G][4];
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int i = comp(off[g], q);
+      if (ok[g] && i >= 0) {
+        raw[g][q] = __ldg(reinterpret_cast<const Raw*>(xc + i));
+      } else if constexpr (kVec) {
+        raw[g][q] = make_uint4(0u, 0u, 0u, 0u);
+      } else {
+        raw[g][q] = from_f32<T>(0.f);
+      }
+    }
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    if (!ok[g]) continue;
+    float v[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      float cv[4];
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        s_idx[kl][q][pl] = idx[q];
-        s_wt[kl][q][pl] = wt[q];
+        if constexpr (kVec) {
+          cv[q] = to_f32(reinterpret_cast<const T*>(&raw[g][q])[j]);
+        } else {
+          cv[q] = to_f32(raw[g][q]);
+        }
       }
+      const float vx0 = __fadd_rn(__fmul_rn(cv[0], wt[g].z), __fmul_rn(cv[2], wt[g].w));
+      const float vx1 = __fadd_rn(__fmul_rn(cv[1], wt[g].z), __fmul_rn(cv[3], wt[g].w));
+      v[j] = __fadd_rn(__fmul_rn(vx0, wt[g].x), __fmul_rn(vx1, wt[g].y));
     }
-    for (int kl = 0; kl < n_taps; ++kl) {
-      const T* wk = weight + (long long)(k0 + kl) * C_in * C_out;
-
-      for (int c0 = 0; c0 < C_in; c0 += chunk) {
-        __syncthreads();  // corner tables written; the previous chunk consumed
-        if (vec_x) {
-          gather_tile<T, kVec>(xb, C_in, c0, s_idx[kl], s_wt[kl], s_a, tid);
-        } else {
-          gather_tile<T, 1>(xb, C_in, c0, s_idx[kl], s_wt[kl], s_a, tid);
-        }
-        if (vec_w) {
-          load_weight_tile<T, kVec>(wk, C_in, C_out, c0, o0, s_b, tid);
-        } else {
-          load_weight_tile<T, 1>(wk, C_in, C_out, c0, o0, s_b, tid);
-        }
-        __syncthreads();
-
-        if constexpr (std::is_same<T, float>::value) {
-          const int tx = tid & 15, ty = tid >> 4;
-#pragma unroll 4
-          for (int cl = 0; cl < chunk; ++cl) {
-            const float4 bv = *reinterpret_cast<const float4*>(s_b + cl * b_ld + 4 * tx);
+    if constexpr (VEC_DST) {
+      store_vals<T, V>(dst[g], v);
+    } else {
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const float av = s_a[(ty + 16 * i) * a_ld + cl];
-              acc[i][0] = fmaf(av, bv.x, acc[i][0]);
-              acc[i][1] = fmaf(av, bv.y, acc[i][1]);
-              acc[i][2] = fmaf(av, bv.z, acc[i][2]);
-              acc[i][3] = fmaf(av, bv.w, acc[i][3]);
-            }
-          }
-        } else {
-          const int row = 16 * (warp >> 1), col = 32 * (warp & 1);
-#pragma unroll
-          for (int kk = 0; kk < chunk; kk += 16) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-            wmma::load_matrix_sync(fa, s_a + row * a_ld + kk, a_ld);
-#pragma unroll
-            for (int j = 0; j < 2; ++j) {
-              wmma::load_matrix_sync(fb, s_b + kk * b_ld + col + 16 * j, b_ld);
-              wmma::mma_sync(frag_c[j], fa, fb, frag_c[j]);
-            }
-          }
-        }
-      }
+      for (int j = 0; j < V; ++j) dst[g][j] = from_f32<T>(v[j]);
     }
   }
+}
 
-  // epilogue: round to T, then + bias in T
-  if constexpr (std::is_same<T, float>::value) {
-    const int tx = tid & 15, ty = tid >> 4;
+// dst[r][cc] = src[r * src_ld + col0 + cc] for r < rows_valid and
+// col0 + cc < cols_valid, else 0: ROWS x COLS, by the PT producer threads.
+// vec: 16-byte cp.async copies left in flight (cols_valid % (16 / sizeof(T))
+// == 0, 16-byte aligned rows); else plain loads and stores.
+template <typename T, int ROWS, int COLS, int PT>
+__device__ __forceinline__ void producer_copy(T* dst, int dst_ld, const T* __restrict__ src,
+                                              long long src_ld, long long rows_valid, int col0,
+                                              int cols_valid, bool vec, int ptid) {
+  if (vec) {
+    constexpr int kV = 16 / sizeof(T), groups = COLS / kV;
+    for (int e = ptid; e < ROWS * groups; e += PT) {
+      const int r = e / groups, cc = (e - r * groups) * kV;
+      const bool ok = r < rows_valid && col0 + cc < cols_valid;
+      cp_async<16>(dst + r * dst_ld + cc, ok ? src + r * src_ld + col0 + cc : src, ok);
+    }
+  } else {
+    for (int e = ptid; e < ROWS * COLS; e += PT) {
+      const int r = e / COLS, cc = e - r * COLS;
+      const bool ok = r < rows_valid && col0 + cc < cols_valid;
+      dst[r * dst_ld + cc] = ok ? src[r * src_ld + col0 + cc] : from_f32<T>(0.f);
+    }
+  }
+}
+
+struct DcnGeom {
+  int B, H, W, C_in, Ho, Wo, C_out, kh, kw, stride, pad, dil, off_stride, mask_stride;
+};
+
+// The corner table entry of output pixel p of image b and tap k: the four
+// corners as element offsets in the image (corner pixel x C_in; -1 outside
+// it) and the lerp weights; a pixel past the map (p >= P) gets offsets -1
+// and weights 0 (its samples are 0).
+template <typename T>
+__device__ __forceinline__ void table_entry(const T* __restrict__ offset, const T* __restrict__ mask,
+                                            long long b, int p, int k, const DcnGeom& g,
+                                            int4& off, float4& wt) {
+  int id[4] = {-1, -1, -1, -1};
+  float w[4] = {0.f, 0.f, 0.f, 0.f};
+  const int P = g.Ho * g.Wo;
+  if (p < P)
+    corner_entry<T>(offset, mask, b * P + p, p, k, g.H, g.W, g.Wo, g.kw, g.stride, g.pad, g.dil,
+                    g.off_stride, g.mask_stride, id, w);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int p = p0 + ty + 16 * i;
-      if (p >= P) continue;
+  for (int j = 0; j < 4; ++j) id[j] = id[j] >= 0 ? id[j] * g.C_in : -1;
+  off = make_int4(id[0], id[1], id[2], id[3]);
+  wt = make_float4(w[0], w[1], w[2], w[3]);
+}
+
+
+// The per-tap forward's tile: P output pixels of one image x N
+// output channels, NT = N / 64 (1, 2 or 4); CH input channels a stage; CW
+// consumer warps (P = 32 CW / NT), PT producer threads.
+template <typename T, int NT>
+struct FwdCfg {
+  static constexpr bool kBf16 = !std::is_same<T, float>::value;
+  static constexpr int CW = consumer_warps(NT), PT = kWsThreads - 32 * CW;
+  // a group's producer threads; a stage is handed over between the
+  // consumers and one group
+  static constexpr int G = producer_groups(CW, false), GPT = PT / G;
+  static constexpr int kHandoff = 32 * CW + GPT;
+  static constexpr int P = 32 * CW / NT, N = 64 * NT;
+  static constexpr int CH = kBf16 ? 64 : 32;
+  // A [P][a_ld] sampled: bf16 rows padded to 16 bytes past 128 (ldmatrix
+  // without bank conflicts); f32 rows of 33 floats (the 8 x 8 tiles' column
+  // reads fall in 4 distinct banks). B [CH][b_ld]: the W_k chunk.
+  static constexpr int a_ld = kBf16 ? CH + 8 : CH + 1;
+  static constexpr int b_ld = kBf16 ? N + 8 : N + 4;
+  static constexpr int a_bytes = (int)sizeof(T) * P * a_ld;
+  static constexpr int stage_bytes = a_bytes + (int)sizeof(T) * CH * b_ld;
+  // then the corner tables of two tiles, [tap][pixel]: indices, then weights
+  static int smem(int taps) {
+    return kWsStages * stage_bytes + 2 * taps * P * (int)(sizeof(int4) + sizeof(float4));
+  }
+};
+
+// One block per SM, persistent over the tiles (blockIdx.x, + gridDim.x,
+// ...: (image, run of P pixels, column tile), the column tile fastest);
+// per tile, the corner tables of all taps once, then stages in the
+// order taps, then C_in chunks: the old kernel's order of taps, chunks and
+// 16-wide products, so that each output is summed in the same order.
+template <typename T, int NT>
+__global__ void __launch_bounds__(kWsThreads, 1)
+deform_conv_kernel(const T* __restrict__ x, const T* __restrict__ offset,
+                   const T* __restrict__ mask, const T* __restrict__ weight,
+                   const T* __restrict__ bias, T* __restrict__ out, DcnGeom g, bool vec_x,
+                   bool vec_w) {
+  using C = FwdCfg<T, NT>;
+  extern __shared__ __align__(128) unsigned char ws_smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int K = g.kh * g.kw, P = g.Ho * g.Wo;
+  const int n_cb = (g.C_out + C::N - 1) / C::N, tpi = (P + C::P - 1) / C::P;
+  const long long n_tiles = (long long)g.B * tpi * n_cb;
+  const int per_tile = K * ((g.C_in + C::CH - 1) / C::CH);
+  const long long my_tiles =
+      n_tiles > blockIdx.x ? (n_tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const long long total = my_tiles * per_tile;  // stages this block runs
+  auto stage_a = [&](long long it) {
+    return reinterpret_cast<T*>(ws_smem + (it % kWsStages) * C::stage_bytes);
+  };
+  auto stage_b = [&](long long it) {
+    return reinterpret_cast<T*>(ws_smem + (it % kWsStages) * C::stage_bytes + C::a_bytes);
+  };
+  // the corner tables of the block's tile tj: t_idx, t_wt + (tj & 1) K P
+  int4* t_idx = reinterpret_cast<int4*>(ws_smem + kWsStages * C::stage_bytes);
+  float4* t_wt = reinterpret_cast<float4*>(t_idx + 2 * K * C::P);
+  auto build_tables = [&](long long t, int buf, int ctid, int nth) {
+    const long long b = t / n_cb / tpi;
+    const int p0 = (int)(t / n_cb % tpi) * C::P;
+    for (int e = ctid; e < K * C::P; e += nth) {
+      const int k = e / C::P, pl = e - k * C::P;
+      table_entry<T>(offset, mask, b, p0 + pl, k, g, t_idx[buf * K * C::P + e],
+                     t_wt[buf * K * C::P + e]);
+    }
+  };
+  // Where the consumers wait on the gather most of the time (bf16, 8
+  // consumer warps), they copy the second operand of each stage and build
+  // the next tile's tables; else (4 consumer warps, or FMA consumers in f32)
+  // the producers do both (on an H100 each choice 5-10% faster than the
+  // other at the neck's shapes on its side).
+  constexpr bool kConsumersCopy = C::kBf16 && C::CW == 8;
+  if (kConsumersCopy) {  // the first tile's tables, by the whole block
+    if (blockIdx.x < n_tiles) build_tables(blockIdx.x, 0, tid, kWsThreads);
+    __syncthreads();
+  }
+  // The second operand of stage it, the W_k chunk of its (tile, tap, chunk),
+  // by NTH threads as cp.async copies left in flight.
+  const int n_chunks = (g.C_in + C::CH - 1) / C::CH;
+  auto copy_w = [&](long long it, int ctid, auto nth) {
+    constexpr int NTH = decltype(nth)::value;
+    const long long t = blockIdx.x + it / per_tile * gridDim.x;
+    const int j = (int)(it % per_tile), k = j / n_chunks, c0 = (j - k * n_chunks) * C::CH;
+    producer_copy<T, C::CH, C::N, NTH>(stage_b(it), C::b_ld,
+                                       weight + ((long long)k * g.C_in + c0) * g.C_out, g.C_out,
+                                       g.C_in - c0, (int)(t % n_cb) * C::N, g.C_out, vec_w, ctid);
+  };
+
+  if (warp >= C::CW) {
+    // producers: per tile the corner tables, per (tap, chunk) a stage, by
+    // the groups in turn
+    const int ptid = tid - 32 * C::CW;
+    const int grp = ptid / C::GPT, gtid = ptid - grp * C::GPT;
+    constexpr int kV = 16 / sizeof(T), kG = 4;
+    long long it = 0;
+    int tj = 0;
+    for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x, ++tj) {
+      const T* xb = x + t / n_cb / tpi * g.H * g.W * g.C_in;
+      const int buf = kConsumersCopy ? tj & 1 : 0;
+      if (kConsumersCopy) {
+        if (tj > 0) named_bar_sync(kBarTables, kWsThreads);  // the consumers built them
+      } else {
+        // every producer is done with the last tile's tables
+        if (tj > 0) named_bar_sync(kBarProducers, C::PT);
+        build_tables(t, 0, ptid, C::PT);
+        named_bar_sync(kBarProducers, C::PT);
+      }
+      for (int k = 0; k < K; ++k) {
+        const int4* k_idx = t_idx + (buf * K + k) * C::P;
+        const float4* k_wt = t_wt + (buf * K + k) * C::P;
+        for (int c0 = 0; c0 < g.C_in; c0 += C::CH, ++it) {
+          if (it % C::G != grp) continue;
+          if (it >= kWsStages) named_bar_sync(1 + kWsStages + it % kWsStages, C::kHandoff);
+          T* s_a = stage_a(it);
+          if (!kConsumersCopy) copy_w(it, gtid, std::integral_constant<int, C::GPT>());
+          if (vec_x) {
+            // thread's channels fixed (the groups of a row divide the producers)
+            constexpr int groups = C::CH / kV, rows = C::GPT / groups;
+            static_assert(C::GPT % groups == 0, "a producer's channels must be fixed");
+            const int cl = (gtid % groups) * kV;
+            const bool c_ok = c0 + cl < g.C_in;
+            for (int pl0 = gtid / groups; pl0 < C::P; pl0 += rows * kG) {
+              int4 idx[kG];
+              float4 wt[kG];
+              bool ok[kG];
+              T* dst[kG];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int o = o0 + 4 * tx + j;
-        if (o >= C_out) continue;
-        float v = acc[i][j];
-        if (bias != nullptr) v = __fadd_rn(v, bias[o]);
-        out[(b * P + p) * C_out + o] = v;
+              for (int j = 0; j < kG; ++j) {
+                const int pl = pl0 + j * rows;
+                ok[j] = pl < C::P;
+                const int pr = ok[j] ? pl : 0;
+                idx[j] = c_ok ? k_idx[pr] : make_int4(-1, -1, -1, -1);  // past C_in: zeros
+                wt[j] = k_wt[pr];
+                dst[j] = s_a + pr * C::a_ld + cl;
+              }
+              sample_groups<T, kV, kG, C::kBf16>(xb + c0 + cl, idx, wt, ok, dst);
+            }
+          } else {
+            // scalar loads (C_in odd or x unaligned), one sample at a time
+            for (int e = gtid; e < C::P * C::CH; e += C::GPT) {
+              const int pl = e / C::CH, cl = e - pl * C::CH;
+              const bool c_ok = c0 + cl < g.C_in;
+              const int4 idx[1] = {c_ok ? k_idx[pl] : make_int4(-1, -1, -1, -1)};
+              const float4 wt[1] = {k_wt[pl]};
+              const bool ok[1] = {true};
+              T* const dst[1] = {s_a + pl * C::a_ld + cl};
+              sample_groups<T, 1, 1, false>(xb + (c_ok ? c0 + cl : 0), idx, wt, ok, dst);
+            }
+          }
+          cp_async_wait_all();
+          named_bar_arrive(1 + it % kWsStages, C::kHandoff);
+        }
       }
     }
   } else {
-    constexpr int c_ld = Tiles<T>::c_ld;
-    float* s_c = reinterpret_cast<float*>(staging);  // [kTileP][c_ld]
-    __syncthreads();  // the last chunk's tiles are consumed
-    const int row = 16 * (warp >> 1), col = 32 * (warp & 1);
-    wmma::store_matrix_sync(s_c + row * c_ld + col, frag_c[0], c_ld, wmma::mem_row_major);
-    wmma::store_matrix_sync(s_c + row * c_ld + col + 16, frag_c[1], c_ld, wmma::mem_row_major);
-    __syncthreads();
-    for (int e = tid; e < kTileP * kTileO; e += kThreads) {
-      const int pl = e / kTileO, ol = e - pl * kTileO;
-      const int p = p0 + pl, o = o0 + ol;
-      if (p >= P || o >= C_out) continue;
-      float v = round_to<T>(s_c[pl * c_ld + ol]);
-      if (bias != nullptr) v = __fadd_rn(v, to_f32(bias[o]));
-      out[(b * P + p) * C_out + o] = from_f32<T>(v);
+    // consumers: warp (wm, wn) owns pixels 32 wm.., channels 64 wn.. of the tile
+    const int wm = warp / NT, wn = warp % NT;
+    using Consumers = std::integral_constant<int, 32 * C::CW>;
+    if (kConsumersCopy) {  // the first stages' W chunks, a cp.async group each
+      for (int j = 0; j < kWsStages; ++j) {
+        if (j < total) copy_w(j, tid, Consumers());
+        cp_async_commit();
+      }
+    }
+    long long it = 0;
+    int tj = 0;
+    for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x, ++tj) {
+      const long long b = t / n_cb / tpi;
+      const int p0 = (int)(t / n_cb % tpi) * C::P, o0 = (int)(t % n_cb) * C::N;
+      float acc[64];
+#pragma unroll
+      for (int e = 0; e < 64; ++e) acc[e] = 0.f;
+      for (int j = 0; j < per_tile; ++j, ++it) {
+        named_bar_sync(1 + it % kWsStages, C::kHandoff);
+        if (kConsumersCopy && j == 0 && t + gridDim.x < n_tiles) {
+          // the producers are done with the last tile (they filled this
+          // stage after it): its table buffer takes the next tile's tables
+          build_tables(t + gridDim.x, (tj + 1) & 1, tid, Consumers::value);
+          named_bar_arrive(kBarTables, kWsThreads);
+        }
+        if (kConsumersCopy) {
+          // this stage's W chunk has landed (the next one may be in flight);
+          // the barrier shows every consumer's copies, and that every
+          // consumer is done with the last stage, whose W buffer is refilled
+          // for kWsStages stages ahead
+          cp_async_wait_group<kWsStages - 2>();
+          named_bar_sync(kBarConsumers, Consumers::value);
+          if (it > 0 && it - 1 + kWsStages < total) copy_w(it - 1 + kWsStages, tid, Consumers());
+          cp_async_commit();
+        }
+        warp_mma_stage<T, false, C::CH>(acc, stage_a(it), C::a_ld, stage_b(it), C::b_ld, 32 * wm,
+                                        64 * wn, lane);
+        if (it + kWsStages < total) named_bar_arrive(1 + kWsStages + it % kWsStages, C::kHandoff);
+      }
+      // epilogue: round to T, then + bias in T; pairs of adjacent channels,
+      // one store a pair where C_out is even
+      T* out_w = out + (b * P + p0 + 32 * wm) * g.C_out + o0 + 64 * wn;
+      const bool pairs = (g.C_out & 1) == 0;
+#pragma unroll
+      for (int e = 0; e < 64; e += 2) {
+        int row, col;
+        acc_pos<T>(e, lane, row, col);
+        const int o = o0 + 64 * wn + col;
+        if (p0 + 32 * wm + row >= P || o >= g.C_out) continue;
+        const bool second = o + 1 < g.C_out;
+        float v0 = round_to<T>(acc[e]), v1 = round_to<T>(acc[e + 1]);
+        if (bias != nullptr) {
+          v0 = __fadd_rn(v0, to_f32(bias[o]));
+          if (second) v1 = __fadd_rn(v1, to_f32(bias[o + 1]));
+        }
+        T* dst = out_w + row * g.C_out + col;
+        if (pairs) {
+          store_pair(dst, v0, v1);
+        } else {
+          dst[0] = from_f32<T>(v0);
+          if (second) dst[1] = from_f32<T>(v1);
+        }
+      }
     }
   }
+}
+
+template <typename T, int NT>
+int launch_fwd(const T* x, const T* offset, const T* mask, const T* weight, const T* bias, T* out,
+               const DcnGeom& g, bool vec_x, bool vec_w, cudaStream_t stream) {
+  using C = FwdCfg<T, NT>;
+  const int smem = C::smem(g.kh * g.kw);
+  if (smem > kWsMaxSmem) return (int)cudaErrorInvalidValue;
+  // set on every launch: the opt-in holds for the current device only
+  if (const cudaError_t e = cudaFuncSetAttribute(
+          deform_conv_kernel<T, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      e != cudaSuccess)
+    return (int)e;
+  int device = 0, n_sm = 132;
+  if (cudaGetDevice(&device) == cudaSuccess)
+    cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+  const long long n_tiles = (long long)g.B * ((g.Ho * g.Wo + C::P - 1) / C::P) *
+                            ((g.C_out + C::N - 1) / C::N);
+  const unsigned grid = (unsigned)(n_tiles < n_sm ? n_tiles : n_sm);
+  deform_conv_kernel<T, NT><<<grid, kWsThreads, smem, stream>>>(x, offset, mask, weight, bias, out,
+                                                                g, vec_x, vec_w);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -400,20 +777,25 @@ int launch(const void* x, const void* offset, const void* mask, const void* weig
       kh <= 0 || kw <= 0 || stride <= 0 || dil <= 0 || pad < 0 ||
       off_stride < 2 * kh * kw || mask_stride < kh * kw)
     return (int)cudaErrorInvalidValue;
-  const long long P = (long long)Ho * Wo;
-  const dim3 grid((C_out + kTileO - 1) / kTileO, (unsigned)((P + kTileP - 1) / kTileP), B);
-  if (grid.y > 65535 || grid.z > 65535 || (long long)H * W * C_in > (1ll << 31))
+  if ((long long)B * H * W > (1ll << 31) || (long long)B * Ho * Wo > (1ll << 31) ||
+      (long long)H * W * C_in > (1ll << 31))
     return (int)cudaErrorInvalidValue;
   // 16-byte loads where every row of x (C_in) and of W (C_out) starts
   // 16-byte aligned
   constexpr int vec = 16 / sizeof(T);
   const bool vec_x = C_in % vec == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const bool vec_w = C_out % vec == 0 && reinterpret_cast<uintptr_t>(weight) % 16 == 0;
-  deform_conv_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(offset), static_cast<const T*>(mask),
-      static_cast<const T*>(weight), static_cast<const T*>(bias), static_cast<T*>(out), H, W,
-      C_in, Ho, Wo, C_out, kh, kw, stride, pad, dil, off_stride, mask_stride, vec_x, vec_w);
-  return (int)cudaGetLastError();
+  const DcnGeom g{B, H, W, C_in, Ho, Wo, C_out, kh, kw, stride, pad, dil, off_stride, mask_stride};
+  const T* args[5] = {static_cast<const T*>(x), static_cast<const T*>(offset),
+                      static_cast<const T*>(mask), static_cast<const T*>(weight),
+                      static_cast<const T*>(bias)};
+  T* o = static_cast<T*>(out);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (C_out <= 64)
+    return launch_fwd<T, 1>(args[0], args[1], args[2], args[3], args[4], o, g, vec_x, vec_w, s);
+  if (C_out <= 128)
+    return launch_fwd<T, 2>(args[0], args[1], args[2], args[3], args[4], o, g, vec_x, vec_w, s);
+  return launch_fwd<T, 4>(args[0], args[1], args[2], args[3], args[4], o, g, vec_x, vec_w, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -754,11 +1136,14 @@ int launch_premul(const void* y, const void* offset, const void* mask, const voi
 //     window into dx once; in f32 the row design, which adds every corner
 //     into dx itself, is the faster; both are described before their kernels
 //     below;
-//   * kernel B, one block per (tap, 64 C_in, 64 C_out) and a share of the
-//     64-pixel tiles of the batch: it re-gathers the sampled tile, stages
-//     the dy tile beside it and accumulates sampled^T . dy in registers
-//     (WMMA bf16 / FMA f32); one f32 atomic per output element at the end.
-// dx and dW are f32 buffers the wrapper zeroes; it rounds dx once.
+//   * kernel B (dW), on the forward's warp-specialised design: a block per
+//     (tile of (tap, C_in) rows x output channels, split of the batch's
+//     pixels) gathers each sampled tile once for all its output channels
+//     and accumulates sampled^T . dy; the splits' f32 partial sums are
+//     added by a second kernel in split order (no atomics), after the dx
+//     kernel's section.
+// dx is an f32 buffer the wrapper zeroes and rounds once; dW is f32, rounded
+// by the wrapper.
 // ---------------------------------------------------------------------------
 
 constexpr int kTileC = 64;  // input channels per backward tile
@@ -770,16 +1155,12 @@ template <> struct BwdTiles<float> {
   static constexpr int dy_ld = o_chunk + 1;  // s_dy [kTileP][dy_ld]
   static constexpr int w_rows = o_chunk;     // s_w = W_k^T chunk [o_chunk][w_ld]
   static constexpr int w_ld = kTileC + 4;
-  static constexpr int a_ld = kTileC + 4;    // kernel B: sampled [kTileP][a_ld]
-  static constexpr int b_ld = kTileO + 4;    // kernel B: dy [kTileP][b_ld]
 };
 template <> struct BwdTiles<__nv_bfloat16> {
   static constexpr int o_chunk = 64;
   static constexpr int dy_ld = o_chunk + 8;  // row_major A
   static constexpr int w_rows = kTileC;      // s_w = W_k chunk [kTileC][w_ld], col_major B
   static constexpr int w_ld = o_chunk + 8;
-  static constexpr int a_ld = kTileC + 8;
-  static constexpr int b_ld = kTileO + 8;
 };
 
 // dst[r][cc] = src[r * ld_src + col0 + cc] for r < rows_valid and
@@ -1184,23 +1565,6 @@ __device__ __forceinline__ void load_shared_vals(const T* p, float (&out)[V]) {
   }
 }
 
-// Asynchronous copies into shared memory (cp.async), BYTES = 4 or 16; with
-// pred false nothing is read and the destination is zero-filled.
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* smem, const void* gmem, bool pred) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  if constexpr (BYTES == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
-                 "r"(pred ? 16 : 0));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(gmem),
-                 "r"(pred ? 4 : 0));
-  }
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
-}
-
 // stage_w's copies issued as cp.async and left in flight, 16 bytes a copy
 // (C_out % 8 == 0, 16-byte aligned rows).
 template <typename T>
@@ -1569,141 +1933,243 @@ deform_conv_bwd_input_window_kernel(const T* __restrict__ x, const T* __restrict
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// ---------------------------------------------------------------------------
+// Kernel B, dW: dW_k[c,o] = sum_p sampled_k[p,c] dy[p,o], as GEMMs whose
+// rows are the (tap, input channel) pairs, whose columns are the output
+// channels and whose reduction runs over the output pixels of the batch.
+// The warp-specialised design of the forward: a block owns a tile of M rows
+// x N columns (M N = 16384, N = 64, 128 or 256 as C_out needs): tpb taps x
+// ci input channels (tpb ci <= M; ci = min(C_in, M), tpb = K split into
+// equal groups, e.g. 3 taps x 64 channels at C_in = 64), and a range of
+// pixels (its split). Per stage of PK pixels the producers build the corner
+// tables of the rows' taps, gather and lerp the sampled [PK x M] tile (each
+// sample once for all N columns, rounded to bf16 in bf16, as the forward
+// multiplies it) and copy the dy tile [PK x N] by cp.async (one copy serves
+// every tap of the rows); the consumers run the products (mma.sync with A =
+// sampled^T by ldmatrix.trans in bf16, 8 x 8 FMA tiles in f32). No
+// atomics: each block writes its tile of f32 sums into its split's slice of
+// a partials buffer, and deform_conv_bwd_weight_reduce_kernel adds the
+// splits in split order into dW (deterministic). The split count is
+// ops/deform_conv.py's (dw_plan): the blocks fill the SMs in whole waves.
+// ---------------------------------------------------------------------------
+
+template <typename T, int NT>
+struct DwCfg {
+  static constexpr bool kBf16 = !std::is_same<T, float>::value;
+  static constexpr int CW = consumer_warps(NT), PT = kWsThreads - 32 * CW;
+  static constexpr int G = producer_groups(CW, true), GPT = PT / G;  // as FwdCfg
+  static constexpr int kHandoff = 32 * CW + GPT;
+  static constexpr int N = 64 * NT, M = 32 * CW / NT;
+  static constexpr int PK = kBf16 ? 64 : 32;  // pixels a stage
+  static constexpr int TS = 4;                // stages whose corner tables are built at once
+  // A [PK][a_ld] sampled, the block's rows; B [PK][b_ld] dy
+  static constexpr int a_ld = kBf16 ? M + 8 : M + 4;
+  static constexpr int b_ld = kBf16 ? N + 8 : N + 4;
+  static constexpr int a_bytes = (int)sizeof(T) * PK * a_ld;
+  static constexpr int stage_bytes = a_bytes + (int)sizeof(T) * PK * b_ld;
+  // then the corner tables of TS stages, [tap][pixel]: indices, then weights
+  static int smem(int taps) {
+    return kWsStages * stage_bytes + taps * TS * PK * (int)(sizeof(int4) + sizeof(float4));
+  }
+};
+
+// The rows of a dW block: tpb taps x ci input channels. Returns tpb; ci,
+// and the blocks along the taps (n_kb) and along C_in (n_ccb), through the
+// references.
+__host__ __device__ inline int dw_rows(int M, int C_in, int K, int& ci, int& n_kb, int& n_ccb) {
+  ci = C_in < M ? C_in : M;
+  n_ccb = (C_in + ci - 1) / ci;
+  n_kb = (K + M / ci - 1) / (M / ci);
+  return (K + n_kb - 1) / n_kb;
+}
+
+template <typename T, int NT>
+__global__ void __launch_bounds__(kWsThreads, 1)
 deform_conv_bwd_weight_kernel(const T* __restrict__ x, const T* __restrict__ offset,
                               const T* __restrict__ mask, const T* __restrict__ dy,
-                              float* __restrict__ dw, int B, int H, int W, int C_in, int Ho,
-                              int Wo, int C_out, int kh, int kw, int stride, int pad, int dil,
-                              int off_stride, int mask_stride, int n_ct, int n_ot,
-                              int tiles_per_split, bool vec_x, bool vec_o) {
-  using BT = BwdTiles<T>;
-  constexpr int a_ld = BT::a_ld, b_ld = BT::b_ld;
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int tile_bytes = (int)sizeof(T) * kTileP * (a_ld + b_ld);
-  constexpr int out_bytes = (int)sizeof(float) * kTileC * kDsLd;
-  __shared__ __align__(128) unsigned char staging[tile_bytes > out_bytes ? tile_bytes : out_bytes];
-  __shared__ int s_idx[4][kTileP];
-  __shared__ float s_wt[4][kTileP];
-  T* s_a = reinterpret_cast<T*>(staging);  // [kTileP][a_ld] sampled
-  T* s_b = s_a + kTileP * a_ld;            // [kTileP][b_ld] dy
+                              float* __restrict__ part, DcnGeom g, int chunks_per_split,
+                              bool vec_x, bool vec_o) {
+  using C = DwCfg<T, NT>;
+  extern __shared__ __align__(128) unsigned char ws_smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int K = g.kh * g.kw, P = g.Ho * g.Wo;
+  int ci, n_kb, n_ccb;
+  const int tpb = dw_rows(C::M, g.C_in, K, ci, n_kb, n_ccb);
+  const int n_cb = (g.C_out + C::N - 1) / C::N, n_rb = n_kb * n_ccb;
+  const int split = blockIdx.x / (n_rb * n_cb), rem = blockIdx.x - split * n_rb * n_cb;
+  const int rb = rem / n_cb, n0 = (rem % n_cb) * C::N;
+  const int k_lo = (rb / n_ccb) * tpb, c_lo = (rb % n_ccb) * ci;
+  const int n_taps = min(tpb, K - k_lo);
+  // the split's stages: chunks chunk0 .. chunk0 + n_it - 1 of PK pixels
+  // of one image each (cpi an image)
+  const int cpi = (P + C::PK - 1) / C::PK;
+  const long long chunk0 = (long long)split * chunks_per_split;
+  const long long chunks = (long long)g.B * cpi;
+  const int n_it = (int)min((long long)chunks_per_split, chunks - chunk0);
+  auto stage_a = [&](int it) {
+    return reinterpret_cast<T*>(ws_smem + (it % kWsStages) * C::stage_bytes);
+  };
+  auto stage_b = [&](int it) {
+    return reinterpret_cast<T*>(ws_smem + (it % kWsStages) * C::stage_bytes + C::a_bytes);
+  };
+  constexpr int kTabPix = C::TS * C::PK;  // pixels of one build of the tables
+  int4* t_idx = reinterpret_cast<int4*>(ws_smem + kWsStages * C::stage_bytes);
+  float4* t_wt = reinterpret_cast<float4*>(t_idx + tpb * kTabPix);
+  // The dy tile of stage it, by NTH threads as cp.async copies left in
+  // flight: the consumers' or the producers', as the forward's W chunk.
+  constexpr bool kConsumersCopy = C::kBf16 && C::CW == 8;
+  auto copy_dy = [&](int it, int ctid, auto nth) {
+    constexpr int NTH = decltype(nth)::value;
+    const long long b = (chunk0 + it) / cpi;
+    const int p0 = (int)((chunk0 + it) % cpi) * C::PK;
+    producer_copy<T, C::PK, C::N, NTH>(stage_b(it), C::b_ld, dy + (b * P + p0) * g.C_out,
+                                       g.C_out, P - p0, n0, g.C_out, vec_o, ctid);
+  };
 
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int per_tap = n_ct * n_ot;
-  const int k = blockIdx.x / per_tap, rem = blockIdx.x - k * per_tap;
-  const int c0 = (rem / n_ot) * kTileC, o0 = (rem % n_ot) * kTileO;
-  const int P = Ho * Wo;
-  const long long N = (long long)B * P;  // output pixels of the batch
-  const long long n_tiles = (N + kTileP - 1) / kTileP;
-  const long long t_end = min(n_tiles, (long long)(blockIdx.y + 1) * tiles_per_split);
-
-  using namespace nvcuda;
-  float acc[4][4];
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> frag_c[2];
-  if constexpr (std::is_same<T, float>::value) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  } else {
-    wmma::fill_fragment(frag_c[0], 0.f);
-    wmma::fill_fragment(frag_c[1], 0.f);
-  }
-
-  for (long long t = (long long)blockIdx.y * tiles_per_split; t < t_end; ++t) {
-    const long long q0 = t * kTileP;
-    __syncthreads();  // the previous tile's tables and staged tiles are consumed
-    if (tid < kTileP) {
-      int idx[4] = {-1, -1, -1, -1};
-      float wt[4] = {0.f, 0.f, 0.f, 0.f};
-      const long long q = q0 + tid;
-      if (q < N) {
-        const long long bq = q / P;
-        corner_entry<T>(offset, mask, q, (int)(q - bq * P), k, H, W, Wo, kw, stride, pad, dil,
-                        off_stride, mask_stride, idx, wt);
-        // absolute pixel indices into the batch
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (idx[j] >= 0) idx[j] += (int)(bq * H * W);
+  if (warp >= C::CW) {
+    // producers: the corner tables of TS stages at once, then each stage by
+    // one group, the groups in turn
+    const int ptid = tid - 32 * C::CW;
+    const int grp = ptid / C::GPT, gtid = ptid - grp * C::GPT;
+    constexpr int kV = 16 / sizeof(T), kG = 4;
+    for (int it = 0; it < n_it; ++it) {
+      if (it % C::TS == 0) {
+        // the corner tables of the next TS stages' pixels, [tap][pixel]
+        if (it > 0) named_bar_sync(kBarProducers, C::PT);  // the last ones are no longer read
+        for (int e = ptid; e < n_taps * kTabPix; e += C::PT) {
+          const int kk = e / kTabPix, pl = e - kk * kTabPix, j = pl / C::PK;
+          const long long ch = chunk0 + it + j;
+          // past the split: p = P, no sample
+          const int p = it + j < n_it ? (int)(ch % cpi) * C::PK + pl - j * C::PK : P;
+          table_entry<T>(offset, mask, ch / cpi, p, k_lo + kk, g, t_idx[e], t_wt[e]);
+        }
+        named_bar_sync(kBarProducers, C::PT);
       }
+      if (it % C::G != grp) continue;
+      const int p_off = (it % C::TS) * C::PK;  // the stage's pixels in the tables
+      if (it >= kWsStages) named_bar_sync(1 + kWsStages + it % kWsStages, C::kHandoff);
+      T* s_a = stage_a(it);
+      const T* xb = x + (chunk0 + it) / cpi * g.H * g.W * g.C_in;
+      if (!kConsumersCopy) copy_dy(it, gtid, std::integral_constant<int, C::GPT>());
+      if (vec_x) {
+        // the thread's rows fixed: kV channels of one tap (ci % kV == 0)
+        constexpr int groups = C::M / kV, rows = C::GPT / groups;
+        static_assert(C::GPT % groups == 0, "a producer's rows must be fixed");
+        const int rl = (gtid % groups) * kV, kk = rl / ci, c = c_lo + rl - kk * ci;
+        const bool r_ok = kk < n_taps && c < g.C_in;
+        const int4* e_idx = t_idx + (r_ok ? kk : 0) * kTabPix + p_off;
+        const float4* e_wt = t_wt + (r_ok ? kk : 0) * kTabPix + p_off;
+        for (int pl0 = gtid / groups; pl0 < C::PK; pl0 += rows * kG) {
+          int4 idx[kG];
+          float4 wt[kG];
+          bool ok[kG];
+          T* dst[kG];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s_idx[j][tid] = idx[j];
-        s_wt[j][tid] = wt[j];
-      }
-    }
-    __syncthreads();
-    if (vec_x) {
-      gather_tile<T, kVec, kTileC, a_ld>(x, C_in, c0, s_idx, s_wt, s_a, tid);
-    } else {
-      gather_tile<T, 1, kTileC, a_ld>(x, C_in, c0, s_idx, s_wt, s_a, tid);
-    }
-    if (vec_o) {
-      stage_tile<T, kVec, kTileP, kTileO, b_ld>(dy + q0 * C_out, C_out, N - q0, o0, C_out, s_b,
-                                                tid);
-    } else {
-      stage_tile<T, 1, kTileP, kTileO, b_ld>(dy + q0 * C_out, C_out, N - q0, o0, C_out, s_b, tid);
-    }
-    __syncthreads();
-    if constexpr (std::is_same<T, float>::value) {
-      // thread owns input channels ty + 16i and output channels 4tx + j
-      const int tx = tid & 15, ty = tid >> 4;
-#pragma unroll 4
-      for (int pl = 0; pl < kTileP; ++pl) {
-        const float4 bv = *reinterpret_cast<const float4*>(s_b + pl * b_ld + 4 * tx);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float av = s_a[pl * a_ld + ty + 16 * i];
-          acc[i][0] = fmaf(av, bv.x, acc[i][0]);
-          acc[i][1] = fmaf(av, bv.y, acc[i][1]);
-          acc[i][2] = fmaf(av, bv.z, acc[i][2]);
-          acc[i][3] = fmaf(av, bv.w, acc[i][3]);
+          for (int j = 0; j < kG; ++j) {
+            const int pl = pl0 + j * rows;
+            ok[j] = pl < C::PK;
+            const int pr = ok[j] ? pl : 0;
+            idx[j] = r_ok ? e_idx[pr] : make_int4(-1, -1, -1, -1);
+            wt[j] = e_wt[pr];
+            dst[j] = s_a + pr * C::a_ld + rl;
+          }
+          sample_groups<T, kV, kG, true>(xb + c, idx, wt, ok, dst);
+        }
+      } else {
+        // scalar loads (C_in odd or x unaligned), one sample at a time
+        for (int e = gtid; e < C::PK * C::M; e += C::GPT) {
+          const int pl = e / C::M, rl = e - pl * C::M, kk = rl / ci, c = c_lo + rl - kk * ci;
+          const bool r_ok = kk < n_taps && c < g.C_in;
+          const int4 idx[1] = {r_ok ? t_idx[kk * kTabPix + p_off + pl] : make_int4(-1, -1, -1, -1)};
+          const float4 wt[1] = {t_wt[(r_ok ? kk : 0) * kTabPix + p_off + pl]};
+          const bool ok[1] = {true};
+          T* const dst[1] = {s_a + pl * C::a_ld + rl};
+          sample_groups<T, 1, 1, false>(xb + (r_ok ? c : 0), idx, wt, ok, dst);
         }
       }
-    } else {
-      // warp owns the 16 x 32 tile at input channels 16*(warp/2), outputs 32*(warp%2)
-      const int row = 16 * (warp >> 1), col = 32 * (warp & 1);
-#pragma unroll
-      for (int kk = 0; kk < kTileP; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, s_a + kk * a_ld + row, a_ld);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          wmma::load_matrix_sync(fb, s_b + kk * b_ld + col + 16 * j, b_ld);
-          wmma::mma_sync(frag_c[j], fa, fb, frag_c[j]);
-        }
-      }
-    }
-  }
-
-  // epilogue: one f32 atomic per element of the [64 x 64] block of dW_k
-  float* dwk = dw + (long long)k * C_in * C_out;
-  if constexpr (std::is_same<T, float>::value) {
-    const int tx = tid & 15, ty = tid >> 4;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int c = c0 + ty + 16 * i;
-      if (c >= C_in) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int o = o0 + 4 * tx + j;
-        if (o < C_out) atomicAdd(dwk + (long long)c * C_out + o, acc[i][j]);
-      }
+      cp_async_wait_all();
+      named_bar_arrive(1 + it % kWsStages, C::kHandoff);
     }
   } else {
-    float* s_c = reinterpret_cast<float*>(staging);  // [kTileC][kDsLd]
-    __syncthreads();  // the last tile's staged values are consumed
-    const int row = 16 * (warp >> 1), col = 32 * (warp & 1);
-    wmma::store_matrix_sync(s_c + row * kDsLd + col, frag_c[0], kDsLd, wmma::mem_row_major);
-    wmma::store_matrix_sync(s_c + row * kDsLd + col + 16, frag_c[1], kDsLd, wmma::mem_row_major);
-    __syncthreads();
-    for (int e = tid; e < kTileC * kTileO; e += kThreads) {
-      const int cl = e / kTileO, ol = e - cl * kTileO;
-      const int c = c0 + cl, o = o0 + ol;
-      if (c < C_in && o < C_out) atomicAdd(dwk + (long long)c * C_out + o, s_c[cl * kDsLd + ol]);
+    const int wm = warp / NT, wn = warp % NT;
+    using Consumers = std::integral_constant<int, 32 * C::CW>;
+    if (kConsumersCopy) {  // the first stages' dy tiles, a cp.async group each
+      for (int it = 0; it < kWsStages; ++it) {
+        if (it < n_it) copy_dy(it, tid, Consumers());
+        cp_async_commit();
+      }
+    }
+    float acc[64];
+#pragma unroll
+    for (int e = 0; e < 64; ++e) acc[e] = 0.f;
+    for (int it = 0; it < n_it; ++it) {
+      named_bar_sync(1 + it % kWsStages, C::kHandoff);
+      if (kConsumersCopy) {  // as the forward's W chunk
+        cp_async_wait_group<kWsStages - 2>();
+        named_bar_sync(kBarConsumers, Consumers::value);
+        if (it > 0 && it - 1 + kWsStages < n_it) copy_dy(it - 1 + kWsStages, tid, Consumers());
+        cp_async_commit();
+      }
+      warp_mma_stage<T, true, C::PK>(acc, stage_a(it), C::a_ld, stage_b(it), C::b_ld, 32 * wm,
+                                     64 * wn, lane);
+      if (it + kWsStages < n_it) named_bar_arrive(1 + kWsStages + it % kWsStages, C::kHandoff);
+    }
+    // the block's f32 sums into its split's slice of the partials [K C_in, C_out]
+    float* dst = part + (long long)split * K * g.C_in * g.C_out;
+#pragma unroll
+    for (int e = 0; e < 64; ++e) {
+      int row, col;
+      acc_pos<T>(e, lane, row, col);
+      const int rl = 32 * wm + row, kk = rl / ci, c = c_lo + rl - kk * ci;
+      const int o = n0 + 64 * wn + col;
+      if (kk < n_taps && c < g.C_in && o < g.C_out)
+        dst[((long long)(k_lo + kk) * g.C_in + c) * g.C_out + o] = acc[e];
     }
   }
+}
+
+// dW [n] = the sum of the splits' partials [splits][n], in split order.
+__global__ void __launch_bounds__(256)
+deform_conv_bwd_weight_reduce_kernel(const float* __restrict__ part, float* __restrict__ dw,
+                                     long long n, int splits) {
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < n;
+       e += (long long)gridDim.x * blockDim.x) {
+    float s = part[e];
+    for (int j = 1; j < splits; ++j) s += part[j * n + e];
+    dw[e] = s;
+  }
+}
+
+template <typename T, int NT>
+int launch_dw(const T* x, const T* offset, const T* mask, const T* dy, float* part, float* dw,
+              const DcnGeom& g, int splits, bool vec_x, bool vec_o, cudaStream_t stream) {
+  using C = DwCfg<T, NT>;
+  const int K = g.kh * g.kw;
+  int ci, n_kb, n_ccb;
+  const int smem = C::smem(dw_rows(C::M, g.C_in, K, ci, n_kb, n_ccb));
+  if (smem > kWsMaxSmem) return (int)cudaErrorInvalidValue;
+  // set on every launch: the opt-in holds for the current device only
+  if (const cudaError_t e = cudaFuncSetAttribute(
+          deform_conv_bwd_weight_kernel<T, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      e != cudaSuccess)
+    return (int)e;
+  const long long chunks = (long long)g.B * ((g.Ho * g.Wo + C::PK - 1) / C::PK);
+  if (splits < 1 || splits > chunks) return (int)cudaErrorInvalidValue;
+  const long long per_split = (chunks + splits - 1) / splits;
+  if ((chunks + per_split - 1) / per_split != splits || per_split > 2147483647ll)
+    return (int)cudaErrorInvalidValue;  // every split non-empty
+  const long long blocks =
+      (long long)splits * n_kb * n_ccb * ((g.C_out + C::N - 1) / C::N);
+  if (blocks > 2147483647ll) return (int)cudaErrorInvalidValue;
+  deform_conv_bwd_weight_kernel<T, NT><<<(unsigned)blocks, kWsThreads, smem, stream>>>(
+      x, offset, mask, dy, part, g, (int)per_split, vec_x, vec_o);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  const long long n = (long long)K * g.C_in * g.C_out;
+  const long long reduce_blocks = (n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024;
+  deform_conv_bwd_weight_reduce_kernel<<<(unsigned)reduce_blocks, 256, 0, stream>>>(part, dw, n,
+                                                                                   splits);
+  return (int)cudaGetLastError();
 }
 
 // Launch the bf16 dx kernel on its window: the geometry, and the window only
@@ -1714,20 +2180,18 @@ int launch_dx_window(const void* x, const void* offset, const void* mask, const 
                      int C_out, int kh, int kw, int stride, int pad, int dil, int off_stride,
                      int mask_stride, int tile_w, int radius, bool vec_x, bool vec_o, int B,
                      void* stream) {
-  constexpr int kMaxSmem = 232448;
+  constexpr int kMaxSmem = kWsMaxSmem;
   const bool vec_dx = C_in % 4 == 0 && reinterpret_cast<uintptr_t>(dx) % 16 == 0;
   DxGeom g = dx_geometry<T>(Ho, Wo, C_out, kh * kw, kh, kw, stride, dil, tile_w, radius);
   if (g.smem > kMaxSmem)
     g = dx_geometry<T>(Ho, Wo, C_out, kh * kw, kh, kw, stride, dil, tile_w, -1);
   if (g.smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  static bool attribute_set = false;
-  if (!attribute_set) {
-    const cudaError_t e = cudaFuncSetAttribute(deform_conv_bwd_input_window_kernel<T>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               kMaxSmem);
-    if (e != cudaSuccess) return (int)e;
-    attribute_set = true;
-  }
+  // set on every launch: the opt-in holds for the current device only
+  if (const cudaError_t e = cudaFuncSetAttribute(
+          deform_conv_bwd_input_window_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          kMaxSmem);
+      e != cudaSuccess)
+    return (int)e;
   const long long tiles = (long long)g.tiles_x * ((Ho + g.tile_h - 1) / g.tile_h);
   const dim3 grid_a((unsigned)tiles, B);
   deform_conv_bwd_input_window_kernel<T><<<grid_a, kThreads, g.smem, (cudaStream_t)stream>>>(
@@ -1740,21 +2204,19 @@ int launch_dx_window(const void* x, const void* offset, const void* mask, const 
 
 template <typename T>
 int launch_backward(const void* x, const void* offset, const void* mask, const void* weight,
-                    const void* dy, void* dx, void* dwts, void* dw, int B, int H, int W,
-                    int C_in, int Ho, int Wo, int C_out, int kh, int kw, int stride, int pad,
-                    int dil, int off_stride, int mask_stride, int tile_w, int radius,
-                    void* stream) {
+                    const void* dy, void* dx, void* dwts, void* dw, void* dw_part, int B, int H,
+                    int W, int C_in, int Ho, int Wo, int C_out, int kh, int kw, int stride,
+                    int pad, int dil, int off_stride, int mask_stride, int tile_w, int radius,
+                    int dw_splits, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || C_in <= 0 || Ho <= 0 || Wo <= 0 || C_out <= 0 ||
       kh <= 0 || kw <= 0 || stride <= 0 || dil <= 0 || pad < 0 ||
       off_stride < 2 * kh * kw || mask_stride < kh * kw ||
       (tile_w != 8 && tile_w != 16) || H > 32000 || W > 32000 || kh * kw > 127)
     return (int)cudaErrorInvalidValue;
   const long long P = (long long)Ho * Wo;
-  const long long n_tiles = ((long long)B * P + kTileP - 1) / kTileP;
-  const int n_ct = (C_in + kTileC - 1) / kTileC, n_ot = (C_out + kTileO - 1) / kTileO;
-  const long long base_blocks = (long long)kh * kw * n_ct * n_ot;
-  if ((P + kTileP - 1) / kTileP > 2147483647ll || B > 65535 || base_blocks > 2147483647ll ||
-      (long long)B * H * W > (1ll << 31) || (long long)H * W * C_in > (1ll << 31))
+  if ((P + kTileP - 1) / kTileP > 2147483647ll || B > 65535 ||
+      (long long)B * H * W > (1ll << 31) || (long long)B * P > (1ll << 31) ||
+      (long long)kh * kw * C_in * C_out > (1ll << 31) || (long long)H * W * C_in > (1ll << 31))
     return (int)cudaErrorInvalidValue;
   constexpr int vec = 16 / sizeof(T);
   const bool vec_x = C_in % vec == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
@@ -1777,21 +2239,20 @@ int launch_backward(const void* x, const void* offset, const void* mask, const v
   }
   const int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  // about four blocks per SM: split the batch's pixel tiles between blocks
-  // of the same (tap, C_in tile, C_out tile)
-  int device = 0, n_sm = 132;
-  if (cudaGetDevice(&device) == cudaSuccess)
-    cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
-  long long splits = (4ll * n_sm + base_blocks - 1) / base_blocks;
-  splits = splits < 1 ? 1 : (splits > n_tiles ? n_tiles : splits);
-  const long long per_split = (n_tiles + splits - 1) / splits;
-  splits = (n_tiles + per_split - 1) / per_split;
-  const dim3 grid_b((unsigned)base_blocks, (unsigned)splits);
-  deform_conv_bwd_weight_kernel<T><<<grid_b, kThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(offset), static_cast<const T*>(mask),
-      static_cast<const T*>(dy), static_cast<float*>(dw), B, H, W, C_in, Ho, Wo, C_out, kh, kw,
-      stride, pad, dil, off_stride, mask_stride, n_ct, n_ot, (int)per_split, vec_x, vec_o);
-  return (int)cudaGetLastError();
+  // dW: the split count is the caller's (dw_plan)
+  const DcnGeom g{B, H, W, C_in, Ho, Wo, C_out, kh, kw, stride, pad, dil, off_stride, mask_stride};
+  const T* xs = static_cast<const T*>(x);
+  const T* os = static_cast<const T*>(offset);
+  const T* ms = static_cast<const T*>(mask);
+  const T* ds = static_cast<const T*>(dy);
+  float* part = static_cast<float*>(dw_part);
+  float* dws = static_cast<float*>(dw);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (C_out <= 64)
+    return launch_dw<T, 1>(xs, os, ms, ds, part, dws, g, dw_splits, vec_x, vec_o, s);
+  if (C_out <= 128)
+    return launch_dw<T, 2>(xs, os, ms, ds, part, dws, g, dw_splits, vec_x, vec_o, s);
+  return launch_dw<T, 4>(xs, os, ms, ds, part, dws, g, dw_splits, vec_x, vec_o, s);
 }
 
 }  // namespace
@@ -1839,29 +2300,32 @@ int vd3d_premul_lerp_accumulate_bf16(const void* y, const void* offset, const vo
 }
 
 // Backward: x, offset, mask and W as in the forward, dy [B,Ho,Wo,C_out]
-// contiguous; dx [B,H,W,C_in] and dw [K,C_in,C_out] f32, zeroed by the
-// caller; dwts [B,Ho,Wo,K,4] f32 (every entry written): the gradients of
-// 1-fx, fx, (1-fy)*mask and fy*mask. The dx kernel's tile is 64 / tile_w
-// x tile_w output pixels (tile_w 8 or 16), its window reaches offsets up to
-// +-radius (radius < 0: no window), as ops/deform_conv.py's dx_plan says.
+// contiguous; dx [B,H,W,C_in] f32, zeroed by the caller; dw [K,C_in,C_out]
+// f32 (every entry written); dw_part [dw_splits,K*C_in,C_out] f32 scratch
+// (the splits' partial sums); dwts [B,Ho,Wo,K,4] f32 (every entry written):
+// the gradients of 1-fx, fx, (1-fy)*mask and fy*mask. The dx kernel's tile
+// is 64 / tile_w x tile_w output pixels (tile_w 8 or 16), its window reaches
+// offsets up to +-radius (radius < 0: no window), as ops/deform_conv.py's
+// dx_plan says; dw_splits is its dw_plan's.
 int vd3d_modulated_deform_conv_backward_f32(
     const void* x, const void* offset, const void* mask, const void* weight, const void* dy,
-    void* dx, void* dwts, void* dw, int B, int H, int W, int C_in, int Ho, int Wo, int C_out,
-    int kh, int kw, int stride, int pad, int dil, int off_stride, int mask_stride, int tile_w,
-    int radius, void* stream) {
-  return launch_backward<float>(x, offset, mask, weight, dy, dx, dwts, dw, B, H, W, C_in, Ho, Wo,
-                                C_out, kh, kw, stride, pad, dil, off_stride, mask_stride, tile_w,
-                                radius, stream);
+    void* dx, void* dwts, void* dw, void* dw_part, int B, int H, int W, int C_in, int Ho, int Wo,
+    int C_out, int kh, int kw, int stride, int pad, int dil, int off_stride, int mask_stride,
+    int tile_w, int radius, int dw_splits, void* stream) {
+  return launch_backward<float>(x, offset, mask, weight, dy, dx, dwts, dw, dw_part, B, H, W,
+                                C_in, Ho, Wo, C_out, kh, kw, stride, pad, dil, off_stride,
+                                mask_stride, tile_w, radius, dw_splits, stream);
 }
 
 int vd3d_modulated_deform_conv_backward_bf16(
     const void* x, const void* offset, const void* mask, const void* weight, const void* dy,
-    void* dx, void* dwts, void* dw, int B, int H, int W, int C_in, int Ho, int Wo, int C_out,
-    int kh, int kw, int stride, int pad, int dil, int off_stride, int mask_stride, int tile_w,
-    int radius, void* stream) {
-  return launch_backward<__nv_bfloat16>(x, offset, mask, weight, dy, dx, dwts, dw, B, H, W, C_in,
-                                        Ho, Wo, C_out, kh, kw, stride, pad, dil, off_stride,
-                                        mask_stride, tile_w, radius, stream);
+    void* dx, void* dwts, void* dw, void* dw_part, int B, int H, int W, int C_in, int Ho, int Wo,
+    int C_out, int kh, int kw, int stride, int pad, int dil, int off_stride, int mask_stride,
+    int tile_w, int radius, int dw_splits, void* stream) {
+  return launch_backward<__nv_bfloat16>(x, offset, mask, weight, dy, dx, dwts, dw, dw_part, B,
+                                        H, W, C_in, Ho, Wo, C_out, kh, kw, stride, pad, dil,
+                                        off_stride, mask_stride, tile_w, radius, dw_splits,
+                                        stream);
 }
 
 const char* vd3d_cuda_error_string(int code) {

@@ -14,12 +14,17 @@ one block), ``_lerp_matmul_f32_kernel`` (f32 forward), ``_lerp_accum_kernel``
 joined by a ``torch.autograd.Function``. The wrappers take the plain
 PyTorch version only for tensors on the CPU (the backward: autograd through
 the plain forward); a CUDA tensor launches the kernel or raises. Launches
-are counted in ``LAUNCHES``. The backward's dx kernel in bf16 sums the
-corner gradients of each 2-D tile of 64 output pixels in a shared-memory
-window of the input (offsets up to ``DX_WINDOW_RADIUS`` px; the tile is
-:func:`dx_plan`'s) before it adds them into dx; :func:`dx_window_spill`
-counts its adds into device memory. In f32 it adds every corner into dx
-itself (the faster design there).
+are counted in ``LAUNCHES``. The per-tap forward and the backward's dW pass
+are warp-specialised: producer warps gather and lerp the samples into a
+ring of shared-memory stages while consumer warps run the products
+(:func:`consumer_warps`); dW is summed in :func:`dw_plan`'s splits of the
+batch's pixels (:func:`dw_stages`) into partial sums that a second kernel
+adds in split order (:func:`dw_tile`, :func:`dw_rows`: a block's tile).
+The backward's dx kernel in bf16 sums the corner gradients of each 2-D tile
+of 64 output pixels in a shared-memory window of the input (offsets up to
+``DX_WINDOW_RADIUS`` px; the tile is :func:`dx_plan`'s) before it adds them
+into dx; :func:`dx_window_spill` counts its adds into device memory. In f32
+it adds every corner into dx itself (the faster design there).
 
 Forward variants (:func:`forward_variant`), chosen per call as the JAX
 package chooses them: the environment switches ``VD3D_DCN_PREMUL=1`` and
@@ -59,12 +64,13 @@ import torch
 from visualdet3d_tpu_torch.ops import kernel_build
 
 # launches of the CUDA kernels, one key per kernel (a backward call
-# launches two: dx and the lerp-weight gradients, then dW); reset with
-# reset_launch_counts()
+# launches three: dx and the lerp-weight gradients, dW's split partial sums,
+# then their reduce into dW); reset with reset_launch_counts()
 LAUNCHES = {'modulated_deform_conv': 0, 'modulated_deform_conv_alltaps': 0,
             'modulated_deform_conv_premul_accum': 0,
             'modulated_deform_conv_backward_input': 0,
-            'modulated_deform_conv_backward_weight': 0}
+            'modulated_deform_conv_backward_weight': 0,
+            'modulated_deform_conv_backward_weight_reduce': 0}
 
 _ENTRY = {torch.float32: 'vd3d_modulated_deform_conv_f32',
           torch.bfloat16: 'vd3d_modulated_deform_conv_bf16'}
@@ -298,6 +304,68 @@ def modulated_deform_conv_backward_plain(x: torch.Tensor, offset: torch.Tensor,
         return torch.autograd.grad(out, leaves, grad_out)
 
 
+def consumer_warps(nt: int) -> int:
+    """Consumer warps of a forward or dW block whose tile is ``nt`` x 64
+    output channels wide (``csrc/deform_conv.cu``, ``consumer_warps``)."""
+    return 4 if nt == 1 else 8
+
+
+def dw_tile(c_out: int) -> Tuple[int, int]:
+    """The dW kernel's block tile, (rows, columns): rows are (tap, input
+    channel) pairs, columns output channels; 64, 128 or 256 columns as C_out
+    needs, a 32 x 64 tile of each consumer warp (``DwCfg``)."""
+    nt = 1 if c_out <= 64 else 2 if c_out <= 128 else 4
+    return 32 * consumer_warps(nt) // nt, 64 * nt
+
+
+def dw_rows(c_in: int, c_out: int, taps: int = 9) -> Tuple[int, int, int, int]:
+    """A dW block's rows, as the kernel's ``dw_rows`` forms them: (taps per
+    block, input channels per block, blocks along the taps, blocks along
+    C_in). The taps split into equal groups of at most rows // channels."""
+    rows = dw_tile(c_out)[0]
+    ci = min(c_in, rows)
+    n_kb = -(-taps // (rows // ci))
+    return -(-taps // n_kb), ci, n_kb, -(-c_in // ci)
+
+
+def dw_tiles(c_in: int, c_out: int, taps: int = 9) -> int:
+    """The (rows, columns) tiles of dW: the dW kernel's blocks per split."""
+    _, _, n_kb, n_ccb = dw_rows(c_in, c_out, taps)
+    return n_kb * n_ccb * -(-c_out // dw_tile(c_out)[1])
+
+
+DW_STAGE_PIXELS = {torch.bfloat16: 64, torch.float32: 32}  # pixels of a dW stage
+DW_TILE_OVERHEAD = 3  # stages' worth of a dW block's time outside its main loop
+DW_MAX_WAVES = 8
+
+
+def dw_stages(b: int, ho: int, wo: int, dtype: torch.dtype) -> int:
+    """The dW kernel's stages over a batch of ``b`` maps of Ho x Wo output
+    pixels: runs of ``DW_STAGE_PIXELS`` pixels of one image."""
+    return b * -(-(ho * wo) // DW_STAGE_PIXELS[dtype])
+
+
+@functools.lru_cache(maxsize=None)
+def dw_plan(chunks: int, c_in: int, c_out: int, taps: int = 9, n_sm: int = 132) -> int:
+    """The dW kernel's split of its ``chunks`` stages (:func:`dw_stages`):
+    the number of blocks each (rows, columns) tile of dW is summed over, each
+    taking an equal run of stages (the last may be shorter), none empty.
+    With one block an SM, the time is about (waves) x (stages a split +
+    ``DW_TILE_OVERHEAD``); the plan takes the split with the least, over
+    the splits that fill 1 to ``DW_MAX_WAVES`` whole waves of ``n_sm``
+    blocks, the fewest splits on a tie."""
+    tiles = dw_tiles(c_in, c_out, taps)
+    best = None
+    for waves in range(1, DW_MAX_WAVES + 1):
+        splits = max(1, min(chunks, waves * n_sm // tiles))
+        per = -(-chunks // splits)
+        splits = -(-chunks // per)  # every split non-empty
+        cost = -(-tiles * splits // n_sm) * (per + DW_TILE_OVERHEAD)
+        if best is None or (cost, splits) < best:
+            best = (cost, splits)
+    return best[1]
+
+
 DX_WINDOW_RADIUS = 4  # the dx kernel's window reaches offsets up to +-4 px
 DX_TILES = ((8, 8), (4, 16))  # output-pixel tiles (rows x columns) of the dx kernel
 
@@ -370,7 +438,7 @@ def _deform_conv_lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     for name in _BWD_ENTRY.values():
         fn = getattr(lib, name)
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 16 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 17 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     lib_fn = getattr(lib, _ALLTAPS_ENTRY)
     lib_fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
@@ -644,10 +712,11 @@ def modulated_deform_conv_backward(x: torch.Tensor, offset: torch.Tensor, mask: 
     kernels on the card; :func:`modulated_deform_conv_backward_plain` for
     CPU tensors.
 
-    The kernels write dx and dW in f32 (zeroed here, rounded here once) and
+    The kernels write dx (zeroed here) and dW in f32, rounded here once, and
     the gradients of the four lerp weights per (pixel, tap); ``_lerp_weights``
     under autograd carries those to d_offset and d_mask with the plain
-    version's rounding points.
+    version's rounding points. dW is summed in :func:`dw_plan`'s splits into
+    a partials buffer, then added up over the splits by a second kernel.
     """
     tensors = (x, offset, mask, weight, grad_out)
     if all(t.device.type == 'cpu' for t in tensors):
@@ -665,17 +734,22 @@ def modulated_deform_conv_backward(x: torch.Tensor, offset: torch.Tensor, mask: 
     wk = weight.reshape(k * c_in, c_out).contiguous()
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.zeros((b, h, w, c_in), **f32)
-    dw = torch.zeros((k * c_in, c_out), **f32)
     dwts = torch.empty((b, ho, wo, k, 4), **f32)
     if grad_out.numel() > 0:
+        splits = dw_plan(dw_stages(b, ho, wo, x.dtype), c_in, c_out, k,
+                         torch.cuda.get_device_properties(x.device).multi_processor_count)
+        dw = torch.empty((k * c_in, c_out), **f32)
+        part = torch.empty((splits, k * c_in, c_out), **f32)
         _launch(_BWD_ENTRY[x.dtype], 'deformable-conv backward',
                 (x.data_ptr(), offset.data_ptr(), mask.data_ptr(), wk.data_ptr(),
-                 grad_out.data_ptr(), dx.data_ptr(), dwts.data_ptr(), dw.data_ptr()),
+                 grad_out.data_ptr(), dx.data_ptr(), dwts.data_ptr(), dw.data_ptr(),
+                 part.data_ptr()),
                 dims, (stride, padding, dilation), x, weight,
-                (dx_plan(ho, wo)[1], DX_WINDOW_RADIUS))
-        LAUNCHES['modulated_deform_conv_backward_input'] += 1
-        LAUNCHES['modulated_deform_conv_backward_weight'] += 1
+                (dx_plan(ho, wo)[1], DX_WINDOW_RADIUS, splits))
+        for key in ('input', 'weight', 'weight_reduce'):
+            LAUNCHES[f'modulated_deform_conv_backward_{key}'] += 1
     else:
+        dw = torch.zeros((k * c_in, c_out), **f32)
         dwts.zero_()
     with torch.enable_grad():
         off = offset.detach().requires_grad_()
