@@ -57,9 +57,11 @@ each printed as one JSON line:
    dx and dW apart by device time from a profiler pass, each beside its own
    bound), the plain version's, the bound and the dx adds in device memory
    (``dx_window_spill``); then edge cases (samples wholly outside, a zero
-   mask, C_in 512, ragged tiles, stride 2, dilation 2, offsets of exactly
-   +-R, +-(R - 0.5) and +-(R + 1) around the dx window on clipped tiles, an
-   unaligned x) and the wrapper's refusals; deform_module_grad: the
+   mask, C_in 512, ragged tiles, stride 2, dilation 2, C_out 320 (the f32
+   dx kernel's dy in pieces), a 7x7 kernel in f32 (its 32-pixel tile),
+   offsets of exactly +-R, +-(R - 0.5) and +-(R + 1) around the dx window
+   on clipped tiles, an unaligned x) and the wrapper's refusals;
+   deform_module_grad: the
    gradients of the whole DCN module (offset conv, slices, sigmoid, both
    kernels) on the card against the CPU, f32, with
    offsets kept away from the integer corners;
@@ -628,8 +630,9 @@ def alltaps_check(torch, dc, args, weight, bias, what, **conv):
 
 
 def dcn_alltaps_kernel_phase(torch, dc, peaks):
-    """K4 (all taps and every output channel of a pixel tile per block)
-    against its plain version and against B4 at the 16 neck shapes, batch
+    """K4 (the per-tap kernel's ring under its own symbol: all taps and up
+    to 256 output channels of a pixel tile per block) against its plain
+    version and against B4 at the 16 neck shapes, batch
     16, bf16; its time, B4's, the plain version's and the bound (that of
     B4: the same function)."""
     bw, _, bf16_peak = peaks
@@ -936,8 +939,8 @@ def bwd_check(torch, dc, args, weight, grad, what, **conv):
 # corners + flushed window cells), a design without a window's (every corner
 # inside the image), and 4 K C_in per output pixel (all_corners, every
 # corner counted whether inside or not);
-# 'kernel': the adds of the dx kernel that runs (the window design in bf16,
-# the row design in f32)
+# 'kernel': the adds of the dx kernel that runs (the window design in bf16;
+# in f32 every corner inside the image)
 DX_ADD_KEYS = ('kernel', 'global_adds', 'spilled', 'window', 'corner_adds', 'all_corners')
 
 
@@ -948,7 +951,8 @@ def dx_adds(torch, dc, dtype, offset, h, w, c_in):
 
 
 # the backward's kernels by the prefix of their names in a profile: dx (the
-# window kernel in bf16, the row kernel in f32), dW's split sums, their reduce
+# window kernel in bf16, the warp-specialised one in f32), dW's split sums,
+# their reduce
 BWD_KERNEL_NAMES = {'dx': ('deform_conv_bwd_input_',),
                     'dw': ('deform_conv_bwd_weight_kernel',),
                     'dw_reduce': ('deform_conv_bwd_weight_reduce',)}
@@ -1040,8 +1044,11 @@ def deform_bwd_kernel_phase(torch, dc, peaks):
                          dw_splits=dc.dw_plan(dc.dw_stages(BATCH, h, w, dtype), c_in, c_out, 9,
                                               torch.cuda.get_device_properties(0)
                                               .multi_processor_count),
-                         dx_adds={k: adds[k] for k in DX_ADD_KEYS}, dx_tile=adds['tile'],
-                         dx_window=adds['window_hw'], max_abs_err=max_err, errors=errs,
+                         dx_adds={k: adds[k] for k in DX_ADD_KEYS},
+                         **(dict(dx_tile=adds['tile'], dx_window=adds['window_hw'])
+                            if dt == 'bf16' else
+                            dict(dx_tile_dy_resident_smem=dc.dx_f32_plan(c_out))),
+                         max_abs_err=max_err, errors=errs,
                          tflops=n_flops / (ms * 1e-3) / 1e12)
             tot['per_shape'][f'{h}x{w} {c_in}->{c_out}'] = shape
             for key, v in (('ms', ms), ('plain_ms', plain_ms), ('bytes_ms', bytes_ms),
@@ -1072,8 +1079,9 @@ def deform_bwd_kernel_phase(torch, dc, peaks):
 def deform_bwd_edge_phase(torch, dc):
     """Backward edge cases the KM3D shapes do not reach, both dtypes:
     offsets far outside the image, a zero mask, C_in 512 at a ragged pixel
-    count, ragged channel tiles, stride 2, dilation 2, an unaligned x; and
-    the wrapper's refusals."""
+    count, ragged channel tiles, stride 2, dilation 2, C_out 320 (the f32 dx
+    kernel's dy in pieces), a 7x7 kernel in f32 (its 32-pixel tiles), an
+    unaligned x; and the wrapper's refusals."""
     gen = torch.Generator(device='cuda').manual_seed(22)
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -1085,7 +1093,9 @@ def deform_bwd_edge_phase(torch, dc):
                  False),
                 ('stride 2', (2, 10, 14, 16, 8), dict(stride=2), 2.0, 0.05, False),
                 ('dilation 2', (2, 10, 14, 16, 8), dict(padding=2, dilation=2), 2.0, 0.05,
-                 False)):
+                 False),
+                ('C_out 320: the f32 dx kernel\'s dy in pieces', (2, 7, 9, 64, 320), {}, 2.0,
+                 0.05, False)):
             ho, wo = dc.output_hw(h, w, 3, 3, conv.get('stride', 1), conv.get('padding', 1),
                                   conv.get('dilation', 1))
             runs, weight, _ = dcn_inputs(torch, gen, b, h, w, c_in, c_out, dtype, 1,
@@ -1114,6 +1124,17 @@ def deform_bwd_edge_phase(torch, dc):
             grad = torch.randn((2, 13, 21, 32), generator=gen, device='cuda').to(dtype)
             bwd_check(torch, dc, (x, off, mask), weight, grad, f'edge {name} {dtype}')
             cases.append(f'{name} (13x21: clipped 8x8 tiles, windows over the edge)')
+        if dtype == torch.float32:
+            # a 7x7 kernel: the f32 dx kernel's 32-pixel tile (49 taps' tables);
+            # the bf16 dx kernel's ds of all taps does not fit and is refused
+            check(dc.dx_f32_plan(8, 49)[0] == 32, f'dx_f32_plan(8, 49) = {dc.dx_f32_plan(8, 49)}')
+            x = torch.randn((2, 9, 11, 16), generator=gen, device='cuda')
+            off = 2.0 * torch.randn((2, 9, 11, 98), generator=gen, device='cuda')
+            mask = torch.sigmoid(torch.randn((2, 9, 11, 49), generator=gen, device='cuda'))
+            weight = torch.randn((7, 7, 16, 8), generator=gen, device='cuda') / 28.0
+            grad = torch.randn((2, 9, 11, 8), generator=gen, device='cuda')
+            bwd_check(torch, dc, (x, off, mask), weight, grad, 'edge 7x7 f32', padding=3)
+            cases.append('a 7x7 kernel (f32: 32-pixel dx tiles)')
         # a contiguous x whose base is off 16-byte alignment: scalar loads
         runs, weight, _ = dcn_inputs(torch, gen, 2, 9, 11, 64, 64, dtype, 1)
         x, off, mask = runs[0]
@@ -1513,7 +1534,7 @@ def km3d_train_phase(torch, dc, compute_dtype, model='km3d', batch_size=BATCH):
     wall_ms, kernels, ops, device_ms = device_profile(
         torch, lambda: step(batches[N_TRAIN_WARMUP], TRAIN_EPOCH))
     # each kind by its name's prefix: the dx kernel is
-    # deform_conv_bwd_input_window_kernel (bf16) or deform_conv_bwd_input_kernel (f32)
+    # deform_conv_bwd_input_window_kernel (bf16) or deform_conv_bwd_input_ws_kernel (f32)
     prefix = {'deform_conv_kernel': ('deform_conv_kernel<', 'deform_conv_kernelI'),
               'deform_conv_bwd_input_kernel': BWD_KERNEL_NAMES['dx'],
               'deform_conv_bwd_weight_kernel': BWD_KERNEL_NAMES['dw'],

@@ -10,7 +10,8 @@ splits of the batch's pixels into runs of stages, the per-split partial
 sums and their reduce in split order. The plan functions that size these
 (``consumer_warps``, ``dw_tile``, ``dw_rows``, ``dw_stages``, ``dw_plan``)
 are checked against cases worked out by hand, and the text that
-``dcn_study.py`` patches in the kernel source against that source.
+``dcn_study.py`` patches in the kernel source against that source (the f32
+dx kernel's order: ``tests/test_torch_dcn_dx.py``).
 
 Tolerances, f32: the forward within 3e-5 of JAX (the convention of
 ``tests/test_torch_deform_conv.py``: the frameworks sum the K * C_in tap
@@ -261,15 +262,44 @@ def _study():
 
 
 @pytest.mark.parametrize('variant', ['no_mma', 'l1_hit', 'producers_copy', 'consumers_copy',
-                                     'one_group', 'laps'])
+                                     'one_group', 'laps', 'dx_no_ds', 'dx_no_atomics',
+                                     'dx_no_ds_no_atomics', 'dx_no_scatter', 'dx_no_copy',
+                                     'dx_no_scatter_no_copy', 'dx_fma_groups_1',
+                                     'dx_fma_groups_3', 'dx_fma_groups_4', 'dx_tile_32',
+                                     'dx_stages_2',
+                                     'dx_tile_w_64', 'dx_tile_w_32', 'dx_tile_w_16',
+                                     'dx_tile_w_8', 'dx_laps'])
 def test_study_patches_match_the_source(variant):
     """Each of ``dcn_study.py``'s substitutions finds its text in
     ``csrc/deform_conv.cu`` (a variant changes every copy; a lap lands in
-    one place), so the study builds what it says."""
+    one place), so the study builds what it says. The forward's anchors
+    hold in the ring body that K3/K5 and K4 share."""
     study = _study()
-    subs = study.LAP_SUBS if variant == 'laps' else study.VARIANTS[variant]
+    laps = {'laps': study.LAP_SUBS, 'dx_laps': study.DX_LAP_SUBS}
+    subs = laps.get(variant) or study.VARIANTS[variant]
     text = study.SRC.read_text()
     assert subs
     for old, _ in subs:
-        assert text.count(old) == 1 if variant == 'laps' else old in text, old[:80]
+        assert text.count(old) == 1 if variant in laps else old in text, old[:80]
     assert study.substitute(text, subs) != text
+
+
+def test_study_lists_every_variant():
+    """The parametrisation above covers every variant the study builds."""
+    study = _study()
+    assert set(study.VARIANTS) - {'as_is'} == {
+        'no_mma', 'l1_hit', 'producers_copy', 'consumers_copy', 'one_group', 'dx_no_ds',
+        'dx_no_atomics', 'dx_no_ds_no_atomics', 'dx_no_scatter', 'dx_no_copy',
+        'dx_no_scatter_no_copy', 'dx_fma_groups_1', 'dx_fma_groups_3', 'dx_fma_groups_4',
+        'dx_tile_32', 'dx_stages_2', 'dx_tile_w_64', 'dx_tile_w_32', 'dx_tile_w_16',
+        'dx_tile_w_8'}
+
+
+def test_alltaps_kernel_runs_the_ring():
+    """K4's kernel is the per-tap kernel's ring under its own symbol: both
+    call ``fwd_ring``, and the serial all-taps body (WMMA fragments) is gone."""
+    text = _study().SRC.read_text()
+    assert text.count('fwd_ring<') == 2
+    body = text[text.index('deform_conv_alltaps_kernel(const'):]
+    body = body[:body.index('\n}\n')]
+    assert 'fwd_ring<__nv_bfloat16, NT>(' in body and 'wmma' not in body

@@ -16,6 +16,9 @@
 * Every launcher of ``csrc/deform_conv.cu`` is bound by its wrapper, and
   ``chip_smoke.py``'s ``kernels`` summary names each DCN kernel with the
   TPU kernel it replaces.
+* No shared-memory opt-in (``cudaFuncSetAttribute``) is cached in a
+  process-wide ``static bool``: the attribute holds for the current device
+  only, so a cache must be kept per device.
 """
 import ast
 import pathlib
@@ -225,3 +228,19 @@ def test_deform_conv_launchers_are_bound_and_summarised():
                        ('modulated_deform_conv_backward_weight[', 663)):
         assert name in smoke, name
         assert f"'visualdet3d_tpu/ops/deform_conv.py:{body}'" in smoke, body
+
+
+def test_no_smem_opt_in_is_cached_once_a_process():
+    """A ``static bool`` guarding ``cudaFuncSetAttribute`` sets the opt-in on
+    the first device only; on a second card every launch would be refused.
+    B8 caches it per (kernel instance, device) in ``opt_in_smem``, which asks
+    ``cudaGetDevice``; the DCN launchers set it on every launch."""
+    for src in sorted(kernel_build.CSRC_DIR.glob('*.cu*')):
+        text = src.read_text()
+        assert not re.search(r'\bstatic\s+bool\b', text), src.name
+    text = (kernel_build.CSRC_DIR / 'int8_conv.cu').read_text()
+    helper = text[text.index('cudaError_t opt_in_smem('):]
+    helper = helper[:helper.index('\n}\n')]
+    assert 'cudaGetDevice(&device)' in helper and 'devices_set & bit' in helper
+    assert text.count('cudaFuncSetAttribute') == 1  # the helper's, for every B8 launcher
+    assert text.count('opt_in_smem(int8_conv') == 2

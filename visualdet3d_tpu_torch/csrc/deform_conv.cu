@@ -43,7 +43,8 @@
 //     then MMA, pipelined between warps" below);
 //   * an epilogue that rounds to the output dtype, then adds the bias in
 //     that dtype.
-// The all-taps (K4) and pre-multiplied (K6) variants keep their own designs.
+// The all-taps variant (K4) runs on the same ring; the pre-multiplied one (K6)
+// keeps its own design.
 //
 // Plain C interface for ctypes; each entry returns the cudaError_t of the
 // launch (0 on success). The launch goes on the caller's stream and does not
@@ -57,9 +58,8 @@
 
 namespace {
 
-constexpr int kTileP = 64;   // output pixels per block
-constexpr int kTileO = 64;   // output channels per block
-constexpr int kThreads = 256;
+constexpr int kTileP = 64;   // output pixels of the backward's refusal count
+constexpr int kThreads = 256;  // a block of the premul and bf16 dx kernels
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -74,17 +74,6 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 template <typename T> __device__ __forceinline__ float round_to(float v) {
   return to_f32(from_f32<T>(v));
 }
-
-// The all-taps kernel's input channels per staged chunk, and row strides of
-// its staged tiles in elements: multiples of 8 (WMMA), 16-byte rows, so that
-// a thread stores its 16-byte group of sampled values at once.
-template <typename T> struct Tiles;
-template <> struct Tiles<__nv_bfloat16> {
-  static constexpr int chunk = 64;
-  static constexpr int a_ld = chunk + 8;
-  static constexpr int b_ld = kTileO + 8;
-  static constexpr int c_ld = kTileO + 4;
-};
 
 // V consecutive values as f32: one 16-byte load when V = 16 / sizeof(T)
 // (the caller guarantees the alignment), else V scalar loads.
@@ -112,68 +101,6 @@ __device__ __forceinline__ void store_vals(T* p, const float (&v)[V]) {
   } else {
 #pragma unroll
     for (int j = 0; j < V; ++j) p[j] = from_f32<T>(v[j]);
-  }
-}
-
-// The sampled [kTileP x CHUNK] tile of channels c0.. (row stride A_LD), V
-// channels a thread at a time (the 8 threads of a bf16 pixel row read 128
-// contiguous bytes of each corner). With V > 1 the caller guarantees
-// C_in % V == 0, so a group is wholly inside or wholly outside C_in.
-template <typename T, int V, int CHUNK = Tiles<T>::chunk, int A_LD = Tiles<T>::a_ld>
-__device__ __forceinline__ void gather_tile(const T* __restrict__ xb, int C_in, int c0,
-                                            const int (&s_idx)[4][kTileP],
-                                            const float (&s_wt)[4][kTileP], T* s_a, int tid) {
-  constexpr int chunk = CHUNK, a_ld = A_LD, groups = chunk / V;
-  for (int e = tid; e < kTileP * groups; e += kThreads) {
-    const int pl = e / groups, cl = (e - pl * groups) * V;
-    const int c = c0 + cl;
-    float v[V];
-#pragma unroll
-    for (int j = 0; j < V; ++j) v[j] = 0.f;
-    if (c < C_in) {
-      float corner[4][V];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int idx = s_idx[q][pl];
-        if (idx >= 0) {
-          load_vals<T, V>(xb + (long long)idx * C_in + c, corner[q]);
-        } else {
-#pragma unroll
-          for (int j = 0; j < V; ++j) corner[q][j] = 0.f;
-        }
-      }
-      const float wx0 = s_wt[0][pl], wx1 = s_wt[1][pl];
-      const float wy0 = s_wt[2][pl], wy1 = s_wt[3][pl];
-#pragma unroll
-      for (int j = 0; j < V; ++j) {
-        // corners (y0,x0) (y0,x0+1) (y0+1,x0) (y0+1,x0+1): the y lerp of each
-        // column, then the x lerp
-        const float vx0 = __fadd_rn(__fmul_rn(corner[0][j], wy0), __fmul_rn(corner[2][j], wy1));
-        const float vx1 = __fadd_rn(__fmul_rn(corner[1][j], wy0), __fmul_rn(corner[3][j], wy1));
-        v[j] = __fadd_rn(__fmul_rn(vx0, wx0), __fmul_rn(vx1, wx1));
-      }
-    }
-    store_vals<T, V>(s_a + pl * a_ld + cl, v);
-  }
-}
-
-// The W_k chunk [chunk x COLS] of rows c0.. and columns o0.., zero outside
-// C_in x C_out; V columns a thread at a time (C_out % V == 0 when V > 1).
-template <typename T, int V, int COLS = kTileO, int B_LD = Tiles<T>::b_ld>
-__device__ __forceinline__ void load_weight_tile(const T* __restrict__ wk, int C_in, int C_out,
-                                                 int c0, int o0, T* s_b, int tid) {
-  constexpr int chunk = Tiles<T>::chunk, b_ld = B_LD, groups = COLS / V;
-  for (int e = tid; e < chunk * groups; e += kThreads) {
-    const int cl = e / groups, ol = (e - cl * groups) * V;
-    const int c = c0 + cl, o = o0 + ol;
-    float v[V];
-    if (c < C_in && o < C_out) {
-      load_vals<T, V>(wk + (long long)c * C_out + o, v);
-    } else {
-#pragma unroll
-      for (int j = 0; j < V; ++j) v[j] = 0.f;
-    }
-    store_vals<T, V>(s_b + cl * b_ld + ol, v);
   }
 }
 
@@ -265,8 +192,8 @@ __device__ __forceinline__ void cp_async_wait_group() {
 //     fill a ring of kWsStages stages in shared memory: per stage the
 //     sampled tile, gathered with 16-byte loads (four corners of 4 samples
 //     in flight a thread, at element offsets into the image kept in the
-//     corner tables) and lerped with the explicitly rounded products and
-//     sums of gather_tile (rounded to bf16 in the bf16 kernels);
+//     corner tables) and lerped with explicitly rounded products and sums
+//     (sample_groups; rounded to bf16 in the bf16 kernels);
 //   * consumer warps (4 where the block's tile is 64 output channels wide,
 //     else 8) each own a 32 x 64 tile of the block's f32 accumulators and
 //     run the stage's products: mma.sync m16n8k16 (bf16 in, f32
@@ -425,8 +352,9 @@ __device__ __forceinline__ int comp(const int4& v, int q) {
 // corner; V = 1: scalar loads): corner q of sample g is at xc + off[g].q
 // (xc: the image's base plus the channel; off: the corner pixel's element
 // offset in the image, < 0 or !ok[g]: zero); the four corners of all G
-// samples are loaded before any is used. The lerp is gather_tile's
-// (explicitly rounded products and sums); the results go to dst[g] rounded
+// samples are loaded before any is used. The lerp: the y lerp of each
+// corner column, then the x lerp, with explicitly rounded products and sums
+// (__fmul_rn/__fadd_rn: no FMA contraction); the results go to dst[g] rounded
 // to T, as one 16-byte store where VEC_DST, else one store a value.
 template <typename T, int V, int G, bool VEC_DST>
 __device__ __forceinline__ void sample_groups(const T* __restrict__ xc, const int4 (&off)[G],
@@ -551,17 +479,18 @@ struct FwdCfg {
   }
 };
 
-// One block per SM, persistent over the tiles (blockIdx.x, + gridDim.x,
-// ...: (image, run of P pixels, column tile), the column tile fastest);
-// per tile, the corner tables of all taps once, then stages in the
-// order taps, then C_in chunks: the old kernel's order of taps, chunks and
-// 16-wide products, so that each output is summed in the same order.
+// The ring of the forward, the body of the per-tap kernel (K3/K5) and of
+// the all-taps one (K4). One block per SM, persistent over the tiles
+// (blockIdx.x, + gridDim.x, ...: (image, run of P pixels, column tile), the
+// column tile fastest); per tile, the corner tables of all taps once, then
+// stages in the order taps, then C_in chunks: the first kernel's order of
+// taps, chunks and 16-wide products, so that each output is summed in the
+// same order.
 template <typename T, int NT>
-__global__ void __launch_bounds__(kWsThreads, 1)
-deform_conv_kernel(const T* __restrict__ x, const T* __restrict__ offset,
-                   const T* __restrict__ mask, const T* __restrict__ weight,
-                   const T* __restrict__ bias, T* __restrict__ out, DcnGeom g, bool vec_x,
-                   bool vec_w) {
+__device__ __forceinline__ void fwd_ring(const T* __restrict__ x, const T* __restrict__ offset,
+                                         const T* __restrict__ mask, const T* __restrict__ weight,
+                                         const T* __restrict__ bias, T* __restrict__ out,
+                                         const DcnGeom& g, bool vec_x, bool vec_w) {
   using C = FwdCfg<T, NT>;
   extern __shared__ __align__(128) unsigned char ws_smem[];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -747,14 +676,53 @@ deform_conv_kernel(const T* __restrict__ x, const T* __restrict__ offset,
 }
 
 template <typename T, int NT>
-int launch_fwd(const T* x, const T* offset, const T* mask, const T* weight, const T* bias, T* out,
-               const DcnGeom& g, bool vec_x, bool vec_w, cudaStream_t stream) {
+__global__ void __launch_bounds__(kWsThreads, 1)
+deform_conv_kernel(const T* __restrict__ x, const T* __restrict__ offset,
+                   const T* __restrict__ mask, const T* __restrict__ weight,
+                   const T* __restrict__ bias, T* __restrict__ out, DcnGeom g, bool vec_x,
+                   bool vec_w) {
+  fwd_ring<T, NT>(x, offset, mask, weight, bias, out, g, vec_x, vec_w);
+}
+
+// ---------------------------------------------------------------------------
+// All-taps forward, bf16 (replaces the TPU kernel
+// visualdet3d_tpu/ops/deform_conv.py::_lerp_matmul_alltaps_kernel, launched by
+// _lerp_matmul_pallas under VD3D_DCN_ALLTAPS=1): the same function as the
+// per-tap kernel. The TPU kernel's point was one pass over a pixel tile for
+// every tap and every output channel, each sample gathered once, with the
+// whole tap weight resident in VMEM. The per-tap kernel's ring above makes
+// that pass on this card: its tile spans up to 256 output channels (NT =
+// ceil(C_out / 64) <= 4; past 256, column tiles), each sample is gathered
+// once for all of them, and it walks the taps, then the C_in chunks, in the
+// order the TPU kernel sums them (its fori_loop over taps). So K4 is that
+// ring under its own symbol (the profile tells the two apart): it keeps
+// K3's bits and its time. What bounds it is K3's: the tap products. (Its
+// first design, one block per 64 pixels with the gather, the corner table
+// and the WMMA steps serialised by barriers, was 1.5x slower than the ring
+// on an H100 at the KM3D neck's shapes.)
+// ---------------------------------------------------------------------------
+
+template <int NT>
+__global__ void __launch_bounds__(kWsThreads, 1)
+deform_conv_alltaps_kernel(const __nv_bfloat16* __restrict__ x,
+                           const __nv_bfloat16* __restrict__ offset,
+                           const __nv_bfloat16* __restrict__ mask,
+                           const __nv_bfloat16* __restrict__ weight,
+                           const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ out,
+                           DcnGeom g, bool vec_x, bool vec_w) {
+  fwd_ring<__nv_bfloat16, NT>(x, offset, mask, weight, bias, out, g, vec_x, vec_w);
+}
+
+template <typename T, int NT, typename Kernel>
+int launch_fwd(Kernel kernel, const T* x, const T* offset, const T* mask, const T* weight,
+               const T* bias, T* out, const DcnGeom& g, bool vec_x, bool vec_w,
+               cudaStream_t stream) {
   using C = FwdCfg<T, NT>;
   const int smem = C::smem(g.kh * g.kw);
   if (smem > kWsMaxSmem) return (int)cudaErrorInvalidValue;
   // set on every launch: the opt-in holds for the current device only
-  if (const cudaError_t e = cudaFuncSetAttribute(
-          deform_conv_kernel<T, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (const cudaError_t e =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       e != cudaSuccess)
     return (int)e;
   int device = 0, n_sm = 132;
@@ -763,16 +731,30 @@ int launch_fwd(const T* x, const T* offset, const T* mask, const T* weight, cons
   const long long n_tiles = (long long)g.B * ((g.Ho * g.Wo + C::P - 1) / C::P) *
                             ((g.C_out + C::N - 1) / C::N);
   const unsigned grid = (unsigned)(n_tiles < n_sm ? n_tiles : n_sm);
-  deform_conv_kernel<T, NT><<<grid, kWsThreads, smem, stream>>>(x, offset, mask, weight, bias, out,
-                                                                g, vec_x, vec_w);
+  kernel<<<grid, kWsThreads, smem, stream>>>(x, offset, mask, weight, bias, out, g, vec_x, vec_w);
   return (int)cudaGetLastError();
+}
+
+// The ring's tile width for C_out: NT x 64 output channels, NT = 1, 2 or 4
+// (past 256 output channels, column tiles of 256); K4 takes its symbol.
+template <typename T, int NT>
+int launch_nt(bool alltaps, const T* x, const T* offset, const T* mask, const T* weight,
+              const T* bias, T* out, const DcnGeom& g, bool vec_x, bool vec_w,
+              cudaStream_t stream) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (alltaps)
+      return launch_fwd<T, NT>(deform_conv_alltaps_kernel<NT>, x, offset, mask, weight, bias, out,
+                               g, vec_x, vec_w, stream);
+  }
+  return launch_fwd<T, NT>(deform_conv_kernel<T, NT>, x, offset, mask, weight, bias, out, g,
+                           vec_x, vec_w, stream);
 }
 
 template <typename T>
 int launch(const void* x, const void* offset, const void* mask, const void* weight,
            const void* bias, void* out, int B, int H, int W, int C_in, int Ho, int Wo,
            int C_out, int kh, int kw, int stride, int pad, int dil, int off_stride,
-           int mask_stride, void* stream) {
+           int mask_stride, bool alltaps, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || C_in <= 0 || Ho <= 0 || Wo <= 0 || C_out <= 0 ||
       kh <= 0 || kw <= 0 || stride <= 0 || dil <= 0 || pad < 0 ||
       off_stride < 2 * kh * kw || mask_stride < kh * kw)
@@ -792,176 +774,13 @@ int launch(const void* x, const void* offset, const void* mask, const void* weig
   T* o = static_cast<T*>(out);
   const cudaStream_t s = (cudaStream_t)stream;
   if (C_out <= 64)
-    return launch_fwd<T, 1>(args[0], args[1], args[2], args[3], args[4], o, g, vec_x, vec_w, s);
+    return launch_nt<T, 1>(alltaps, args[0], args[1], args[2], args[3], args[4], o, g, vec_x,
+                           vec_w, s);
   if (C_out <= 128)
-    return launch_fwd<T, 2>(args[0], args[1], args[2], args[3], args[4], o, g, vec_x, vec_w, s);
-  return launch_fwd<T, 4>(args[0], args[1], args[2], args[3], args[4], o, g, vec_x, vec_w, s);
-}
-
-// ---------------------------------------------------------------------------
-// All-taps forward, bf16 (replaces the TPU kernel
-// visualdet3d_tpu/ops/deform_conv.py::_lerp_matmul_alltaps_kernel, launched by
-// _lerp_matmul_pallas under VD3D_DCN_ALLTAPS=1): the same function as the
-// per-tap kernel above. The TPU kernel's point was one pass over a pixel
-// tile for every tap and every output channel, with the whole tap weight
-// resident; the per-tap kernel above tiles C_out by 64, so at C_out = 256 it
-// gathers and lerps every corner four times. Here:
-//   * one block per (image, 64 output pixels, up to 256 output channels):
-//     the NT = ceil(C_out / 64) <= 4 tiles of 64 channels of a pixel tile
-//     accumulate in the same block, in WMMA registers (each warp keeps
-//     2 * NT 16x16 f32 fragments: 64 values a thread at NT = 4). Past 256
-//     output channels the launch falls back to more blocks, one per 256
-//     channels, each gathering the tile again;
-//   * per tap, the corner table of the 64 pixels (corner_entry);
-//   * per (tap, 64-channel C_in chunk), the sampled [64 x 64] tile gathered
-//     and lerped once (gather_tile) and reused by all NT output tiles; the
-//     W_k chunk [64 x 64 NT] streams through shared memory beside it;
-//   * the per-tap kernel's rounding points and, per output element, its
-//     order of taps, C_in chunks and 16-wide MMA steps on the same
-//     fragments: the two give the same bits.
-// What bounds it is the per-tap kernel's: the tap products. Shared memory:
-// 43 KB of staged tiles at NT = 4 (the epilogue reuses it, one output tile
-// at a time) and 2 KB of corner table, under the 48 KB of static memory.
-// ---------------------------------------------------------------------------
-
-constexpr int kAllTapsMaxTiles = 4;  // 64-channel C_out tiles a block accumulates
-
-template <int NT>
-__global__ void __launch_bounds__(kThreads)
-deform_conv_alltaps_kernel(const __nv_bfloat16* __restrict__ x,
-                           const __nv_bfloat16* __restrict__ offset,
-                           const __nv_bfloat16* __restrict__ mask,
-                           const __nv_bfloat16* __restrict__ weight,
-                           const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ out,
-                           int H, int W, int C_in, int Ho, int Wo, int C_out, int kh, int kw,
-                           int stride, int pad, int dil, int off_stride, int mask_stride,
-                           bool vec_x, bool vec_w) {
-  using T = __nv_bfloat16;
-  constexpr int a_ld = Tiles<T>::a_ld, chunk = Tiles<T>::chunk, c_ld = Tiles<T>::c_ld;
-  constexpr int cols = NT * kTileO, b_ld = cols + 8;
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int tile_bytes = (int)sizeof(T) * (kTileP * a_ld + chunk * b_ld);
-  constexpr int out_bytes = (int)sizeof(float) * kTileP * c_ld;
-  __shared__ __align__(128) unsigned char staging[tile_bytes > out_bytes ? tile_bytes : out_bytes];
-  __shared__ int s_idx[4][kTileP];
-  __shared__ float s_wt[4][kTileP];
-  T* s_a = reinterpret_cast<T*>(staging);  // [kTileP][a_ld] sampled
-  T* s_b = s_a + kTileP * a_ld;            // [chunk][b_ld] W_k chunk, NT tiles wide
-
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int o0 = blockIdx.x * cols;
-  const int p0 = blockIdx.y * kTileP;
-  const long long b = blockIdx.z;
-  const int P = Ho * Wo;
-  const int K = kh * kw;
-  const T* xb = x + b * H * W * (long long)C_in;
-
-  // warp owns, in each output tile t, the 16 x 32 block at rows 16*(warp/2),
-  // columns 64t + 32*(warp%2): the per-tap kernel's fragments
-  using namespace nvcuda;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> frag_c[NT][2];
-#pragma unroll
-  for (int t = 0; t < NT; ++t) {
-    wmma::fill_fragment(frag_c[t][0], 0.f);
-    wmma::fill_fragment(frag_c[t][1], 0.f);
-  }
-  const int row = 16 * (warp >> 1), col = 32 * (warp & 1);
-
-  for (int k = 0; k < K; ++k) {
-    __syncthreads();  // the previous tap's table and tiles are no longer read
-    if (tid < kTileP) {
-      int idx[4] = {-1, -1, -1, -1};
-      float wt[4] = {0.f, 0.f, 0.f, 0.f};
-      if (p0 + tid < P)
-        corner_entry<T>(offset, mask, b * P + p0 + tid, p0 + tid, k, H, W, Wo, kw, stride, pad,
-                        dil, off_stride, mask_stride, idx, wt);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        s_idx[q][tid] = idx[q];
-        s_wt[q][tid] = wt[q];
-      }
-    }
-    const T* wk = weight + (long long)k * C_in * C_out;
-    for (int c0 = 0; c0 < C_in; c0 += chunk) {
-      __syncthreads();  // the corner table written; the previous chunk consumed
-      if (vec_x) {
-        gather_tile<T, kVec>(xb, C_in, c0, s_idx, s_wt, s_a, tid);
-      } else {
-        gather_tile<T, 1>(xb, C_in, c0, s_idx, s_wt, s_a, tid);
-      }
-      if (vec_w) {
-        load_weight_tile<T, kVec, cols, b_ld>(wk, C_in, C_out, c0, o0, s_b, tid);
-      } else {
-        load_weight_tile<T, 1, cols, b_ld>(wk, C_in, C_out, c0, o0, s_b, tid);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < chunk; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, s_a + row * a_ld + kk, a_ld);
-#pragma unroll
-        for (int t = 0; t < NT; ++t)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            wmma::load_matrix_sync(fb, s_b + kk * b_ld + kTileO * t + col + 16 * j, b_ld);
-            wmma::mma_sync(frag_c[t][j], fa, fb, frag_c[t][j]);
-          }
-      }
-    }
-  }
-
-  // epilogue, one output tile at a time through shared memory: round to
-  // bf16, then + bias in bf16
-  float* s_c = reinterpret_cast<float*>(staging);  // [kTileP][c_ld]
-#pragma unroll
-  for (int t = 0; t < NT; ++t) {
-    __syncthreads();  // the last chunk's tiles, or the previous output tile, are consumed
-    wmma::store_matrix_sync(s_c + row * c_ld + col, frag_c[t][0], c_ld, wmma::mem_row_major);
-    wmma::store_matrix_sync(s_c + row * c_ld + col + 16, frag_c[t][1], c_ld, wmma::mem_row_major);
-    __syncthreads();
-    for (int e = tid; e < kTileP * kTileO; e += kThreads) {
-      const int pl = e / kTileO, ol = e - pl * kTileO;
-      const int p = p0 + pl, o = o0 + kTileO * t + ol;
-      if (p >= P || o >= C_out) continue;
-      float v = round_to<T>(s_c[pl * c_ld + ol]);
-      if (bias != nullptr) v = __fadd_rn(v, to_f32(bias[o]));
-      out[(b * P + p) * C_out + o] = from_f32<T>(v);
-    }
-  }
-}
-
-int launch_alltaps(const void* x, const void* offset, const void* mask, const void* weight,
-                   const void* bias, void* out, int B, int H, int W, int C_in, int Ho, int Wo,
-                   int C_out, int kh, int kw, int stride, int pad, int dil, int off_stride,
-                   int mask_stride, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || C_in <= 0 || Ho <= 0 || Wo <= 0 || C_out <= 0 ||
-      kh <= 0 || kw <= 0 || stride <= 0 || dil <= 0 || pad < 0 ||
-      off_stride < 2 * kh * kw || mask_stride < kh * kw)
-    return (int)cudaErrorInvalidValue;
-  const long long P = (long long)Ho * Wo;
-  const int tiles = (C_out + kTileO - 1) / kTileO;
-  const int nt = tiles < kAllTapsMaxTiles ? tiles : kAllTapsMaxTiles;
-  const dim3 grid((C_out + nt * kTileO - 1) / (nt * kTileO), (unsigned)((P + kTileP - 1) / kTileP),
-                  B);
-  if (grid.y > 65535 || grid.z > 65535 || (long long)H * W * C_in > (1ll << 31))
-    return (int)cudaErrorInvalidValue;
-  const bool vec_x = C_in % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  const bool vec_w = C_out % 8 == 0 && reinterpret_cast<uintptr_t>(weight) % 16 == 0;
-  using T = __nv_bfloat16;
-#define VD3D_ALLTAPS_LAUNCH(NT_)                                                             \
-  deform_conv_alltaps_kernel<NT_><<<grid, kThreads, 0, (cudaStream_t)stream>>>(             \
-      static_cast<const T*>(x), static_cast<const T*>(offset), static_cast<const T*>(mask), \
-      static_cast<const T*>(weight), static_cast<const T*>(bias), static_cast<T*>(out), H, W, \
-      C_in, Ho, Wo, C_out, kh, kw, stride, pad, dil, off_stride, mask_stride, vec_x, vec_w)
-  switch (nt) {
-    case 1: VD3D_ALLTAPS_LAUNCH(1); break;
-    case 2: VD3D_ALLTAPS_LAUNCH(2); break;
-    case 3: VD3D_ALLTAPS_LAUNCH(3); break;
-    default: VD3D_ALLTAPS_LAUNCH(4); break;
-  }
-#undef VD3D_ALLTAPS_LAUNCH
-  return (int)cudaGetLastError();
+    return launch_nt<T, 2>(alltaps, args[0], args[1], args[2], args[3], args[4], o, g, vec_x,
+                           vec_w, s);
+  return launch_nt<T, 4>(alltaps, args[0], args[1], args[2], args[3], args[4], o, g, vec_x, vec_w,
+                         s);
 }
 
 // ---------------------------------------------------------------------------
@@ -1129,13 +948,14 @@ int launch_premul(const void* y, const void* offset, const void* mask, const voi
 // taps of neighbouring pixels fall on the same few input pixels. The TPU
 // kernel's u32 packing, taps-outer grid with a dW block revisited across
 // pixel steps, and its VMEM fallback answered TPU costs; none is kept.
-//   * kernel A (dx and the lerp-weight gradients): in bf16, one block per
-//     (image, 2-D tile of 64 output pixels) sums each corner's gradients
-//     for a 16-channel chunk of C_in in a shared-memory window of the input
-//     pixels that the tile's taps reach with offsets up to +-R, and adds the
-//     window into dx once; in f32 the row design, which adds every corner
-//     into dx itself, is the faster; both are described before their kernels
-//     below;
+//   * kernel A (dx and the lerp-weight gradients): in f32 a persistent,
+//     warp-specialised block an SM whose FMA warps compute ds into a ring of
+//     shared-memory stages while its scatter warps add each stage's corner
+//     gradients into dx; in bf16 one block per (image, 2-D tile of 64 output
+//     pixels) sums each corner's gradients for a 16-channel chunk of C_in in
+//     a shared-memory window of the input pixels that the tile's taps reach
+//     with offsets up to +-R, and adds the window into dx once; both are
+//     described before their kernels below;
 //   * kernel B (dW), on the forward's warp-specialised design: a block per
 //     (tile of (tap, C_in) rows x output channels, split of the batch's
 //     pixels) gathers each sampled tile once for all its output channels
@@ -1145,49 +965,6 @@ int launch_premul(const void* y, const void* offset, const void* mask, const voi
 // dx is an f32 buffer the wrapper zeroes and rounds once; dW is f32, rounded
 // by the wrapper.
 // ---------------------------------------------------------------------------
-
-constexpr int kTileC = 64;  // input channels per backward tile
-constexpr int kDsLd = kTileC + 4;
-
-template <typename T> struct BwdTiles;
-template <> struct BwdTiles<float> {
-  static constexpr int o_chunk = 32;        // C_out per step of the ds product
-  static constexpr int dy_ld = o_chunk + 1;  // s_dy [kTileP][dy_ld]
-  static constexpr int w_rows = o_chunk;     // s_w = W_k^T chunk [o_chunk][w_ld]
-  static constexpr int w_ld = kTileC + 4;
-};
-template <> struct BwdTiles<__nv_bfloat16> {
-  static constexpr int o_chunk = 64;
-  static constexpr int dy_ld = o_chunk + 8;  // row_major A
-  static constexpr int w_rows = kTileC;      // s_w = W_k chunk [kTileC][w_ld], col_major B
-  static constexpr int w_ld = o_chunk + 8;
-};
-
-// dst[r][cc] = src[r * ld_src + col0 + cc] for r < rows_valid and
-// col0 + cc < cols, else 0: R rows x C columns, V columns a thread at a time
-// (cols % V == 0 and 16-byte aligned rows when V > 1).
-template <typename T, int V, int R, int C, int DST_LD>
-__device__ __forceinline__ void stage_tile(const T* __restrict__ src, long long ld_src,
-                                           long long rows_valid, int col0, int cols, T* dst,
-                                           int tid) {
-  constexpr int groups = C / V;
-  for (int e = tid; e < R * groups; e += kThreads) {
-    const int r = e / groups, cc = (e - r * groups) * V;
-    float v[V];
-    if (r < rows_valid && col0 + cc < cols) {
-      load_vals<T, V>(src + r * ld_src + col0 + cc, v);
-    } else {
-#pragma unroll
-      for (int j = 0; j < V; ++j) v[j] = 0.f;
-    }
-    if constexpr ((DST_LD * sizeof(T)) % 16 == 0) {
-      store_vals<T, V>(dst + r * DST_LD + cc, v);
-    } else {
-#pragma unroll
-      for (int j = 0; j < V; ++j) dst[r * DST_LD + cc + j] = from_f32<T>(v[j]);
-    }
-  }
-}
 
 template <int V>
 __device__ __forceinline__ void atomic_add_vals(float* p, const float (&v)[V]) {
@@ -1203,217 +980,554 @@ __device__ __forceinline__ void atomic_add_vals(float* p, const float (&v)[V]) {
   for (int j = 0; j < V; ++j) atomicAdd(p + j, v[j]);
 }
 
+__host__ __device__ constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
+
 // ---------------------------------------------------------------------------
-// The dx pass in f32: a block per (image, run of 64 output pixels along the
-// rows); per tap the corner table, per 64-channel chunk of C_in the ds tile
-// [64 x 64] (4x4 FMA a thread) from staged dy and W_k tiles, then each
-// thread takes (pixel, 4 channels), gathers the four corners, adds into dx
-// with float4 atomics in device memory and sums the four weight gradients
-// over the pixel's lanes. In f32 this row design beats the window design
-// below (on an H100, 29 against 59-65 ms over a KM3D training step's 16
-// DCNs: the window design's f32 ds products and its shared memory, one
-// block an SM at most shapes, cost more than the device atomics it saves).
+// The dx pass in f32 (kernel A in f32: dx and the four lerp-weight
+// gradients), warp-specialised. Per stage (tap k, chunk of 64 input
+// channels) of a tile of output pixels it computes ds_k = dy . W_k^T, then
+// scatters ds_k's four corner gradients into dx and sums the lerp-weight
+// gradients. It replaced a row design (a non-persistent 256-thread block
+// per 64 pixels that ran the two halves in turn, barriers between them, and
+// staged the dy tile again for every (tap, chunk, 32 output channels)).
+//
+// What bounds it on this card: the products, 2 K C_in C_out FLOPs a pixel
+// in true f32 FMA (the f32 contract: no TF32), and a scatter of 4 corners x
+// K x C_in float adds a pixel into dx in device memory beside the gathers
+// of the same corners, both through L2. On an H100 at the KM3D neck's
+// shapes the products run at about half the FMA rate, bound with it by
+// shared-memory wavefronts (an 8 x 8 register tile needs 16 wavefronts for
+// 64 FMAs a warp: the card's 1 wavefront against 4 FMA warp-instructions a
+// cycle; a first version's 4 x 4 tiles needed 8 for 16 and ran at 24%); at
+// 64 output channels the scatter, whose gathers and adds load L2, is the
+// slower side. Fewer adds did not pay in f32 (the bf16 window design below,
+// in f32: 59-65 ms over a training step's 16 DCNs, its f32 ds tiles and
+// shared memory leaving one block an SM).
+//
+// The design is the forward's ring with the roles reversed (there producers
+// gather and consumers multiply; here FMA warps produce and scatter warps
+// consume):
+//   * one 512-thread block an SM, persistent over the tiles: (image, 2-D
+//     tile of TP = 64 output pixels, TP / tw rows of tw = 8 or 16 as
+//     ops/deform_conv.py's dx_plan picks; TP = 32 where 64 does not fit);
+//   * FMA groups (kDxWsFmaGroups, two warps each) take the stages in turn;
+//     a group's warps compute the stage's ds [TP x 64] in 8 x 8 register
+//     tiles (dx_ws_products, one FMA a product, in o order) from the dy
+//     tile, copied transposed ([o][pixel]) once per tile, and pieces of 32
+//     rows of W_k^T (the wrapper passes W transposed) that arrive by
+//     16-byte cp.async, two buffers a group (where the dy tile does not fit
+//     beside the rest, a dy piece rides with each W piece instead); they
+//     write ds into a ring of kDxWsStages stages in shared memory. The FMA
+//     warpgroup takes 152 registers a thread by setmaxnreg, the scatter
+//     warpgroups keep 120 (at 128 each the accumulators spilled, at 112 the
+//     scatter);
+//   * scatter warps (the rest) take (pixel, 4 channels) items of each full
+//     stage, all of a thread's items with their corner loads in flight at
+//     once: four float4 corner gathers, the lerp gradients (explicitly
+//     rounded lerps, as the forward), four float4 atomic adds into dx, and
+//     the four lerp-weight sums reduced over a pixel's 16 lanes in 5
+//     shuffles into per-(tap, pixel) sums that their owner lanes keep in a
+//     shared-memory slot of their own across the tap's chunks and store
+//     straight to dwts after the last; a warp's items are the same pixels in
+//     every stage, so each warp builds its pixels' corner tables (all taps,
+//     int32 element offsets into one image, as the forward) one tile ahead,
+//     without a block barrier;
+//   * named barriers hand a stage over (full: its group arrives, the
+//     scatter warps wait; empty: the reverse); each group has its own
+//     barrier for its W pieces, all FMA warps one for the dy tile.
 // ---------------------------------------------------------------------------
 
-// Its elementwise stage for channels c0.. of one tap: dx atomics and the
-// per-pixel sums of the four lerp-weight gradients (into s_dwts). With V > 1
-// the caller guarantees C_in % V == 0.
-template <typename T, int V>
-__device__ __forceinline__ void bwd_scatter_tile(const T* __restrict__ xb, float* __restrict__ dxb,
-                                                 int C_in, int c0, const int (&s_idx)[4][kTileP],
-                                                 const float (&s_wt)[4][kTileP],
-                                                 const float* s_ds, float (&s_dwts)[4][kTileP],
-                                                 int tid) {
-  constexpr int groups = kTileC / V;
-  constexpr int lanes = groups < 32 ? groups : 32;  // adjacent lanes of one pixel
-  // kTileP * groups is a multiple of kThreads: every lane reaches the shuffles
-  for (int e = tid; e < kTileP * groups; e += kThreads) {
-    const int pl = e / groups, cl = (e - pl * groups) * V;
-    const int c = c0 + cl;
-    float sum[4] = {0.f, 0.f, 0.f, 0.f};
-    if (c < C_in) {
-      int idx[4];
-      float corner[4][V];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        idx[q] = s_idx[q][pl];
-        if (idx[q] >= 0) {
-          load_vals<T, V>(xb + (long long)idx[q] * C_in + c, corner[q]);
-        } else {
-#pragma unroll
-          for (int j = 0; j < V; ++j) corner[q][j] = 0.f;
-        }
-      }
-      const float wx0 = s_wt[0][pl], wx1 = s_wt[1][pl];
-      const float wy0 = s_wt[2][pl], wy1 = s_wt[3][pl];
-      float d[4][V];
-#pragma unroll
-      for (int j = 0; j < V; ++j) {
-        const float ds = s_ds[pl * kDsLd + cl + j];
-        const float vx0 = __fadd_rn(__fmul_rn(corner[0][j], wy0), __fmul_rn(corner[2][j], wy1));
-        const float vx1 = __fadd_rn(__fmul_rn(corner[1][j], wy0), __fmul_rn(corner[3][j], wy1));
-        const float dvx0 = ds * wx0, dvx1 = ds * wx1;
-        sum[0] += ds * vx0;
-        sum[1] += ds * vx1;
-        sum[2] += dvx0 * corner[0][j] + dvx1 * corner[1][j];
-        sum[3] += dvx0 * corner[2][j] + dvx1 * corner[3][j];
-        d[0][j] = dvx0 * wy0;
-        d[1][j] = dvx1 * wy0;
-        d[2][j] = dvx0 * wy1;
-        d[3][j] = dvx1 * wy1;
-      }
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        if (idx[q] >= 0) atomic_add_vals<V>(dxb + (long long)idx[q] * C_in + c, d[q]);
-    }
-#pragma unroll
-    for (int s = lanes / 2; s > 0; s >>= 1)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) sum[q] += __shfl_xor_sync(0xffffffffu, sum[q], s);
-    if ((tid & (lanes - 1)) == 0)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) atomicAdd(&s_dwts[q][pl], sum[q]);
+constexpr int kDxWsThreads = 512;  // a block: FMA warps, then scatter warps
+constexpr int kDxWsFmaGroups = 2;  // FMA groups of two warps, each a stage at a time
+constexpr int kDxWsStages = 4;     // ds stages of the ring
+constexpr int kDxWsCh = 64;        // input channels a stage
+constexpr int kDxWsOc = 32;        // output channels a W piece
+constexpr int kDxWsPieces = 2;     // W pieces of a group in shared memory: one in flight
+// named barriers: stage s is full at 1 + s and empty at 1 + kDxWsStages + s;
+// then each FMA group's own, and all FMA warps'
+constexpr int kDxBarFma = 1 + 2 * kDxWsStages;
+constexpr int kDxBarFmaAll = kDxBarFma + kDxWsFmaGroups;
+static_assert(kDxBarFmaAll < 16, "16 named barriers");
+// a stage's full and empty barriers must serve one group: two groups at one
+// barrier could complete each other's generations
+static_assert(kDxWsStages % kDxWsFmaGroups == 0, "the groups take the ring's slots in turn");
+
+// The f32 dx kernel's tile: TP output pixels, FG FMA groups. A group's two
+// warps own the two 32 x 64 halves of a stage's ds [TP x 64] (8 x 8 f32
+// register tiles, dx_ws_products's layout; at TP = 32 the second warp only
+// copies); the scatter threads take G (pixel, 4 channel) items a stage each.
+template <int TP, int FG>
+struct DxWsCfg {
+  static constexpr int FT = 64 * FG, ST = kDxWsThreads - FT;  // FMA, scatter threads
+  static constexpr int G = (TP * (kDxWsCh / 4) + ST - 1) / ST;
+  static constexpr int kHandoff = 64 + ST;  // a group and the scatter warps
+  // rows of the ds stages [pixel][c], the W pieces [o][c] and dy [o][pixel]:
+  // 16-byte rows, row stride = 4 mod 32 words (the transposing copies write
+  // 32 distinct banks a warp)
+  static constexpr int ds_ld = kDxWsCh + 4, w_ld = kDxWsCh + 4, dy_ld = TP + 4;
+  static_assert(TP == 32 || TP == 64, "one or two 32-pixel halves");
+  static_assert(FG > 0 && 64 * FG < kDxWsThreads && ST % 32 == 0, "whole warps of each role");
+};
+
+// Byte offsets of the f32 dx kernel's shared memory: the ds ring, the W
+// pieces (each with its dy piece where the dy tile does not fit), the dy
+// tile, the corner tables of two tiles [tile][tap][pixel] (int4 offsets,
+// then float4 weights), the lerp-weight sums [tap][pixel] (float4).
+struct DxWsLayout {
+  int tp, dy_resident, oc_pad, pieces, piece_bytes, dy, tables, sums, smem;
+};
+
+__host__ __device__ inline DxWsLayout dx_ws_layout(int tp, int K, int C_out, bool dy_resident) {
+  DxWsLayout l;
+  const int ds_ld = kDxWsCh + 4, w_ld = kDxWsCh + 4, dy_ld = tp + 4;
+  l.tp = tp;
+  l.dy_resident = dy_resident;
+  l.oc_pad = round_up(C_out, kDxWsOc);
+  int off = 4 * kDxWsStages * tp * ds_ld;
+  l.piece_bytes = 4 * kDxWsOc * (w_ld + (dy_resident ? 0 : dy_ld));
+  l.pieces = off;
+  off += kDxWsFmaGroups * kDxWsPieces * l.piece_bytes;
+  l.dy = off;
+  if (dy_resident) off += 4 * l.oc_pad * dy_ld;
+  l.tables = off;
+  off += 2 * K * tp * 32;
+  l.sums = off;
+  off += K * tp * 16;
+  l.smem = off;
+  return l;
+}
+
+// The f32 dx kernel's 2-D tile of output pixels: TP = th x tw (tw = 8 or
+// 16, ops/deform_conv.py's dx_plan), tiles_x along a row of the map, t =
+// (image, tile row, tile column) with the column fastest.
+struct DxTile {
+  int tw_shift, tiles_x, tpi;  // log2 tw, tiles a row of the map, tiles an image
+  __device__ __forceinline__ void origin(long long t, long long& b, int& oy0, int& ox0,
+                                         int th) const {
+    b = t / tpi;
+    const int r = (int)(t - b * tpi);
+    oy0 = r / tiles_x * th;
+    ox0 = (r - r / tiles_x * tiles_x) << tw_shift;
+  }
+};
+
+// A dy tile transposed: dst[o * dst_ld + pl] = dyb[p(pl) * C_out + o] for
+// o < O and the tile's pixel pl at (oy0 + pl / tw, ox0 + pl % tw), zero
+// outside the map and where o >= o_valid (dyb: the image's dy at output
+// channel o0); 4-byte cp.async left in flight, by NTH threads (a multiple
+// of 32). A warp takes 8 consecutive o x 4 consecutive pixels: it reads 4
+// runs of 32 bytes and, with dst_ld = 4 mod 32, writes 32 distinct banks.
+// `safe`: a valid address for the copies that read nothing.
+template <int O, int TP, int NTH>
+__device__ __forceinline__ void copy_dy_transposed(float* dst, int dst_ld, const float* dyb,
+                                                   int C_out, int o_valid, int oy0, int ox0,
+                                                   int tw_shift, int Ho, int Wo,
+                                                   const float* safe, int t) {
+  static_assert(O % 8 == 0 && TP % 4 == 0 && NTH % 32 == 0, "whole 8 x 4 blocks, whole warps");
+  for (int e = t; e < O * TP; e += NTH) {
+    const int blk = e >> 5, ln = e & 31;
+    const int o = (blk % (O / 8)) * 8 + (ln & 7), i = (blk / (O / 8)) * 4 + (ln >> 3);
+    const int oy = oy0 + (i >> tw_shift), ox = ox0 + (i & ((1 << tw_shift) - 1));
+    const bool ok = oy < Ho && ox < Wo && o < o_valid;
+    cp_async<4>(dst + o * dst_ld + i, ok ? dyb + ((long long)oy * Wo + ox) * C_out + o : safe, ok);
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-deform_conv_bwd_input_kernel(const T* __restrict__ x, const T* __restrict__ offset,
-                             const T* __restrict__ mask, const T* __restrict__ weight,
-                             const T* __restrict__ dy, float* __restrict__ dx,
-                             float* __restrict__ dwts, int H, int W, int C_in, int Ho, int Wo,
-                             int C_out, int kh, int kw, int stride, int pad, int dil,
-                             int off_stride, int mask_stride, bool vec_x, bool vec_o) {
-  using BT = BwdTiles<T>;
-  constexpr int oc = BT::o_chunk, dy_ld = BT::dy_ld, w_ld = BT::w_ld;
-  constexpr int kVec = 16 / sizeof(T);
-  __shared__ __align__(128) T s_dy[kTileP * dy_ld];
-  __shared__ __align__(128) T s_w[BT::w_rows * w_ld];
-  __shared__ __align__(128) float s_ds[kTileP * kDsLd];
-  __shared__ int s_idx[4][kTileP];
-  __shared__ float s_wt[4][kTileP];
-  __shared__ float s_dwts[4][kTileP];
-
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int p0 = blockIdx.x * kTileP;
-  const long long b = blockIdx.y;
-  const int P = Ho * Wo;
-  const int K = kh * kw;
-  const int n_rows = min(kTileP, P - p0);
-  const T* xb = x + b * H * W * (long long)C_in;
-  float* dxb = dx + b * H * W * (long long)C_in;
-  const T* dyb = dy + (b * P + p0) * (long long)C_out;  // rows p0.. of this image
-
-  using namespace nvcuda;
-  float acc[4][4];
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> frag_c[2];
-
-  for (int k = 0; k < K; ++k) {
-    __syncthreads();  // the previous tap's tables and sums are no longer read
-    if (tid < kTileP) {
-      int idx[4] = {-1, -1, -1, -1};
-      float wt[4] = {0.f, 0.f, 0.f, 0.f};
-      if (tid < n_rows)
-        corner_entry<T>(offset, mask, b * P + p0 + tid, p0 + tid, k, H, W, Wo, kw, stride, pad,
-                        dil, off_stride, mask_stride, idx, wt);
+// One W piece's products of an FMA warp: its 32 x 64 tile of ds at pixels
+// m0.. += a (dy, [o][pixel], row stride A_LD) . w (W_k^T, [o][c], W_LD)
+// over KD output channels, one FMA a product, in o order. Lane (mg, ng) =
+// (lane / 8, lane % 8) owns pixels m0 + 8 mg + i (i < 8) and channels
+// 4 ng + j, 32 + 4 ng + j (j < 4; acc[8 i + j], acc[8 i + 4 + j]): a quarter
+// warp reads one broadcast address of a and one contiguous 128-byte run of
+// w, no bank conflict (8 wavefronts of a, 8 of w for 64 FMAs a warp). The
+// next o's operands are loaded before this one's FMAs.
+template <int KD, int A_LD, int W_LD>
+__device__ __forceinline__ void dx_ws_products(float (&acc)[64], const float* a, const float* w,
+                                               int m0, int lane) {
+  const float* ap = a + m0 + 8 * (lane >> 3);
+  const float* wp = w + 4 * (lane & 7);
+  auto ld4 = [](const float* p) { return *reinterpret_cast<const float4*>(p); };
+  float4 a0 = ld4(ap), a1 = ld4(ap + 4), b0 = ld4(wp), b1 = ld4(wp + 32);
+#pragma unroll 2
+  for (int o = 0; o < KD; ++o) {
+    const int on = o + 1 < KD ? o + 1 : o;
+    const float4 na0 = ld4(ap + on * A_LD), na1 = ld4(ap + on * A_LD + 4);
+    const float4 nb0 = ld4(wp + on * W_LD), nb1 = ld4(wp + on * W_LD + 32);
+    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        s_idx[q][tid] = idx[q];
-        s_wt[q][tid] = wt[q];
-        s_dwts[q][tid] = 0.f;
-      }
-    }
-    const T* wk = weight + (long long)k * C_in * C_out;
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[8 * i + j] = fmaf(av[i], bv[j], acc[8 * i + j]);
+    a0 = na0;
+    a1 = na1;
+    b0 = nb0;
+    b1 = nb1;
+  }
+}
 
-    for (int c0 = 0; c0 < C_in; c0 += kTileC) {
-      // ds [kTileP x kTileC] = dy [kTileP x C_out] . W_k[c0.., :]^T
-      if constexpr (std::is_same<T, float>::value) {
+// Hopper's per-warpgroup register budget (every warp of a warpgroup runs it):
+// the FMA warpgroup takes registers the scatter warpgroups give back.
+template <int N>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+// registers a thread of the FMA warpgroups with FG groups (one warpgroup: 128
+// x 152 + 384 x 120 = 65536; two: 256 x 136 + 256 x 120), and of the scatter
+// warpgroups; 0: no reallocation (the groups do not fill whole warpgroups)
+__host__ __device__ constexpr int dx_fma_regs(int fg) { return fg == 2 ? 152 : fg == 4 ? 136 : 0; }
+constexpr int kDxScatterRegs = 120;
+
+// Corner q's gradient at 4 channels c.. into dx (VEC: one float4 atomic;
+// else one atomic a channel below C_in).
+template <bool VEC>
+__device__ __forceinline__ void dx_add_corner(float* dst, const float (&d)[4], int c, int C_in) {
+  if constexpr (VEC) {
+    atomicAdd(reinterpret_cast<float4*>(dst), make_float4(d[0], d[1], d[2], d[3]));
+  } else {
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 4; ++j)
+      if (c + j < C_in) atomicAdd(dst + j, d[j]);
+  }
+}
+
+// The sum of s[q] over the 16 lanes of a half warp, for q = 0..3, in 5
+// shuffles: lane (lane & 3) == 0 returns the sum for q = 2 bit3 + bit2 of
+// its lane id (any value on the others).
+__device__ __forceinline__ float reduce4_over_16_lanes(const float (&s)[4], int lane) {
+  const bool hi8 = lane & 8, hi4 = lane & 4;
+  float k0 = hi8 ? s[2] : s[0], k1 = hi8 ? s[3] : s[1];
+  k0 += __shfl_xor_sync(0xffffffffu, hi8 ? s[0] : s[2], 8);
+  k1 += __shfl_xor_sync(0xffffffffu, hi8 ? s[1] : s[3], 8);
+  float v = hi4 ? k1 : k0;
+  v += __shfl_xor_sync(0xffffffffu, hi4 ? k0 : k1, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v;
+}
+
+// One full stage of the scatter warps: channels c0.. of tap k (tables k_idx,
+// k_wt), ds from the stage s_ds [pixel][c]. Item e = (pixel e / 16, 4
+// channels 4 (e % 16)..): a pixel's items on the 16 lanes of a half warp; a
+// thread's G items have their corner loads in flight together. The
+// lerp-weight sums of a (pixel, tap) are kept by their owner lanes in
+// s_sum_k [pixel][4] across the tap's chunks (first: set, else added) and
+// stored to dwts_k [pixel][K][4] after the last (pixels past the map: p
+// = P, nothing stored). VEC: C_in % 4 == 0 and 16-byte aligned x and dx.
+template <int TP, int FG, bool VEC>
+__device__ __forceinline__ void dx_ws_scatter(const float* __restrict__ xb, float* __restrict__ dxb,
+                                              int C_in, int c0, const int4* k_idx,
+                                              const float4* k_wt, const float* s_ds,
+                                              float* s_sum_k, float* __restrict__ dwts_k,
+                                              const DxTile& tl, int oy0, int ox0, int Ho, int Wo,
+                                              int K, bool first, bool last, int stid, int lane) {
+  using C = DxWsCfg<TP, FG>;
+  constexpr int groups = kDxWsCh / 4, items = TP * groups, G = C::G;
+  int pl[G], c[G];
+  bool on[G];
+  int4 idx[G];
+  float4 wt[G];
+  float cv[G][4][4];
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int g = 0; g < G; ++g) {
+    const int e = stid + g * C::ST;
+    pl[g] = e < items ? e / groups : -1;
+    c[g] = c0 + 4 * (e % groups);
+    on[g] = pl[g] >= 0 && c[g] < C_in;
+    idx[g] = on[g] ? k_idx[pl[g]] : make_int4(-1, -1, -1, -1);
+    wt[g] = k_wt[pl[g] >= 0 ? pl[g] : 0];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int i = comp(idx[g], q);
+      if constexpr (VEC) {
+        const float4 v = i >= 0 ? __ldg(reinterpret_cast<const float4*>(xb + i + c[g]))
+                                : make_float4(0.f, 0.f, 0.f, 0.f);
+        cv[g][q][0] = v.x; cv[g][q][1] = v.y; cv[g][q][2] = v.z; cv[g][q][3] = v.w;
       } else {
-        wmma::fill_fragment(frag_c[0], 0.f);
-        wmma::fill_fragment(frag_c[1], 0.f);
-      }
-      for (int o0 = 0; o0 < C_out; o0 += oc) {
-        __syncthreads();  // the previous step's tiles, and s_ds, are consumed
-        if (vec_o) {
-          stage_tile<T, kVec, kTileP, oc, dy_ld>(dyb, C_out, n_rows, o0, C_out, s_dy, tid);
-        } else {
-          stage_tile<T, 1, kTileP, oc, dy_ld>(dyb, C_out, n_rows, o0, C_out, s_dy, tid);
-        }
-        if constexpr (std::is_same<T, float>::value) {
-          // W_k^T chunk: s_w[o][c] (consecutive threads read consecutive o)
-          for (int e = tid; e < kTileC * oc; e += kThreads) {
-            const int cl = e / oc, ol = e - cl * oc;
-            const int c = c0 + cl, o = o0 + ol;
-            s_w[ol * w_ld + cl] = (c < C_in && o < C_out) ? wk[(long long)c * C_out + o] : 0.f;
-          }
-        } else if (vec_o) {
-          stage_tile<T, kVec, kTileC, oc, w_ld>(wk + (long long)c0 * C_out, C_out, C_in - c0,
-                                                o0, C_out, s_w, tid);
-        } else {
-          stage_tile<T, 1, kTileC, oc, w_ld>(wk + (long long)c0 * C_out, C_out, C_in - c0, o0,
-                                             C_out, s_w, tid);
-        }
-        __syncthreads();
-        if constexpr (std::is_same<T, float>::value) {
-          // thread owns pixels ty + 16i and channels 4tx + j
-          const int tx = tid & 15, ty = tid >> 4;
-#pragma unroll 4
-          for (int ol = 0; ol < oc; ++ol) {
-            const float4 bv = *reinterpret_cast<const float4*>(s_w + ol * w_ld + 4 * tx);
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const float av = s_dy[(ty + 16 * i) * dy_ld + ol];
-              acc[i][0] = fmaf(av, bv.x, acc[i][0]);
-              acc[i][1] = fmaf(av, bv.y, acc[i][1]);
-              acc[i][2] = fmaf(av, bv.z, acc[i][2]);
-              acc[i][3] = fmaf(av, bv.w, acc[i][3]);
-            }
-          }
-        } else {
-          // warp owns the 16 x 32 tile at pixels 16*(warp/2), channels 32*(warp%2)
-          const int row = 16 * (warp >> 1), col = 32 * (warp & 1);
-#pragma unroll
-          for (int kk = 0; kk < oc; kk += 16) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;
-            wmma::load_matrix_sync(fa, s_dy + row * dy_ld + kk, dy_ld);
-#pragma unroll
-            for (int j = 0; j < 2; ++j) {
-              wmma::load_matrix_sync(fb, s_w + (col + 16 * j) * w_ld + kk, w_ld);
-              wmma::mma_sync(frag_c[j], fa, fb, frag_c[j]);
-            }
-          }
-        }
+        for (int j = 0; j < 4; ++j)
+          cv[g][q][j] = i >= 0 && c[g] + j < C_in ? __ldg(xb + i + c[g] + j) : 0.f;
       }
-      if constexpr (std::is_same<T, float>::value) {
-        const int tx = tid & 15, ty = tid >> 4;
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          *reinterpret_cast<float4*>(s_ds + (ty + 16 * i) * kDsLd + 4 * tx) =
-              make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-      } else {
-        const int row = 16 * (warp >> 1), col = 32 * (warp & 1);
-        wmma::store_matrix_sync(s_ds + row * kDsLd + col, frag_c[0], kDsLd, wmma::mem_row_major);
-        wmma::store_matrix_sync(s_ds + row * kDsLd + col + 16, frag_c[1], kDsLd,
-                                wmma::mem_row_major);
-      }
-      __syncthreads();
-      if (vec_x) {
-        bwd_scatter_tile<T, kVec>(xb, dxb, C_in, c0, s_idx, s_wt, s_ds, s_dwts, tid);
-      } else {
-        bwd_scatter_tile<T, 1>(xb, dxb, C_in, c0, s_idx, s_wt, s_ds, s_dwts, tid);
-      }
-    }
-    __syncthreads();
-    if (tid < n_rows) {
-      float4 v = make_float4(s_dwts[0][tid], s_dwts[1][tid], s_dwts[2][tid], s_dwts[3][tid]);
-      *reinterpret_cast<float4*>(dwts + ((b * P + p0 + tid) * K + k) * 4) = v;
     }
   }
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const float4 dsv = on[g] ? *reinterpret_cast<const float4*>(s_ds + pl[g] * C::ds_ld +
+                                                                (c[g] - c0))
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float ds[4] = {dsv.x, dsv.y, dsv.z, dsv.w};
+    const float wx0 = wt[g].x, wx1 = wt[g].y, wy0 = wt[g].z, wy1 = wt[g].w;
+    float s[4] = {0.f, 0.f, 0.f, 0.f}, d[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float(&v)[4][4] = cv[g];
+      const float vx0 = __fadd_rn(__fmul_rn(v[0][j], wy0), __fmul_rn(v[2][j], wy1));
+      const float vx1 = __fadd_rn(__fmul_rn(v[1][j], wy0), __fmul_rn(v[3][j], wy1));
+      const float dvx0 = ds[j] * wx0, dvx1 = ds[j] * wx1;
+      s[0] += ds[j] * vx0;
+      s[1] += ds[j] * vx1;
+      s[2] += dvx0 * v[0][j] + dvx1 * v[1][j];
+      s[3] += dvx0 * v[2][j] + dvx1 * v[3][j];
+      d[0][j] = dvx0 * wy0;
+      d[1][j] = dvx1 * wy0;
+      d[2][j] = dvx0 * wy1;
+      d[3][j] = dvx1 * wy1;
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int i = comp(idx[g], q);
+      if (i >= 0) dx_add_corner<VEC>(dxb + i + c[g], d[q], c[g], C_in);
+    }
+    float sum = reduce4_over_16_lanes(s, lane);
+    if (pl[g] >= 0 && (lane & 3) == 0) {
+      const int q = ((lane >> 3) & 1) * 2 + ((lane >> 2) & 1);
+      float* slot = s_sum_k + pl[g] * 4 + q;
+      if (!first) sum += *slot;
+      if (!last) {
+        *slot = sum;
+      } else {
+        const int oy = oy0 + (pl[g] >> tl.tw_shift);
+        const int ox = ox0 + (pl[g] & ((1 << tl.tw_shift) - 1));
+        if (oy < Ho && ox < Wo) dwts_k[((long long)oy * Wo + ox) * K * 4 + q] = sum;
+      }
+    }
+  }
+}
+
+template <int TP, int FG>
+__global__ void __launch_bounds__(kDxWsThreads, 1)
+deform_conv_bwd_input_ws_kernel(const float* __restrict__ x, const float* __restrict__ offset,
+                                const float* __restrict__ mask, const float* __restrict__ weight_t,
+                                const float* __restrict__ dy, float* __restrict__ dx,
+                                float* __restrict__ dwts, DcnGeom g, DxWsLayout l, DxTile tl,
+                                bool vec_x, bool vec_w) {
+  using C = DxWsCfg<TP, FG>;
+  extern __shared__ __align__(128) unsigned char dxws_smem[];
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int K = g.kh * g.kw, P = g.Ho * g.Wo, th = TP >> tl.tw_shift;
+  const long long n_tiles = (long long)g.B * tl.tpi;
+  const int n_chunks = (g.C_in + kDxWsCh - 1) / kDxWsCh, per_tile = K * n_chunks;
+  const int n_oc = l.oc_pad / kDxWsOc;
+  const long long my_tiles =
+      n_tiles > blockIdx.x ? (n_tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const long long total = my_tiles * per_tile;  // stages this block runs
+  auto slot = [&](long long it) {
+    return reinterpret_cast<float*>(dxws_smem) + (it % kDxWsStages) * TP * C::ds_ld;
+  };
+  // the corner tables of tile j: t_idx + (j & 1) K TP, t_wt + (j & 1) K TP
+  int4* t_idx = reinterpret_cast<int4*>(dxws_smem + l.tables);
+  float4* t_wt = reinterpret_cast<float4*>(t_idx + 2 * K * TP);
+  // the lerp-weight sums [tap][pixel][4], each entry its owner lane's
+  float* s_sum = reinterpret_cast<float*>(dxws_smem + l.sums);
+  // the FMA warpgroups' 64 accumulators a thread get registers the scatter
+  // warpgroups do not need
+  constexpr bool kRealloc = dx_fma_regs(FG) > 0;
+  if (tid < C::FT) {
+    if constexpr (kRealloc) reg_alloc<dx_fma_regs(FG)>();
+    // FMA warps: group grp takes the stages it = grp, grp + FG, ...; its
+    // warp wm owns pixels 32 wm.. of each
+    const int ftid = tid, grp = tid >> 6, gtid = tid & 63, wm = (tid >> 5) & 1;
+    const bool rows = 32 * wm < TP;
+    float* s_dy = reinterpret_cast<float*>(dxws_smem + l.dy);
+    auto piece_w = [&](long long qg) {
+      return reinterpret_cast<float*>(dxws_smem + l.pieces +
+                                      (grp * kDxWsPieces + qg % kDxWsPieces) * l.piece_bytes);
+    };
+    auto piece_dy = [&](long long qg) { return piece_w(qg) + kDxWsOc * C::w_ld; };
+    const long long n_stages = total > grp ? (total - 1 - grp) / FG + 1 : 0;
+    const long long n_pieces = n_stages * n_oc;  // the group's
+    // the group's piece qg: W_k^T [o][c] of its stage's tap and chunk (and
+    // where dy is not resident, its tile's dy [o][pixel]), output channels
+    // o0.. of the piece, by the group's threads
+    auto copy_piece = [&](long long qg) {
+      const long long itq = grp + qg / n_oc * FG;
+      const int jt = (int)(itq % per_tile), k = jt / n_chunks;
+      const int c0 = (jt - k * n_chunks) * kDxWsCh, o0 = (int)(qg % n_oc) * kDxWsOc;
+      producer_copy<float, kDxWsOc, kDxWsCh, 64>(
+          piece_w(qg), C::w_ld, weight_t + ((long long)k * g.C_out + o0) * g.C_in, g.C_in,
+          g.C_out - o0, c0, g.C_in, vec_w, gtid);
+      if (!l.dy_resident) {
+        long long b;
+        int oy0, ox0;
+        tl.origin(blockIdx.x + itq / per_tile * gridDim.x, b, oy0, ox0, th);
+        copy_dy_transposed<kDxWsOc, TP, 64>(piece_dy(qg), C::dy_ld, dy + b * P * g.C_out + o0,
+                                            g.C_out, g.C_out - o0, oy0, ox0, tl.tw_shift, g.Ho,
+                                            g.Wo, dy, gtid);
+      }
+    };
+    if (n_pieces > 0) copy_piece(0);  // the first piece in flight
+    cp_async_commit();
+    long long it = grp, qg = 0;
+    long long tile_end = 0;
+    for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+      tile_end += per_tile;
+      if (l.dy_resident) {
+        // the tile's dy, once, by every FMA thread: all are done with the last one's
+        named_bar_sync(kDxBarFmaAll, C::FT);
+        long long b;
+        int oy0, ox0;
+        tl.origin(t, b, oy0, ox0, th);
+        for (int o0 = 0; o0 < l.oc_pad; o0 += kDxWsOc)
+          copy_dy_transposed<kDxWsOc, TP, C::FT>(s_dy + o0 * C::dy_ld, C::dy_ld,
+                                                 dy + b * P * g.C_out + o0, g.C_out,
+                                                 g.C_out - o0, oy0, ox0, tl.tw_shift, g.Ho,
+                                                 g.Wo, dy, ftid);
+        cp_async_wait_all();  // (and the group's piece in flight)
+        named_bar_sync(kDxBarFmaAll, C::FT);
+      }
+      for (; it < tile_end; it += FG) {
+        float acc[64];
+#pragma unroll
+        for (int e = 0; e < 64; ++e) acc[e] = 0.f;
+        for (int jo = 0; jo < n_oc; ++jo, ++qg) {
+          // piece qg has landed; the group's barrier shows every thread's
+          // copies, and that every thread is done with piece qg - 1, whose
+          // buffer takes piece qg + 1
+          cp_async_wait_all();
+          named_bar_sync(kDxBarFma + grp, 64);
+          if (qg + 1 < n_pieces) copy_piece(qg + 1);
+          cp_async_commit();
+          const float* a = l.dy_resident ? s_dy + jo * kDxWsOc * C::dy_ld : piece_dy(qg);
+          if (rows)
+            dx_ws_products<kDxWsOc, C::dy_ld, C::w_ld>(acc, a, piece_w(qg), 32 * wm, lane);
+        }
+        if (it >= kDxWsStages) named_bar_sync(1 + kDxWsStages + it % kDxWsStages, C::kHandoff);
+        if (rows) {  // dx_ws_products's layout
+          float* ds = slot(it) + (32 * wm + 8 * (lane >> 3)) * C::ds_ld + 4 * (lane & 7);
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              *reinterpret_cast<float4*>(ds + i * C::ds_ld + 32 * h) =
+                  make_float4(acc[8 * i + 4 * h], acc[8 * i + 4 * h + 1], acc[8 * i + 4 * h + 2],
+                              acc[8 * i + 4 * h + 3]);
+        }
+        named_bar_arrive(1 + it % kDxWsStages, C::kHandoff);
+      }
+    }
+    cp_async_wait_all();
+  } else {
+    if constexpr (kRealloc) reg_dealloc<kDxScatterRegs>();
+    // scatter warps: per tile the stages, per full stage the scatter. A
+    // warp's items are the same pixels in every stage (two a round), and
+    // only it reads their corner tables: it builds them itself, one tile
+    // ahead, and no scatter warp waits for another
+    const int stid = tid - C::FT, wbase = stid & ~31;
+    // the corner tables of this warp's pixels of tile t into buffer buf:
+    // pixels outside the map get offsets -1 and weights 0 (table_entry at p = P)
+    auto build_tables = [&](long long t, int buf) {
+      long long b;
+      int oy0, ox0;
+      tl.origin(t, b, oy0, ox0, th);
+      for (int e = lane; e < C::G * 2 * K; e += 32) {
+        const int j = e / (2 * K), r = e - j * 2 * K, half = r / K, k = r - half * K;
+        const int item = wbase + j * C::ST + 16 * half;  // a half warp's first item
+        if (item >= TP * (kDxWsCh / 4)) continue;
+        const int pl = item / (kDxWsCh / 4);
+        const int oy = oy0 + (pl >> tl.tw_shift), ox = ox0 + (pl & ((1 << tl.tw_shift) - 1));
+        const int p = oy < g.Ho && ox < g.Wo ? oy * g.Wo + ox : P;
+        table_entry<float>(offset, mask, b, p, k, g, t_idx[(buf * K + k) * TP + pl],
+                           t_wt[(buf * K + k) * TP + pl]);
+      }
+      __syncwarp();
+    };
+    if (blockIdx.x < n_tiles) build_tables(blockIdx.x, 0);
+    long long it = 0;
+    int tj = 0;
+    for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x, ++tj) {
+      long long b;
+      int oy0, ox0;
+      tl.origin(t, b, oy0, ox0, th);
+      const float* xb = x + b * g.H * g.W * g.C_in;
+      float* dxb = dx + b * g.H * g.W * g.C_in;
+      const int buf = tj & 1;  // (the warp built this tile's tables in it)
+      for (int k = 0; k < K; ++k) {
+        for (int c0 = 0; c0 < g.C_in; c0 += kDxWsCh, ++it) {
+          named_bar_sync(1 + it % kDxWsStages, C::kHandoff);
+          const bool first = c0 == 0, last = c0 + kDxWsCh >= g.C_in;
+          if (vec_x) {
+            dx_ws_scatter<TP, FG, true>(xb, dxb, g.C_in, c0, t_idx + (buf * K + k) * TP,
+                                        t_wt + (buf * K + k) * TP, slot(it), s_sum + k * TP * 4,
+                                        dwts + (b * P * K + k) * 4, tl, oy0, ox0, g.Ho, g.Wo, K,
+                                        first, last, stid, lane);
+          } else {
+            dx_ws_scatter<TP, FG, false>(xb, dxb, g.C_in, c0, t_idx + (buf * K + k) * TP,
+                                         t_wt + (buf * K + k) * TP, slot(it), s_sum + k * TP * 4,
+                                         dwts + (b * P * K + k) * 4, tl, oy0, ox0, g.Ho, g.Wo, K,
+                                         first, last, stid, lane);
+          }
+          if (it + kDxWsStages < total)
+            named_bar_arrive(1 + kDxWsStages + it % kDxWsStages, C::kHandoff);
+          // after the tile's first stage: the next tile's tables (the warp is
+          // done with the last tile's), their loads' latency behind the
+          // other warps' stages
+          if (k == 0 && c0 == 0 && t + gridDim.x < n_tiles)
+            build_tables(t + gridDim.x, buf ^ 1);
+        }
+      }
+    }
+  }
+}
+
+// The f32 dx kernel's tile and dy: 64 pixels with the dy tile resident
+// where it fits in shared memory, else dy in pieces, else the same for 32
+// pixels (ops/deform_conv.py's dx_f32_plan mirrors this); smem >
+// kWsMaxSmem: nothing fits.
+inline DxWsLayout dx_ws_plan(int K, int C_out) {
+  DxWsLayout l{};
+  for (int tp = 64; tp >= 32; tp -= 32)
+    for (int resident = 1; resident >= 0; --resident) {
+      l = dx_ws_layout(tp, K, C_out, resident != 0);
+      if (l.smem <= kWsMaxSmem) return l;
+    }
+  return l;
+}
+
+template <int TP>
+int launch_dx_ws_tp(const float* x, const float* offset, const float* mask, const float* weight_t,
+                    const float* dy, float* dx, float* dwts, const DcnGeom& g,
+                    const DxWsLayout& l, int tile_w, bool vec_x, cudaStream_t stream) {
+  // 16-byte copies of the W^T pieces where every row (C_in) starts 16-byte aligned
+  const bool vec_w = g.C_in % 4 == 0 && reinterpret_cast<uintptr_t>(weight_t) % 16 == 0;
+  const auto kernel = deform_conv_bwd_input_ws_kernel<TP, kDxWsFmaGroups>;
+  // set on every launch: the opt-in holds for the current device only
+  if (const cudaError_t e =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, l.smem);
+      e != cudaSuccess)
+    return (int)e;
+  int device = 0, n_sm = 132;
+  if (cudaGetDevice(&device) == cudaSuccess)
+    cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+  const int tw = tile_w;  // (8 or 16: TP / tw rows)
+  DxTile tl;
+  tl.tw_shift = 0;
+  while ((1 << tl.tw_shift) < tw) ++tl.tw_shift;
+  const int th = TP / tw;
+  tl.tiles_x = (g.Wo + tw - 1) / tw;
+  tl.tpi = tl.tiles_x * ((g.Ho + th - 1) / th);
+  const long long n_tiles = (long long)g.B * tl.tpi;
+  const unsigned grid = (unsigned)(n_tiles < n_sm ? n_tiles : n_sm);
+  kernel<<<grid, kDxWsThreads, l.smem, stream>>>(x, offset, mask, weight_t, dy, dx, dwts, g, l,
+                                                  tl, vec_x, vec_w);
+  return (int)cudaGetLastError();
+}
+
+// weight_t: W^T [K, C_out, C_in]; tile_w: the width of the 2-D pixel tile,
+// 8 or 16 (ops/deform_conv.py's dx_plan)
+int launch_dx_ws(const float* x, const float* offset, const float* mask, const float* weight_t,
+                 const float* dy, float* dx, float* dwts, const DcnGeom& g, int tile_w,
+                 bool vec_x, cudaStream_t stream) {
+  const DxWsLayout l = dx_ws_plan(g.kh * g.kw, g.C_out);
+  if (l.smem > kWsMaxSmem) return (int)cudaErrorInvalidValue;
+  if (l.tp == 64)
+    return launch_dx_ws_tp<64>(x, offset, mask, weight_t, dy, dx, dwts, g, l, tile_w, vec_x,
+                               stream);
+  return launch_dx_ws_tp<32>(x, offset, mask, weight_t, dy, dx, dwts, g, l, tile_w, vec_x,
+                             stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -1446,11 +1560,12 @@ deform_conv_bwd_input_kernel(const T* __restrict__ x, const T* __restrict__ offs
 //     float4 atomics each.
 // No float atomic touches shared memory. The sums are the same terms as the
 // plain version's in another order. On an H100 at the KM3D neck's shapes
-// this moves 5.7x fewer adds into device memory than the row design and
-// runs a little faster than it in bf16; in f32 the row design above is
-// faster and runs instead. What bounds it is latency: 16 warps an SM
-// (shared memory and 123 registers a thread) wait on cp.async copies,
-// barriers and shared-memory reads in every phase.
+// this moves 5.7x fewer adds into device memory than a design that adds
+// every corner into dx (the f32 kernel's) and ran a little faster than the
+// first such design in bf16; in f32 that design was the faster, and the
+// warp-specialised kernel above runs instead. What bounds it is latency:
+// 16 warps an SM (shared memory and 123 registers a thread) wait on
+// cp.async copies, barriers and shared-memory reads in every phase.
 // ---------------------------------------------------------------------------
 
 constexpr int kDxChunk = 16;           // input channels per chunk
@@ -1467,8 +1582,6 @@ struct DxGeom {
   int off_ds, off_dy, off_w, off_x, off_pack, off_wt, off_dwts, off_cnt, off_first, off_ent,
       smem;
 };
-
-__host__ __device__ constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
 // Shared memory of the dx kernel: ds of all taps, the dy tile, the chunk's
 // channels of x over the window, the W_k chunks of the taps of one round (as many as keep the block within
@@ -2224,13 +2337,14 @@ int launch_backward(const void* x, const void* offset, const void* mask, const v
   const bool vec_o = C_out % vec == 0 && reinterpret_cast<uintptr_t>(dy) % 16 == 0 &&
                      reinterpret_cast<uintptr_t>(weight) % 16 == 0;
   if (reinterpret_cast<uintptr_t>(dwts) % 16 != 0) return (int)cudaErrorInvalidValue;
+  const DcnGeom g{B, H, W, C_in, Ho, Wo, C_out, kh, kw, stride, pad, dil, off_stride, mask_stride};
   if constexpr (std::is_same<T, float>::value) {
-    const dim3 grid_rows((unsigned)((P + kTileP - 1) / kTileP), B);
-    deform_conv_bwd_input_kernel<T><<<grid_rows, kThreads, 0, (cudaStream_t)stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(offset), static_cast<const T*>(mask),
-        static_cast<const T*>(weight), static_cast<const T*>(dy), static_cast<float*>(dx),
-        static_cast<float*>(dwts), H, W, C_in, Ho, Wo, C_out, kh, kw, stride, pad, dil,
-        off_stride, mask_stride, vec_x, vec_o);
+    const int err = launch_dx_ws(static_cast<const T*>(x), static_cast<const T*>(offset),
+                                 static_cast<const T*>(mask), static_cast<const T*>(weight),
+                                 static_cast<const T*>(dy), static_cast<float*>(dx),
+                                 static_cast<float*>(dwts), g, tile_w, vec_x,
+                                 (cudaStream_t)stream);
+    if (err != 0) return err;
   } else {
     const int err = launch_dx_window<T>(x, offset, mask, weight, dy, dx, dwts, H, W, C_in, Ho, Wo,
                                         C_out, kh, kw, stride, pad, dil, off_stride, mask_stride,
@@ -2240,7 +2354,6 @@ int launch_backward(const void* x, const void* offset, const void* mask, const v
   const int err = (int)cudaGetLastError();
   if (err != 0) return err;
   // dW: the split count is the caller's (dw_plan)
-  const DcnGeom g{B, H, W, C_in, Ho, Wo, C_out, kh, kw, stride, pad, dil, off_stride, mask_stride};
   const T* xs = static_cast<const T*>(x);
   const T* os = static_cast<const T*>(offset);
   const T* ms = static_cast<const T*>(mask);
@@ -2265,7 +2378,7 @@ int vd3d_modulated_deform_conv_f32(const void* x, const void* offset, const void
                                    int kw, int stride, int pad, int dil, int off_stride,
                                    int mask_stride, void* stream) {
   return launch<float>(x, offset, mask, weight, bias, out, B, H, W, C_in, Ho, Wo, C_out, kh,
-                       kw, stride, pad, dil, off_stride, mask_stride, stream);
+                       kw, stride, pad, dil, off_stride, mask_stride, false, stream);
 }
 
 int vd3d_modulated_deform_conv_bf16(const void* x, const void* offset, const void* mask,
@@ -2274,7 +2387,7 @@ int vd3d_modulated_deform_conv_bf16(const void* x, const void* offset, const voi
                                     int kw, int stride, int pad, int dil, int off_stride,
                                     int mask_stride, void* stream) {
   return launch<__nv_bfloat16>(x, offset, mask, weight, bias, out, B, H, W, C_in, Ho, Wo,
-                               C_out, kh, kw, stride, pad, dil, off_stride, mask_stride,
+                               C_out, kh, kw, stride, pad, dil, off_stride, mask_stride, false,
                                stream);
 }
 
@@ -2285,8 +2398,9 @@ int vd3d_modulated_deform_conv_alltaps_bf16(const void* x, const void* offset, c
                                             int C_out, int kh, int kw, int stride, int pad,
                                             int dil, int off_stride, int mask_stride,
                                             void* stream) {
-  return launch_alltaps(x, offset, mask, weight, bias, out, B, H, W, C_in, Ho, Wo, C_out, kh, kw,
-                        stride, pad, dil, off_stride, mask_stride, stream);
+  return launch<__nv_bfloat16>(x, offset, mask, weight, bias, out, B, H, W, C_in, Ho, Wo,
+                               C_out, kh, kw, stride, pad, dil, off_stride, mask_stride, true,
+                               stream);
 }
 
 // The lerp-accumulate: y [B,H,W,K*C_out] contiguous (Y = x @ W'), offsets and
@@ -2299,8 +2413,9 @@ int vd3d_premul_lerp_accumulate_bf16(const void* y, const void* offset, const vo
                        dil, off_stride, mask_stride, stream);
 }
 
-// Backward: x, offset, mask and W as in the forward, dy [B,Ho,Wo,C_out]
-// contiguous; dx [B,H,W,C_in] f32, zeroed by the caller; dw [K,C_in,C_out]
+// Backward: x, offset, mask as in the forward, W as in the forward in bf16
+// and transposed, [K, C_out, C_in], in f32 (the f32 dx kernel's pieces are
+// rows of W_k^T), dy [B,Ho,Wo,C_out] contiguous; dx [B,H,W,C_in] f32, zeroed by the caller; dw [K,C_in,C_out]
 // f32 (every entry written); dw_part [dw_splits,K*C_in,C_out] f32 scratch
 // (the splits' partial sums); dwts [B,Ho,Wo,K,4] f32 (every entry written):
 // the gradients of 1-fx, fx, (1-fy)*mask and fy*mask. The dx kernel's tile

@@ -287,16 +287,30 @@ __global__ void __launch_bounds__(kThreads) int8_conv_kernel(Conv p) {
   }
 }
 
+// A kernel's dynamic shared-memory opt-in, set once per device: the
+// attribute holds for the current device only, and setting it on every
+// launch costs host time where B8 is host-bound (K9(a)). `devices_set` is
+// the caller's per-instance mask of the devices done (a device past 63 is
+// set on every launch).
+template <typename Kernel>
+cudaError_t opt_in_smem(Kernel kernel, int bytes, unsigned long long& devices_set) {
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = device < 64 ? 1ull << device : 0ull;
+  if (bit != 0 && (devices_set & bit) != 0) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess) devices_set |= bit;
+  return e;
+}
+
 template <int VEC, int EPI, int BN>
 cudaError_t launch_tile(const Conv& p, cudaStream_t stream) {
   constexpr int smem = kStages * (kBM + BN) * kRow;
-  static bool attribute_set = false;  // set once per instance, not at every launch
-  if (!attribute_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        int8_conv_kernel<VEC, EPI, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    attribute_set = true;
-  }
+  static unsigned long long devices_set = 0;  // per instance
+  if (const cudaError_t e = opt_in_smem(int8_conv_kernel<VEC, EPI, BN>, smem, devices_set);
+      e != cudaSuccess)
+    return e;
   const dim3 grid((unsigned)((p.M + kBM - 1) / kBM), (unsigned)((p.N + BN - 1) / BN));
   int8_conv_kernel<VEC, EPI, BN><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
@@ -765,14 +779,10 @@ cudaError_t launch_wgmma(const CUtensorMap& xmap, const CUtensorMap& wmap, TmaCo
   p.bar_offset = ((ring > staging ? ring : staging) + 7) / 8 * 8;
   p.out_vec = (p.N * (int)sizeof(T)) % 16 == 0;
   const int smem = p.bar_offset + 16 * kTmaStages + 1024;  // + the 1024-byte alignment
-  static bool attribute_set = false;
-  if (!attribute_set) {
-    const cudaError_t e = cudaFuncSetAttribute(int8_conv_wgmma_kernel<BN, EPI>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               232448);
-    if (e != cudaSuccess) return e;
-    attribute_set = true;
-  }
+  static unsigned long long devices_set = 0;  // per instance
+  if (const cudaError_t e = opt_in_smem(int8_conv_wgmma_kernel<BN, EPI>, 232448, devices_set);
+      e != cudaSuccess)
+    return e;
   const long long tiles = (long long)((p.m_boxes + 1) / 2) * p.n_tiles;
   const dim3 grid((unsigned)tiles, (unsigned)p.split);
   int8_conv_wgmma_kernel<BN, EPI><<<grid, kTmaThreads, smem, stream>>>(xmap, wmap, p);

@@ -24,7 +24,11 @@ The backward's dx kernel in bf16 sums the corner gradients of each 2-D tile
 of 64 output pixels in a shared-memory window of the input (offsets up to
 ``DX_WINDOW_RADIUS`` px; the tile is :func:`dx_plan`'s) before it adds them
 into dx; :func:`dx_window_spill` counts its adds into device memory. In f32
-it adds every corner into dx itself (the faster design there).
+it adds every corner into dx itself (the faster design there), warp-
+specialised: groups of FMA warps compute ``ds = dy . W_k^T`` per (tap, 64
+input channels) into a ring of shared-memory stages while scatter warps add
+each stage's corner gradients into dx (:func:`dx_f32_plan`: its pixel tile
+and whether the dy tile stays in shared memory).
 
 Forward variants (:func:`forward_variant`), chosen per call as the JAX
 package chooses them: the environment switches ``VD3D_DCN_PREMUL=1`` and
@@ -429,6 +433,44 @@ def dx_window_spill(offset: torch.Tensor, h: int, w: int, c_in: int, kh: int = 3
                 all_corners=b * ho * wo * 4 * k * c_in, tile=(th, tw), window_hw=(win_h, win_w))
 
 
+DX_F32_STAGES = 4       # ds stages of the f32 dx kernel's ring (kDxWsStages)
+DX_F32_CHANNELS = 64    # input channels of a stage (kDxWsCh)
+DX_F32_PIECE = 32       # output channels of a W piece (kDxWsOc)
+DX_F32_PIECES = 2       # W pieces of an FMA group in shared memory (kDxWsPieces)
+DX_F32_FMA_GROUPS = 2   # FMA groups of two warps (kDxWsFmaGroups)
+SMEM_LIMIT = 232448     # a block's shared memory on sm_90 (kWsMaxSmem)
+
+
+def dx_f32_smem(tile: int, taps: int, c_out: int, dy_resident: bool) -> int:
+    """Shared memory of the f32 dx kernel (``dx_ws_layout``), bytes: the ds
+    ring [stages][tile][64 + 4], each FMA group's W pieces [32][64 + 4]
+    (each with a dy piece [32][tile + 4] unless the dy tile is resident),
+    the dy tile [C_out rounded up to 32][tile + 4] (f32 throughout), the
+    corner tables of two tiles (32 bytes a tap and pixel each) and the
+    lerp-weight sums (16)."""
+    ds_ld, w_ld, dy_ld = DX_F32_CHANNELS + 4, DX_F32_CHANNELS + 4, tile + 4
+    oc_pad = -(-c_out // DX_F32_PIECE) * DX_F32_PIECE
+    piece = 4 * DX_F32_PIECE * (w_ld + (0 if dy_resident else dy_ld))
+    return (4 * DX_F32_STAGES * tile * ds_ld + DX_F32_FMA_GROUPS * DX_F32_PIECES * piece
+            + (4 * oc_pad * dy_ld if dy_resident else 0) + taps * tile * (2 * 32 + 16))
+
+
+def dx_f32_plan(c_out: int, taps: int = 9) -> Tuple[Optional[int], bool, int]:
+    """The f32 dx kernel's tile, as its launcher (``dx_ws_plan``) picks it:
+    (output pixels a tile, whether the dy tile stays in shared memory,
+    shared memory in bytes). 64 pixels with dy resident where that fits in
+    a block's shared memory, else 64 with dy in pieces beside the W pieces,
+    else the same for 32 pixels; ``None`` for the tile where nothing fits
+    (the launch is refused). The tile is 2-D, ``pixels / w`` rows of ``w`` =
+    ``dx_plan(Ho, Wo)[1]`` pixels."""
+    for tile in (64, 32):
+        for resident in (True, False):
+            smem = dx_f32_smem(tile, taps, c_out, resident)
+            if smem <= SMEM_LIMIT:
+                return tile, resident, smem
+    return None, False, smem
+
+
 @functools.lru_cache(maxsize=None)
 def _deform_conv_lib() -> ctypes.CDLL:
     lib = kernel_build.load('deform_conv')
@@ -731,7 +773,10 @@ def modulated_deform_conv_backward(x: torch.Tensor, offset: torch.Tensor, mask: 
                          f'{tuple(grad_out.shape)} on {grad_out.device}')
     k = kh * kw
     grad_out = grad_out.contiguous()
-    wk = weight.reshape(k * c_in, c_out).contiguous()
+    # the f32 dx kernel copies rows of W_k^T: [K, C_out, C_in] (a 4.7 MB
+    # re-layout at most in the KM3D neck); bf16 takes W as the forward
+    wk = (weight.reshape(k, c_in, c_out).transpose(1, 2) if x.dtype == torch.float32
+          else weight.reshape(k * c_in, c_out)).contiguous()
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.zeros((b, h, w, c_in), **f32)
     dwts = torch.empty((b, ho, wo, k, 4), **f32)
