@@ -80,7 +80,8 @@ each printed as one JSON line:
    the wgmma path split K under each epilogue, M and N off the tile, K
    tails, boxes over the image's edge; on the cp.async path C_in 72 and 16,
    an unaligned base, stride 2; 1x1, dilation 2, asymmetric padding,
-   channel tails, +-127, and the wrappers' refusals); int8_probe (the int8
+   channel tails, +-127; the quantize at a base off 16-byte alignment; and
+   the wrappers' refusals); int8_probe (the int8
    probes K9a/b/c of ``tools/probe_pallas_int8.py`` at their shapes and
    seeds, bit-exact, beside ``torch._int_mm``, CUDA events and CUDA-graph
    device times); int8_slice in three modes (every conv on its own,
@@ -90,14 +91,17 @@ each printed as one JSON line:
    profile; int8_conv_kernel (B8 at every conv shape of the batch-16
    predict, collected by hooks: its plan, s32 bit-exact, the f32 and bf16
    epilogues, its time against cuDNN's bf16 conv of the same shape and,
-   at 1x1 stride-1 shapes, ``torch._int_mm``, the bound; the quantize
-   kernel at each input); int8_plan, int8_plan_predict (B8's plan against
+   at 1x1 stride-1 shapes, ``torch._int_mm``, the bound; int8_quantize: the
+   quantize kernel at each input, bit-exact, in CUDA events and device time
+   (CUDA graphs) beside its bound and ``torch.quantize_per_tensor``);
+   int8_plan, int8_plan_predict (B8's plan against
    its variants, split K, no split and the cp.async path, at K9(a) and at
    the batch-1 predict's shapes, bit-exact under each, event and device
    times, and the int8 predict at batch 1 and 16 under each);
    int8_block_kernel and int8_block_edges (K8 on the
-   real layer1 entries and input at batch 16, and ragged tiles, against its
-   plain version with the JAX package's block gate); int8_parity (the
+   real layer1 entries and input at batch 16, in events and device time, and
+   ragged tiles (a pixel past a tile each way, ragged last tiles), bit for
+   bit against its plain version in f32 and bf16); int8_parity (the
    artifact quantized on the CPU, batch-1 int8 predict on the card against
    the CPU's, with the JAX package's decode gates).
 
@@ -1758,9 +1762,12 @@ def int8_conv_check(torch, ic, xq, wq, stride, padding, dilation, bias, what):
 
 def quantize_phase_shape(torch, ic, shape, part):
     """The activation quantize kernel against its plain version on a bf16
-    activation of ``shape`` (NHWC), bit-exact; its time, the plain version's
-    (torch's five elementwise passes) and the bytes bound (2 bytes read, 1
-    written per element)."""
+    activation of ``shape`` (NHWC), bit-exact; its time in CUDA events
+    (``ms``: the wrapper's host time shows where the device would idle) and
+    in device time (``graph_ms``, CUDA graphs), the plain version's (torch's
+    five elementwise passes), ``torch.quantize_per_tensor`` on an f32 copy
+    (a yardstick, not the same function: it divides, rounds and clips at
+    -128) and the bytes bound (2 bytes read, 1 written per element)."""
     gen = torch.Generator(device='cuda').manual_seed(17)
     xs = [(torch.randn(shape, generator=gen, device='cuda') * 3).to(torch.bfloat16)
           for _ in range(N_KERNEL_RUNS)]
@@ -1771,9 +1778,16 @@ def quantize_phase_shape(torch, ic, shape, part):
           f'int8_quantize {shape}: differs from the plain version in '
           f'{int((got != ref).sum())} places')
     n = xs[0].numel()
-    return dict(ms=cuda_ms(lambda t: ic.quantize_act(t, inv), xs),
-                plain_ms=cuda_ms(lambda t: ic.quantize_act_plain(t, inv), xs),
-                bound_ms=3 * n / CARD_PEAKS[part][0] * 1e3)
+    fn = lambda t: ic.quantize_act(t, inv)
+    xf = [x.float() for x in xs[:4]]
+    scale = float(1.0 / inv)
+    out = dict(ms=cuda_ms(fn, xs), graph_ms=graph_ms(fn, xs[:4]),
+               plain_ms=cuda_ms(lambda t: ic.quantize_act_plain(t, inv), xs),
+               library_ms=graph_ms(lambda t: torch.quantize_per_tensor(t, scale, 0, torch.qint8),
+                                   xf),
+               bound_ms=3 * n / CARD_PEAKS[part][0] * 1e3)
+    del xf
+    return out
 
 
 def int8_conv_kernel_phase(torch, ic, shapes, part):
@@ -1786,7 +1800,8 @@ def int8_conv_kernel_phase(torch, ic, shapes, part):
     gen = torch.Generator(device='cuda').manual_seed(12)
     total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, ops=0, bytes=0,
                  max_abs_err=0.0)
-    quant = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    quant = dict(ms=0.0, graph_ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    quant_shapes = []
     bound_by = {'bytes': 0.0, 'operations': 0.0}
     per_shape = []
     for (b, h, w, c, n, kh, kw, stride, padding, dilation, has_bias), count in sorted(shapes.items()):
@@ -1800,8 +1815,10 @@ def int8_conv_kernel_phase(torch, ic, shapes, part):
                 f'{" +bias" if has_bias else ""}')
         err = int8_conv_check(torch, ic, xs[0], wq, stride, padding, dilation, bias, what)
         q = quantize_phase_shape(torch, ic, (b, h, w, c), part)
-        for key in ('ms', 'plain_ms', 'bound_ms'):
+        for key in quant:
             quant[key] += count * q[key]
+        quant_shapes.append(dict(shape=[b, h, w, c], per_predict=count, **q))
+        emit('int8_quantize', **quant_shapes[-1])
         fn = lambda x: ic.int8_conv2d(x, wq, stride, padding, dilation, scale, bias, torch.bfloat16)
         ms = cuda_ms(fn, xs)
         plain_ms = cuda_ms(lambda x: ic.int8_conv2d_plain(x, wq, stride, padding, dilation, scale,
@@ -1842,7 +1859,10 @@ def int8_conv_kernel_phase(torch, ic, shapes, part):
     total['bound_by'] = max(bound_by, key=bound_by.get)
     total['per_shape'] = per_shape
     total['quantize'] = quant
-    emit('int8_quantize_per_forward', batch=BATCH, **quant)
+    emit('int8_quantize_per_forward', batch=BATCH, launches_per_predict=sum(shapes.values()),
+         library='torch.quantize_per_tensor on an f32 copy, device time (not the same function)',
+         **quant)
+    quant['per_shape'] = quant_shapes
     emit('int8_conv_kernel_per_forward', batch=BATCH, shapes=len(per_shape),
          launches_per_predict=sum(shapes.values()), **{k: v for k, v in total.items()
                                                        if k != 'per_shape'})
@@ -1955,7 +1975,22 @@ def int8_conv_edge_phase(torch, ic):
         for xx in (x, x.to(torch.bfloat16)):
             check(torch.equal(ic.quantize_act(xx, inv), ic.quantize_act_plain(xx, inv)),
                   f'int8_quantize {shape} {xx.dtype} per-channel {per_channel}: differs')
-    cases += ['quantize: per-channel scales, f32 and bf16, ragged sizes, saturation']
+    # a base that is not 16-byte aligned (a slice of a larger tensor), sizes off
+    # the 16-element vector, per-tensor and per-channel scales
+    for n_inv, rows, offset in ((1, 1001, 1), (72, 19, 1), (1408, 3, 3), (64, 37, 5)):
+        big = torch.randn((rows * n_inv + 8,), generator=gen, device='cuda') * 60
+        big[3:8] = torch.tensor([0.5, 2.5, -2.5, -0.0, 1e4], device='cuda')
+        inv = (torch.rand((n_inv,), generator=gen, device='cuda') + 0.5 if n_inv > 1
+               else torch.ones((), device='cuda'))
+        for bb in (big, big.to(torch.bfloat16)):
+            xx = bb[offset:offset + rows * n_inv].view(rows, n_inv)
+            check(xx.data_ptr() % 16 != 0, 'int8_quantize: the unaligned case is aligned')
+            got, ref = ic.quantize_act(xx, inv), ic.quantize_act_plain(xx, inv)
+            torch.cuda.synchronize()
+            check(torch.equal(got, ref), f'int8_quantize {xx.dtype} base +{offset} elements, '
+                  f'n_inv {n_inv}: differs in {int((got != ref).sum())} places')
+    cases += ['quantize: per-channel scales, f32 and bf16, ragged sizes, saturation',
+              'quantize: a base off 16-byte alignment, n_inv 1, 64, 72, 1408']
 
     xq, wq = rand((2, 8, 8, 64)), rand((64, 3, 3, 64))
     refusals = [
@@ -2159,23 +2194,20 @@ def block_entry(system, path=('ResNet_0', 'layer1_0')):
 
 
 def int8_block_check(torch, ib, xq, w1, w2, params, what):
-    """K8 against its plain version on the same inputs, f32 and bf16 out: the
-    gate of the JAX package's block test, at most 0.1% of the elements beyond
-    1e-4 of the output's scale and none beyond 0.02 of it (isolated int8
-    levels of h can flip at round ties; the s32 sums themselves are exact)."""
+    """K8 against its plain version on the same inputs, f32 and bf16 out, bit
+    for bit (the s32 sums are exact and every f32 operation is rounded on
+    its own in the plain version's order)."""
     stats = {}
     for dt in (torch.float32, torch.bfloat16):
-        got = ib.int8_basic_block(xq, w1, w2, params, dt).float()
-        ref = ib.int8_basic_block_plain(xq, w1, w2, params, dt).float()
+        got = ib.int8_basic_block(xq, w1, w2, params, dt)
+        ref = ib.int8_basic_block_plain(xq, w1, w2, params, dt)
         torch.cuda.synchronize()
-        scale = float(ref.abs().max()) or 1.0
-        d = (got - ref).abs()
-        frac = float((d > 1e-4 * scale).float().mean())
-        check(frac <= 1e-3 and float(d.max()) <= 0.02 * scale,
-              f'int8_basic_block {what} {dt}: {frac:.2e} of the elements beyond 1e-4 of the scale '
-              f'{scale}, largest difference {float(d.max())}')
-        stats[str(dt).split('.')[-1]] = dict(frac_beyond=frac, max_abs_err=float(d.max()),
-                                             scale=scale, exact_share=float((d == 0).float().mean()))
+        d = (got.float() - ref.float()).abs()
+        check(got.dtype == ref.dtype and torch.equal(got, ref),
+              f'int8_basic_block {what} {dt}: differs from the plain version in '
+              f'{int((d > 0).sum())} places, by up to {float(d.max())}')
+        stats[str(dt).split('.')[-1]] = dict(max_abs_err=float(d.max()),
+                                             positive_share=float((ref > 0).float().mean()))
     return stats
 
 
@@ -2183,7 +2215,9 @@ def int8_block_kernel_phase(torch, ib, system, layer1_input, part):
     """K8 at the main path's geometry (batch 16: 32 x 72 x 320 x 64) on the
     real layer1_0 entries and its real quantized input, against its plain
     version; its time, the plain version's, two cuDNN bf16 3x3 convs of the
-    same shape (a yardstick, not the same function) and the bound."""
+    same shape (a yardstick, not the same function) and the bound; K8 in
+    CUDA events (``ms``) and device time (``graph_ms``, CUDA graphs), bf16
+    out, and in device time with f32 out."""
     import torch.nn.functional as F
     from visualdet3d_tpu_torch.ops.int8_conv import quantize_act
     bw = CARD_PEAKS[part][0]
@@ -2198,7 +2232,9 @@ def int8_block_kernel_phase(torch, ib, system, layer1_input, part):
     gen = torch.Generator(device='cuda').manual_seed(15)
     xs = [xq] + [quantize_act(x_nhwc * (1 + 0.05 * torch.randn((), generator=gen, device='cuda')),
                               inv) for _ in range(N_KERNEL_RUNS - 1)]
-    ms = cuda_ms(lambda t: ib.int8_basic_block(t, w1, w2, params, torch.bfloat16), xs)
+    fn = lambda t: ib.int8_basic_block(t, w1, w2, params, torch.bfloat16)
+    ms, dev_ms = cuda_ms(fn, xs), graph_ms(fn, xs[:4])
+    f32_ms = graph_ms(lambda t: ib.int8_basic_block(t, w1, w2, params, torch.float32), xs[:4])
     plain_ms = cuda_ms(lambda t: ib.int8_basic_block_plain(t, w1, w2, params, torch.bfloat16),
                        xs[:3], warmup=1)
     xf = [t.permute(0, 3, 1, 2).to(torch.bfloat16) for t in xs]
@@ -2208,7 +2244,9 @@ def int8_block_kernel_phase(torch, ib, system, layer1_input, part):
     ops = 2 * 2 * b * h * w * 9 * c * c
     nbytes = b * h * w * c + 2 * 9 * c * c + 6 * c * 4 + b * h * w * c * 2
     bytes_ms, ops_ms = nbytes / bw * 1e3, ops / int8_peak(part) * 1e3
-    out = dict(shape=[b, h, w, c], ms=ms, plain_ms=plain_ms, cudnn_bf16_two_convs_ms=cudnn_ms,
+    plan = ib.block_plan(b, h, w, torch.cuda.get_device_properties(0).multi_processor_count)
+    out = dict(shape=[b, h, w, c], ms=ms, graph_ms=dev_ms, f32_out_graph_ms=f32_ms,
+               plain_ms=plain_ms, cudnn_bf16_two_convs_ms=cudnn_ms, plan=plan._asdict(),
                bound_ms=max(bytes_ms, ops_ms), bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms,
                bound_by='bytes' if bytes_ms >= ops_ms else 'operations', tops=ops / ms / 1e9,
                max_abs_err=stats['float32']['max_abs_err'], gate=stats)
@@ -2217,14 +2255,19 @@ def int8_block_kernel_phase(torch, ib, system, layer1_input, part):
 
 
 def int8_block_edge_phase(torch, ib, system):
-    """K8 where tiles are ragged: H and W not multiples of the 8 x 32 tile,
-    batch 1, W = 1, H = 1; and the wrapper's refusals."""
+    """K8 where tiles are ragged: H and W not multiples of the tile
+    (``ib.TILE_H`` x ``ib.TILE_W``), one pixel taller and wider than a tile,
+    a ragged last tile in both directions, exactly one tile, batch 1, W = 1,
+    H = 1, bit for bit in f32 and bf16; and the wrapper's refusals."""
     be = block_entry(system)
     w1, w2 = be['e1']['kernel_q'], be['e2']['kernel_q']
     params = ib.block_params(be['e1'], be['e2'], be['bn1_scale'], be['bn1_shift'],
                              be['bn2_scale'], be['bn2_shift'])
     gen = torch.Generator(device='cuda').manual_seed(16)
-    cases = [(2, 13, 45), (1, 72, 320), (1, 9, 1), (3, 1, 70), (1, 8, 32), (2, 17, 33)]
+    th, tw = ib.TILE_H, ib.TILE_W
+    cases = [(2, 13, 45), (1, 72, 320), (1, 9, 1), (3, 1, 70), (1, 8, 32), (2, 17, 33),
+             (1, th + 1, tw + 1), (2, 2 * th + 1, 2 * tw + 2), (1, th, tw), (1, 1, 1),
+             (1, 3 * th - 1, 5 * tw - 3)]
     for b, h, w in cases:
         xq = torch.randint(-40, 41, (b, h, w, 64), generator=gen, device='cuda', dtype=torch.int8)
         int8_block_check(torch, ib, xq, w1, w2, params, f'{b}x{h}x{w}')
@@ -2622,9 +2665,15 @@ def main() -> int:
         replaces='visualdet3d_tpu/models/quant.py:396 (XLA elementwise _quantize_act; no Pallas '
                  'kernel)',
         launches=int8_slices['int8']['launches']['int8_quantize'],
-        max_abs_err=0.0, ms=b8['quantize']['ms'], plain_ms=b8['quantize']['plain_ms'],
-        bound_ms=b8['quantize']['bound_ms'], bound_by='bytes', library_ms=None,
-        per_forward='the input of every quantized conv of one batch-16 int8 predict, bf16 in'))
+        launches_with_fused_blocks=int8_slices['int8+K8']['launches']['int8_quantize'],
+        max_abs_err=0.0, ms=b8['quantize']['ms'], graph_ms=b8['quantize']['graph_ms'],
+        plain_ms=b8['quantize']['plain_ms'], bound_ms=b8['quantize']['bound_ms'],
+        bound_by='bytes', library_ms=b8['quantize']['library_ms'],
+        library='torch.quantize_per_tensor on an f32 copy, device time (not the same '
+                'function: it divides and clips at -128)',
+        per_forward='the input of every quantized conv of one batch-16 int8 predict, bf16 in; '
+                    'ms in CUDA events, graph_ms in device time',
+        per_shape=b8['quantize']['per_shape']))
     summary.append(dict(
         name='int8_conv2d[K9 probes]', route='cuda',
         source='visualdet3d_tpu_torch/csrc/int8_conv.cu',
@@ -2640,10 +2689,12 @@ def main() -> int:
         name='int8_basic_block', route='cuda', source='visualdet3d_tpu_torch/csrc/int8_block.cu',
         replaces='visualdet3d_tpu/ops/int8_block.py:54',
         launches=int8_slices['int8+K8']['launches']['int8_basic_block'],
-        max_abs_err=k8['max_abs_err'], ms=k8['ms'], plain_ms=k8['plain_ms'],
+        max_abs_err=k8['max_abs_err'], ms=k8['ms'], graph_ms=k8['graph_ms'],
+        f32_out_graph_ms=k8['f32_out_graph_ms'], plain_ms=k8['plain_ms'],
         bound_ms=k8['bound_ms'], bound_by=k8['bound_by'], library_ms=None,
         cudnn_bf16_two_convs_ms=k8['cudnn_bf16_two_convs_ms'],
-        per_forward='one layer1 block at batch 16 (32 x 72 x 320 x 64), bf16 out'))
+        per_forward='one layer1 block at batch 16 (32 x 72 x 320 x 64), bf16 out; ms in CUDA '
+                    'events, graph_ms in device time'))
     print(json.dumps({'kernels': summary}), flush=True)
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': name,

@@ -1,9 +1,9 @@
 """Rules of the port that no parity test shows.
 
-* Nothing under ``visualdet3d_tpu_torch/``, nor ``chip_smoke.py`` or
-  ``dcn_study.py``, imports JAX, flax, optax or the JAX package. The scan is
-  static (an AST walk), because this test process has JAX imported already.
-  The package imports neither root script.
+* Nothing under ``visualdet3d_tpu_torch/``, nor ``chip_smoke.py``,
+  ``dcn_study.py`` or ``int8_study.py``, imports JAX, flax, optax or the JAX
+  package. The scan is static (an AST walk), because this test process has
+  JAX imported already. The package imports none of the root scripts.
 * The entry points (inference, the KM3D and MonoFlex systems and trainers)
   run on the card by default and raise without CUDA instead of running on
   the CPU.
@@ -18,7 +18,8 @@
   TPU kernel it replaces.
 * No shared-memory opt-in (``cudaFuncSetAttribute``) is cached in a
   process-wide ``static bool``: the attribute holds for the current device
-  only, so a cache must be kept per device.
+  only, so a cache must be kept per device. The int8 kernels opt in only
+  through the once-per-(kernel, device) helper of ``csrc/int8_common.cuh``.
 """
 import ast
 import pathlib
@@ -37,7 +38,8 @@ FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'visualdet3d_tpu')
 def _port_sources():
     build = kernel_build.BUILD_DIR  # build outputs, not sources
     files = sorted(p for p in (ROOT / 'visualdet3d_tpu_torch').rglob('*.py')
-                   if build not in p.parents) + [ROOT / 'chip_smoke.py', ROOT / 'dcn_study.py']
+                   if build not in p.parents) + [ROOT / 'chip_smoke.py', ROOT / 'dcn_study.py',
+                                                 ROOT / 'int8_study.py']
     assert len(files) > 10 and all(p.exists() for p in files)
     return files
 
@@ -64,10 +66,11 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
 
 
 def test_package_imports_no_root_script():
-    """The smoke and the study drive the package; it never imports them."""
+    """The smoke and the studies drive the package; it never imports them."""
     offenders = [f'{path.relative_to(ROOT)}: {root}'
                  for path in _port_sources() if ROOT / 'visualdet3d_tpu_torch' in path.parents
-                 for root in _imported_roots(path) if root in ('chip_smoke', 'dcn_study')]
+                 for root in _imported_roots(path)
+                 if root in ('chip_smoke', 'dcn_study', 'int8_study')]
     assert offenders == []
 
 
@@ -233,14 +236,34 @@ def test_deform_conv_launchers_are_bound_and_summarised():
 def test_no_smem_opt_in_is_cached_once_a_process():
     """A ``static bool`` guarding ``cudaFuncSetAttribute`` sets the opt-in on
     the first device only; on a second card every launch would be refused.
-    B8 caches it per (kernel instance, device) in ``opt_in_smem``, which asks
-    ``cudaGetDevice``; the DCN launchers set it on every launch."""
+    The int8 kernels cache it per (kernel instance, device) in
+    ``opt_in_smem`` (``int8_common.cuh``), which asks ``cudaGetDevice``; the
+    DCN launchers set it on every launch."""
     for src in sorted(kernel_build.CSRC_DIR.glob('*.cu*')):
         text = src.read_text()
         assert not re.search(r'\bstatic\s+bool\b', text), src.name
-    text = (kernel_build.CSRC_DIR / 'int8_conv.cu').read_text()
+    text = (kernel_build.CSRC_DIR / 'int8_common.cuh').read_text()
     helper = text[text.index('cudaError_t opt_in_smem('):]
     helper = helper[:helper.index('\n}\n')]
     assert 'cudaGetDevice(&device)' in helper and 'devices_set & bit' in helper
-    assert text.count('cudaFuncSetAttribute') == 1  # the helper's, for every B8 launcher
-    assert text.count('opt_in_smem(int8_conv') == 2
+    assert text.count('cudaFuncSetAttribute') == 1  # the helper's
+    conv = (kernel_build.CSRC_DIR / 'int8_conv.cu').read_text()
+    assert conv.count('opt_in_smem(int8_conv') == 2  # both B8 launchers
+
+
+def test_every_int8_smem_opt_in_is_the_shared_helper():
+    """Every ``cudaFuncSetAttribute`` of the int8 sources sits in the shared
+    once-per-device helper: no ``csrc/int8_*.cu`` calls it itself (setting it
+    on every launch costs host time where a launch is host-bound), and each
+    launcher of a kernel with dynamic shared memory opts in through
+    ``opt_in_smem`` with a per-instance device mask."""
+    sources = sorted(kernel_build.CSRC_DIR.glob('int8_*.cu'))
+    assert [p.name for p in sources] == ['int8_block.cu', 'int8_conv.cu']
+    for src in sources:
+        text = src.read_text()
+        assert 'cudaFuncSetAttribute' not in text, src.name
+        launches = re.findall(r'<<<[^>]*>>>', text)
+        dynamic = [l for l in launches if l.count(',') >= 3 and ', 0,' not in l]
+        assert dynamic, src.name
+        assert text.count('opt_in_smem(') == len(dynamic), (src.name, dynamic)
+        assert text.count('static unsigned long long devices_set = 0;') == len(dynamic)

@@ -50,13 +50,16 @@
 //     gather does one division per step (K index -> tap, channel) and none
 //     per row.
 //
-// The same source holds the activation quantize that feeds it,
+// The same source holds the activation quantize that feeds it, which replaces
+// XLA's elementwise _quantize_act (visualdet3d_tpu/models/quant.py:396; no
+// Pallas kernel),
 //
 //   xq = clip(rint(x * inv[i % n_inv]), -127, 127)       (s8; x f32 or bf16)
 //
 // one pass over the activation (read once, written once as s8; memory-bound),
 // with the product rounded on its own (__fmul_rn), as torch rounds
-// x.float() * inv before its round and clamp.
+// x.float() * inv before its round and clamp; its design is described before
+// its kernel below.
 //
 // Plain C interface for ctypes; each entry returns the cudaError_t of the
 // launch (0 on success). The launch goes on the caller's stream and does not
@@ -287,23 +290,6 @@ __global__ void __launch_bounds__(kThreads) int8_conv_kernel(Conv p) {
   }
 }
 
-// A kernel's dynamic shared-memory opt-in, set once per device: the
-// attribute holds for the current device only, and setting it on every
-// launch costs host time where B8 is host-bound (K9(a)). `devices_set` is
-// the caller's per-instance mask of the devices done (a device past 63 is
-// set on every launch).
-template <typename Kernel>
-cudaError_t opt_in_smem(Kernel kernel, int bytes, unsigned long long& devices_set) {
-  int device = 0;
-  cudaError_t e = cudaGetDevice(&device);
-  if (e != cudaSuccess) return e;
-  const unsigned long long bit = device < 64 ? 1ull << device : 0ull;
-  if (bit != 0 && (devices_set & bit) != 0) return cudaSuccess;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e == cudaSuccess) devices_set |= bit;
-  return e;
-}
-
 template <int VEC, int EPI, int BN>
 cudaError_t launch_tile(const Conv& p, cudaStream_t stream) {
   constexpr int smem = kStages * (kBM + BN) * kRow;
@@ -394,50 +380,6 @@ struct TmaConv {
   int stage_bytes, bar_offset, out_vec;  // out_vec: N * element size % 16 == 0
 };
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
 // wgmma shared-memory descriptor of a K-major tile whose rows are BK bytes
 // (BK = the swizzle span): start address, LBO 1 (unused when swizzled), SBO
 // = 8 rows, the swizzle (1: 128 B, 2: 64 B, 3: 32 B). The start address
@@ -446,39 +388,6 @@ __device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, int bk) {
   const uint64_t layout = bk == 128 ? 1 : (bk == 64 ? 2 : 3);
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
          ((uint64_t)((8 * bk) >> 4) << 32) | (layout << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void named_barrier(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-// D[64 x 64] += A[64 x 32] . B[64 x 32]^T (s8 x s8 -> s32), both K-major
-__device__ __forceinline__ void wgmma_s8_n64(int (&d)[32], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
-        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
-        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
-        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
-        "+r"(d[30]), "+r"(d[31])
-      : "l"(a), "l"(b), "r"(1));
 }
 
 // D[64 x 128] += A[64 x 32] . B[128 x 32]^T (s8 x s8 -> s32), both K-major
@@ -740,31 +649,6 @@ __global__ void __launch_bounds__(256) int8_conv_finalize_kernel(const int* __re
     out[i] = epilogue_value<EPI>(acc[i], p.scale, p.bias, (int)(i % p.N));
 }
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver through the runtime, so that the
-// library needs no -lcuda.
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                           cudaEnableDefault, &found);
-#else
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(ptr);
-  }
-  return fn;
-}
-
 CUtensorMapSwizzle swizzle_of(int bk) {
   return bk == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
                    : (bk == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B);
@@ -806,6 +690,32 @@ cudaError_t launch_wgmma_epi(const CUtensorMap& xmap, const CUtensorMap& wmap, c
   }
 }
 
+// ---------------------------------------------------------------------------
+// The activation quantize: one streaming pass, bound by device memory (2 or 4
+// bytes read and 1 written an element, nothing reused).
+//
+//   * The body goes in vectors of 16 elements: 2 (bf16) or 4 (f32) 16-byte
+//     loads issued together, then one 16-byte store of the 16 s8 values.
+//   * A base of x that is not 16-byte aligned (a slice of a larger tensor)
+//     is taken: a scalar head up to x's first 16-byte boundary, the body, a
+//     scalar tail. Where the head leaves the output unaligned, the body
+//     stores byte by byte.
+//   * The channel of a vector is found without a modulo per element: a
+//     thread computes its first vector's channel once; the grid is rounded
+//     to a whole number of channel periods (the stride between a thread's
+//     vectors a multiple of n_inv) where that keeps at least half the
+//     blocks, and then the thread's 16 scales stay in registers; otherwise
+//     its channel moves by a fixed step and wraps.
+//   * kQBlocksPerSm blocks of 256 threads an SM (the card's count), grid
+//     stride. The arithmetic is the plain version's: __fmul_rn(x, inv),
+//     rintf, clip to +-127.
+// tests/test_torch_int8_block_tiles.py (quantize_plan) mirrors the split and the grid.
+// ---------------------------------------------------------------------------
+
+constexpr int kQVec = 16;       // elements of a vector: one 16-byte store
+constexpr int kQThreads = 256;
+constexpr int kQBlocksPerSm = 8;
+
 template <typename T>
 __device__ __forceinline__ float to_f32(T v);
 template <>
@@ -820,46 +730,151 @@ __device__ __forceinline__ int8_t quantize_one(float x, float inv) {
   return (int8_t)__float2int_rn(q);
 }
 
-// Four values a thread, grid-stride; n_inv is 1 (a per-tensor scale) or the
-// channel count of the innermost axis.
-template <typename T>
-__global__ void __launch_bounds__(256) quantize_kernel(const T* __restrict__ x,
-                                                       const float* __restrict__ inv,
-                                                       int8_t* __restrict__ out, long long n,
-                                                       int n_inv) {
-  const long long stride = (long long)gridDim.x * blockDim.x * 4;
-  for (long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * 4; i < n; i += stride) {
-    if (i + 4 <= n && n_inv % 4 == 0) {
-      const int c = (int)(i % n_inv);
-      char4 q;
-      q.x = quantize_one(to_f32(x[i]), inv[c]);
-      q.y = quantize_one(to_f32(x[i + 1]), inv[c + 1]);
-      q.z = quantize_one(to_f32(x[i + 2]), inv[c + 2]);
-      q.w = quantize_one(to_f32(x[i + 3]), inv[c + 3]);
-      *reinterpret_cast<char4*>(out + i) = q;
-    } else if (i + 4 <= n && n_inv == 1) {
-      const float s = inv[0];
-      char4 q;
-      q.x = quantize_one(to_f32(x[i]), s);
-      q.y = quantize_one(to_f32(x[i + 1]), s);
-      q.z = quantize_one(to_f32(x[i + 2]), s);
-      q.w = quantize_one(to_f32(x[i + 3]), s);
-      *reinterpret_cast<char4*>(out + i) = q;
-    } else {
-      for (long long j = i; j < i + 4 && j < n; ++j)
-        out[j] = quantize_one(to_f32(x[j]), inv[j % n_inv]);
+// 16 values from a 16-byte aligned address, all loads issued first.
+__device__ __forceinline__ void load_vec(const float* p, float (&v)[kQVec]) {
+  const uint4* q = reinterpret_cast<const uint4*>(p);
+  uint4 r[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) r[i] = __ldg(q + i);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[4 * i] = __uint_as_float(r[i].x);
+    v[4 * i + 1] = __uint_as_float(r[i].y);
+    v[4 * i + 2] = __uint_as_float(r[i].z);
+    v[4 * i + 3] = __uint_as_float(r[i].w);
+  }
+}
+
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float (&v)[kQVec]) {
+  const uint4* q = reinterpret_cast<const uint4*>(p);
+  uint4 r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) r[i] = __ldg(q + i);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const uint32_t w[4] = {r[i].x, r[i].y, r[i].z, r[i].w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {  // a bf16 is the top half of its f32
+      v[8 * i + 2 * k] = __uint_as_float(w[k] << 16);
+      v[8 * i + 2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
     }
   }
+}
+
+// The scales of channels c, c + 1, ... (wrapping at n_inv) for one vector.
+__device__ __forceinline__ void load_scales(float (&s)[kQVec], const float* inv, int c,
+                                            int n_inv) {
+#pragma unroll
+  for (int e = 0; e < kQVec; ++e) {
+    s[e] = __ldg(inv + c);
+    if (++c == n_inv) c = 0;
+  }
+}
+
+template <typename T, bool kPerChannel>
+__global__ void __launch_bounds__(kQThreads) quantize_kernel(const T* __restrict__ x,
+                                                             const float* __restrict__ inv,
+                                                             int8_t* __restrict__ out,
+                                                             long long n, int n_inv,
+                                                             long long head, long long n_vec,
+                                                             int phase_step) {
+  const long long tid = (long long)blockIdx.x * kQThreads + threadIdx.x;
+  const long long threads = (long long)gridDim.x * kQThreads;
+  // the head [0, head) and the tail [head + 16 n_vec, n), element by element
+  const long long tail0 = head + n_vec * kQVec;
+  const long long scalars = head + (n - tail0);
+  for (long long k = tid; k < scalars; k += threads) {
+    const long long i = k < head ? k : tail0 + (k - head);
+    out[i] = quantize_one(to_f32(x[i]), __ldg(inv + (kPerChannel ? i % n_inv : 0)));
+  }
+  if (tid >= n_vec) return;
+  const T* xb = x + head;
+  int8_t* ob = out + head;
+  const bool out_aligned = (reinterpret_cast<uintptr_t>(ob) & 15) == 0;
+  float s[kQVec];
+  int c = 0;
+  if constexpr (kPerChannel) {
+    c = (int)((head + tid * kQVec) % n_inv);  // once a thread
+    load_scales(s, inv, c, n_inv);
+  } else {
+    const float s0 = __ldg(inv);
+#pragma unroll
+    for (int e = 0; e < kQVec; ++e) s[e] = s0;
+  }
+  for (long long v = tid; v < n_vec; v += threads) {
+    float xv[kQVec];
+    load_vec(xb + v * kQVec, xv);
+    uint32_t w[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      w[k] = 0;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        w[k] |= (uint32_t)(uint8_t)quantize_one(xv[4 * k + e], s[4 * k + e]) << (8 * e);
+    }
+    int8_t* o = ob + v * kQVec;
+    if (out_aligned) {
+      *reinterpret_cast<uint4*>(o) = make_uint4(w[0], w[1], w[2], w[3]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[4 * k + e] = (int8_t)(w[k] >> (8 * e));
+    }
+    if constexpr (kPerChannel) {
+      if (phase_step != 0) {
+        c += phase_step;
+        if (c >= n_inv) c -= n_inv;
+        load_scales(s, inv, c, n_inv);
+      }
+    }
+  }
+}
+
+long long gcd_ll(long long a, long long b) {
+  while (b != 0) {
+    const long long r = a % b;
+    a = b;
+    b = r;
+  }
+  return a;
 }
 
 template <typename T>
 int launch_quantize(const void* x, const void* inv, void* out, long long n, int n_inv,
                     void* stream) {
-  long long blocks = (n + 1023) / 1024;
-  if (blocks > 132LL * 16) blocks = 132LL * 16;
-  quantize_kernel<T><<<(unsigned)blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const float*>(inv), static_cast<int8_t*>(out), n,
-      n_inv);
+  const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
+  // elements before x's first 16-byte boundary (all of them for a base that
+  // is not even element-aligned)
+  long long head = xa % sizeof(T) ? n : (long long)((16 - xa % 16) % 16 / sizeof(T));
+  if (head > n) head = n;
+  const long long n_vec = (n - head) / kQVec;
+  const long long scalars = n - n_vec * kQVec;
+  int device = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return (int)e;
+  const long long work = n_vec > scalars ? n_vec : scalars;
+  long long blocks = (work + kQThreads - 1) / kQThreads;
+  if (blocks > (long long)sms * kQBlocksPerSm) blocks = (long long)sms * kQBlocksPerSm;
+  if (blocks < 1) blocks = 1;
+  int phase_step = 0;
+  if (n_inv > 1) {
+    const long long period = n_inv / gcd_ll(n_inv, (long long)kQVec * kQThreads);
+    if (blocks >= period) blocks = blocks / period * period;
+    phase_step = (int)((long long)kQVec * kQThreads * blocks % n_inv);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const T* xt = static_cast<const T*>(x);
+  const float* it = static_cast<const float*>(inv);
+  int8_t* ot = static_cast<int8_t*>(out);
+  if (n_inv > 1) {
+    quantize_kernel<T, true><<<(unsigned)blocks, kQThreads, 0, s>>>(xt, it, ot, n, n_inv, head,
+                                                                    n_vec, phase_step);
+  } else {
+    quantize_kernel<T, false><<<(unsigned)blocks, kQThreads, 0, s>>>(xt, it, ot, n, n_inv, head,
+                                                                     n_vec, phase_step);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -867,12 +882,11 @@ int launch_quantize(const void* x, const void* inv, void* out, long long n, int 
 
 extern "C" {
 
-// x [n] f32 (x_bf16 = 0) or bf16 (1), inv [n_inv] f32, out [n] s8; the
-// innermost axis of x has n_inv values when n_inv > 1.
+// x [n] f32 (x_bf16 = 0) or bf16 (1), any base; inv [n_inv] f32; out [n] s8;
+// the innermost axis of x has n_inv values when n_inv > 1.
 int vd3d_int8_quantize(const void* x, const void* inv, void* out, long long n, int n_inv,
                        int x_bf16, void* stream) {
   if (n <= 0 || n_inv <= 0 || n % n_inv) return (int)cudaErrorInvalidValue;
-  if (reinterpret_cast<uintptr_t>(out) % 4) return (int)cudaErrorMisalignedAddress;
   return x_bf16 ? launch_quantize<__nv_bfloat16>(x, inv, out, n, n_inv, stream)
                 : launch_quantize<float>(x, inv, out, n, n_inv, stream);
 }

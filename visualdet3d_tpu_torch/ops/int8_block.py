@@ -15,20 +15,68 @@ kernel. The block is the hand-written CUDA kernel ``csrc/int8_block.cu``
 is a pass of its own (``int8_conv.quantize_act``), as JAX computes it
 outside its kernel. The wrapper takes the plain PyTorch version
 only for tensors on the CPU; a CUDA tensor launches the kernel or raises.
-Launches are counted in ``LAUNCHES``.
+Launches are counted in ``LAUNCHES``. :func:`block_plan` mirrors the
+kernel's tiles, its flat-row layout and its grid.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
+from typing import NamedTuple
 
 import torch
 
 from visualdet3d_tpu_torch.ops import kernel_build
-from visualdet3d_tpu_torch.ops.int8_conv import int8_conv2d_plain
+from visualdet3d_tpu_torch.ops.int8_conv import _sm_count, int8_conv2d_plain
 
 CHANNELS = 64  # the kernel's channel count
 LAUNCHES = {'int8_basic_block': 0}
+
+SMS = 132                 # streaming multiprocessors of an H100 SXM: the plan's default
+TILE_H, TILE_W = 6, 64    # the kernel's output tile (TH, TW)
+PITCH = TILE_W + 4        # row pitch of the staged input and of hq, pixels (P)
+CONSUMER_WARPGROUPS = 3
+
+
+class BlockPlan(NamedTuple):
+    """How ``csrc/int8_block.cu`` runs one shape (see :func:`block_plan`)."""
+    tile_h: int
+    tile_w: int
+    pitch: int           # P: tap (ky, kx) of flat position q is staged position q + ky*P + kx
+    tiles_y: int
+    tiles_x: int
+    tiles: int           # B * tiles_y * tiles_x, walked by the persistent blocks in turn
+    grid: int            # persistent blocks: the SMs, at most the tiles
+    units1: int          # conv1's 64-position units over the flat (TH + 2) x P region
+    units2: int          # conv2's units: one an output row
+    x_positions: int     # positions of one staged channel plane
+    h_positions: int     # positions of one hq channel plane
+    smem: int            # dynamic shared memory of a block, bytes
+    threads: int
+
+
+@functools.lru_cache(maxsize=1024)
+def block_plan(b: int, h: int, w: int, sms: int = SMS) -> BlockPlan:
+    """The fused block kernel's tiles, layout and grid for a [b, h, w, 64]
+    input, mirroring the constants and the launcher of
+    ``csrc/int8_block.cu``: output tiles of ``TILE_H`` rows x ``TILE_W``
+    pixels; the staged input (2-pixel halo, ``TILE_H + 4`` rows) and hq
+    (1-pixel halo) in 16-byte channel planes with the row pitch ``PITCH``;
+    conv1 in 64-position units over the flat region, conv2 one unit an
+    output row; both weight sets, a 2-stage ring of staged tiles, hq, an
+    output staging buffer of 64 x 128 bytes a consumer warpgroup, the
+    parameters and four mbarriers, plus 128 bytes to align the base."""
+    tiles_y, tiles_x = math.ceil(h / TILE_H), math.ceil(w / TILE_W)
+    tiles = b * tiles_y * tiles_x
+    units1 = math.ceil((TILE_H + 2) * PITCH / 64)
+    x_positions = (64 * units1 + 2 * PITCH + 2 + 7) // 8 * 8
+    h_positions = 64 * units1
+    c = CHANNELS
+    smem = (2 * 9 * c * c + 2 * 4 * x_positions * 16 + 4 * h_positions * 16
+            + CONSUMER_WARPGROUPS * 64 * 128 + 6 * c * 4 + 4 * 8 + 128)
+    return BlockPlan(TILE_H, TILE_W, PITCH, tiles_y, tiles_x, tiles, min(tiles, sms), units1,
+                     TILE_H, x_positions, h_positions, smem, 128 * CONSUMER_WARPGROUPS + 32)
 
 _PAD1 = ((1, 1), (1, 1))
 
@@ -102,16 +150,22 @@ def int8_basic_block(xq: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, param
     _check(w2, 'int8_basic_block(w2)', torch.int8, (c, 3, 3, c))
     _check(params, 'int8_basic_block(params)', torch.float32, (6, c))
     b, h, w, _ = xq.shape
+    index = xq.get_device()
+    if any(t.get_device() != index for t in (w1, w2, params)):
+        raise ValueError(f'int8_basic_block: inputs on {xq.device}, {w1.device}, {w2.device}, '
+                         f'{params.device}')
     out = torch.empty((b, h, w, c), dtype=out_dtype, device=xq.device)
     if out.numel() == 0:
         return out
     lib = _int8_block_lib()
-    with torch.cuda.device(xq.device):
-        stream = torch.cuda.current_stream(xq.device).cuda_stream
-        sms = torch.cuda.get_device_properties(xq.device).multi_processor_count
-        rc = lib.vd3d_int8_basic_block(xq.data_ptr(), w1.data_ptr(), w2.data_ptr(),
-                                       params.data_ptr(), out.data_ptr(), b, h, w,
-                                       int(out_dtype == torch.bfloat16), sms, stream)
+    plan = block_plan(b, h, w, _sm_count(index))
+    args = (xq.data_ptr(), w1.data_ptr(), w2.data_ptr(), params.data_ptr(), out.data_ptr(),
+            b, h, w, out_dtype is torch.bfloat16, plan.grid)
+    if index == torch.cuda.current_device():
+        rc = lib.vd3d_int8_basic_block(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = lib.vd3d_int8_basic_block(*args, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         raise RuntimeError(f'fused int8 block kernel launch failed: '
                            f'{lib.vd3d_cuda_error_string(rc).decode()} (cudaError {rc}); '

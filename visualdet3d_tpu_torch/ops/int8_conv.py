@@ -71,16 +71,24 @@ def quantize_act_plain(x: torch.Tensor, inv_scale: torch.Tensor) -> torch.Tensor
     return torch.clamp(torch.round(x.float() * inv_scale), -127, 127).to(torch.int8)
 
 
+_QUANT_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def quantize_act(x: torch.Tensor, inv_scale: torch.Tensor) -> torch.Tensor:
     """Symmetric int8 quantization of an activation: ``x`` (f32 or bf16)
     times the f32 reciprocal of its scale (never a division: ``x / a`` and
     ``x * (1/a)`` differ by an ulp at round ties and flip int8 levels),
     rounded half to even, clipped to +-127. ``inv_scale`` is a scalar or one
     value per channel of the innermost axis. The CUDA kernel on the card
-    (``x`` contiguous); the plain version for CPU tensors."""
+    (``x`` contiguous, any base); the plain version for CPU tensors.
+
+    The wrapper is on the int8 predict's host path (one call a quantized
+    conv), so it takes few host steps: the library's entry point is bound
+    once, the stream is read raw, and a device context is entered only when
+    ``x`` is not on the current device. Nothing that can go stale is kept."""
     if x.device.type == 'cpu' and inv_scale.device.type == 'cpu':
         return quantize_act_plain(x, inv_scale)
-    if x.dtype not in (torch.float32, torch.bfloat16):
+    if x.dtype not in _QUANT_DTYPES:
         raise TypeError(f'quantize_act: the kernel takes float32 or bfloat16, got {x.dtype}')
     if x.device.type != 'cuda' or not x.is_contiguous():
         raise ValueError(f'quantize_act: expected a contiguous CUDA tensor, got one on '
@@ -90,18 +98,25 @@ def quantize_act(x: torch.Tensor, inv_scale: torch.Tensor) -> torch.Tensor:
     if inv_scale.dim() > 1 or (n_inv > 1 and (x.dim() == 0 or x.shape[-1] != n_inv)):
         raise ValueError(f'quantize_act: inv_scale of shape {tuple(inv_scale.shape)} for x of '
                          f'shape {tuple(x.shape)}')
+    index = x.get_device()
+    if inv_scale.get_device() != index:
+        raise ValueError(f'quantize_act: inv_scale on {inv_scale.device}, x on {x.device}')
     out = torch.empty(x.shape, dtype=torch.int8, device=x.device)
-    if out.numel() == 0:
+    n = out.numel()
+    if n == 0:
         return out
-    lib = _int8_conv_lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.vd3d_int8_quantize(x.data_ptr(), inv_scale.data_ptr(), out.data_ptr(),
-                                    x.numel(), n_inv, int(x.dtype == torch.bfloat16), stream)
+    fn = _quantize_entry()
+    args = (x.data_ptr(), inv_scale.data_ptr(), out.data_ptr(), n, n_inv,
+            x.dtype is torch.bfloat16)
+    if index == torch.cuda.current_device():
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         raise RuntimeError(f'int8 quantize kernel launch failed: '
-                           f'{lib.vd3d_cuda_error_string(rc).decode()} (cudaError {rc}); '
-                           f'x {tuple(x.shape)} {x.dtype}')
+                           f'{_int8_conv_lib().vd3d_cuda_error_string(rc).decode()} '
+                           f'(cudaError {rc}); x {tuple(x.shape)} {x.dtype}')
     LAUNCHES['int8_quantize'] += 1
     return out
 
@@ -224,6 +239,12 @@ def _int8_conv_lib() -> ctypes.CDLL:
     lib.vd3d_cuda_error_string.argtypes = [ctypes.c_int]
     lib.vd3d_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _quantize_entry():
+    """The quantize kernel's C entry, bound once (its argument types set)."""
+    return _int8_conv_lib().vd3d_int8_quantize
 
 
 @functools.lru_cache(maxsize=None)
