@@ -12,11 +12,16 @@ each printed as one JSON line:
    every CUDA kernel of the paths from the sources in the checkout
    (``csrc/correlation.cu``, ``csrc/deform_conv.cu``, ``csrc/int8_conv.cu``,
    ``csrc/int8_block.cu``, one ``nvcc`` each, started together);
-2. kernel, kernel_edges: both correlation kernels against their plain
-   PyTorch version at the stereo path's shapes (batch 16, 288x1280), f32
-   and bf16, with their time (CUDA events, median over distinct inputs), the
-   plain version's time and the least time the card could take
-   (``bound_ms``), and ragged edge cases;
+2. kernel, kernel_per_forward, kernel_edges: both correlation kernels
+   against their plain PyTorch version at the stereo path's shapes (batch
+   16, 288x1280), f32 and bf16, with their time (CUDA events, median over
+   distinct inputs; and device time from CUDA graphs), the plain version's
+   time, one ``torch.bmm`` of every (pair, row) as a yardstick (the whole
+   L . R^T, not the same function), the least time the card could take
+   (``bound_ms``) and the share of it reached; then ragged edge cases in
+   both dtypes (ragged and several column tiles, D > W, two disparity
+   chunks, channels over several stages, C off the 16-byte pieces, an
+   unaligned right eye);
 3. slice, profile, parity: ``Stereo3D.predict`` (ResNet-34 at 288x1280) at
    batch 16 in f32 and bf16 over distinct request batches: ms per batch,
    fps, batch-1 p50 latency, valid detections, the correlation launches
@@ -36,8 +41,9 @@ each printed as one JSON line:
    dcn_premul_edges: the lerp-accumulate kernel (K6) against its plain
    version on the same pre-multiplied table (bit for bit) and the whole
    premul op (cuBLAS table + K6) against its plain version at the 8 proj
-   shapes, with the times of the table, K6, the op and the per-tap kernel
-   on the same shapes, and edge cases;
+   shapes, with the times of the table, K6 (events and device time), the op
+   and the per-tap kernel on the same shapes, K6's share of its bound, and
+   edge cases (the generic instance at 4 and 25 taps among them);
 5. km3d_slice, km3d_profile, km3d_parity: ``KM3D.predict`` (DLA-34, the DCN
    neck, ``head_features=256``) at batch 16 in f32 and bf16 over distinct
    request batches, with exactly 16 DCN launches per ``predict``; a
@@ -241,7 +247,8 @@ def kernel_phase(torch, cv, peaks):
     for dtype_name, dtype in (('f32', torch.float32), ('bf16', torch.bfloat16)):
         for kernel in ('correlation_volume_interleaved', 'correlation_volume'):
             results[(kernel, dtype_name)] = {
-                'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0, 'max_abs_err': 0.0,
+                'ms': 0.0, 'graph_ms': 0.0, 'plain_ms': 0.0, 'bmm_ms': 0.0, 'bound_ms': 0.0,
+                'max_abs_err': 0.0,
                 'bytes_bound_ms': 0.0, 'ops_bound_ms': 0.0, 'per_shape': {}}
         for shape_name, (h, w, c, d) in shapes.items():
             inputs = [torch.randn((2 * BATCH, h, w, c), generator=gen, device='cuda').to(dtype)
@@ -261,6 +268,12 @@ def kernel_phase(torch, cv, peaks):
             }
             plain_ms = cuda_ms(lambda x: cv.correlation_volume_plain(x[0::2], x[1::2], d),
                                inputs, warmup=1)
+            # yardstick, not the same function: the whole L . R^T of every
+            # (pair, row), [W, C] x [C, W], of which the kernel keeps the band
+            rows = [(x[0::2].reshape(-1, w, c), x[1::2].reshape(-1, w, c).transpose(1, 2))
+                    for x in inputs]
+            bmm_ms = cuda_ms(lambda lr: torch.bmm(*lr), rows)
+            del rows
             for kernel, (fn, args) in runs.items():
                 out = fn(args[0])
                 torch.cuda.synchronize()
@@ -278,38 +291,79 @@ def kernel_phase(torch, cv, peaks):
                 check(tol_ok, f'{kernel} {dtype_name} {shape_name}: max abs err {max_err} '
                               f'outside {tol}')
                 ms = cuda_ms(fn, args)
+                dev_ms = graph_ms(fn, args[:4])  # device time: no host time in it
                 r = results[(kernel, dtype_name)]
                 r['per_shape'][shape_name] = dict(
-                    input=[2 * BATCH, h, w, c], num_disp=d, ms=ms, plain_ms=plain_ms,
-                    bound_ms=max(bytes_ms, ops_ms), max_abs_err=max_err,
-                    achieved_gbps=n_bytes / (ms * 1e-3) / 1e9)
+                    input=[2 * BATCH, h, w, c], num_disp=d, ms=ms, graph_ms=dev_ms,
+                    plain_ms=plain_ms,
+                    bound_ms=max(bytes_ms, ops_ms), share_of_bound=max(bytes_ms, ops_ms) / ms,
+                    share_of_bound_device=max(bytes_ms, ops_ms) / dev_ms, bmm_ms=bmm_ms,
+                    max_abs_err=max_err, achieved_gbps=n_bytes / (ms * 1e-3) / 1e9)
                 r['ms'] += ms
+                r['graph_ms'] += dev_ms
                 r['plain_ms'] += plain_ms
+                r['bmm_ms'] += bmm_ms
                 r['bytes_bound_ms'] += bytes_ms
                 r['ops_bound_ms'] += ops_ms
                 r['max_abs_err'] = max(r['max_abs_err'], max_err)
                 emit('kernel', kernel=kernel, dtype=dtype_name, shape=shape_name,
-                     max_abs_err=max_err, tolerance=tol, ms=ms, plain_ms=plain_ms,
-                     bound_ms=max(bytes_ms, ops_ms), bytes=n_bytes, flops=n_flops)
+                     max_abs_err=max_err, tolerance=tol, ms=ms, graph_ms=dev_ms,
+                     plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+                     share_of_bound=max(bytes_ms, ops_ms) / ms,
+                     share_of_bound_device=max(bytes_ms, ops_ms) / dev_ms, bmm_ms=bmm_ms,
+                     bytes=n_bytes, flops=n_flops)
             del inputs, split, ref
-    for r in results.values():
+    for (kernel, dtype_name), r in results.items():
         r['bound_ms'] = max(r['bytes_bound_ms'], r['ops_bound_ms'])
         r['bound_by'] = 'bytes' if r['bytes_bound_ms'] >= r['ops_bound_ms'] else 'operations'
+        r['share_of_bound'] = r['bound_ms'] / r['ms']
+        r['share_of_bound_device'] = r['bound_ms'] / r['graph_ms']
+        emit('kernel_per_forward', kernel=kernel, dtype=dtype_name, ms=r['ms'],
+             graph_ms=r['graph_ms'], bound_ms=r['bound_ms'], bound_by=r['bound_by'],
+             share_of_bound=r['share_of_bound'],
+             share_of_bound_device=r['share_of_bound_device'], bmm_ms=r['bmm_ms'],
+             plain_ms=r['plain_ms'])
     return results
 
 
+EDGE_CASES = (  # (2B, H, W, C, D), what each reaches
+    ((4, 3, 45, 16, 8), 'W=45 (one ragged tile, idle warps)'),
+    ((2, 2, 5, 8, 12), 'D=12 > W=5'),
+    ((2, 2, 150, 64, 24), 'W=150 (three tiles, the halo across them)'),
+    ((2, 1, 70, 136, 30), 'D=30 (two chunks of 15), C=136 (three stages)'),
+    ((2, 3, 33, 12, 7), 'C=12 (no 16-byte copies in bf16), D=7'),
+)
+
+
 def edge_case_phase(torch, cv):
-    """Ragged edges the main path does not reach: W not a multiple of the
-    32-column tile and D > W; separate eyes and interleaved."""
+    """Ragged edges the main path does not reach, f32 and bf16 with the
+    main path's gates: W not a multiple of the 64-column tile, D > W,
+    several tiles a row, two disparity chunks, channels over several stages,
+    C off the 16-byte pieces, an unaligned right eye; separate eyes and
+    interleaved."""
     gen = torch.Generator(device='cuda').manual_seed(2)
-    for b2, h, w, c, d in ((4, 3, 45, 16, 8), (2, 2, 5, 8, 12)):
-        both = torch.randn((b2, h, w, c), generator=gen, device='cuda')
-        ref = cv.correlation_volume_plain(both[0::2], both[1::2], d)
-        for out in (cv.correlation_volume_interleaved(both, d),
-                    cv.correlation_volume(both[0::2].contiguous(), both[1::2].contiguous(), d)):
-            err = float((out - ref).abs().max())
-            check(err <= 1e-5, f'edge case {(b2, h, w, c, d)}: max abs err {err}')
-    emit('kernel_edges', ok=True, cases=['W=45 (ragged tile)', 'D=12 > W=5'])
+    for dtype in (torch.float32, torch.bfloat16):
+        for (b2, h, w, c, d), name in EDGE_CASES:
+            both = torch.randn((b2, h, w, c), generator=gen, device='cuda').to(dtype)
+            ref = cv.correlation_volume_plain(both[0::2].float(), both[1::2].float(), d)
+            for out in (cv.correlation_volume_interleaved(both, d),
+                        cv.correlation_volume(both[0::2].contiguous(), both[1::2].contiguous(),
+                                              d)):
+                err = (out.float() - ref).abs()
+                ok = bool(err.max() <= 1e-5) if dtype == torch.float32 else bool(
+                    (err <= bf16_ulp(ref) + 1e-5).all())
+                check(ok, f'edge case {name} {dtype}: max abs err {float(err.max())}')
+        # separate eyes, the right one a tensor one element off 16-byte alignment
+        left = torch.randn((1, 2, 40, 64), generator=gen, device='cuda').to(dtype)
+        right = torch.empty(left.numel() + 1, dtype=dtype, device='cuda')[1:].view(left.shape)
+        right.copy_(torch.randn(left.shape, generator=gen, device='cuda'))
+        ref = cv.correlation_volume_plain(left.float(), right.float(), 24)
+        err = (cv.correlation_volume(left, right, 24).float() - ref).abs()
+        ok = bool(err.max() <= 1e-5) if dtype == torch.float32 else bool(
+            (err <= bf16_ulp(ref) + 1e-5).all())
+        check(ok, f'edge case unaligned right eye {dtype}: max abs err {float(err.max())}')
+    emit('kernel_edges', ok=True, cases=[name for _, name in EDGE_CASES] + [
+        'the right eye off 16-byte alignment (separate eyes)'], dtypes=['float32', 'bfloat16'])
 
 
 def slice_phase(torch, cv, system, dtype_name):
@@ -365,15 +419,20 @@ def slice_phase(torch, cv, system, dtype_name):
 
 
 def profile_phase(torch, system, batch, P2, dtype_name):
-    """Kernel time by name for one batch-16 predict, and the device's busy
-    share of the wall time."""
+    """Kernel time by name for one batch-16 predict, the correlation
+    kernel's (K1's) device time in it, and the device's busy share of the
+    wall time."""
     system.cfg.inference_dtype = dtype_name
     system.predict(*batch, P2)
     torch.cuda.synchronize()
     wall_ms, kernels, ops, device_ms = device_profile(torch, lambda: system.predict(*batch, P2))
+    k1 = [e for e in kernels if 'correlation_kernel' in e.key]
+    check(sum(e.count for e in k1) == 2, f'profile {dtype_name}: {sum(e.count for e in k1)} '
+                                         'correlation kernels in one predict, not 2')
     emit('profile', dtype=dtype_name, wall_ms=wall_ms, device_ms=device_ms,
-         device_busy_share=device_ms / wall_ms, top_ops=top_events(ops, 12),
-         top_kernels=top_events(kernels, 12))
+         device_busy_share=device_ms / wall_ms,
+         correlation_ms=sum(e.self_device_time_total for e in k1) / 1e3,
+         top_ops=top_events(ops, 12), top_kernels=top_events(kernels, 12))
 
 
 def parity_phase(torch, system):
@@ -777,10 +836,9 @@ def dcn_premul_kernel_phase(torch, dc, peaks):
     bound (bytes)."""
     bw, f32_peak, bf16_peak = peaks
     gen = torch.Generator(device='cuda').manual_seed(33)
-    tot = dict(ms=0.0, table_ms=0.0, op_ms=0.0, b4_ms=0.0, plain_ms=0.0, op_plain_ms=0.0,
-               bytes_ms=0.0,
-               ops_ms=0.0, table_bound_ms=0.0, max_abs_err=0.0, min_share_2ulp=1.0,
-               per_shape={})
+    tot = dict(ms=0.0, graph_ms=0.0, table_ms=0.0, op_ms=0.0, b4_ms=0.0, plain_ms=0.0,
+               op_plain_ms=0.0, bytes_ms=0.0, ops_ms=0.0, table_bound_ms=0.0, max_abs_err=0.0,
+               min_share_2ulp=1.0, per_shape={})
     for count, h, w, c_in, c_out in DCN_PROJ_SHAPES:
         with dcn_switches(premul=True):
             variant = dc.forward_variant(h * w, c_in, c_out, torch.bfloat16)
@@ -796,6 +854,8 @@ def dcn_premul_kernel_phase(torch, dc, peaks):
         table_ms = cuda_ms(lambda a: dc.premul_table(a[0], weight), runs)
         ms = cuda_ms(lambda i: dc.premul_lerp_accumulate(tables[i], *runs[i][1:], bias),
                      list(range(len(runs))))
+        dev_ms = graph_ms(lambda i: dc.premul_lerp_accumulate(tables[i], *runs[i][1:], bias),
+                          list(range(min(4, len(runs)))))
         plain_ms = cuda_ms(lambda i: dc.premul_lerp_accumulate_plain(tables[i], *runs[i][1:],
                                                                      bias), [0, 1, 2], warmup=1)
         del tables
@@ -812,15 +872,18 @@ def dcn_premul_kernel_phase(torch, dc, peaks):
         bytes_ms, ops_ms = n_bytes / bw * 1e3, n_flops / f32_peak * 1e3
         table_bound = max(2 * (pixels * c_in + 9 * c_in * c_out + pixels * 9 * c_out) / bw,
                           2 * pixels * c_in * 9 * c_out / bf16_peak) * 1e3
-        shape = dict(count=count, x=[BATCH, h, w, c_in], c_out=c_out, ms=ms, table_ms=table_ms,
+        shape = dict(count=count, x=[BATCH, h, w, c_in], c_out=c_out, ms=ms, graph_ms=dev_ms,
+                     table_ms=table_ms,
                      op_ms=op_ms, b4_ms=b4_ms, plain_ms=plain_ms, op_plain_ms=op_plain_ms,
-                     bound_ms=max(bytes_ms, ops_ms),
+                     bound_ms=max(bytes_ms, ops_ms), share_of_bound=max(bytes_ms, ops_ms) / ms,
+                     share_of_bound_device=max(bytes_ms, ops_ms) / dev_ms,
                      bound_by='bytes' if bytes_ms >= ops_ms else 'operations',
                      table_bound_ms=table_bound, max_abs_err=err, share_within_2ulp=share,
                      lerp_accum_bitwise_equal_plain=True,
                      achieved_gbps=n_bytes / (ms * 1e-3) / 1e9)
         tot['per_shape'][f'{h}x{w} {c_in}->{c_out}'] = shape
-        for key, v in (('ms', ms), ('table_ms', table_ms), ('op_ms', op_ms), ('b4_ms', b4_ms),
+        for key, v in (('ms', ms), ('graph_ms', dev_ms), ('table_ms', table_ms), ('op_ms', op_ms),
+                       ('b4_ms', b4_ms),
                        ('plain_ms', plain_ms), ('op_plain_ms', op_plain_ms),
                        ('bytes_ms', bytes_ms), ('ops_ms', ops_ms),
                        ('table_bound_ms', table_bound)):
@@ -835,6 +898,8 @@ def dcn_premul_kernel_phase(torch, dc, peaks):
         torch.cuda.empty_cache()
     tot['bound_ms'] = max(tot['bytes_ms'], tot['ops_ms'])
     tot['bound_by'] = 'bytes' if tot['bytes_ms'] >= tot['ops_ms'] else 'operations'
+    tot['share_of_bound'] = tot['bound_ms'] / tot['ms']
+    tot['share_of_bound_device'] = tot['bound_ms'] / tot['graph_ms']
     emit('dcn_premul_kernel_per_forward', dtype='bf16',
          dcn_launches=sum(s[0] for s in DCN_PROJ_SHAPES),
          **{k: v for k, v in tot.items() if k != 'per_shape'})
@@ -879,6 +944,17 @@ def dcn_premul_edge_phase(torch, dc):
     check(torch.equal(out, ref), 'premul edge unaligned table: the kernel differs from its plain '
                                  'version')
     cases.append('table base off 16-byte alignment')
+    for ks, pad in (((2, 2), 0), ((5, 5), 2)):  # the generic instance; 25 taps past 48 KB
+        k = ks[0] * ks[1]
+        ho, wo = dc.output_hw(9, 17, *ks, 1, pad, 1)
+        yk = torch.randn((2, 9, 17, k * 64), generator=gen, device='cuda').to(bf16)
+        offk = (2 * torch.randn((2, ho, wo, 2 * k), generator=gen, device='cuda')).to(bf16)
+        maskk = torch.sigmoid(torch.randn((2, ho, wo, k), generator=gen, device='cuda')).to(bf16)
+        out = dc.premul_lerp_accumulate(yk, offk, maskk, bias, ks, padding=pad)
+        ref = dc.premul_lerp_accumulate_plain(yk, offk, maskk, bias, ks, padding=pad)
+        check(torch.equal(out, ref), f'premul edge {k} taps: the kernel differs from its plain '
+                                     f'version')
+        cases.append(f'{ks[0]}x{ks[1]} kernel (the generic instance)')
     refusals = (
         ('a float32 table', TypeError, lambda: dc.premul_lerp_accumulate(y.float(), off, mask)),
         ('a table of the wrong width', ValueError,
@@ -2567,9 +2643,14 @@ def main() -> int:
             source='visualdet3d_tpu_torch/csrc/correlation.cu',
             replaces=replaces[kernel],
             launches=slices[dtype_of[dt]]['launches'][kernel],
-            max_abs_err=r['max_abs_err'], ms=r['ms'], plain_ms=r['plain_ms'],
-            bound_ms=r['bound_ms'], bound_by=r['bound_by'], library_ms=None,
-            per_forward='stride-4 + stride-8 calls, batch 16', per_shape=r['per_shape']))
+            max_abs_err=r['max_abs_err'], ms=r['ms'], graph_ms=r['graph_ms'],
+            plain_ms=r['plain_ms'], bound_ms=r['bound_ms'], bound_by=r['bound_by'],
+            share_of_bound=r['share_of_bound'], share_of_bound_device=r['share_of_bound_device'],
+            library_ms=None, bmm_ms=r['bmm_ms'],
+            bmm='torch.bmm of every (pair, row), [W, C] x [C, W]: the whole L . R^T whose band '
+                'the kernel keeps (not the same function)',
+            per_forward='stride-4 + stride-8 calls, batch 16; ms in CUDA events, graph_ms in '
+                        'device time', per_shape=r['per_shape']))
     dcn_replaces = {  # the TPU kernel bodies _lerp_matmul_f32_kernel and _lerp_matmul_kernel
         'f32': 'visualdet3d_tpu/ops/deform_conv.py:363',
         'bf16': 'visualdet3d_tpu/ops/deform_conv.py:161',
@@ -2611,14 +2692,16 @@ def main() -> int:
         launches=variants['premul']['launches']['modulated_deform_conv_premul_accum'],
         launches_under_both_switches=variants['both']['launches'][
             'modulated_deform_conv_premul_accum'],
-        max_abs_err=0.0, ms=premul['ms'], plain_ms=premul['plain_ms'],
-        bound_ms=premul['bound_ms'], bound_by=premul['bound_by'], library_ms=None,
+        max_abs_err=0.0, ms=premul['ms'], graph_ms=premul['graph_ms'],
+        plain_ms=premul['plain_ms'], bound_ms=premul['bound_ms'], bound_by=premul['bound_by'],
+        share_of_bound=premul['share_of_bound'],
+        share_of_bound_device=premul['share_of_bound_device'], library_ms=None,
         table_matmul_ms=premul['table_ms'], table_bound_ms=premul['table_bound_ms'],
         premul_op_ms=premul['op_ms'], premul_op_plain_ms=premul['op_plain_ms'],
         premul_op_max_abs_err=premul['max_abs_err'], b4_ms_same_shapes=premul['b4_ms'],
         per_forward='the 8 proj DCNs of one KM3D forward, batch 16 (shapes weighted by '
-                    'count), given the table; launches: 6 KM3D bf16 predicts under '
-                    'VD3D_DCN_PREMUL=1',
+                    'count), given the table; ms in CUDA events, graph_ms in device time; '
+                    'launches: 6 KM3D bf16 predicts under VD3D_DCN_PREMUL=1',
         per_shape=premul['per_shape']))
     for dt, r in dcn_bwd.items():  # the TPU kernel body _lerp_matmul_bwd_kernel (bf16)
         step_launches = trains[dtype_of[dt]]['launches']

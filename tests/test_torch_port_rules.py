@@ -1,9 +1,11 @@
 """Rules of the port that no parity test shows.
 
 * Nothing under ``visualdet3d_tpu_torch/``, nor ``chip_smoke.py``,
-  ``dcn_study.py`` or ``int8_study.py``, imports JAX, flax, optax or the JAX
-  package. The scan is static (an AST walk), because this test process has
-  JAX imported already. The package imports none of the root scripts.
+  ``dcn_study.py``, ``int8_study.py`` or ``stream_study.py``, imports JAX,
+  flax, optax or the JAX package. The scan is static (an AST walk),
+  because this test process has JAX imported already. The package imports
+  none of the root scripts.
+* A wheel of the package carries the kernel sources (package data).
 * The entry points (inference, the KM3D and MonoFlex systems and trainers)
   run on the card by default and raise without CUDA instead of running on
   the CPU.
@@ -39,7 +41,7 @@ def _port_sources():
     build = kernel_build.BUILD_DIR  # build outputs, not sources
     files = sorted(p for p in (ROOT / 'visualdet3d_tpu_torch').rglob('*.py')
                    if build not in p.parents) + [ROOT / 'chip_smoke.py', ROOT / 'dcn_study.py',
-                                                 ROOT / 'int8_study.py']
+                                                 ROOT / 'int8_study.py', ROOT / 'stream_study.py']
     assert len(files) > 10 and all(p.exists() for p in files)
     return files
 
@@ -70,7 +72,7 @@ def test_package_imports_no_root_script():
     offenders = [f'{path.relative_to(ROOT)}: {root}'
                  for path in _port_sources() if ROOT / 'visualdet3d_tpu_torch' in path.parents
                  for root in _imported_roots(path)
-                 if root in ('chip_smoke', 'dcn_study', 'int8_study')]
+                 if root in ('chip_smoke', 'dcn_study', 'int8_study', 'stream_study')]
     assert offenders == []
 
 
@@ -267,3 +269,18 @@ def test_every_int8_smem_opt_in_is_the_shared_helper():
         assert dynamic, src.name
         assert text.count('opt_in_smem(') == len(dynamic), (src.name, dynamic)
         assert text.count('static unsigned long long devices_set = 0;') == len(dynamic)
+
+
+def test_pyproject_ships_the_kernel_sources():
+    """A wheel of the package carries every ``csrc/`` source that
+    ``kernel_build`` compiles at first use (package data), and the port has
+    an optional-dependency set of its own."""
+    import fnmatch
+    import tomllib
+    conf = tomllib.loads((ROOT / 'pyproject.toml').read_text())
+    assert conf['project']['optional-dependencies']['torch'] == ['torch']
+    globs = conf['tool']['setuptools']['package-data']['visualdet3d_tpu_torch']
+    sources = sorted(p.relative_to(kernel_build.PKG_DIR).as_posix()
+                     for p in kernel_build.CSRC_DIR.iterdir() if p.suffix in ('.cu', '.cuh'))
+    assert sources and all(any(fnmatch.fnmatch(s, g) for g in globs) for s in sources)
+

@@ -15,19 +15,38 @@
 // input values and takes D outputs for C*D multiply-adds: about 2.5 FMAs per
 // byte moved at C = 64, D = 24 in f32, below the ~10 FMAs per byte at which
 // an H100's f32 units (67 TFLOP/s against 3.35 TB/s) rather than its memory
-// would be the limit. What the design does about that: each block owns one
-// (pair b, row h, tile of TW columns) and stages its left tile [TW, C] and the
-// right tile [TW + D - 1, C] (a left halo of D - 1 columns, zero where
-// w - d < 0) in shared memory once, converted to f32; all D shifted products
-// then reuse the staged rows, so every input byte is read from device memory
-// once (the right halo is re-read by the neighbouring tile, mostly from L2)
-// and the output is written once. Accumulation is f32 for f32 and bf16
-// inputs; the output has the input's type. Rows are padded to C + 1 floats so
-// that the 32 threads of a warp, which own 32 consecutive columns, read 32
-// distinct banks. Each thread keeps L[w, c] in a register across DG
-// disparities. The [TW, D] output tile is staged in shared memory and written
-// as one contiguous run: the [B,H,W,D] volume is the channels_last NCHW
-// tensor that the next 1x1 conv reads, so no transpose follows.
+// would be the limit. The first design (one block per 32-column tile, a
+// scalar staging loop converting to f32, one shared-memory load per FMA, the
+// load, the products and the store strictly in turn) ran at the same time in
+// bf16 and f32, a quarter of the f32 bound and an eighth of the bf16 one.
+// This one keeps the device-memory stream busy:
+//   * the work is items of (pair b, row h, 64-column tile, chunk of at most
+//     28 disparities), each walked in 128-byte channel chunks (64 bf16 or 32
+//     f32 channels); a persistent block of 4 warps takes items in turn and
+//     keeps a ring of kStages stages in shared memory filled by 16-byte
+//     cp.async in the input dtype: per stage, the left tile's 64 rows and
+//     the right tile's 64 + halo rows (columns outside the image, w - d < 0
+//     among them, are zero-filled), so the next stage's loads are in flight
+//     while this one is multiplied. Two stages (48 KB) leave four blocks an
+//     SM; three or four stages, with fewer blocks, and 128-column items were
+//     slower on an H100 (stream_study.py corr);
+//   * each 128-byte row of a stage is stored with its 16-byte pieces
+//     permuted (swizzle below), so that ldmatrix of 8 consecutive rows and
+//     float4 loads of rows 4 apart read 8 distinct bank groups;
+//   * bf16, tensor cores: per row, the volume is the band 0 <= w - w' < D of
+//     L . R^T. Each warp owns 16 columns w and multiplies them against the
+//     8 * NT columns w' that their band touches (mma.sync m16n8k16, ldmatrix
+//     operands, f32 accumulators), then keeps the band;
+//   * f32, FMA units (never TF32): each thread owns a 4 x 4 block of L . R^T
+//     on the band's k-th diagonal (4 columns w against 4 columns w' = w - 4k
+//     + ...), reading 4 float4 of L and 4 of R per 16 FMAs x 4 channels;
+//   * each warp scatters its band entries (scaled by 1/C) into its own piece
+//     of shared memory and stores its 16 columns x D disparities as one
+//     contiguous run of the [B,H,W,D] volume, which is the channels_last
+//     NCHW tensor that the next 1x1 conv reads: no transpose follows.
+// Accumulation is f32 for f32 and bf16 inputs; the output has the input's
+// type. ops/cost_volume.py::correlation_plan mirrors the host-side plan and
+// tests/test_torch_corr_tiles.py writes the order of work out in torch.
 //
 // Plain C interface for ctypes; each entry returns the cudaError_t of the
 // launch (0 on success). The launch goes on the caller's stream and does not
@@ -35,12 +54,23 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+#include <type_traits>
+
 namespace {
 
-constexpr int kTileW = 32;        // output columns per block (one warp wide)
-constexpr int kDispPerThread = 4;  // disparities each thread accumulates
-constexpr int kMaxThreads = 256;
-constexpr size_t kMaxSmem = 232448;  // per-block opt-in limit on sm_90
+constexpr int kTileW = 64;      // output columns of an item
+constexpr int kWarps = 4;       // a warp: 16 columns of the tile
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMaxDc = 28;      // disparities of an item (chunks of D)
+constexpr int kMaxHalo = 32;    // right-tile columns left of the tile (bf16 at dc = 28)
+constexpr int kRowBytes = 128;  // one stage: 128 bytes of channels a row
+constexpr int kStages = 2;
+constexpr int kRowsR = kTileW + kMaxHalo;
+constexpr int kStageBytes = (kTileW + kRowsR) * kRowBytes;
+constexpr int kOutFloats = 16 * kMaxDc;  // a warp's band entries
+constexpr int kSmem = kStages * kStageBytes + kWarps * kOutFloats * (int)sizeof(float);
+constexpr int kMaxBf16Ntiles = (kMaxDc + 15 + 7) / 8;  // n8 tiles of a bf16 warp
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -51,95 +81,352 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16_rn(x);
 }
 
+// 16 bytes of T from f32 values (rounded to nearest even in bf16)
+template <typename T> __device__ __forceinline__ uint4 pack16(const float* v);
+template <> __device__ __forceinline__ uint4 pack16<float>(const float* v) {
+  const float4 f = *reinterpret_cast<const float4*>(v);
+  return make_uint4(__float_as_uint(f.x), __float_as_uint(f.y), __float_as_uint(f.z),
+                    __float_as_uint(f.w));
+}
+template <> __device__ __forceinline__ uint4 pack16<__nv_bfloat16>(const float* v) {
+  unsigned u[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    u[j] = (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(v[2 * j])) |
+           ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(v[2 * j + 1])) << 16);
+  return make_uint4(u[0], u[1], u[2], u[3]);
+}
+
+// The 16-byte piece q of stage row r sits at piece q ^ swz(r). For 8
+// consecutive rows (ldmatrix) and for 8 rows 4 apart (the f32 diagonals)
+// swz takes 8 distinct values, so those reads hit 8 distinct bank groups.
+__host__ __device__ __forceinline__ int swz(int r) { return (r ^ (r >> 2)) & 7; }
+
+// The halo of a chunk of dc disparities: right-tile columns left of the tile.
+template <typename T> __host__ __device__ __forceinline__ int halo_of(int dc) {
+  if constexpr (std::is_same<T, float>::value) {
+    return 4 * ((dc - 1 + 3) / 4);  // 4 * (diagonal blocks - 1)
+  } else {
+    return 8 * ((dc + 15 + 7) / 8) - 16;  // 8 * n8 tiles - 16
+  }
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(smem)),
+               "l"(gmem), "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void mma_bf16(float& c0, float& c1, float& c2, float& c3,
+                                         const unsigned (&a)[4], unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c0), "+f"(c1), "+f"(c2), "+f"(c3)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An item: pair b, row h, tile of columns from w0, disparities d0 .. d0 + dc.
+struct Item {
+  long long row;  // element offset of (b, h, 0, 0) in an eye
+  long long out;  // element offset of (b, h, 0, 0) in the output
+  int w0, d0, dc, halo;
+};
+
+struct Geom {
+  int H, W, C, D, n_tiles, n_dchunks, dchunk, n_cc;
+  long long pair_stride;
+};
+
+// Item i of the grid's list, (pair, row, tile, disparity chunk) with the
+// chunk fastest; 32-bit arithmetic, once per item.
 template <typename T>
-__global__ void __launch_bounds__(kMaxThreads)
+__device__ __forceinline__ Item item_of(int i, const Geom& g) {
+  Item r;
+  const int dci = i % g.n_dchunks;
+  i /= g.n_dchunks;
+  const int t = i % g.n_tiles;
+  i /= g.n_tiles;
+  const int h = i % g.H, b = i / g.H;
+  r.row = b * g.pair_stride + (long long)h * g.W * g.C;
+  r.out = ((long long)b * g.H + h) * g.W * g.D;
+  r.w0 = t * kTileW;
+  r.d0 = dci * g.dchunk;
+  r.dc = min(g.dchunk, g.D - r.d0);
+  r.halo = halo_of<T>(r.dc);
+  return r;
+}
+
+// Copy chunk cc (128 bytes of channels) of an item's left rows w0 .. w0+63
+// and right rows w0 - d0 - halo .. w0 + 63 - d0 into a stage; columns
+// outside the image and channels past C are zero. VEC: 16-byte cp.async
+// (C and both bases allow it), else element loads and 16-byte stores.
+template <typename T, bool VEC>
+__device__ __forceinline__ void load_stage(unsigned char* st, const T* __restrict__ left,
+                                           const T* __restrict__ right, const Item& it, int cc,
+                                           const Geom& g) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kPieces = kRowBytes / 16;
+  const int rows = 2 * kTileW + it.halo;
+  for (int e = threadIdx.x; e < rows * kPieces; e += kThreads) {
+    const int r = e / kPieces, q = e - r * kPieces;
+    const bool is_left = r < kTileW;
+    const int rr = is_left ? r : r - kTileW;  // row within the left or right tile
+    const int w = is_left ? it.w0 + rr : it.w0 - it.d0 - it.halo + rr;
+    const int ch = cc * (kRowBytes / (int)sizeof(T)) + q * kVec;
+    const bool ok = w >= 0 && w < g.W && ch < g.C;
+    const T* src = (is_left ? left : right) + it.row + (ok ? (long long)w * g.C + ch : 0);
+    unsigned char* dst = st + (is_left ? 0 : kTileW * kRowBytes) + rr * kRowBytes +
+                         ((q ^ swz(rr)) << 4);
+    if constexpr (VEC) {
+      cp_async16(dst, src, ok);
+    } else {
+      alignas(16) T v[kVec];
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) v[j] = (ok && ch + j < g.C) ? src[j] : from_f32<T>(0.f);
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
+    }
+  }
+}
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kThreads)
 correlation_kernel(const T* __restrict__ left, const T* __restrict__ right,
-                   T* __restrict__ out, int H, int W, int C, int D,
-                   long long pair_stride, float scale) {
-  extern __shared__ float smem[];
-  const int cp = C + 1;  // padded row stride in floats
-  const int halo = D - 1;
-  float* l_s = smem;                        // [kTileW][cp]
-  float* r_s = l_s + kTileW * cp;           // [kTileW + halo][cp]
-  float* o_s = r_s + (kTileW + halo) * cp;  // [kTileW][D]
+                   T* __restrict__ out, Geom g, int n_items, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* band = reinterpret_cast<float*>(smem + kStages * kStageBytes);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* wband = band + warp * kOutFloats;
 
-  const int w0 = blockIdx.x * kTileW;
-  const int h = blockIdx.y;
-  const long long b = blockIdx.z;
-  const long long row = b * pair_stride + (long long)h * W * C;
-  const T* l_row = left + row;
-  const T* r_row = right + row;
-
-  // Stage left columns [w0, w0 + kTileW) and right columns
-  // [w0 - halo, w0 + kTileW); out-of-image columns are zero.
-  for (int i = threadIdx.x; i < kTileW * C; i += blockDim.x) {
-    const int col = i / C, c = i - col * C;
-    const int w = w0 + col;
-    l_s[col * cp + c] = (w < W) ? to_f32(l_row[(long long)w * C + c]) : 0.f;
-  }
-  for (int i = threadIdx.x; i < (kTileW + halo) * C; i += blockDim.x) {
-    const int col = i / C, c = i - col * C;
-    const int w = w0 - halo + col;
-    r_s[col * cp + c] = (w >= 0 && w < W) ? to_f32(r_row[(long long)w * C + c]) : 0.f;
-  }
-  __syncthreads();
-
-  // Thread t owns column t % kTileW and disparities d0 .. d0 + kDispPerThread - 1;
-  // a warp is one disparity group over the 32 columns of the tile.
-  const int groups = (D + kDispPerThread - 1) / kDispPerThread;
-  for (int t = threadIdx.x; t < kTileW * groups; t += blockDim.x) {
-    const int wl = t % kTileW;
-    const int d0 = (t / kTileW) * kDispPerThread;
-    float acc[kDispPerThread];
+  // the next stage to load: item ld (its Item ld_it), channel chunk ld_cc
+  int ld = blockIdx.x, ld_cc = 0;
+  Item ld_it = item_of<T>(ld < n_items ? ld : 0, g);
+  auto load_next = [&](int slot) {
+    if (ld < n_items) load_stage<T, VEC>(smem + slot * kStageBytes, left, right, ld_it, ld_cc, g);
+    cp_async_commit();
+    if (++ld_cc == g.n_cc) {
+      ld_cc = 0;
+      ld += gridDim.x;
+      if (ld < n_items) ld_it = item_of<T>(ld, g);
+    }
+  };
+  // prologue: the first kStages - 1 stages in flight
 #pragma unroll
-    for (int j = 0; j < kDispPerThread; ++j) acc[j] = 0.f;
-    const float* lp = l_s + wl * cp;
-    // column w0 + wl - d sits at staged right row wl - d + halo
-    const float* rp = r_s + (wl + halo) * cp;
-    for (int c = 0; c < C; ++c) {
-      const float lv = lp[c];
+  for (int s = 0; s < kStages - 1; ++s) load_next(s);
+
+  // f32: [i][j] of the lane's 4 x 4 block; bf16: [n8 tile][fragment]
+  constexpr int kAcc = std::is_same<T, float>::value ? 16 : 4 * kMaxBf16Ntiles;
+  float acc[kAcc];
+  int slot = 0;  // the ring slot of the stage being multiplied
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const Item it = item_of<T>(item, g);
 #pragma unroll
-      for (int j = 0; j < kDispPerThread; ++j) {
-        const int d = d0 + j;
-        if (d < D) acc[j] = fmaf(lv, rp[c - d * cp], acc[j]);
+    for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+    for (int cc = 0; cc < g.n_cc; ++cc) {
+      cp_async_wait<kStages - 2>();
+      __syncthreads();  // this stage landed for all threads; the previous one is free
+      load_next(slot == 0 ? kStages - 1 : slot - 1);
+      const unsigned char* sl = smem + slot * kStageBytes;
+      slot = slot == kStages - 1 ? 0 : slot + 1;
+      const unsigned char* sr = sl + kTileW * kRowBytes;
+      const bool live = it.w0 + 16 * warp < g.W;  // a warp past the image's edge idles
+
+      if constexpr (std::is_same<T, float>::value) {
+        // lane (g4, k): columns 16 warp + 4 g4 + i against right rows
+        // 16 warp + 4 g4 - 4k + j + halo (w' = w - 4k - (i - j) ...), i, j < 4
+        const int g4 = lane >> 3, k = lane & 7;
+        const int nk = (it.dc - 1 + 3) / 4 + 1;  // diagonal blocks
+        if (live && k < nk) {
+          const int lrow = 16 * warp + 4 * g4;
+          const int rrow = lrow - 4 * k + it.halo;
+#pragma unroll 2
+          for (int q = 0; q < kRowBytes / 16; ++q) {
+            float4 lv[4], rv[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              lv[i] = *reinterpret_cast<const float4*>(sl + (lrow + i) * kRowBytes +
+                                                       ((q ^ swz(lrow + i)) << 4));
+              rv[i] = *reinterpret_cast<const float4*>(sr + (rrow + i) * kRowBytes +
+                                                       ((q ^ swz(rrow + i)) << 4));
+            }
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                float a = acc[4 * i + j];
+                a = fmaf(lv[i].x, rv[j].x, a);
+                a = fmaf(lv[i].y, rv[j].y, a);
+                a = fmaf(lv[i].z, rv[j].z, a);
+                a = fmaf(lv[i].w, rv[j].w, a);
+                acc[4 * i + j] = a;
+              }
+          }
+        }
+        if (cc == g.n_cc - 1) {
+          if (live && k < nk) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                const int d = 4 * k + i - j;  // disparity within the chunk
+                if (d >= 0 && d < it.dc) wband[(4 * g4 + i) * it.dc + d] = acc[4 * i + j] * scale;
+              }
+          }
+        }
+      } else {
+        // warp: columns 16 warp .. +15 (A, 16 rows) against right rows 16 warp
+        // .. 16 warp + 8 nt - 1 (B); accumulator (row rw, column col) is
+        // disparity rw + halo - col
+        const int nt = (it.dc + 15 + 7) / 8;
+        if (live) {
+#pragma unroll
+          for (int kk = 0; kk < 2; ++kk) {  // two 32-channel halves of the chunk
+            unsigned a[2][4];
+#pragma unroll
+            for (int h2 = 0; h2 < 2; ++h2) {
+              const int r = 16 * warp + (lane & 15);
+              const int piece = 4 * kk + 2 * h2 + (lane >> 4);
+              ldsm_x4(a[h2], sl + r * kRowBytes + ((piece ^ swz(r)) << 4));
+            }
+#pragma unroll
+            for (int n = 0; n < kMaxBf16Ntiles; ++n) {
+              if (n < nt) {
+                unsigned b[4];
+                const int r = 16 * warp + 8 * n + (lane & 7);
+                ldsm_x4(b, sr + r * kRowBytes + (((4 * kk + (lane >> 3)) ^ swz(r)) << 4));
+                mma_bf16(acc[4 * n], acc[4 * n + 1], acc[4 * n + 2], acc[4 * n + 3], a[0], b[0],
+                         b[1]);
+                mma_bf16(acc[4 * n], acc[4 * n + 1], acc[4 * n + 2], acc[4 * n + 3], a[1], b[2],
+                         b[3]);
+              }
+            }
+          }
+        }
+        if (cc == g.n_cc - 1 && live) {
+          const int gr = lane >> 2, t = lane & 3;
+#pragma unroll
+          for (int n = 0; n < kMaxBf16Ntiles; ++n) {
+            if (n < nt) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int rw = gr + 8 * (e >> 1), col = 8 * n + 2 * t + (e & 1);
+                const int d = rw + it.halo - col;
+                if (d >= 0 && d < it.dc) wband[rw * it.dc + d] = acc[4 * n + e] * scale;
+              }
+            }
+          }
+        }
+      }
+
+      if (cc == g.n_cc - 1 && live) {
+        // the warp's 16 columns x dc disparities; one contiguous run when dc == D
+        __syncwarp();
+        const int wc = it.w0 + 16 * warp;
+        const int n = min(16, g.W - wc) * it.dc;
+        T* o = out + it.out + (long long)wc * g.D + it.d0;
+        constexpr int kV = 16 / sizeof(T);
+        if (it.dc == g.D && n % kV == 0 && (reinterpret_cast<uintptr_t>(o) & 15) == 0) {
+          for (int e = lane * kV; e < n; e += 32 * kV)
+            *reinterpret_cast<uint4*>(o + e) = pack16<T>(wband + e);
+        } else if (it.dc == g.D) {
+          for (int e = lane; e < n; e += 32) o[e] = from_f32<T>(wband[e]);
+        } else {
+          for (int e = lane; e < n; e += 32) {
+            const int wl = e / it.dc, d = e - wl * it.dc;
+            o[(long long)wl * g.D + d] = from_f32<T>(wband[e]);
+          }
+        }
+        __syncwarp();
       }
     }
-    const int w = w0 + wl;
-#pragma unroll
-    for (int j = 0; j < kDispPerThread; ++j) {
-      const int d = d0 + j;
-      if (d < D) o_s[wl * D + d] = (w >= d) ? acc[j] * scale : 0.f;
-    }
   }
-  __syncthreads();
+  cp_async_wait<0>();
+}
 
-  // The tile's outputs are one contiguous run of out: coalesced stores.
-  const int cols = min(kTileW, W - w0);
-  T* o_row = out + (((long long)b * H + h) * W + w0) * D;
-  for (int i = threadIdx.x; i < cols * D; i += blockDim.x) o_row[i] = from_f32<T>(o_s[i]);
+// Blocks of the persistent grid on the current device: the SM count times
+// the blocks an SM holds. The opt-in to kSmem bytes of dynamic shared memory
+// holds for one device, so it is set, and the grid computed, once per
+// (kernel instance, device).
+template <typename Kernel>
+cudaError_t grid_for_device(Kernel kernel, unsigned long long& devices_set, int (&grid)[64],
+                            int& blocks) {
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = device < 64 ? 1ull << device : 0ull;
+  if (bit != 0 && (devices_set & bit) != 0) {
+    blocks = grid[device];
+    return cudaSuccess;
+  }
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (e != cudaSuccess) return e;
+  int per_sm = 0, n_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, kSmem);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return e;
+  blocks = per_sm * n_sm;
+  if (blocks <= 0) return cudaErrorInvalidConfiguration;
+  if (bit != 0) {
+    grid[device] = blocks;
+    devices_set |= bit;
+  }
+  return cudaSuccess;
+}
+
+template <typename T, bool VEC>
+int launch_kernel(const T* left, const T* right, T* out, const Geom& g, int n_items,
+                  float scale, cudaStream_t stream) {
+  static unsigned long long devices_set = 0;
+  static int grid[64];
+  int blocks = 0;
+  const cudaError_t e = grid_for_device(correlation_kernel<T, VEC>, devices_set, grid, blocks);
+  if (e != cudaSuccess) return (int)e;
+  if (n_items < blocks) blocks = n_items;
+  correlation_kernel<T, VEC><<<blocks, kThreads, kSmem, stream>>>(left, right, out, g, n_items,
+                                                                   scale);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch(const void* left, const void* right, void* out, int B, int H, int W,
-           int C, int D, long long pair_stride, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || D <= 0 || H > 65535 || B > 65535)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      ((size_t)(2 * kTileW + D - 1) * (C + 1) + (size_t)kTileW * D) * sizeof(float);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        correlation_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int groups = (D + kDispPerThread - 1) / kDispPerThread;
-  int threads = kTileW * groups;
-  if (threads > kMaxThreads) threads = kMaxThreads;
-  const dim3 grid((W + kTileW - 1) / kTileW, H, B);
-  correlation_kernel<T><<<grid, threads, smem, (cudaStream_t)stream>>>(
-      static_cast<const T*>(left), static_cast<const T*>(right), static_cast<T*>(out),
-      H, W, C, D, pair_stride, 1.0f / (float)C);
-  return (int)cudaGetLastError();
+int launch(const void* left, const void* right, void* out, int B, int H, int W, int C, int D,
+           long long pair_stride, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
+  Geom g;
+  g.H = H;
+  g.W = W;
+  g.C = C;
+  g.D = D;
+  g.n_tiles = (W + kTileW - 1) / kTileW;
+  // balanced chunks of at most kMaxDc disparities, none empty
+  g.dchunk = (D + (D + kMaxDc - 1) / kMaxDc - 1) / ((D + kMaxDc - 1) / kMaxDc);
+  g.n_dchunks = (D + g.dchunk - 1) / g.dchunk;
+  g.n_cc = (C * (int)sizeof(T) + kRowBytes - 1) / kRowBytes;
+  g.pair_stride = pair_stride;
+  const long long n_items = (long long)B * H * g.n_tiles * g.n_dchunks;
+  if (n_items > 2147483647ll) return (int)cudaErrorInvalidValue;
+  constexpr int kVec = 16 / sizeof(T);
+  const bool vec = C % kVec == 0 && reinterpret_cast<uintptr_t>(left) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(right) % 16 == 0;
+  const T* l = static_cast<const T*>(left);
+  const T* r = static_cast<const T*>(right);
+  T* o = static_cast<T*>(out);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const float scale = 1.0f / (float)C;
+  return vec ? launch_kernel<T, true>(l, r, o, g, (int)n_items, scale, s)
+             : launch_kernel<T, false>(l, r, o, g, (int)n_items, scale, s);
 }
 
 }  // namespace

@@ -801,128 +801,231 @@ int launch(const void* x, const void* offset, const void* mask, const void* weig
 //
 // What bounds it: bytes. There is no product, only four corners lerped per
 // (pixel, tap, channel): Y read once (plus offsets, mask and the output)
-// over the memory rate; each Y element is read by up to four neighbouring
-// samples a tap, from L2. The design, simple first:
-//   * one block per (image, 32 output pixels), 256 threads;
-//   * the corner tables of all K taps of the block's pixels built once
-//     (corner_entry, as the other kernels) in dynamic shared memory
-//     (K * 32 * 32 bytes: 9 KB at K = 9);
-//   * each thread takes (pixel, 16 bytes = 8 channels of C_out; scalar where
-//     C_out % 8 != 0 or Y is not 16-byte aligned), keeps 8 f32 accumulators
-//     in registers across the K taps, reads the four corners of each tap as
-//     16-byte loads and lerps them with the explicitly rounded products and
-//     sums of the other kernels (__fmul_rn/__fadd_rn), so that it equals its
-//     plain version bit for bit.
+// over the memory rate. Each Y element is read by about four samples a tap
+// (one per corner role), so about four times Y's bytes cross from L2 to the
+// SMs. The first design (one block per 32 output pixels: the corner tables
+// of all taps built by the whole block, a block barrier, then a runtime tap
+// loop with one tap's four corner loads in flight a thread) reached 28% of
+// the bound on an H100. This one:
+//   * a block owns a 2-D tile of 8 x 16 output pixels (a warp a row of 16)
+//     and 64 output channels (8 lanes a pixel, 16 bytes = 8 channels a
+//     lane; scalar, 1 channel a lane, where C_out % 8 != 0 or Y or the
+//     output is not 16-byte aligned); the channel chunks are a grid axis;
+//   * each warp builds the corner entries of its own 16 pixels x K taps
+//     (corner_entry, as the other kernels: the four corners' element
+//     offsets in the table, -1 outside the image, and the four lerp
+//     weights, read back as two 16-byte words) in its own piece of shared
+//     memory and passes __syncwarp: no block barrier, so a warp's gathers
+//     start while the block's other warps still read their offsets;
+//   * a lane takes 4 pixels of the row; with the tap count fixed at compile
+//     time (9; a generic instance takes any K) the taps are unrolled, and a
+//     tap's 16 corner loads (4 pixels x 4 corners, 16 bytes each) are all
+//     issued before its lerps;
+//   * the lerp keeps the explicitly rounded products and sums of the other
+//     kernels (__fmul_rn/__fadd_rn) and the f32 sum over taps in tap order,
+//     so that it equals its plain version bit for bit.
+// What bounds it now (stream_study.py premul, on an H100): the corner
+// reads through L2 (about four times Y's bytes) and the lerp's instruction
+// issue (14 a value, the explicit roundings kept); with every corner read
+// hitting L1 it takes 3/4 of its time. Reading around L1 costs 1-2%: L1
+// catches almost no reuse between samples. A shared-memory window of a
+// tap's table around the tile does not pay at a size the SM holds: with
+// offsets of std 2 px an 8 x 16 tile's window of +-4 px is 17 x 25 pixels,
+// nearly as many bytes as its 512 corner reads.
 // ---------------------------------------------------------------------------
 
-constexpr int kPremulTileP = 32;  // output pixels per block
+constexpr int kPremulRows = 8;   // output rows of a block's tile (a warp each)
+constexpr int kPremulPix = 4;    // pixels a lane (columns 4 i + slot of the warp's row)
+constexpr int kPremulCols = 4 * kPremulPix;  // output columns of the tile
+constexpr int kPremulTaps = 9;   // the compiled tap count (3 x 3)
+constexpr int kPremulMaxTaps = 56;  // the generic instance's limit (shared memory)
 
-template <int V>
-__global__ void __launch_bounds__(kThreads)
+// shared memory of a block: each warp's corner entries, [K][16 pixels][8 words]
+__host__ __device__ constexpr int premul_smem(int taps) {
+  return kPremulRows * taps * 8 * kPremulCols * (int)sizeof(int);
+}
+
+// bf16 value v of 8 loaded as one uint4 (or the one loaded alone), in f32
+__device__ __forceinline__ float bf16_at(const uint4& r, int v) {
+  const unsigned w = v < 2 ? r.x : v < 4 ? r.y : v < 6 ? r.z : r.w;
+  return __uint_as_float((v & 1) ? (w & 0xffff0000u) : (w << 16));
+}
+__device__ __forceinline__ float bf16_at(const __nv_bfloat16& r, int) { return to_f32(r); }
+
+static_assert(kThreads == 32 * kPremulRows, "a warp a row of the premul tile");
+
+template <int KT, int V>  // KT: the tap count, or 0 for any (kh * kw); V: channels a lane
+__global__ void __launch_bounds__(kThreads, 2)
 premul_lerp_accum_kernel(const __nv_bfloat16* __restrict__ y,
                          const __nv_bfloat16* __restrict__ offset,
                          const __nv_bfloat16* __restrict__ mask,
                          const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ out,
                          int H, int W, int Ho, int Wo, int C_out, int kh, int kw, int stride,
-                         int pad, int dil, int off_stride, int mask_stride) {
+                         int pad, int dil, int off_stride, int mask_stride, int tiles_x) {
   using T = __nv_bfloat16;
-  constexpr int tp = kPremulTileP;
-  extern __shared__ __align__(16) unsigned char premul_smem[];
-  const int K = kh * kw;
-  int* s_idx = reinterpret_cast<int*>(premul_smem);  // [K][4][tp]
-  float* s_wt = reinterpret_cast<float*>(s_idx + K * 4 * tp);  // [K][4][tp]
+  extern __shared__ __align__(16) unsigned char premul_smem_buf[];
+  const int K = KT > 0 ? KT : kh * kw;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int slot = lane >> 3, j = lane & 7;
+  int* tab = reinterpret_cast<int*>(premul_smem_buf) + warp * K * 8 * kPremulCols;
 
-  const int tid = threadIdx.x;
-  const int p0 = blockIdx.x * tp;
-  const long long b = blockIdx.y;
+  const int ho = (blockIdx.x / tiles_x) * kPremulRows + warp;
+  const int wo0 = (blockIdx.x % tiles_x) * kPremulCols;
+  const int c = blockIdx.y * 8 * V + j * V;
+  const long long b = blockIdx.z;
   const int P = Ho * Wo;
-  const long long row = (long long)K * C_out;  // one pixel of Y
-  const T* yb = y + b * H * W * row;
+  if (ho >= Ho) return;  // a warp below the map: no barrier waits for it
 
-  for (int e = tid; e < K * tp; e += kThreads) {
-    const int k = e / tp, pl = e - k * tp;
+  // the warp's corner entries, 8 words of tap k and pixel px at (k * 16 + px) * 8:
+  // the element offsets of the four corners' tap-k slices in the image's
+  // table (-1: the corner is outside the image, or px past the map's edge),
+  // then the four lerp weights
+  const long long row = (long long)K * C_out;  // one pixel of Y
+  for (int e = lane; e < K * kPremulCols; e += 32) {
+    const int k = e / kPremulCols, px = e - k * kPremulCols;
     int idx[4] = {-1, -1, -1, -1};
     float wt[4] = {0.f, 0.f, 0.f, 0.f};
-    if (p0 + pl < P)
-      corner_entry<T>(offset, mask, b * P + p0 + pl, p0 + pl, k, H, W, Wo, kw, stride, pad, dil,
-                      off_stride, mask_stride, idx, wt);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      s_idx[(k * 4 + q) * tp + pl] = idx[q];
-      s_wt[(k * 4 + q) * tp + pl] = wt[q];
-    }
+    const int wo = wo0 + px;
+    if (wo < Wo)
+      corner_entry<T>(offset, mask, b * P + ho * Wo + wo, ho * Wo + wo, k, H, W, Wo, kw, stride,
+                      pad, dil, off_stride, mask_stride, idx, wt);
+    int4 offs;
+    offs.x = idx[0] >= 0 ? (int)(idx[0] * row) + k * C_out : -1;
+    offs.y = idx[1] >= 0 ? (int)(idx[1] * row) + k * C_out : -1;
+    offs.z = idx[2] >= 0 ? (int)(idx[2] * row) + k * C_out : -1;
+    offs.w = idx[3] >= 0 ? (int)(idx[3] * row) + k * C_out : -1;
+    *reinterpret_cast<int4*>(tab + e * 8) = offs;
+    *reinterpret_cast<float4*>(tab + e * 8 + 4) = make_float4(wt[0], wt[1], wt[2], wt[3]);
   }
-  __syncthreads();
+  __syncwarp();
+  if (c >= C_out) return;  // with V = 8, C_out % 8 == 0: whole vectors
 
-  const int groups = (C_out + V - 1) / V;  // with V > 1, C_out % V == 0
-  for (int e = tid; e < tp * groups; e += kThreads) {
-    const int pl = e / groups, c = (e - pl * groups) * V;
-    const int p = p0 + pl;
-    if (p >= P) continue;
-    float acc[V];
+  const T* yb = y + b * H * W * row + c;
+  using Raw = typename std::conditional<V == 8, uint4, T>::type;  // V channels as loaded
+  float acc[kPremulPix][V];
 #pragma unroll
-    for (int j = 0; j < V; ++j) acc[j] = 0.f;
-    for (int k = 0; k < K; ++k) {
-      float corner[4][V];
+  for (int i = 0; i < kPremulPix; ++i)
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[i][v] = 0.f;
+
+  // tap k: the corner loads of the lane's pixels first (16 at 4 pixels), then the lerps
+  auto tap = [&](int k) {
+    Raw raw[kPremulPix][4];  // [pixel][corner]
+#pragma unroll
+    for (int i = 0; i < kPremulPix; ++i) {
+      const int4 offs = *reinterpret_cast<const int4*>(tab + (k * kPremulCols + 4 * i + slot) * 8);
+      const int off[4] = {offs.x, offs.y, offs.z, offs.w};
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        const int idx = s_idx[(k * 4 + q) * tp + pl];
-        if (idx >= 0) {
-          load_vals<T, V>(yb + idx * row + (long long)k * C_out + c, corner[q]);
+        if constexpr (V == 8) {
+          raw[i][q] = off[q] >= 0 ? __ldg(reinterpret_cast<const uint4*>(yb + off[q]))
+                                  : make_uint4(0u, 0u, 0u, 0u);
         } else {
-#pragma unroll
-          for (int j = 0; j < V; ++j) corner[q][j] = 0.f;
+          raw[i][q] = off[q] >= 0 ? yb[off[q]] : from_f32<T>(0.f);
         }
       }
-      const float wx0 = s_wt[(k * 4 + 0) * tp + pl], wx1 = s_wt[(k * 4 + 1) * tp + pl];
-      const float wy0 = s_wt[(k * 4 + 2) * tp + pl], wy1 = s_wt[(k * 4 + 3) * tp + pl];
+    }
 #pragma unroll
-      for (int j = 0; j < V; ++j) {
-        const float vx0 = __fadd_rn(__fmul_rn(corner[0][j], wy0), __fmul_rn(corner[2][j], wy1));
-        const float vx1 = __fadd_rn(__fmul_rn(corner[1][j], wy0), __fmul_rn(corner[3][j], wy1));
-        acc[j] = __fadd_rn(acc[j], __fadd_rn(__fmul_rn(vx0, wx0), __fmul_rn(vx1, wx1)));
+    for (int i = 0; i < kPremulPix; ++i) {
+      // the lerp weights 1-fx, fx, (1-fy)*mask, fy*mask
+      const float4 wt =
+          *reinterpret_cast<const float4*>(tab + (k * kPremulCols + 4 * i + slot) * 8 + 4);
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const float vx0 = __fadd_rn(__fmul_rn(bf16_at(raw[i][0], v), wt.z),
+                                    __fmul_rn(bf16_at(raw[i][2], v), wt.w));
+        const float vx1 = __fadd_rn(__fmul_rn(bf16_at(raw[i][1], v), wt.z),
+                                    __fmul_rn(bf16_at(raw[i][3], v), wt.w));
+        acc[i][v] = __fadd_rn(acc[i][v], __fadd_rn(__fmul_rn(vx0, wt.x), __fmul_rn(vx1, wt.y)));
       }
     }
+  };
+  if constexpr (KT > 0) {
+#pragma unroll
+    for (int k = 0; k < KT; ++k) tap(k);
+  } else {
+#pragma unroll 1
+    for (int k = 0; k < K; ++k) tap(k);
+  }
+
+#pragma unroll
+  for (int i = 0; i < kPremulPix; ++i) {
+    const int wo = wo0 + 4 * i + slot;
+    if (wo >= Wo) continue;
     float v[V];
 #pragma unroll
-    for (int j = 0; j < V; ++j) {
-      v[j] = round_to<T>(acc[j]);
-      if (bias != nullptr) v[j] = __fadd_rn(v[j], to_f32(bias[c + j]));
+    for (int u = 0; u < V; ++u) {
+      v[u] = round_to<T>(acc[i][u]);
+      if (bias != nullptr) v[u] = __fadd_rn(v[u], to_f32(bias[c + u]));
     }
-    store_vals<T, V>(out + (b * P + p) * (long long)C_out + c, v);
+    store_vals<T, V>(out + (b * P + ho * Wo + wo) * (long long)C_out + c, v);
   }
+}
+
+template <int KT, int V>
+int launch_premul_kernel(const __nv_bfloat16* y, const __nv_bfloat16* offset,
+                         const __nv_bfloat16* mask, const __nv_bfloat16* bias,
+                         __nv_bfloat16* out, int B, int H, int W, int Ho, int Wo, int C_out,
+                         int kh, int kw, int stride, int pad, int dil, int off_stride,
+                         int mask_stride, cudaStream_t stream) {
+  const int smem = premul_smem(kh * kw);
+  if (smem > 48 * 1024) {
+    // above 48 KB (the generic instance past 11 taps): opted in once per
+    // device for the instance's largest size, which holds for smaller ones
+    static unsigned long long devices_set = 0;
+    int device = 0;
+    if (const cudaError_t e = cudaGetDevice(&device); e != cudaSuccess) return (int)e;
+    const unsigned long long bit = device < 64 ? 1ull << device : 0ull;
+    if (bit == 0 || (devices_set & bit) == 0) {
+      if (const cudaError_t e =
+              cudaFuncSetAttribute(premul_lerp_accum_kernel<KT, V>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   premul_smem(kPremulMaxTaps));
+          e != cudaSuccess)
+        return (int)e;
+      devices_set |= bit;
+    }
+  }
+  const int tiles_x = (Wo + kPremulCols - 1) / kPremulCols;
+  const long long tiles = (long long)tiles_x * ((Ho + kPremulRows - 1) / kPremulRows);
+  const int chunks = (C_out + 8 * V - 1) / (8 * V);
+  if (tiles > 2147483647ll || chunks > 65535 || B > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)tiles, chunks, B);
+  premul_lerp_accum_kernel<KT, V><<<grid, kThreads, smem, stream>>>(
+      y, offset, mask, bias, out, H, W, Ho, Wo, C_out, kh, kw, stride, pad, dil, off_stride,
+      mask_stride, tiles_x);
+  return (int)cudaGetLastError();
 }
 
 int launch_premul(const void* y, const void* offset, const void* mask, const void* bias,
                   void* out, int B, int H, int W, int Ho, int Wo, int C_out, int kh, int kw,
                   int stride, int pad, int dil, int off_stride, int mask_stride, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || Ho <= 0 || Wo <= 0 || C_out <= 0 || kh <= 0 || kw <= 0 ||
-      stride <= 0 || dil <= 0 || pad < 0 || off_stride < 2 * kh * kw || mask_stride < kh * kw)
+      stride <= 0 || dil <= 0 || pad < 0 || off_stride < 2 * kh * kw || mask_stride < kh * kw ||
+      kh * kw > kPremulMaxTaps || (long long)H * W * kh * kw * C_out > (1ll << 31))
     return (int)cudaErrorInvalidValue;
-  const long long P = (long long)Ho * Wo;
-  const int smem = kh * kw * kPremulTileP * 8 * (int)sizeof(int);
-  const long long tiles = (P + kPremulTileP - 1) / kPremulTileP;
-  if (smem > 48 * 1024 || tiles > 2147483647ll || B > 65535 ||
-      (long long)H * W * kh * kw * C_out > (1ll << 31))
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)tiles, B);
   // 16-byte loads and stores where every C_out slice of Y and every output
   // row starts 16-byte aligned
   const bool vec = C_out % 8 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
   using T = __nv_bfloat16;
-  if (vec) {
-    premul_lerp_accum_kernel<8><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-        static_cast<const T*>(y), static_cast<const T*>(offset), static_cast<const T*>(mask),
-        static_cast<const T*>(bias), static_cast<T*>(out), H, W, Ho, Wo, C_out, kh, kw, stride,
-        pad, dil, off_stride, mask_stride);
-  } else {
-    premul_lerp_accum_kernel<1><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-        static_cast<const T*>(y), static_cast<const T*>(offset), static_cast<const T*>(mask),
-        static_cast<const T*>(bias), static_cast<T*>(out), H, W, Ho, Wo, C_out, kh, kw, stride,
-        pad, dil, off_stride, mask_stride);
-  }
-  return (int)cudaGetLastError();
+  const T* args[4] = {static_cast<const T*>(y), static_cast<const T*>(offset),
+                      static_cast<const T*>(mask), static_cast<const T*>(bias)};
+  T* o = static_cast<T*>(out);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (kh * kw == kPremulTaps)
+    return vec ? launch_premul_kernel<kPremulTaps, 8>(args[0], args[1], args[2], args[3], o, B, H,
+                                                      W, Ho, Wo, C_out, kh, kw, stride, pad, dil,
+                                                      off_stride, mask_stride, s)
+               : launch_premul_kernel<kPremulTaps, 1>(args[0], args[1], args[2], args[3], o, B, H,
+                                                      W, Ho, Wo, C_out, kh, kw, stride, pad, dil,
+                                                      off_stride, mask_stride, s);
+  return vec ? launch_premul_kernel<0, 8>(args[0], args[1], args[2], args[3], o, B, H, W, Ho, Wo,
+                                          C_out, kh, kw, stride, pad, dil, off_stride, mask_stride,
+                                          s)
+             : launch_premul_kernel<0, 1>(args[0], args[1], args[2], args[3], o, B, H, W, Ho, Wo,
+                                          C_out, kh, kw, stride, pad, dil, off_stride, mask_stride,
+                                          s);
 }
 
 // ---------------------------------------------------------------------------

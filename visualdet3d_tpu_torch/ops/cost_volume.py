@@ -8,12 +8,15 @@ The correlation volume is the hand-written CUDA kernel
 ``csrc/correlation.cu`` (it replaces the Pallas kernels ``_corr_kernel_eyes``
 and ``_corr_kernel``). Its wrappers take the plain PyTorch version only for
 tensors on the CPU; a CUDA tensor launches the kernel or raises. Each
-wrapper counts its launches in ``LAUNCHES``.
+wrapper counts its launches in ``LAUNCHES``. :func:`correlation_plan` gives
+the kernel's division of the work (column tiles, disparity chunks and their
+halos, channel chunks), as its launcher computes it.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -50,6 +53,48 @@ def correlation_volume_plain(left: torch.Tensor, right: torch.Tensor,
     return out.to(left.dtype)
 
 
+CORR_TILE_W = 64       # output columns of a work item (4 warps of 16)
+CORR_MAX_DISP = 28     # disparities of a work item
+CORR_MAX_HALO = 32     # right columns staged left of a tile, at most (bf16 at 28 disparities)
+CORR_ROW_BYTES = 128   # channel bytes of a row in one shared-memory stage
+CORR_STAGES = 2
+CORR_THREADS = 128
+
+
+def correlation_halo(dc: int, dtype: torch.dtype) -> int:
+    """Right-tile columns the kernel stages left of a tile for a chunk of
+    ``dc`` disparities: f32, 4 x (diagonal 4x4 blocks - 1), the blocks
+    ``ceil((dc - 1) / 4) + 1``; bf16, 8 x (n8 tiles - 16 / 8), the n8 tiles
+    of a 16-column warp ``ceil((dc + 15) / 8)``."""
+    if dtype == torch.float32:
+        return 4 * (-(-(dc - 1) // 4))
+    return 8 * (-(-(dc + 15) // 8)) - 16
+
+
+def correlation_plan(w: int, c: int, num_disp: int, dtype: torch.dtype) -> Dict:
+    """How ``csrc/correlation.cu`` divides one (pair, row) of the volume:
+    ``tiles`` of ``CORR_TILE_W`` columns (the last one ragged), balanced
+    ``d_chunks`` ``(d0, dc, halo)`` of at most ``CORR_MAX_DISP`` disparities,
+    none empty, each with the halo of right columns it stages, and
+    ``c_chunk`` channels a stage (``CORR_ROW_BYTES`` of the dtype), ``n_cc``
+    stages an item. ``vec``: whether C allows the 16-byte copies (the
+    launcher also asks for 16-byte aligned bases). ``smem``: a block's
+    shared memory (``CORR_STAGES`` stages and each warp's band)."""
+    isz = torch.empty((), dtype=dtype).element_size()
+    n = -(-num_disp // CORR_MAX_DISP)
+    dchunk = -(-num_disp // n)
+    d_chunks: List[Tuple[int, int, int]] = []
+    for d0 in range(0, num_disp, dchunk):
+        dc = min(dchunk, num_disp - d0)
+        d_chunks.append((d0, dc, correlation_halo(dc, dtype)))
+    c_chunk = CORR_ROW_BYTES // isz
+    tiles = [(w0, min(CORR_TILE_W, w - w0)) for w0 in range(0, w, CORR_TILE_W)]
+    smem = (CORR_STAGES * (2 * CORR_TILE_W + CORR_MAX_HALO) * CORR_ROW_BYTES
+            + CORR_THREADS // 32 * 16 * CORR_MAX_DISP * 4)
+    return dict(tiles=tiles, d_chunks=d_chunks, c_chunk=c_chunk,
+                n_cc=-(-c * isz // CORR_ROW_BYTES), vec=c % (16 // isz) == 0, smem=smem)
+
+
 @functools.lru_cache(maxsize=None)
 def _correlation_lib() -> ctypes.CDLL:
     lib = kernel_build.load('correlation')
@@ -81,15 +126,22 @@ def _check_cuda_input(x: torch.Tensor, what: str) -> None:
 
 def _launch(left_ptr: int, right_ptr: int, out: torch.Tensor, b: int, h: int, w: int,
             c: int, num_disp: int, pair_stride: int) -> None:
-    lib = _correlation_lib()
-    fn = getattr(lib, _ENTRY[out.dtype])
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream(out.device).cuda_stream
-        rc = fn(left_ptr, right_ptr, out.data_ptr(), b, h, w, c, num_disp, pair_stride, stream)
+    """Launch on out's device and its current stream. K1 is on the batch-1
+    path, so the launch takes few host steps: the stream is read raw and a
+    device context is entered only when out is not on the current device."""
+    fn = getattr(_correlation_lib(), _ENTRY[out.dtype])
+    args = (left_ptr, right_ptr, out.data_ptr(), b, h, w, c, num_disp, pair_stride)
+    index = out.get_device()
+    if index == torch.cuda.current_device():
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         raise RuntimeError(f'correlation kernel launch failed: '
-                           f'{lib.vd3d_cuda_error_string(rc).decode()} (cudaError {rc}); '
-                           f'B={b} H={h} W={w} C={c} D={num_disp} dtype={out.dtype}')
+                           f'{_correlation_lib().vd3d_cuda_error_string(rc).decode()} '
+                           f'(cudaError {rc}); B={b} H={h} W={w} C={c} D={num_disp} '
+                           f'dtype={out.dtype}')
 
 
 def correlation_volume(left: torch.Tensor, right: torch.Tensor, num_disp: int) -> torch.Tensor:

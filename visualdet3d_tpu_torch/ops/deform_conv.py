@@ -61,7 +61,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -548,12 +548,17 @@ def _kernel_dims(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
 
 
 def _call(entry: str, what: str, args, device: torch.device, detail: str) -> None:
-    """Call a launcher of the library on ``device``'s current stream; raise
+    """Call a launcher of the library on ``device``'s current stream (read
+    raw; a device context is entered only off the current device); raise
     if the launch was refused."""
     lib = _deform_conv_lib()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, entry)(*args, stream)
+    fn = getattr(lib, entry)
+    index = device.index
+    if index == torch.cuda.current_device():
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         raise RuntimeError(f'{what} kernel launch failed: '
                            f'{lib.vd3d_cuda_error_string(rc).decode()} (cudaError {rc}); '
@@ -607,6 +612,25 @@ def premul_table(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.reshape(b * h * w, c_in), _premul_weight(weight)).reshape(b, h, w, -1)
 
 
+PREMUL_TILE = (8, 16)   # output rows x columns of a K6 block (a warp a row, 4 pixels a lane)
+PREMUL_TAPS = 9         # the tap count K6 is compiled for; other counts take its generic instance
+PREMUL_MAX_TAPS = 56    # the generic instance's limit (a warp's corner entries in shared memory)
+
+
+def premul_plan(ho: int, wo: int, c_out: int, taps: int = 9, vec: bool = True) -> Dict:
+    """How K6 (``premul_lerp_accum_kernel``) divides its output: ``tiles``
+    of ``PREMUL_TILE`` pixels (``tiles_y`` x ``tiles_x``, the last ones
+    ragged), ``chunks`` of output channels (64 with 16-byte loads, ``vec``:
+    ``C_out % 8 == 0`` and Y and the output 16-byte aligned; else 8, one a
+    lane), its instance (``taps``: 9, or 0 for the generic one) and its
+    shared memory (each warp's corner entries: taps x 8 words x 16 pixels)."""
+    rows, cols = PREMUL_TILE
+    per_lane = 8 if vec and c_out % 8 == 0 else 1
+    return dict(tiles_y=-(-ho // rows), tiles_x=-(-wo // cols), chunks=-(-c_out // (8 * per_lane)),
+                channels_per_lane=per_lane, taps=PREMUL_TAPS if taps == PREMUL_TAPS else 0,
+                smem=rows * taps * 8 * cols * 4)
+
+
 def premul_lerp_accumulate(y: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
                            bias: Optional[torch.Tensor] = None,
                            kernel_size: Tuple[int, int] = (3, 3), stride: int = 1,
@@ -632,6 +656,8 @@ def premul_lerp_accumulate(y: torch.Tensor, offset: torch.Tensor, mask: torch.Te
     if y.dim() != 4 or not y.is_contiguous() or y.shape[-1] % k:
         raise ValueError(f'{what}(y): expected a contiguous [B, H, W, {k} * C_out] tensor, got '
                          f'{tuple(y.shape)} with strides {y.stride()}')
+    if k > PREMUL_MAX_TAPS:
+        raise ValueError(f'{what}: the kernel takes at most {PREMUL_MAX_TAPS} taps, got {k}')
     b, h, w, kc = y.shape
     c_out = kc // k
     ho, wo = output_hw(h, w, kh, kw, stride, padding, dilation)
