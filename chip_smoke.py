@@ -27,7 +27,19 @@ each printed as one JSON line:
    fps, batch-1 p50 latency, valid detections, the correlation launches
    over that run (set to 0 just before it); a ``torch.profiler`` breakdown
    of one batch-16 ``predict`` per dtype; batch-1 f32 (TF32 off) parity of
-   the card against the same model on the CPU;
+   the card against the same model on the CPU; then stereo training:
+   corr_bwd_kernel, corr_bwd_per_step, corr_bwd_edges (the correlation
+   backward kernel against its plain version at both shapes at batch 16,
+   f32 and bf16, CUDA events and device time beside the bound, the plain
+   version and a dense ``torch.bmm`` yardstick; W < D, a ragged tile,
+   batch 1, several tiles and chunks, C off the 16-byte pieces, separate
+   eyes (one unaligned), and the gradients autograd hands over when a
+   channels_last conv or an NCHW copy reads the volume); stereo_train
+   (``entry.build_stereo_trainer``: bf16 mixed precision at batch 16, f32 at
+   batch 8, 288x1280: ms per step, img/s, 2 correlation forward and 2
+   backward launches a step, peak memory, a profile, the loss and the
+   disparity loss falling over 10 steps on one batch); stereo_train_parity
+   (one f32 step at batch 2 on the card against the CPU);
 4. deform_kernel, deform_edges: the DCNv2 kernel against its plain version
    at the 7 shapes of the KM3D neck (batch 16, 384x1280), f32 and bf16,
    with seeded offsets (std 2 px, 5% of them 20-40 px, outside the map),
@@ -111,7 +123,8 @@ each printed as one JSON line:
    artifact quantized on the CPU, batch-1 int8 predict on the card against
    the CPU's, with the JAX package's decode gates).
 
-Then the ``kernels`` summary line, the ``nvidia-smi`` line and, last,
+Then a ``wall`` line (the script's seconds), the ``kernels`` summary line,
+the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that line.
 """
@@ -467,6 +480,353 @@ def parity_phase(torch, system):
     emit('parity', batch=1, dtype='float32', tf32=False, n_valid=n_valid,
          max_box_abs_err=box_err, raw_rel_err_cls_reg=raw_err,
          max_score_abs_err=float((out_gpu['scores'] - out_cpu['scores']).abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# stereo training: the correlation backward and the training step
+# ---------------------------------------------------------------------------
+
+CORR_SHAPES = {'stride4': (72, 320, 64, 96 // 4), 'stride8': (36, 160, 128, 192 // 8)}
+STEREO_TRAIN_BATCH = {'bfloat16': 16, 'float32': 8}  # bench.py's stereo_train cells
+
+
+def corr_bwd_check(torch, cv, both, g, what):
+    """The backward kernel on (both, g) against the plain backward in f32 on
+    the same (rounded) inputs: f32 within 1e-5 of the largest |value|, bf16
+    within one bf16 ulp of the f32 value (bf16 products are exact in f32;
+    only the order of the sums differs) plus that f32 allowance. Returns
+    the max abs error."""
+    out = cv.correlation_backward_interleaved(both, g)
+    torch.cuda.synchronize()
+    check(out.dtype == both.dtype and out.shape == both.shape,
+          f'{what}: gradient {out.dtype} {tuple(out.shape)} for {both.dtype} {tuple(both.shape)}')
+    ref = cv.correlation_backward_plain(both.float(), g.float())
+    err = (out.float() - ref).abs()
+    f32_tol = 1e-5 * float(ref.abs().max())
+    if both.dtype == torch.float32:
+        ok = bool(err.max() <= f32_tol)
+    else:
+        ok = bool((err <= bf16_ulp(ref) + f32_tol).all())
+    check(ok, f'{what}: max abs err {float(err.max())} (largest |value| '
+              f'{float(ref.abs().max())})')
+    return float(err.max())
+
+
+def corr_bwd_kernel_phase(torch, cv, peaks):
+    """The correlation backward kernel against the plain backward at the
+    training path's shapes (batch 16, 288x1280), f32 and bf16: CUDA events
+    and device time (CUDA graphs), the plain version's time, a dense
+    ``torch.bmm`` yardstick (not the same function), and the bound: the
+    bytes of L, R and g read once and of both gradients written once, or
+    the band's multiply-adds."""
+    bw, f32_peak, bf16_peak = peaks
+    gen = torch.Generator(device='cuda').manual_seed(31)
+    results = {}
+    for dtype_name, dtype in (('f32', torch.float32), ('bf16', torch.bfloat16)):
+        r = {'ms': 0.0, 'graph_ms': 0.0, 'plain_ms': 0.0, 'bmm_ms': 0.0, 'bytes_bound_ms': 0.0,
+             'ops_bound_ms': 0.0, 'max_abs_err': 0.0, 'per_shape': {}}
+        for shape_name, (h, w, c, d) in CORR_SHAPES.items():
+            inputs = [(torch.randn((2 * BATCH, h, w, c), generator=gen, device='cuda').to(dtype),
+                       torch.randn((BATCH, h, w, d), generator=gen, device='cuda').to(dtype))
+                      for _ in range(N_KERNEL_RUNS)]
+            err = corr_bwd_check(torch, cv, *inputs[0], f'corr_bwd {dtype_name} {shape_name}')
+            isz = inputs[0][0].element_size()
+            n_bytes = isz * (2 * 2 * BATCH * h * w * c + BATCH * h * w * d)
+            n_flops = 2 * 2 * BATCH * h * c * sum(max(w - k, 0) for k in range(d))
+            bytes_ms = n_bytes / bw * 1e3
+            ops_ms = n_flops / (f32_peak if dtype == torch.float32 else bf16_peak) * 1e3
+
+            def run(x):
+                return cv.correlation_backward_interleaved(*x)
+            ms = cuda_ms(run, inputs)
+            dev_ms = graph_ms(run, inputs[:4])
+            plain_ms = cuda_ms(lambda x: cv.correlation_backward_plain(*x), inputs[:3], warmup=1)
+            # yardstick, not the same function: both products dense, a
+            # [W, W] matrix (the band's, zeros included) times [W, C] for
+            # each eye of every (pair, row)
+            dense = torch.randn((BATCH * h, w, w), generator=gen, device='cuda').to(dtype)
+            eyes = [x[0].reshape(BATCH, 2, h * w * c)[:, 0].reshape(BATCH * h, w, c)
+                    for x in inputs]
+            bmm_ms = 2 * cuda_ms(lambda e: torch.bmm(dense, e), eyes)
+            del dense, eyes, inputs
+            bound = max(bytes_ms, ops_ms)
+            r['per_shape'][shape_name] = dict(
+                input=[2 * BATCH, h, w, c], num_disp=d, ms=ms, graph_ms=dev_ms,
+                plain_ms=plain_ms, bound_ms=bound, share_of_bound=bound / ms,
+                share_of_bound_device=bound / dev_ms, bmm_ms=bmm_ms, max_abs_err=err,
+                achieved_gbps=n_bytes / (dev_ms * 1e-3) / 1e9)
+            emit('corr_bwd_kernel', dtype=dtype_name, shape=shape_name,
+                 **r['per_shape'][shape_name], bytes=n_bytes, flops=n_flops)
+            for key, value in (('ms', ms), ('graph_ms', dev_ms), ('plain_ms', plain_ms),
+                               ('bmm_ms', bmm_ms), ('bytes_bound_ms', bytes_ms),
+                               ('ops_bound_ms', ops_ms)):
+                r[key] += value
+            r['max_abs_err'] = max(r['max_abs_err'], err)
+        r['bound_ms'], r['bound_by'] = bound_of(r['bytes_bound_ms'], r['ops_bound_ms'])
+        r['share_of_bound'] = r['bound_ms'] / r['ms']
+        r['share_of_bound_device'] = r['bound_ms'] / r['graph_ms']
+        emit('corr_bwd_per_step', dtype=dtype_name, ms=r['ms'], graph_ms=r['graph_ms'],
+             bound_ms=r['bound_ms'], bound_by=r['bound_by'], share_of_bound=r['share_of_bound'],
+             share_of_bound_device=r['share_of_bound_device'], plain_ms=r['plain_ms'],
+             bmm_ms=r['bmm_ms'])
+        results[dtype_name] = r
+    return results
+
+
+CORR_BWD_EDGES = (  # (2B, H, W, C, D), what each reaches
+    ((2, 2, 5, 8, 12), 'W=5 < D=12'),
+    ((4, 3, 45, 16, 8), 'W=45 (one ragged tile)'),
+    ((2, 72, 320, 64, 24), 'batch 1 at the stride-4 shape'),
+    ((2, 1, 150, 136, 30), 'W=150 (three tiles), C=136 (three chunks), D=30'),
+    ((2, 3, 33, 12, 7), 'C=12 (no 16-byte copies in bf16), W D odd'),
+)
+
+
+def corr_bwd_edge_phase(torch, cv):
+    """Edges of the backward kernel, f32 and bf16, with its gates: W < D, a
+    ragged tile, batch 1, several tiles and chunks, C off the 16-byte
+    pieces; the separate-eyes form (an unaligned right eye among them); and
+    the gradient autograd really hands over when the volume is read as a
+    channels_last NCHW tensor by a conv (a dense [B, H, W, D] gradient) and
+    by an NCHW-contiguous copy (a strided one), against the plain backward
+    of the same gradient, through the wrapper's autograd Function."""
+    gen = torch.Generator(device='cuda').manual_seed(32)
+    for dtype in (torch.float32, torch.bfloat16):
+        for (b2, h, w, c, d), name in CORR_BWD_EDGES:
+            both = torch.randn((b2, h, w, c), generator=gen, device='cuda').to(dtype)
+            g = torch.randn((b2 // 2, h, w, d), generator=gen, device='cuda').to(dtype)
+            corr_bwd_check(torch, cv, both, g, f'corr_bwd_edges {name} {dtype}')
+        # separate eyes; the right eye one element off 16-byte alignment
+        left = torch.randn((1, 2, 40, 64), generator=gen, device='cuda').to(dtype)
+        right = torch.empty(left.numel() + 1, dtype=dtype, device='cuda')[1:].view(left.shape)
+        right.copy_(torch.randn(left.shape, generator=gen, device='cuda'))
+        g = torch.randn((1, 2, 40, 24), generator=gen, device='cuda').to(dtype)
+        for l_in, r_in, what in ((left, left.clone(), 'aligned'), (left, right, 'unaligned')):
+            dl, dr = cv.correlation_backward(l_in, r_in, g)
+            rl, rr = cv.correlation_backward_plain_eyes(l_in.float(), r_in.float(), g.float())
+            for out, ref in ((dl, rl), (dr, rr)):
+                err = (out.float() - ref).abs()
+                tol = 1e-5 * float(ref.abs().max())
+                ok = bool(err.max() <= tol) if dtype == torch.float32 else bool(
+                    (err <= bf16_ulp(ref) + tol).all())
+                check(ok, f'corr_bwd_edges separate eyes {what} {dtype}: max abs err '
+                          f'{float(err.max())}')
+        # autograd's gradient: a 1x1 conv reading the volume as channels_last
+        # NCHW, and an NCHW-contiguous copy (the gradient a strided view);
+        # a hook on the volume sees the gradient the Function is handed
+        both = torch.randn((4, 36, 160, 128), generator=gen, device='cuda').to(dtype)
+        conv = torch.nn.Conv2d(24, 8, 1).cuda().to(dtype).to(memory_format=torch.channels_last)
+        weight = torch.randn((2, 24, 36, 160), generator=gen, device='cuda').to(dtype)
+        strides = {}
+        for how in ('channels_last conv', 'NCHW copy'):
+            x = both.clone().requires_grad_()
+            cv.reset_launch_counts()
+            vol = cv.correlation_volume_interleaved(x, 24)
+            seen = []
+            vol.register_hook(seen.append)
+            if how == 'channels_last conv':
+                y = conv(vol.permute(0, 3, 1, 2))
+                y.backward(torch.randn(y.shape, generator=gen, device='cuda').to(dtype))
+            else:
+                (vol.permute(0, 3, 1, 2).contiguous() * weight).sum().backward()
+                check(not seen[0].is_contiguous(),
+                      f'corr_bwd_edges: the NCHW copy handed a dense gradient {seen[0].stride()}')
+            g = seen[0]
+            strides[how] = list(g.stride())
+            launches = dict(cv.LAUNCHES)
+            check(launches['correlation_volume_interleaved'] == 1
+                  and launches['correlation_backward_interleaved'] == 1,
+                  f'corr_bwd_edges autograd ({how}) {dtype}: launches {launches}')
+            ref = cv.correlation_backward_plain(both.float(), g.contiguous().float())
+            err = (x.grad.float() - ref).abs()
+            tol = 1e-5 * float(ref.abs().max())
+            ok = bool(err.max() <= tol) if dtype == torch.float32 else bool(
+                (err <= bf16_ulp(ref) + tol).all())
+            check(ok and x.grad.dtype == dtype,
+                  f'corr_bwd_edges autograd ({how}) {dtype}: max abs err {float(err.max())}, '
+                  f'gradient strides {tuple(g.stride())}, dtype {x.grad.dtype}')
+    emit('corr_bwd_edges', ok=True, cases=[name for _, name in CORR_BWD_EDGES] + [
+        'separate eyes, aligned and the right eye off 16-byte alignment',
+        'the gradient of a channels_last conv reading the volume',
+        'the gradient of an NCHW-contiguous copy of the volume (strided)'],
+         dtypes=['float32', 'bfloat16'], autograd_gradient_strides=strides)
+
+
+def stereo_train_batches(torch, n, batch_size, seed):
+    """n distinct synthetic stereo training batches
+    (``testing.stereo_training_batch`` at 288x1280, numpy generator
+    ``seed``), moved to the card before any timing."""
+    from visualdet3d_tpu_torch.entry import IMAGE_HW
+    from visualdet3d_tpu_torch.testing import stereo_training_batch
+    rng = np.random.default_rng(seed)
+    return [{k: torch.as_tensor(v, device='cuda')
+             for k, v in stereo_training_batch(rng, batch_size, IMAGE_HW).items()}
+            for _ in range(n)]
+
+
+CORR_KERNEL_NAMES = {'forward': 'correlation_kernel', 'backward': 'correlation_bwd_kernel'}
+
+
+def stereo_train_phase(torch, cv, compute_dtype):
+    """The YOLOStereo3D training step (``build_stereo_trainer``) at
+    288x1280, bf16 mixed precision at batch 16 or f32 at batch 8: ms per
+    step and img/s over N_BATCHES distinct batches after N_TRAIN_WARMUP
+    warm-up steps, ending in ``synchronize()``; the correlation launches of
+    that run (2 forward, 2 backward a step); peak memory; a profiler
+    breakdown of one step with the correlation kernels' device time and the
+    device's busy share; then N_FALL_STEPS steps on one repeated batch, in
+    which the loss and the disparity loss stay finite and positive and
+    fall."""
+    from visualdet3d_tpu_torch.entry import IMAGE_HW, build_stereo_trainer
+    name = compute_dtype or 'float32'
+    batch_size = STEREO_TRAIN_BATCH[name]
+    system, state, step = build_stereo_trainer(device='cuda', compute_dtype=compute_dtype,
+                                               batch_size=batch_size)
+    batches = stereo_train_batches(torch, N_TRAIN_WARMUP + N_BATCHES, batch_size, seed=33)
+    for b in batches[:N_TRAIN_WARMUP]:
+        step(b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    cv.reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = [step(b) for b in batches[N_TRAIN_WARMUP:]]
+    torch.cuda.synchronize()
+    ms_step = (time.perf_counter() - t0) * 1e3 / N_BATCHES
+    launches = dict(cv.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {'correlation_volume': 0, 'correlation_volume_interleaved': 2 * N_BATCHES,
+            'correlation_backward': 0, 'correlation_backward_interleaved': 2 * N_BATCHES}
+    check(launches == want, f'stereo_train {name}: {launches} correlation launches for '
+                            f'{N_BATCHES} steps (expected 2 forward and 2 backward a step)')
+    losses = [float(m['total']) for m in metrics]
+    check(all(np.isfinite(losses)) and min(losses) > 0,
+          f'stereo_train {name}: losses {losses}')
+    check(state.optimizer.count == state.step == N_TRAIN_WARMUP + N_BATCHES,
+          f'stereo_train {name}: {state.optimizer.count} updates in {state.step} steps')
+    for p in system.net.parameters():
+        check(p.dtype == torch.float32 and bool(torch.isfinite(p).all()),
+              f'stereo_train {name}: a master parameter is {p.dtype} or non-finite')
+    for buf in system.net.buffers():
+        check(not buf.is_floating_point() or buf.dtype == torch.float32,
+              f'stereo_train {name}: a running statistic is {buf.dtype}')
+
+    wall_ms, kernels, ops, device_ms = device_profile(torch, lambda: step(batches[-1]))
+    corr = {kind: [e for e in kernels if key in e.key] for kind, key in CORR_KERNEL_NAMES.items()}
+    counts = {kind: sum(e.count for e in evs) for kind, evs in corr.items()}
+    check(counts == {'forward': 2, 'backward': 2},
+          f'stereo_train {name} profile: correlation kernels in one step {counts}')
+    corr_ms = {kind: sum(e.self_device_time_total for e in evs) / 1e3 for kind, evs in corr.items()}
+
+    fall = [{k: float(v) for k, v in step(batches[-1]).items()} for _ in range(N_FALL_STEPS)]
+    for key in ('total', 'disparity_loss'):
+        seq = [m[key] for m in fall]
+        check(all(np.isfinite(seq)) and min(seq) > 0 and seq[-1] < seq[0],
+              f'stereo_train {name}: {key} did not stay positive and fall over '
+              f'{N_FALL_STEPS} steps on one batch: {seq}')
+    result = dict(compute_dtype=name, batch=batch_size, image_hw=list(IMAGE_HW),
+                  ms_per_step=ms_step, img_per_s=batch_size / ms_step * 1e3, losses=losses,
+                  launches=launches,
+                  launches_per_step={k: v / N_BATCHES for k, v in launches.items()},
+                  peak_memory_gb=peak_gb, profile_wall_ms=wall_ms, device_ms=device_ms,
+                  device_busy_share=device_ms / wall_ms,
+                  device_busy_share_of_timed_step=device_ms / ms_step,
+                  correlation_kernel_ms=corr_ms, correlation_kernels_per_step=counts,
+                  loss_on_one_batch=[m['total'] for m in fall],
+                  disparity_loss_on_one_batch=[m['disparity_loss'] for m in fall],
+                  top_ops=top_events(ops, 14), top_kernels=top_events(kernels, 14))
+    emit('stereo_train', **result)
+    del system, state, step, batches
+    torch.cuda.empty_cache()
+    return result
+
+
+def stereo_train_parity_phase(torch):
+    """One f32 training step (TF32 off) on the card against the same step on
+    the CPU: ``build_stereo_trainer`` at batch 2, the same random weights
+    and batch, dropout off on both (the two devices' generators draw other
+    masks).
+
+    Self-calibrated, as ``km3d_train_parity``: the noise floor is the CPU's
+    own gradient with the input images moved by up to two f32 ulps. Gates:
+    each loss term within max(8x the floor's difference, 2e-4 of its
+    value); the gradients as the backward leaves them (before the update
+    clips them in place): the largest elementwise difference within 8x the
+    floor's (and 5e-2 of the largest gradient), the norm-wise difference
+    over all parameters within 3x the floor's; the running statistics after
+    the step within 1e-4 of their largest value; the parameters after the
+    Adam step within 2.5 * lr."""
+    from visualdet3d_tpu_torch.entry import build_stereo_trainer
+    batch = stereo_train_batches(torch, 1, 2, seed=34)[0]
+    gpu, gpu_state, gpu_step = build_stereo_trainer(device='cuda', batch_size=2)
+    cpu, cpu_state, cpu_step = build_stereo_trainer(device='cpu', batch_size=2)
+    init = {k: v.cpu() for k, v in gpu.net.state_dict().items()}
+    cpu.net.load_state_dict(init)
+    cpu.weights_changed()
+    floor_sys, floor_state, floor_step = build_stereo_trainer(device='cpu', batch_size=2)
+    floor_sys.net.load_state_dict(init)
+    grads = {}
+    for tag, sys_, state in (('gpu', gpu, gpu_state), ('cpu', cpu, cpu_state),
+                             ('moved', floor_sys, floor_state)):
+        sys_.dropout = False
+        update = state.optimizer.step
+
+        def recording_update(tag=tag, sys_=sys_, update=update):
+            grads[tag] = [(torch.zeros_like(p) if p.grad is None else p.grad).detach()
+                          .double().cpu() for p in sys_.net.parameters()]
+            update()
+        state.optimizer.step = recording_update
+    lr = cpu_state.optimizer.schedule(0)
+    m_gpu = {k: float(v) for k, v in gpu_step(batch).items()}
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    t0 = time.perf_counter()
+    m_cpu = {k: float(v) for k, v in cpu_step(cpu_batch).items()}
+    cpu_s = time.perf_counter() - t0
+    # the noise floor: the CPU's step, same weights, the images moved by up
+    # to two f32 ulps
+    gen = torch.Generator().manual_seed(35)
+    moved = dict(cpu_batch)
+    for key in ('left_images', 'right_images'):
+        u = torch.rand(cpu_batch[key].shape, generator=gen)
+        moved[key] = cpu_batch[key] * (1 + 2.0 ** -22 * (2 * u - 1))
+    m_moved = {k: float(v) for k, v in floor_step(moved).items()}
+
+    loss_err = {k: abs(m_gpu[k] - v) / max(abs(v), 1e-30) for k, v in m_cpu.items()}
+    loss_floor = {k: abs(m_moved[k] - v) / max(abs(v), 1e-30) for k, v in m_cpu.items()}
+    bad = {k: (loss_err[k], loss_floor[k]) for k in m_cpu
+           if loss_err[k] > max(8 * loss_floor[k], 2e-4)}
+    check(not bad, f'stereo_train_parity: loss terms differ beyond the floor {bad}')
+    g_gpu, g_cpu, g_moved = grads['gpu'], grads['cpu'], grads['moved']
+    worst = max(float((a - b).abs().max()) for a, b in zip(g_gpu, g_cpu))
+    floor = max(float((a - b).abs().max()) for a, b in zip(g_moved, g_cpu))
+    gmax = max(float(b.abs().max()) for b in g_cpu)
+    den = sum(float(b.norm()) ** 2 for b in g_cpu)
+    rel = (sum(float((a - b).norm()) ** 2 for a, b in zip(g_gpu, g_cpu)) / den) ** 0.5
+    rel_floor = (sum(float((a - b).norm()) ** 2 for a, b in zip(g_moved, g_cpu)) / den) ** 0.5
+    check(worst <= max(8 * floor, 1e-5 * gmax) and worst <= 5e-2 * gmax and rel <= 3 * rel_floor,
+          f'stereo_train_parity: gradients differ: max abs {worst} (floor {floor}, gmax '
+          f'{gmax}), norm-wise {rel} (floor {rel_floor})')
+    names = [n for n, _ in cpu.net.named_parameters()]
+    per_leaf = sorted(((float((a - b).norm() / b.norm().clamp_min(1e-30)), n)
+                       for a, b, n in zip(g_gpu, g_cpu, names)), reverse=True)
+    param_err = max(float((pg.detach().cpu() - pc.detach()).abs().max())
+                    for pg, pc in zip(gpu.net.parameters(), cpu.net.parameters()))
+    check(param_err <= 2.5 * lr, f'stereo_train_parity: parameters after the step differ by '
+                                 f'{param_err} (lr {lr})')
+    stats_err = max(float((bg.cpu() - bc).abs().max() / bc.abs().max().clamp_min(1e-30))
+                    for bg, bc in zip(gpu.net.buffers(), cpu.net.buffers())
+                    if bg.is_floating_point())
+    check(stats_err <= 1e-4, f'stereo_train_parity: running statistics differ by {stats_err}')
+    emit('stereo_train_parity', batch=2, dtype='float32', tf32=False,
+         loss_rel_err=loss_err, loss_rel_err_floor=loss_floor,
+         grad_max_abs_err=worst, grad_max_abs_err_floor=floor, grad_max=gmax,
+         grad_rel_err_all=rel, grad_rel_err_all_floor=rel_floor,
+         grad_rel_err_worst_leaves=per_leaf[:4],
+         grad_rel_err_median_leaf=statistics.median(e for e, _ in per_leaf),
+         param_max_abs_err=param_err, lr=lr, running_stats_rel_err=stats_err,
+         cpu_step_s=cpu_s, total=m_gpu['total'])
+    del gpu, cpu, floor_sys
+    torch.cuda.empty_cache()
 
 
 # (count per forward, H, W, C_in, C_out) of the 16 DCNs of the KM3D neck at 384x1280
@@ -2534,6 +2894,7 @@ def int8_parity_phase(torch):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         fail('torch.cuda.is_available() is False: this smoke run needs a CUDA card')
@@ -2583,6 +2944,12 @@ def main() -> int:
     parity_phase(torch, system)
     del system
     torch.cuda.empty_cache()
+
+    corr_bwd = corr_bwd_kernel_phase(torch, cv, peaks)
+    corr_bwd_edge_phase(torch, cv)
+    stereo_trains = {name: stereo_train_phase(torch, cv, cd)
+                     for name, cd in (('bfloat16', 'bfloat16'), ('float32', None))}
+    stereo_train_parity_phase(torch)
 
     int8_conv_edge_phase(torch, ic)
     probe = int8_probe_phase(torch, ic, part)
@@ -2643,6 +3010,7 @@ def main() -> int:
             source='visualdet3d_tpu_torch/csrc/correlation.cu',
             replaces=replaces[kernel],
             launches=slices[dtype_of[dt]]['launches'][kernel],
+            launches_in_training=stereo_trains[dtype_of[dt]]['launches'][kernel],
             max_abs_err=r['max_abs_err'], ms=r['ms'], graph_ms=r['graph_ms'],
             plain_ms=r['plain_ms'], bound_ms=r['bound_ms'], bound_by=r['bound_by'],
             share_of_bound=r['share_of_bound'], share_of_bound_device=r['share_of_bound_device'],
@@ -2651,6 +3019,21 @@ def main() -> int:
                 'the kernel keeps (not the same function)',
             per_forward='stride-4 + stride-8 calls, batch 16; ms in CUDA events, graph_ms in '
                         'device time', per_shape=r['per_shape']))
+    for dt, r in corr_bwd.items():
+        summary.append(dict(
+            name=f'correlation_backward_interleaved[{dt}]', route='cuda',
+            source='visualdet3d_tpu_torch/csrc/correlation.cu',
+            replaces='visualdet3d_tpu/ops/cost_volume.py:270 (XLA vjp; no Pallas kernel)',
+            launches=stereo_trains[dtype_of[dt]]['launches']['correlation_backward_interleaved'],
+            max_abs_err=r['max_abs_err'], ms=r['ms'], graph_ms=r['graph_ms'],
+            plain_ms=r['plain_ms'], bound_ms=r['bound_ms'], bound_by=r['bound_by'],
+            share_of_bound=r['share_of_bound'], share_of_bound_device=r['share_of_bound_device'],
+            library_ms=None, bmm_ms=r['bmm_ms'],
+            bmm='two torch.bmm of a dense [W, W] matrix by each eye [W, C], every (pair, row): '
+                'the dense products whose band the kernel computes (not the same function)',
+            per_step='the stride-4 + stride-8 backward of one training step at batch 16; ms '
+                     'in CUDA events, graph_ms in device time; launches: 6 training steps ('
+                     f'batch {STEREO_TRAIN_BATCH[dtype_of[dt]]})', per_shape=r['per_shape']))
     dcn_replaces = {  # the TPU kernel bodies _lerp_matmul_f32_kernel and _lerp_matmul_kernel
         'f32': 'visualdet3d_tpu/ops/deform_conv.py:363',
         'bf16': 'visualdet3d_tpu/ops/deform_conv.py:161',
@@ -2778,6 +3161,7 @@ def main() -> int:
         cudnn_bf16_two_convs_ms=k8['cudnn_bf16_two_convs_ms'],
         per_forward='one layer1 block at batch 16 (32 x 72 x 320 x 64), bf16 out; ms in CUDA '
                     'events, graph_ms in device time'))
+    emit('wall', total_s=time.perf_counter() - t_start, kernel_build_s=build_s)
     print(json.dumps({'kernels': summary}), flush=True)
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': name,

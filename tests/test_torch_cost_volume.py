@@ -81,7 +81,8 @@ def test_cpu_tensors_take_the_plain_path_without_launching():
     plain = cv.correlation_volume_plain(both[0::2], both[1::2], 3)
     assert torch.equal(cv.correlation_volume_interleaved(both, 3), plain)
     assert torch.equal(cv.correlation_volume(both[0::2], both[1::2], 3), plain)
-    assert cv.LAUNCHES == {'correlation_volume': 0, 'correlation_volume_interleaved': 0}
+    assert cv.LAUNCHES == {'correlation_volume': 0, 'correlation_volume_interleaved': 0,
+                           'correlation_backward': 0, 'correlation_backward_interleaved': 0}
 
 
 def test_non_cpu_tensor_never_takes_the_plain_path():

@@ -6,9 +6,9 @@
   because this test process has JAX imported already. The package imports
   none of the root scripts.
 * A wheel of the package carries the kernel sources (package data).
-* The entry points (inference, the KM3D and MonoFlex systems and trainers)
-  run on the card by default and raise without CUDA instead of running on
-  the CPU.
+* The entry points (inference, the stereo trainer, the KM3D and MonoFlex
+  systems and trainers) run on the card by default and raise without CUDA
+  instead of running on the CPU.
 * Kernels build from the package's sources only (``csrc/correlation.cu``,
   ``csrc/deform_conv.cu``, ``csrc/int8_conv.cu``, ``csrc/int8_block.cu``),
   include nothing but CUDA's headers and the package's own, rebuild when a
@@ -148,6 +148,35 @@ def test_km3d_trainer_runs_on_the_cpu_when_asked():
     # the step takes batches of the size the schedule counts in
     with pytest.raises(ValueError, match='a batch of 2 images'):
         step({'images': torch.zeros((2, 8, 8, 3)), 'gts': {}, 'P2': torch.zeros((2, 3, 4))}, 0.0)
+    assert state.step == 0
+
+
+@pytest.mark.parametrize('compute_dtype', [None, 'bfloat16'])
+def test_stereo_trainer_entry_point_raises_without_cuda(monkeypatch, compute_dtype):
+    from visualdet3d_tpu_torch import entry as entry_lib
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        entry_lib.build_stereo_trainer(compute_dtype=compute_dtype)
+
+
+def test_stereo_trainer_runs_on_the_cpu_when_asked():
+    """``device='cpu'`` builds the trainer on the CPU (the plain correlation
+    forward and backward under autograd) with ``configs/stereo3d.py``'s
+    optimizer: Adam, lr 1e-4, clipping at global norm 0.1, CosineAnnealingLR
+    over 80 epochs down to 5e-6; the system holds the disparity head."""
+    from visualdet3d_tpu_torch import entry as entry_lib
+    system, state, step = entry_lib.build_stereo_trainer(device='cpu', batch_size=16)
+    assert type(system).__name__ == 'Stereo3D' and system.bridge_skip() == ()
+    assert hasattr(system.net.StereoMerging_0.CostVolumePyramid_0, 'Conv_2')
+    assert next(system.net.parameters()).device.type == 'cpu'
+    assert isinstance(state.optimizer.torch_optimizer, torch.optim.Adam)
+    assert state.optimizer.clip_norm == 0.1
+    per_epoch = state.optimizer.schedule  # 232 updates an epoch at batch 16
+    assert per_epoch(0) == pytest.approx(1e-4)
+    assert per_epoch(40 * 232) == pytest.approx(5e-6 + 0.5 * (1e-4 - 5e-6))
+    assert per_epoch(80 * 232) == pytest.approx(5e-6)
+    with pytest.raises(ValueError, match='a batch of 2 images'):
+        step({'left_images': torch.zeros((2, 8, 8, 3))})
     assert state.step == 0
 
 

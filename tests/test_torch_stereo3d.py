@@ -81,6 +81,9 @@ def pair(tmp_path_factory):
 
 
 def test_bridge_skips_only_the_train_only_disparity_head(pair):
+    """An inference system skips exactly the disparity head's leaves of the
+    JAX package's train-mode init; a training system (``training=True``)
+    holds the head and loads every leaf, the head's as they are."""
     _, variables, _, skipped, _ = pair
     prefix = 'StereoMerging_0/CostVolumePyramid_0/'
     expected = sorted(
@@ -91,6 +94,13 @@ def test_bridge_skips_only_the_train_only_disparity_head(pair):
         + [f'batch_stats/{prefix}{m}/{leaf}' for m in ('BatchNorm_0', 'BatchNorm_1')
            for leaf in ('mean', 'var')])
     assert sorted(skipped) == expected
+    cfg = EasyDict(copy.deepcopy(pair[2].cfg))
+    tsys = DETECTOR_DICT['Stereo3D'](cfg, device='cpu', training=True)
+    assert tsys.load_flax_variables(variables) == []
+    head = tsys.net.StereoMerging_0.CostVolumePyramid_0
+    kernel = variables['params']['StereoMerging_0']['CostVolumePyramid_0']['Conv_2']['kernel']
+    assert torch.equal(head.Conv_2.weight, torch.from_numpy(
+        np.asarray(kernel).transpose(3, 2, 0, 1).copy()))
 
 
 def test_raw_predictions_match_jax_f32(pair):

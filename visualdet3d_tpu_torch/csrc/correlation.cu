@@ -429,6 +429,329 @@ int launch(const void* left, const void* right, void* out, int B, int H, int W, 
              : launch_kernel<T, false>(l, r, o, g, (int)n_items, scale, s);
 }
 
+// ---------------------------------------------------------------------------
+// The backward: the gradients of both eyes from the volume's gradient g.
+//
+// It replaces no Pallas kernel: the JAX package differentiates the TPU
+// kernels through the XLA vjp of correlation_volume_xla
+// (visualdet3d_tpu/ops/cost_volume.py::_corr_eyes_bwd and ::_corr_tpu_bwd).
+// Per (pair, row, channel), both sums over w - d >= 0 only:
+//
+//     dL[w]  = (1/C) * sum_d g[w, d]     * R[w - d]
+//     dR[w'] = (1/C) * sum_d g[w' + d, d] * L[w' + d]
+//
+// What bounds it on the card: device-memory bytes. It reads L, R and g once
+// and writes dL and dR once, and does 2 C D multiply-adds a pixel: at C = 64,
+// D = 24 about 1.5 FMAs per byte in bf16, far below the ~10 at which the f32
+// units would be the limit. The design keeps the stream busy and every
+// output in one writer:
+//   * an item is (pair b, row h, 64-column tile), as in the forward; its
+//     128 threads own 16 groups of 4 columns x one 16-byte channel piece,
+//     and each item writes both dL and dR of its 64 columns for every
+//     channel, so no output has two writers: no atomics, a deterministic
+//     result;
+//   * a persistent block takes items in turn through a 2-stage ring of
+//     128-byte channel chunks filled by 16-byte cp.async in the input
+//     dtype: per stage, L rows w0 .. w0 + 63 + D - 1 (the halo to the right,
+//     for dR) and R rows w0 - D + 1 .. w0 + 63 (the halo to the left, for
+//     dL), zero outside the image; the first chunk of an item also brings
+//     g's rows w0 .. w0 + 63 + D - 1, one contiguous run of the [B,H,W,D]
+//     gradient, which the block converts once an item to f32 rows padded
+//     with 3 zero columns on each side (so the band's ends need no branch)
+//     and a row stride that puts the 4 column groups of a warp on 4
+//     distinct banks;
+//   * per stage, each thread walks the D + 3 rows its 4 columns' bands
+//     touch, reading one 16-byte piece of L and one of R a row and the g
+//     entries its columns need from shared memory, and accumulates in f32
+//     registers (FMA units, never TF32); 1/C scales the sums (exact for a
+//     power-of-two C), which are rounded once to the input dtype and
+//     stored as 16-byte vectors into the two eyes' rows (rows 2b and
+//     2b + 1 of the interleaved [2B,H,W,C] gradient).
+// D is at most kBwdMaxD. ops/cost_volume.py::correlation_bwd_plan mirrors
+// the host-side plan, and tests/test_torch_cost_volume_grad.py writes the
+// order of work out in torch.
+constexpr int kBwdMaxD = 32;
+constexpr int kBwdGPad = 3;  // zero g columns on each side of a row
+static_assert(kThreads == 2 * kTileW, "the backward's 4-column groups of 8 pieces cover a tile");
+
+struct BwdGeom {
+  int H, W, C, D, n_tiles, n_cc, rows, gstride, stage_bytes;
+  long long pair_stride;
+};
+
+__host__ __device__ __forceinline__ int bwd_rows(int D) { return kTileW + D - 1; }
+__host__ __device__ __forceinline__ int bwd_gstride(int D) {
+  const int s = D + 2 * kBwdGPad;  // 4 * stride must hit 4 distinct banks mod 32
+  return s % 4 == 0 ? s + 1 : s;
+}
+__host__ __device__ __forceinline__ int bwd_stage_bytes(int D, int isz) {
+  const int rows = bwd_rows(D);
+  return 2 * rows * kRowBytes + (rows * D * isz + 15) / 16 * 16;
+}
+__host__ __device__ __forceinline__ int bwd_smem(int D, int isz) {
+  return kStages * bwd_stage_bytes(D, isz) + bwd_rows(D) * bwd_gstride(D) * (int)sizeof(float);
+}
+
+__device__ __forceinline__ void cp_async16_n(void* smem, const void* gmem, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(smem)),
+               "l"(gmem), "r"(bytes));
+}
+
+// 16 bytes of T as f32 values
+template <typename T> __device__ __forceinline__ void unpack16(const unsigned char* p, float* v);
+template <> __device__ __forceinline__ void unpack16<float>(const unsigned char* p, float* v) {
+  const float4 f = *reinterpret_cast<const float4*>(p);
+  v[0] = f.x;
+  v[1] = f.y;
+  v[2] = f.z;
+  v[3] = f.w;
+}
+template <> __device__ __forceinline__ void unpack16<__nv_bfloat16>(const unsigned char* p,
+                                                                    float* v) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    v[2 * j] = __uint_as_float(w[j] << 16);
+    v[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+  }
+}
+
+// Stage chunk cc of item (row offset row, g offset grow, tile w0): L rows
+// w0 .. w0 + rows - 1, then R rows w0 - D + 1 .. w0 + 63, 128 bytes each;
+// with_g: then g's rows w0 .. w0 + rows - 1 (rows x D values in the input
+// dtype), zero past the row's end.
+template <typename T, bool VEC>
+__device__ __forceinline__ void bwd_load_stage(unsigned char* st, const T* __restrict__ left,
+                                               const T* __restrict__ right,
+                                               const T* __restrict__ g, long long row,
+                                               long long grow, int w0, int cc, bool with_g,
+                                               const BwdGeom& G) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kPieces = kRowBytes / 16;
+  const int rows = G.rows;
+  for (int e = threadIdx.x; e < 2 * rows * kPieces; e += kThreads) {
+    const int r = e / kPieces, q = e - r * kPieces;
+    const bool is_l = r < rows;
+    const int rr = is_l ? r : r - rows;
+    const int w = is_l ? w0 + rr : w0 - (G.D - 1) + rr;
+    const int ch = cc * (kRowBytes / (int)sizeof(T)) + q * kVec;
+    const bool ok = w >= 0 && w < G.W && ch < G.C;
+    const T* src = (is_l ? left : right) + row + (ok ? (long long)w * G.C + ch : 0);
+    unsigned char* dst = st + r * kRowBytes + q * 16;
+    if constexpr (VEC) {
+      cp_async16(dst, src, ok);
+    } else {
+      alignas(16) T v[kVec];
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) v[j] = (ok && ch + j < G.C) ? src[j] : from_f32<T>(0.f);
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
+    }
+  }
+  if (with_g) {
+    const int n = rows * G.D;
+    const int avail = max(0, min(rows, G.W - w0)) * G.D;  // elements inside row h
+    unsigned char* dst0 = st + 2 * rows * kRowBytes;
+    const T* src0 = g + grow + (long long)w0 * G.D;
+    if constexpr (VEC) {
+      for (int e = threadIdx.x * kVec; e < n; e += kThreads * kVec) {
+        const int inside = avail - e;
+        const int bytes = inside <= 0 ? 0 : min(inside, kVec) * (int)sizeof(T);
+        cp_async16_n(dst0 + e * (int)sizeof(T), bytes ? src0 + e : src0, bytes);
+      }
+    } else {
+      T* dst = reinterpret_cast<T*>(dst0);
+      for (int e = threadIdx.x; e < n; e += kThreads) dst[e] = e < avail ? src0[e] : from_f32<T>(0.f);
+    }
+  }
+}
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+correlation_bwd_kernel(const T* __restrict__ left, const T* __restrict__ right,
+                       const T* __restrict__ g, T* __restrict__ dleft, T* __restrict__ dright,
+                       BwdGeom G, int n_items, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int kV = 16 / sizeof(T);  // channels of a 16-byte piece
+  float* gs = reinterpret_cast<float*>(smem + kStages * G.stage_bytes);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int p = threadIdx.x & 7, cg = threadIdx.x >> 3;  // piece, 4-column group
+  const int S = G.gstride, D = G.D, rows = G.rows;
+
+  auto item_row = [&](int i, long long& row, long long& grow, int& w0) {
+    const int t = i % G.n_tiles;
+    i /= G.n_tiles;
+    const int h = i % G.H, b = i / G.H;
+    row = b * G.pair_stride + (long long)h * G.W * G.C;
+    grow = ((long long)b * G.H + h) * G.W * D;
+    w0 = t * kTileW;
+  };
+
+  int ld = blockIdx.x, ld_cc = 0, ld_w0 = 0;
+  long long ld_row = 0, ld_grow = 0;
+  if (ld < n_items) item_row(ld, ld_row, ld_grow, ld_w0);
+  auto load_next = [&](int slot) {
+    if (ld < n_items)
+      bwd_load_stage<T, VEC>(smem + slot * G.stage_bytes, left, right, g, ld_row, ld_grow,
+                             ld_w0, ld_cc, ld_cc == 0, G);
+    cp_async_commit();
+    if (++ld_cc == G.n_cc) {
+      ld_cc = 0;
+      ld += gridDim.x;
+      if (ld < n_items) item_row(ld, ld_row, ld_grow, ld_w0);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) load_next(s);
+
+  int slot = 0;
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    long long row, grow;
+    int w0;
+    item_row(item, row, grow, w0);
+    for (int cc = 0; cc < G.n_cc; ++cc) {
+      cp_async_wait<kStages - 2>();
+      __syncthreads();  // this stage landed for all threads; the previous one is free
+      load_next(slot == 0 ? kStages - 1 : slot - 1);
+      const unsigned char* sl = smem + slot * G.stage_bytes;
+      slot = slot == kStages - 1 ? 0 : slot + 1;
+      const unsigned char* sr = sl + rows * kRowBytes;
+      if (cc == 0) {
+        // g's rows to f32, kBwdGPad zero columns each side: gs[r][d + kBwdGPad]
+        const T* raw = reinterpret_cast<const T*>(sl + 2 * rows * kRowBytes);
+        for (int r = warp; r < rows; r += kWarps)
+          for (int col = lane; col < S; col += 32) {
+            const int d = col - kBwdGPad;
+            gs[r * S + col] = (d >= 0 && d < D) ? to_f32(raw[r * D + d]) : 0.f;
+          }
+        __syncthreads();
+      }
+
+      float aL[4][kV], aR[4][kV];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < kV; ++j) aL[i][j] = aR[i][j] = 0.f;
+      // row k = 4 cg + m of both stages: R row k serves column 4 cg + i at
+      // d = i + D - 1 - m (dL), L row k at d = m - i (dR, g row k)
+      const float* gl_base = gs + (4 * cg) * S + D - 1 + kBwdGPad;
+      const float* gr_base = gs + (4 * cg) * S + kBwdGPad;
+      for (int m = 0; m < D + 3; ++m) {
+        const int k = 4 * cg + m;
+        float lv[kV], rv[kV];
+        unpack16<T>(sl + k * kRowBytes + p * 16, lv);
+        unpack16<T>(sr + k * kRowBytes + p * 16, rv);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float gl = gl_base[i * S + i - m];
+          const float gr = gr_base[m * S + m - i];
+#pragma unroll
+          for (int j = 0; j < kV; ++j) {
+            aL[i][j] = fmaf(gl, rv[j], aL[i][j]);
+            aR[i][j] = fmaf(gr, lv[j], aR[i][j]);
+          }
+        }
+      }
+
+      const int ch = cc * (kRowBytes / (int)sizeof(T)) + p * kV;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int w = w0 + 4 * cg + i;
+        if (w >= G.W || ch >= G.C) continue;
+        const long long off = row + (long long)w * G.C + ch;
+#pragma unroll
+        for (int j = 0; j < kV; ++j) {
+          aL[i][j] *= scale;
+          aR[i][j] *= scale;
+        }
+        if constexpr (VEC) {
+          *reinterpret_cast<uint4*>(dleft + off) = pack16<T>(aL[i]);
+          *reinterpret_cast<uint4*>(dright + off) = pack16<T>(aR[i]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < kV; ++j) {
+            if (ch + j < G.C) {
+              dleft[off + j] = from_f32<T>(aL[i][j]);
+              dright[off + j] = from_f32<T>(aR[i][j]);
+            }
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// The persistent grid for D on the current device: the opt-in to the largest
+// shared memory (kBwdMaxD) is set once per (kernel instance, device), the
+// blocks an SM holds at D's shared memory computed once per (instance,
+// device, D).
+template <typename T, bool VEC>
+int launch_bwd_kernel(const T* left, const T* right, const T* g, T* dleft, T* dright,
+                      const BwdGeom& G, int n_items, float scale, cudaStream_t stream) {
+  static unsigned long long devices_set = 0;
+  static int grid[64][kBwdMaxD + 1];
+  auto kernel = correlation_bwd_kernel<T, VEC>;
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return (int)e;
+  const int smem = bwd_smem(G.D, (int)sizeof(T));
+  int blocks = device < 64 ? grid[device][G.D] : 0;
+  if (blocks == 0) {
+    const unsigned long long bit = device < 64 ? 1ull << device : 0ull;
+    if (bit == 0 || (devices_set & bit) == 0) {
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bwd_smem(kBwdMaxD, (int)sizeof(T)));
+      if (e != cudaSuccess) return (int)e;
+      devices_set |= bit;
+    }
+    int per_sm = 0, n_sm = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+    if (e != cudaSuccess) return (int)e;
+    blocks = per_sm * n_sm;
+    if (blocks <= 0) return (int)cudaErrorInvalidConfiguration;
+    if (device < 64) grid[device][G.D] = blocks;
+  }
+  if (n_items < blocks) blocks = n_items;
+  kernel<<<blocks, kThreads, smem, stream>>>(left, right, g, dleft, dright, G, n_items, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd(const void* left, const void* right, const void* g, void* dleft, void* dright,
+               int B, int H, int W, int C, int D, long long pair_stride, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || D <= 0 || D > kBwdMaxD)
+    return (int)cudaErrorInvalidValue;
+  BwdGeom G;
+  G.H = H;
+  G.W = W;
+  G.C = C;
+  G.D = D;
+  G.n_tiles = (W + kTileW - 1) / kTileW;
+  G.n_cc = (C * (int)sizeof(T) + kRowBytes - 1) / kRowBytes;
+  G.rows = bwd_rows(D);
+  G.gstride = bwd_gstride(D);
+  G.stage_bytes = bwd_stage_bytes(D, (int)sizeof(T));
+  G.pair_stride = pair_stride;
+  const long long n_items = (long long)B * H * G.n_tiles;
+  if (n_items > 2147483647ll) return (int)cudaErrorInvalidValue;
+  constexpr int kVec = 16 / sizeof(T);
+  auto aligned = [](const void* q) { return reinterpret_cast<uintptr_t>(q) % 16 == 0; };
+  const bool vec = C % kVec == 0 && (long long)W * D % kVec == 0 && aligned(left) &&
+                   aligned(right) && aligned(g) && aligned(dleft) && aligned(dright);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const float scale = 1.0f / (float)C;
+  const T* l = static_cast<const T*>(left);
+  const T* r = static_cast<const T*>(right);
+  const T* gg = static_cast<const T*>(g);
+  T* dl = static_cast<T*>(dleft);
+  T* dr = static_cast<T*>(dright);
+  return vec ? launch_bwd_kernel<T, true>(l, r, gg, dl, dr, G, (int)n_items, scale, s)
+             : launch_bwd_kernel<T, false>(l, r, gg, dl, dr, G, (int)n_items, scale, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -441,6 +764,19 @@ int vd3d_correlation_f32(const void* left, const void* right, void* out, int B, 
 int vd3d_correlation_bf16(const void* left, const void* right, void* out, int B, int H,
                           int W, int C, int D, long long pair_stride, void* stream) {
   return launch<__nv_bfloat16>(left, right, out, B, H, W, C, D, pair_stride, stream);
+}
+
+int vd3d_correlation_backward_f32(const void* left, const void* right, const void* g,
+                                  void* dleft, void* dright, int B, int H, int W, int C, int D,
+                                  long long pair_stride, void* stream) {
+  return launch_bwd<float>(left, right, g, dleft, dright, B, H, W, C, D, pair_stride, stream);
+}
+
+int vd3d_correlation_backward_bf16(const void* left, const void* right, const void* g,
+                                   void* dleft, void* dright, int B, int H, int W, int C, int D,
+                                   long long pair_stride, void* stream) {
+  return launch_bwd<__nv_bfloat16>(left, right, g, dleft, dright, B, H, W, C, D, pair_stride,
+                                   stream);
 }
 
 const char* vd3d_cuda_error_string(int code) {

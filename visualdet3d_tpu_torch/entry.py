@@ -13,6 +13,13 @@ convs quantized; every selected conv on the CUDA int8 conv kernel, and with
 ``int8_block='pallas'`` layer1's three identity blocks on the fused int8
 block kernel.
 
+``build_stereo_trainer()`` is its training step (``configs/stereo3d.py``):
+Adam, lr 1e-4, gradients clipped to global norm 0.1, CosineAnnealingLR over
+80 epochs down to 5e-6; the detection loss plus the stereo focal
+disparity loss of the train-only disparity head; f32 or bf16 mixed
+precision; both correlation volumes' forward and backward on the CUDA
+kernels.
+
 ``build_km3d_system()`` is the KM3D system of ``configs/km3d.py`` (DLA-34,
 the DCN neck on the CUDA deformable-conv kernel, ``head_features=256``) for
 384x1280 images (``KM3D_IMAGE_HW``), random weights from a seed.
@@ -44,7 +51,7 @@ from visualdet3d_tpu_torch.registry import DETECTOR_DICT
 from visualdet3d_tpu_torch.testing import (
     KITTI_P2, calibrate_prediction_convs, int8_calibration_batches, km3d_detector_cfg,
     km3d_train_cfg, monoflex_detector_cfg, monoflex_train_cfg, stereo3d_detector_cfg,
-    write_synthetic_priors)
+    stereo_train_cfg, write_synthetic_priors)
 
 IMAGE_HW = (288, 1280)
 KM3D_IMAGE_HW = (384, 1280)
@@ -52,11 +59,11 @@ KITTI_TRAIN_FRAMES = 3712  # the chen split's training frames (splits/chen_split
 
 
 def build_system(depth: int = 34, device: Optional[Union[str, torch.device]] = None,
-                 preprocessed: Optional[str] = None):
+                 preprocessed: Optional[str] = None, training: bool = False):
     """The benchmark ``Stereo3D`` (Car, Pedestrian) with random weights from
     seed 0 on ``device`` (the card unless the caller names another).
     Synthetic priors go to ``preprocessed``, by default inside the package's
-    build directory."""
+    build directory. ``training``: with the train-only disparity head."""
     import visualdet3d_tpu_torch.models  # noqa: F401  (registers Stereo3D)
 
     device = resolve_device(device)
@@ -65,7 +72,7 @@ def build_system(depth: int = 34, device: Optional[Union[str, torch.device]] = N
     obj_types = ('Car', 'Pedestrian')
     write_synthetic_priors(preprocessed, obj_types, num_ratios=3)  # stereo ratios (0.5, 1, 2)
     cfg = stereo3d_detector_cfg(preprocessed, obj_types=obj_types, depth=depth)
-    return DETECTOR_DICT[cfg.name](cfg, device=device)
+    return DETECTOR_DICT[cfg.name](cfg, device=device, training=training)
 
 
 def build_int8_system(int8_block=None, device: Optional[Union[str, torch.device]] = None):
@@ -114,24 +121,55 @@ def build_monoflex_system(device: Optional[Union[str, torch.device]] = None):
     return DETECTOR_DICT[cfg.name](cfg, device=device)
 
 
-def _rtm3d_trainer(system, train_cfg, compute_dtype: Optional[str], batch_size: int):
-    """``(system, state, step)`` of the rtm3d trainer for ``system`` with the
-    optimizer and schedule of ``train_cfg``."""
-    from visualdet3d_tpu_torch.pipelines import trainers  # noqa: F401  (registers train_rtm3d)
+def _trainer(system, train_cfg, pipeline: str, compute_dtype: Optional[str]):
+    """``(state, train_step)`` of the registered ``pipeline`` for ``system``
+    with the optimizer and schedule of ``train_cfg``."""
+    from visualdet3d_tpu_torch.pipelines import trainers  # noqa: F401  (registers the trainers)
     from visualdet3d_tpu_torch.pipelines.train_state import TrainState
     from visualdet3d_tpu_torch.registry import PIPELINE_DICT
     from visualdet3d_tpu_torch.solver.optimizers import build_optimizer
 
     state = TrainState(build_optimizer(system.net.parameters(), train_cfg.optimizer,
                                        train_cfg.scheduler, train_cfg.steps_per_epoch))
-    train_step = PIPELINE_DICT['train_rtm3d'](system, compute_dtype=compute_dtype)
+    return state, PIPELINE_DICT[pipeline](system, compute_dtype=compute_dtype)
+
+
+def _check_batch_size(n: int, batch_size: int) -> None:
+    if n != batch_size:
+        raise ValueError(f'a batch of {n} images for a trainer whose epoch is counted in '
+                         f'batches of {batch_size}')
+
+
+def _rtm3d_trainer(system, train_cfg, compute_dtype: Optional[str], batch_size: int):
+    """``(system, state, step)`` of the rtm3d trainer for ``system`` with the
+    optimizer and schedule of ``train_cfg``."""
+    state, train_step = _trainer(system, train_cfg, 'train_rtm3d', compute_dtype)
 
     def step(batch, epoch: float):
-        n = batch['images'].shape[0]
-        if n != batch_size:
-            raise ValueError(f'a batch of {n} images for a trainer whose epoch is counted in '
-                             f'batches of {batch_size}')
+        _check_batch_size(batch['images'].shape[0], batch_size)
         return train_step(state, dict(batch, epoch=epoch))
+    return system, state, step
+
+
+def build_stereo_trainer(device: Optional[Union[str, torch.device]] = None,
+                         compute_dtype: Optional[str] = None, batch_size: int = 16):
+    """YOLOStereo3D training on ``device`` (the card unless the caller names
+    another): returns ``(system, state, step)``. ``system`` is
+    :func:`build_system`'s (ResNet-34, 288x1280) with the disparity head;
+    ``state`` holds the optimizer of ``configs/stereo3d.py`` (an epoch is
+    the chen split's training frames at ``batch_size``); ``step(batch)``
+    takes ``{'left_images', 'right_images', 'P2', 'P3', 'annotations',
+    'disparity'}`` (``testing.stereo_training_batch``) of ``batch_size``
+    pairs, raising on another size, and makes one update in place,
+    returning the loss terms. ``compute_dtype='bfloat16'`` is the
+    mixed-precision policy (``pipelines/train_state.py``)."""
+    cfg = stereo_train_cfg(steps_per_epoch=math.ceil(KITTI_TRAIN_FRAMES / batch_size))
+    system = build_system(device=device, training=True)
+    state, train_step = _trainer(system, cfg, 'train_stereo_detection', compute_dtype)
+
+    def step(batch):
+        _check_batch_size(batch['left_images'].shape[0], batch_size)
+        return train_step(state, batch)
     return system, state, step
 
 

@@ -4,18 +4,22 @@
 Depth in {18, 34, 50, 101, 152}; ``num_stages``/``out_indices`` truncate and
 tap stages, ``dilations`` per stage, ``frozen_stages`` as a prefix freeze
 (``detach`` where the JAX package has ``stop_gradient``), ``norm_eval``
-(BatchNorm stays in eval mode while the module trains) and the
-space-to-depth stem. Submodule names mirror the flax names.
+(BatchNorm stays in eval mode while the module trains), the space-to-depth
+stem and ``remat`` (each residual block recomputed in the backward instead
+of keeping its activations). Submodule names mirror the flax names.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import List, Sequence
 
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from visualdet3d_tpu_torch.models.blocks import bn2d
+from visualdet3d_tpu_torch.models.blocks import bn2d, frozen_running_stats
 from visualdet3d_tpu_torch.registry import BACKBONE_DICT
 
 RESNET_SPECS = {
@@ -98,7 +102,7 @@ class ResNet(nn.Module):
     def __init__(self, depth: int = 101, num_stages: int = 4,
                  out_indices: Sequence[int] = (3,), frozen_stages: int = -1,
                  dilations: Sequence[int] = (1, 1, 1, 1), norm_eval: bool = False,
-                 s2d_stem: bool = False, in_channels: int = 3):
+                 s2d_stem: bool = False, remat: bool = False, in_channels: int = 3):
         super().__init__()
         block_type, stage_blocks = RESNET_SPECS[depth]
         block_cls = BasicBlock if block_type == 'basic' else Bottleneck
@@ -106,6 +110,7 @@ class ResNet(nn.Module):
         self.frozen_stages = frozen_stages
         self.norm_eval = norm_eval
         self.s2d_stem = s2d_stem
+        self.remat = remat
         if s2d_stem:
             # 4x4/s1 conv on the 2x2 space-to-depth image: the flax stem's
             # asymmetric padding [(2, 1), (2, 1)] is an explicit F.pad
@@ -152,14 +157,29 @@ class ResNet(nn.Module):
         if self.frozen_stages >= 0:
             x = x.detach()
         outs = []
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for stage_idx, names in enumerate(self.stage_names):
             for name in names:
-                x = getattr(self, name)(x)
+                block = getattr(self, name)
+                if remat:
+                    # the backward recomputes the block's forward; its
+                    # BatchNorms update their running statistics once, in
+                    # the first forward (as the JAX package's nn.remat)
+                    x = checkpoint(block, x, use_reentrant=False,
+                                   context_fn=functools.partial(_remat_contexts, block))
+                else:
+                    x = block(x)
             if self.frozen_stages >= stage_idx + 1:
                 x = x.detach()
             if stage_idx in self.out_indices:
                 outs.append(x)
         return outs
+
+
+def _remat_contexts(block: nn.Module):
+    """``checkpoint``'s contexts: the forward as it is, the recompute with
+    the block's running statistics frozen."""
+    return contextlib.nullcontext(), frozen_running_stats(block)
 
 
 def convert_stem_to_s2d(w7: torch.Tensor) -> torch.Tensor:
@@ -191,12 +211,11 @@ def convert_stem_to_s2d(w7: torch.Tensor) -> torch.Tensor:
 @BACKBONE_DICT.register_module
 def resnet(**kwargs) -> ResNet:
     """Factory with the JAX package's keyword API. ``pretrained`` is loaded
-    outside; ``remat`` is a training-memory option of the JAX trunk that the
-    inference slice does not take."""
+    outside."""
     num_stages = kwargs.get('num_stages', 4)
     kwargs.setdefault('dilations', tuple([1] * num_stages))
     valid = {'depth', 'num_stages', 'out_indices', 'frozen_stages',
-             'dilations', 'norm_eval', 's2d_stem'}
+             'dilations', 'norm_eval', 's2d_stem', 'remat'}
     kwargs = {k: v for k, v in kwargs.items() if k in valid}
     for key in ('out_indices', 'dilations'):
         if key in kwargs:

@@ -8,6 +8,7 @@ flax tree onto a ``state_dict`` path for path.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import numpy as np
@@ -18,42 +19,99 @@ import torch.nn.functional as F
 from visualdet3d_tpu_torch.ops.deform_conv import modulated_deform_conv
 
 
-class BatchNorm2d(nn.BatchNorm2d):
-    """flax ``BatchNorm(momentum=0.9, epsilon=1e-5)``.
+class _FlaxBatchNorm:
+    """flax ``BatchNorm(momentum=0.9, epsilon=1e-5)`` over every dimension
+    but the channels (dim 1), mixed into ``nn.BatchNorm2d``/``3d``.
 
-    In eval mode: ``nn.BatchNorm2d`` on the running statistics. In train
-    mode it normalises with the batch statistics (the biased variance, as
-    both frameworks do; ``F.batch_norm`` and its backward) and updates the
-    running statistics as flax does: ``r = 0.9 r + 0.1 s`` with the batch
-    mean and the *biased* batch variance ``E[x^2] - E[x]^2``, computed in
-    f32 and clipped at 0 (``nn.BatchNorm2d`` would take the unbiased one,
-    n/(n-1) larger). The output keeps the input's dtype: under the
-    mixed-precision policy a bf16 input with bf16 scale and bias gives a
-    bf16 output while the statistics and the running buffers stay f32.
-    Scale and bias enter in f32, so the normalisation is computed in f32
-    and rounded once, as flax promotes them (an all-bf16 ``F.batch_norm``
-    on the CPU rounds the per-channel factors to bf16, an error that does
-    not average out across a channel).
+    In train mode it normalises with the batch statistics (the biased
+    variance, as both frameworks do; ``F.batch_norm`` and its backward) and
+    updates the running statistics as flax does: ``r = 0.9 r + 0.1 s`` with
+    the batch mean and the *biased* batch variance ``E[x^2] - E[x]^2``,
+    computed in f32 and clipped at 0 (``nn.BatchNorm2d``/``3d`` would take
+    the unbiased one, n/(n-1) larger). ``freeze_stats`` skips the update
+    (a recomputed forward, ``models/backbones/resnet.py``'s remat). In eval
+    mode it normalises with the running statistics. The output keeps the
+    input's dtype: under the mixed-precision policy a bf16 input with bf16
+    scale and bias gives a bf16 output while the statistics and the running
+    buffers stay f32. Scale and bias enter in f32 in both modes, so the
+    normalisation is computed in f32 and rounded once, as flax promotes them
+    (an all-bf16 ``F.batch_norm`` on the CPU rounds the per-channel factors
+    to bf16, an error that does not average out across a channel).
     """
+
+    freeze_stats = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
-            return super().forward(x)
+            if self.weight.dtype == self.running_mean.dtype:  # f32, or a cast inference copy
+                return super().forward(x)
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight.float(),
+                                self.bias.float(), False, 0.0, self.eps)
         y = F.batch_norm(x, None, None, self.weight.float(), self.bias.float(), True, 0.0,
                          self.eps)
-        with torch.no_grad():
-            xf = x.float()
-            mean = xf.mean(dim=(0, 2, 3))
-            var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp(min=0.0)
-            self.running_mean.mul_(0.9).add_(0.1 * mean)
-            self.running_var.mul_(0.9).add_(0.1 * var)
-            self.num_batches_tracked.add_(1)
+        if not self.freeze_stats:
+            with torch.no_grad():
+                xf = x.float()
+                dims = (0, *range(2, x.dim()))
+                mean = xf.mean(dim=dims)
+                var = ((xf * xf).mean(dim=dims) - mean * mean).clamp(min=0.0)
+                self.running_mean.mul_(0.9).add_(0.1 * mean)
+                self.running_var.mul_(0.9).add_(0.1 * var)
+                self.num_batches_tracked.add_(1)
         return y
 
 
+class BatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):
+    """flax ``BatchNorm`` on NCHW (see ``_FlaxBatchNorm``)."""
+
+
+class BatchNorm3d(_FlaxBatchNorm, nn.BatchNorm3d):
+    """flax ``BatchNorm`` on NCDHW (see ``_FlaxBatchNorm``)."""
+
+
+@contextlib.contextmanager
+def frozen_running_stats(module: nn.Module):
+    """Within the block, the flax-style BatchNorms of ``module`` do not
+    update their running statistics."""
+    bns = [m for m in module.modules() if isinstance(m, _FlaxBatchNorm)]
+    for m in bns:
+        m.freeze_stats = True
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.freeze_stats = False
+
+
+class ChannelDropout(nn.Module):
+    """flax ``Dropout(rate, broadcast_dims=(1, 2))`` on NHWC: in train mode
+    whole channels of an NCHW tensor are dropped and the survivors scaled by
+    1 / (1 - rate), the mask drawn from ``generator`` (a ``torch.Generator``
+    on the input's device, which the caller sets for a training forward;
+    None leaves the input as it is, as flax's deterministic mode)."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.generator is None or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        mask = torch.rand((x.shape[0], x.shape[1]) + (1,) * (x.dim() - 2),
+                          generator=self.generator, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def bn2d(features: int) -> BatchNorm2d:
-    """flax ``BatchNorm(momentum=0.9, epsilon=1e-5)`` (see ``BatchNorm2d``)."""
+    """flax ``BatchNorm(momentum=0.9, epsilon=1e-5)`` (see ``_FlaxBatchNorm``)."""
     return BatchNorm2d(features, eps=1e-5, momentum=0.1)
+
+
+def bn3d(features: int) -> BatchNorm3d:
+    """The same on NCDHW."""
+    return BatchNorm3d(features, eps=1e-5, momentum=0.1)
 
 
 def same_padding(kernel_size: int, dilation: int = 1) -> int:

@@ -1,4 +1,4 @@
-"""YOLOStereo3D inference (counterpart of
+"""YOLOStereo3D inference and training (counterpart of
 ``visualdet3d_tpu/models/detectors/yolostereo3d.py``).
 
 Both eyes run through the trunk as one doubled batch, interleaved
@@ -8,11 +8,13 @@ in channels_last memory format: a trunk feature permuted to NHWC is the
 contiguous ``[2B, H, W, C]`` buffer the kernel takes, and the kernel's
 ``[B, H, W, D]`` volume permuted back is the channels_last input of the next
 conv. The TPU's optimisation barriers around the eye stack have no
-counterpart here.
+counterpart here. In training the correlation volumes are differentiable
+(the CUDA backward kernel on the card), and the pyramid's train-only
+disparity head gives the stereo focal loss its [B, H/4, W/4, 96] volume.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Callable, Optional, Union
 
 import torch
 from torch import nn
@@ -20,9 +22,10 @@ import torch.nn.functional as F
 
 from visualdet3d_tpu_torch.models.backbones.resnet import BasicBlock, resnet
 from visualdet3d_tpu_torch.models.blocks import (
-    ResGhostModule, bn2d, channels_last_, flax_default_init_)
+    ChannelDropout, ResGhostModule, bn2d, bn3d, channels_last_, flax_default_init_)
 from visualdet3d_tpu_torch.models.detectors.yolo3d import Yolo3DSystem
-from visualdet3d_tpu_torch.models.heads.detection_3d_head import StereoHead
+from visualdet3d_tpu_torch.models.heads.detection_3d_head import StereoHead, detection_3d_loss
+from visualdet3d_tpu_torch.models.heads.losses import stereo_focal_loss
 from visualdet3d_tpu_torch.ops.cost_volume import concat_volume, correlation_volume_interleaved
 from visualdet3d_tpu_torch.registry import DETECTOR_DICT
 
@@ -48,9 +51,9 @@ class CostVolume3D(nn.Module):
         self.Conv_0 = nn.Conv2d(in_channels, psm_features, 1)
         self.BatchNorm_0 = bn2d(psm_features)
         self.Conv_1 = nn.Conv3d(2 * psm_features, psm_features, 3, padding=1)
-        self.BatchNorm_1 = nn.BatchNorm3d(psm_features, eps=1e-5, momentum=0.1)
+        self.BatchNorm_1 = bn3d(psm_features)
         self.Conv_2 = nn.Conv3d(psm_features, psm_features, 3, padding=1)
-        self.BatchNorm_2 = nn.BatchNorm3d(psm_features, eps=1e-5, momentum=0.1)
+        self.BatchNorm_2 = bn3d(psm_features)
 
     @property
     def out_channels(self) -> int:
@@ -71,11 +74,13 @@ class CostVolume3D(nn.Module):
 
 
 class CostVolumePyramid(nn.Module):
-    """Fuse the stride-4/8/16 volumes into stride-16 features (inference
-    branch; the training-time disparity head comes with the training
-    slice)."""
+    """Fuse the stride-4/8/16 volumes into stride-16 features; with
+    ``disparity_head``, in train mode also the disparity volume: bilinear x2
+    -> 3x3 conv (C/2) -> BN -> ReLU -> bilinear x2 -> 3x3 conv (C/4) -> BN
+    -> ReLU -> 1x1 conv (96), [B, 96, H/4, W/4]."""
 
-    def __init__(self, depth_channel_4: int, depth_channel_8: int, depth_channel_16: int):
+    def __init__(self, depth_channel_4: int, depth_channel_8: int, depth_channel_16: int,
+                 disparity_head: bool = False):
         super().__init__()
         c4 = depth_channel_4
         c8 = 3 * c4 + depth_channel_8
@@ -86,50 +91,71 @@ class CostVolumePyramid(nn.Module):
         self.BasicBlock_1 = BasicBlock(3 * c8, 3 * c8)
         self.ResGhostModule_2 = ResGhostModule(c16, 3 * c16, 3, ratio=3)
         self.BasicBlock_2 = BasicBlock(3 * c16, 3 * c16)
-        self.out_channels = 3 * c16
+        self.out_channels = c = 3 * c16
+        self.disparity_head = disparity_head
+        if disparity_head:  # train-only; the flax names of the JAX package's train-mode init
+            self.Conv_0 = nn.Conv2d(c, c // 2, 3, padding=1)
+            self.BatchNorm_0 = bn2d(c // 2)
+            self.Conv_1 = nn.Conv2d(c // 2, c // 4, 3, padding=1)
+            self.BatchNorm_1 = bn2d(c // 4)
+            self.Conv_2 = nn.Conv2d(c // 4, 96, 1)
 
     def forward(self, psv4, psv8, psv16):
+        """-> (features [B, 1152, H/16, W/16], the disparity volume in train
+        mode with the head, else None)."""
         x = F.avg_pool2d(self.ResGhostModule_0(psv4), 2, 2)
         x = torch.cat([self.BasicBlock_0(x), psv8], dim=1)
         x = F.avg_pool2d(self.ResGhostModule_1(x), 2, 2)
         x = torch.cat([self.BasicBlock_1(x), psv16], dim=1)
-        return self.BasicBlock_2(self.ResGhostModule_2(x))  # [B, 1152, H/16, W/16]
+        features = self.BasicBlock_2(self.ResGhostModule_2(x))
+        if not (self.training and self.disparity_head):
+            return features, None
+        # jax.image.resize's bilinear upsampling is F.interpolate's half-pixel rule
+        y = F.interpolate(features, scale_factor=2, mode='bilinear', align_corners=False)
+        y = F.relu(self.BatchNorm_0(self.Conv_0(y)))
+        y = F.interpolate(y, scale_factor=2, mode='bilinear', align_corners=False)
+        y = F.relu(self.BatchNorm_1(self.Conv_1(y)))
+        return features, self.Conv_2(y)
 
 
 class StereoMerging(nn.Module):
-    """Correlation volumes at stride 4/8 (the CUDA kernel) + the concat
+    """Correlation volumes at stride 4/8 (the CUDA kernels) + the concat
     volume at 16, fused by the pyramid and concatenated after the left
-    stride-16 features."""
+    stride-16 features; with the pyramid's disparity volume in training."""
 
-    def __init__(self, channels_16: int):
+    def __init__(self, channels_16: int, disparity_head: bool = False):
         super().__init__()
         self.disp4, self.disp8 = 96 // 4, 192 // 8
         self.CostVolume3D_0 = CostVolume3D(channels_16, max_disp=192, downsample_scale=16,
                                            psm_features=8)
         self.CostVolumePyramid_0 = CostVolumePyramid(self.disp4, self.disp8,
-                                                     self.CostVolume3D_0.out_channels)
+                                                     self.CostVolume3D_0.out_channels,
+                                                     disparity_head)
         self.out_channels = channels_16 + self.CostVolumePyramid_0.out_channels
 
     def forward(self, feats):
         """``feats``: interleaved dual-eye trunk features [2B, C, H, W] at
-        strides 4, 8 and 16."""
+        strides 4, 8 and 16. Returns (features, the disparity volume or
+        None)."""
         psv4 = _nchw(correlation_volume_interleaved(_nhwc(feats[0]), self.disp4))
         psv8 = _nchw(correlation_volume_interleaved(_nhwc(feats[1]), self.disp8))
         psv16 = self.CostVolume3D_0(feats[2])
-        psv_features = self.CostVolumePyramid_0(psv4, psv8, psv16)
+        psv_features, depth_output = self.CostVolumePyramid_0(psv4, psv8, psv16)
         left16 = feats[2][0::2]
-        return torch.cat([left16, psv_features], dim=1)
+        return torch.cat([left16, psv_features], dim=1), depth_output
 
 
 class YoloStereo3DNet(nn.Module):
     """Dual-eye trunk (interleaved doubled batch) + StereoMerging +
     StereoHead. Takes NCHW images, returns (cls_preds [B, N, C+1],
-    reg_preds [B, N, 12])."""
+    reg_preds [B, N, 12]) and, in train mode with ``disparity_head``, the
+    disparity volume [B, 96, H/4, W/4] third."""
 
-    def __init__(self, backbone_cfg: dict, head_cfg: dict, num_anchors: int):
+    def __init__(self, backbone_cfg: dict, head_cfg: dict, num_anchors: int,
+                 disparity_head: bool = False):
         super().__init__()
         self.ResNet_0 = resnet(**dict(backbone_cfg))
-        self.StereoMerging_0 = StereoMerging(self.ResNet_0.out_channels[2])
+        self.StereoMerging_0 = StereoMerging(self.ResNet_0.out_channels[2], disparity_head)
         self.StereoHead_0 = StereoHead(
             self.StereoMerging_0.out_channels,
             num_anchors=num_anchors,
@@ -141,30 +167,47 @@ class YoloStereo3DNet(nn.Module):
 
     def forward(self, left_images, right_images):
         both = torch.stack([left_images, right_images], dim=1).flatten(0, 1)
-        feats = self.ResNet_0(both)
-        return self.StereoHead_0(self.StereoMerging_0(feats))
+        features, depth_output = self.StereoMerging_0(self.ResNet_0(both))
+        cls_preds, reg_preds = self.StereoHead_0(features)
+        if depth_output is None:
+            return cls_preds, reg_preds
+        return cls_preds, reg_preds, depth_output
 
 
 @DETECTOR_DICT.register_module
 class Stereo3D(Yolo3DSystem):
     """The YOLOStereo3D system: the network with its weights on the system's
-    device, and ``predict``."""
+    device, ``predict`` and, for a system built with ``training=True``,
+    ``loss``.
+
+    ``training=True`` builds the pyramid's train-only disparity head, which
+    the weight bridge then loads from the JAX package's train-mode init; an
+    inference system leaves it out and the bridge skips its leaves
+    (``TRAIN_ONLY_PARAMS``). ``dropout`` switches the class tower's channel
+    dropout in training (on by default; its masks come from the generator
+    ``loss`` is given)."""
 
     # created by the JAX package's train-mode init, unused by inference
     TRAIN_ONLY_PARAMS = tuple(
         f'StereoMerging_0/CostVolumePyramid_0/{name}'
         for name in ('Conv_0', 'BatchNorm_0', 'Conv_1', 'BatchNorm_1', 'Conv_2'))
 
-    def __init__(self, network_cfg, device: Optional[Union[str, torch.device]] = None):
+    def __init__(self, network_cfg, device: Optional[Union[str, torch.device]] = None,
+                 training: bool = False):
         super().__init__(network_cfg, device)
+        self.for_training = training
+        self.dropout = True
         net = YoloStereo3DNet(dict(network_cfg.backbone), dict(self.layer_cfg),
-                              self.anchors.num_anchors)
+                              self.anchors.num_anchors, disparity_head=training)
         flax_default_init_(net, torch.Generator().manual_seed(0))
         with torch.no_grad():
             for conv in net.StereoHead_0.prediction_convs():
                 conv.weight.zero_()
                 conv.bias.zero_()
         self.net = channels_last_(net.to(self.device)).eval()
+
+    def bridge_skip(self):
+        return () if self.for_training else self.TRAIN_ONLY_PARAMS
 
     # the prediction convs stay in floats unless cfg.int8_all
     int8_deny = (('StereoHead_0', 'Conv_0'), ('StereoHead_0', '_ClsBranch_0', 'Conv_2'))
@@ -187,6 +230,77 @@ class Stereo3D(Yolo3DSystem):
         """[B, H, W, 3] images -> NCHW channels_last in ``dtype`` on the device."""
         images = torch.as_tensor(images, device=self.device)
         return _nchw(images.to(dtype).contiguous())
+
+    def loss(self, left_images, right_images, P2, P3, annotations, disparity=None,
+             apply_fn: Optional[Callable] = None, generator: Optional[torch.Generator] = None):
+        """The loss of a batch: ``(cls_loss [1], reg_loss [1], loss_dict)``,
+        differentiable in the network's parameters.
+
+        left/right_images [B, H, W, 3], P2 and P3 [B, 3, 4] (P3 is unused,
+        as in the JAX package), annotations [B, M, 12], disparity
+        [B, H/4, W/4] (or at a multiple of that size). The network runs in
+        train mode (batch statistics; running statistics updated; the
+        trunk's BatchNorms stay in eval mode under ``norm_eval``) and
+        returns to eval mode after. ``apply_fn(net, left, right)`` runs the
+        network (the mixed-precision policy passes its own); the
+        predictions are upcast to f32 before the loss. With ``disparity``
+        the stereo focal loss of the disparity volume (variance 0.5, sparse
+        ground truth) joins the regression loss where the detection
+        regression loss is positive (``torch.where``, no host sync).
+        ``generator`` draws the class tower's dropout masks (a
+        ``torch.Generator`` on the system's device, needed while
+        ``self.dropout`` is on).
+        """
+        if not self.for_training:
+            raise RuntimeError('Stereo3D.loss needs the disparity head: build the system '
+                               'with training=True')
+        if self.dropout and generator is None:
+            raise ValueError('Stereo3D.loss: the class tower\'s dropout needs a generator '
+                             '(or set system.dropout = False)')
+        apply_fn = apply_fn or (lambda net, *x: net(*x))
+        image_hw = (left_images.shape[1], left_images.shape[2])
+        left = self._images(left_images, torch.float32)
+        right = self._images(right_images, torch.float32)
+        dropouts = [m for m in self.net.modules() if isinstance(m, ChannelDropout)]
+        for m in dropouts:
+            m.generator = generator if self.dropout else None
+        self.net.train()
+        try:
+            cls_preds, reg_preds, depth_output = apply_fn(self.net, left, right)
+        finally:
+            self.net.eval()
+            for m in dropouts:
+                m.generator = None
+        cls_preds, reg_preds = cls_preds.float(), reg_preds.float()
+        depth_output = depth_output.float().permute(0, 2, 3, 1)  # [B, H/4, W/4, 96]
+
+        P2 = torch.as_tensor(P2, dtype=torch.float32, device=self.device)
+        annotations = torch.as_tensor(annotations, dtype=torch.float32, device=self.device)
+        pack = self.anchor_pack(image_hw)
+        if self.loss_cfg.get('filter_anchor', True):
+            useful = self.anchors.useful_mask(pack, P2)
+        else:
+            useful = torch.ones((P2.shape[0], pack['anchors'].shape[0]), dtype=torch.bool,
+                                device=self.device)
+        cls_loss, reg_loss, loss_dict = detection_3d_loss(
+            cls_preds, reg_preds, pack['anchors'], pack['anchor_mean_std'], useful, annotations,
+            num_classes=self.num_classes,
+            focal_loss_gamma=self.loss_cfg.get('focal_loss_gamma', 0.0),
+            balance_weights=self.loss_cfg.get('balance_weight', [1.0] * self.num_classes),
+            regression_weight=self.loss_cfg.get(
+                'regression_weight', [1.0] * self.num_regression_loss_terms),
+            L1_regression_alpha=self.loss_cfg.get('L1_regression_alpha', 25.0),
+            fg_iou_threshold=self.loss_cfg.get('fg_iou_threshold', 0.5),
+            bg_iou_threshold=self.loss_cfg.get('bg_iou_threshold', 0.4),
+            match_low_quality=self.loss_cfg.get('match_low_quality', True))
+        if disparity is not None:
+            disparity = torch.as_tensor(disparity, dtype=torch.float32, device=self.device)
+            disp_loss = stereo_focal_loss(depth_output, disparity, variance=0.5, sparse=True)
+            disp_loss = torch.where(reg_loss.mean() > 0, disp_loss, torch.zeros_like(disp_loss))
+            loss_dict['disparity_loss'] = disp_loss.reshape(1)
+            reg_loss = reg_loss + disp_loss
+            loss_dict['total_loss'] = cls_loss + reg_loss
+        return cls_loss, reg_loss, loss_dict
 
     @torch.inference_mode()
     def predict_raw(self, left_images, right_images):

@@ -1,10 +1,16 @@
-"""The YOLOStereo3D head and the batched decode + NMS (counterpart of
-``StereoHead``, ``_ClsBranch``, ``get_bboxes_batched`` and
+"""The YOLOStereo3D head, the anchor assignment and the detection loss, and
+the batched decode + NMS (counterpart of ``StereoHead``, ``_ClsBranch``,
+``assign_anchors``, ``detection_3d_loss``, ``get_bboxes_batched`` and
 ``_decode_candidates`` in ``visualdet3d_tpu/models/heads/detection_3d_head.py``).
+
+The JAX package maps its per-image assignment and loss over the batch with
+``vmap``; here the batch is a leading dimension, and each anchor's assigned
+annotation row is a ``torch.gather`` (exact, as the JAX one-hot product
+is). Nothing in the loss waits for the host.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -12,9 +18,122 @@ import torch.nn.functional as F
 
 from visualdet3d_tpu_torch.geometry import calc_iou, clip_boxes
 from visualdet3d_tpu_torch.models.backbones.resnet import BasicBlock
-from visualdet3d_tpu_torch.models.blocks import ConvBnReLU, anchor_flatten
+from visualdet3d_tpu_torch.models.blocks import ChannelDropout, ConvBnReLU, anchor_flatten
 from visualdet3d_tpu_torch.models.heads import target_coding
+from visualdet3d_tpu_torch.models.heads.losses import (
+    bce_with_logits, modified_smooth_l1, sigmoid_focal_loss)
 from visualdet3d_tpu_torch.ops.nms import _greedy_suppress
+
+
+# ---------------------------------------------------------------------------
+# Assignment (max-IoU assigner) and the loss, over the whole batch
+# ---------------------------------------------------------------------------
+
+def assign_anchors(anchors: torch.Tensor, ann: torch.Tensor, useful: torch.Tensor,
+                   fg_iou_threshold: float, bg_iou_threshold: float,
+                   match_low_quality: bool = True,
+                   min_iou_threshold: float = 0.0) -> Dict[str, torch.Tensor]:
+    """Max-IoU assignment of every anchor of every image.
+
+    Args:
+      anchors: [N, 4]; ann: [B, M, 12] padded annotations (class -1 marks
+      padding); useful: [B, N] bool geometric filter.
+    Returns dict of [B, N] tensors: gt_index (the assigned row, valid only
+    where pos_mask), pos_mask, neg_mask (bool) and max_iou. With
+    ``match_low_quality`` each box's best anchors become positive too, the
+    last box winning a tie (the reference's in-order overwrite).
+    """
+    gt_valid = ann[..., 4] > -0.5  # [B, M]
+    iou = calc_iou(anchors, ann[..., :4])  # [B, N, M]
+    iou = torch.where(gt_valid[:, None, :] & useful[:, :, None], iou, torch.full_like(iou, -1.0))
+
+    max_iou, gt_index = iou.max(dim=2)  # the first maximum, as jnp.argmax
+    neg_mask = useful & (max_iou >= 0) & (max_iou < bg_iou_threshold)
+    pos_mask = useful & (max_iou >= fg_iou_threshold)
+
+    if match_low_quality:
+        gt_max = iou.max(dim=1, keepdim=True).values  # [B, 1, M]
+        cond = (iou == gt_max) & gt_valid[:, None, :] & (gt_max >= min_iou_threshold) & (iou >= 0)
+        any_low = cond.any(dim=2)
+        m_idx = torch.arange(ann.shape[1], device=ann.device)
+        low_choice = torch.where(cond, m_idx, torch.full_like(m_idx, -1)).max(dim=2).values
+        gt_index = torch.where(any_low, low_choice, gt_index)
+        pos_mask = pos_mask | (useful & any_low)
+
+    return dict(gt_index=gt_index, pos_mask=pos_mask, neg_mask=neg_mask, max_iou=max_iou)
+
+
+def detection_3d_loss(cls_preds: torch.Tensor,
+                      reg_preds: torch.Tensor,
+                      anchors: torch.Tensor,
+                      anchor_mean_std: torch.Tensor,
+                      useful_mask: torch.Tensor,
+                      annotations: torch.Tensor,
+                      num_classes: int,
+                      focal_loss_gamma: float,
+                      balance_weights: Union[Sequence[float], torch.Tensor],
+                      regression_weight: Union[Sequence[float], torch.Tensor],
+                      L1_regression_alpha: float,
+                      fg_iou_threshold: float = 0.5,
+                      bg_iou_threshold: float = 0.4,
+                      match_low_quality: bool = True,
+                      min_iou_threshold: float = 0.0):
+    """Classification + regression loss of the whole batch.
+
+    Args:
+      cls_preds: [B, N, num_classes + 1] raw logits (the last one alpha's);
+      reg_preds: [B, N, 12]; anchors: [N, 4]; anchor_mean_std [N, T, 6, 2];
+      useful_mask: [B, N]; annotations: [B, M, 12] (class -1 padding).
+    Returns (cls_loss [1], reg_loss [1], loss_dict): the classification loss
+    per image over its positives and negatives, averaged over the batch;
+    the 13 regression terms per image over its positives, weighted across
+    images by their box counts, then averaged.
+    """
+    dtype, device = cls_preds.dtype, cls_preds.device
+    balance_weights = torch.as_tensor(balance_weights, dtype=dtype, device=device)
+    regression_weight = torch.as_tensor(regression_weight, dtype=dtype, device=device)
+    b, n = cls_preds.shape[:2]
+    cls_score = cls_preds[..., :num_classes]
+    alpha_logit = cls_preds[..., num_classes:num_classes + 1]
+
+    assignment = assign_anchors(anchors, annotations, useful_mask, fg_iou_threshold,
+                                bg_iou_threshold, match_low_quality, min_iou_threshold)
+    pos_mask, neg_mask = assignment['pos_mask'], assignment['neg_mask']
+    index = assignment['gt_index'][..., None].expand(b, n, annotations.shape[-1])
+    gt_rows = torch.gather(annotations, 1, index)  # [B, N, 12]
+    gt_cls = gt_rows[..., 4].long()
+    sel_mean_std = target_coding.select_mean_std_by_class(
+        anchor_mean_std.expand(b, *anchor_mean_std.shape), gt_cls)
+    pos_mask = pos_mask & (sel_mean_std[..., 0, 0] > 0)  # a z prior exists
+
+    # classification targets: -1 ignored, 0 negative, one-hot positive
+    classes = torch.arange(num_classes, device=device)
+    onehot = (gt_cls[..., None] == classes).to(dtype)
+    labels = torch.where(neg_mask[..., None], torch.zeros_like(onehot),
+                         torch.full_like(onehot, -1.0))
+    labels = torch.where(pos_mask[..., None], onehot, labels)
+
+    num_pos = pos_mask.sum(dim=1)
+    num_neg = neg_mask.sum(dim=1)
+    cls_loss = sigmoid_focal_loss(cls_score, labels, focal_loss_gamma,
+                                  balance_weights).sum(dim=(1, 2)) / (num_pos + num_neg).clamp(min=1)
+
+    targets, alpha_cls = target_coding.encode(anchors, gt_rows, sel_mean_std)
+    per_anchor = torch.cat([modified_smooth_l1(targets, reg_preds, L1_regression_alpha),
+                            bce_with_logits(alpha_logit, alpha_cls)], dim=-1) * regression_weight
+    reg_loss = torch.where(pos_mask[..., None], per_anchor,
+                           torch.zeros_like(per_anchor)).sum(dim=1) / num_pos.clamp(min=1)[:, None]
+    reg_loss = torch.where(num_pos[:, None] > 0, reg_loss, torch.zeros_like(reg_loss))  # [B, 13]
+
+    num_gt = (annotations[..., 4] > -0.5).sum(dim=1)
+    cls_loss = torch.where(num_gt > 0, cls_loss, torch.zeros_like(cls_loss))
+    weights = num_gt.to(dtype)  # per image: its box count
+
+    cls_loss = cls_loss.mean().reshape(1)
+    weighted = (weights[:, None] * reg_loss / (weights.sum() + 1e-6)).sum(dim=0)  # [13]
+    reg_loss = weighted.mean().reshape(1)
+    return cls_loss, reg_loss, dict(cls_loss=cls_loss, reg_loss=reg_loss,
+                                    total_loss=cls_loss + reg_loss)
 
 
 def _decode_candidates(top_scores, cand_valid, cand_anchors, cand_reg, cand_alpha,
@@ -119,8 +238,9 @@ def get_bboxes_batched(cls_preds: torch.Tensor,
 
 
 class _ClsBranch(nn.Module):
-    """Classification tower: two 3x3 convs + Dropout2d(0.3) + ReLU, then the
-    (zero-initialised) prediction conv."""
+    """Classification tower: two 3x3 convs + channel dropout (0.3) + ReLU,
+    then the (zero-initialised) prediction conv. The dropout masks come
+    from the generator its caller sets (``ChannelDropout``)."""
 
     def __init__(self, in_channels: int, num_anchors: int, num_cls_output: int,
                  cls_feature_size: int):
@@ -129,7 +249,7 @@ class _ClsBranch(nn.Module):
         self.Conv_0 = nn.Conv2d(in_channels, cls_feature_size, 3, padding=1)
         self.Conv_1 = nn.Conv2d(cls_feature_size, cls_feature_size, 3, padding=1)
         self.Conv_2 = nn.Conv2d(cls_feature_size, num_anchors * num_cls_output, 3, padding=1)
-        self.dropout = nn.Dropout2d(0.3)
+        self.dropout = ChannelDropout(0.3)
 
     def forward(self, x):
         for conv in (self.Conv_0, self.Conv_1):

@@ -1,8 +1,11 @@
-"""12-term 3D box decode against per-anchor statistical priors (counterpart
-of the decode half of ``visualdet3d_tpu/models/heads/target_coding.py``).
+"""12-term 3D box target encode and decode against per-anchor statistical
+priors (counterpart of ``visualdet3d_tpu/models/heads/target_coding.py``),
+over all anchors with masks, batched over leading dimensions.
 
 Term layout (12 regression channels + 1 alpha-hemisphere logit):
   [dx, dy, dw, dh, cdx, cdy, dz, d_sin2a, d_cos2a, dw3d, dh3d, dl3d] (+alpha)
+Annotation row layout:
+  [x1, y1, x2, y2, cls, cx, cy, z, w, h, l, alpha]
 """
 from __future__ import annotations
 
@@ -20,6 +23,43 @@ def _anchor_geometry(anchors: torch.Tensor):
     cx = anchors[..., 0] + 0.5 * w
     cy = anchors[..., 1] + 0.5 * h
     return cx, cy, w, h
+
+
+def encode(anchors: torch.Tensor, gt: torch.Tensor, mean_std: torch.Tensor):
+    """Encode ground truth (gathered per anchor) against anchors and priors.
+
+    Args:
+      anchors: [..., 4]; gt: [..., 12] annotation rows of each anchor's
+      assigned box; mean_std: [..., 6, 2] the prior (z, sin2a, cos2a, w, h,
+      l) x (mean, std) of the box's class.
+    Returns:
+      targets: [..., 12] normalised regression targets.
+      alpha_cls: [..., 1] in {0, 1}, the cos(alpha) > 0 hemisphere label.
+    """
+    px, py, pw, ph = _anchor_geometry(anchors)
+    gx = 0.5 * (gt[..., 0] + gt[..., 2])
+    gy = 0.5 * (gt[..., 1] + gt[..., 3])
+    gw = gt[..., 2] - gt[..., 0]
+    gh = gt[..., 3] - gt[..., 1]
+
+    eps = 1e-6
+    m, s = mean_std[..., 0], mean_std[..., 1].clamp(min=eps)
+    targets = torch.stack([
+        (gx - px) / pw,
+        (gy - py) / ph,
+        torch.log((gw / pw).clamp(min=eps)),
+        torch.log((gh / ph).clamp(min=eps)),
+        (gt[..., 5] - px) / pw,
+        (gt[..., 6] - py) / ph,
+        (gt[..., 7] - m[..., 0]) / s[..., 0],
+        (torch.sin(gt[..., 11] * 2) - m[..., 1]) / s[..., 1],
+        (torch.cos(gt[..., 11] * 2) - m[..., 2]) / s[..., 2],
+        (gt[..., 8] - m[..., 3]) / s[..., 3],
+        (gt[..., 9] - m[..., 4]) / s[..., 4],
+        (gt[..., 10] - m[..., 5]) / s[..., 5]], dim=-1)
+    targets = targets / torch.tensor(TARGET_STDS, dtype=targets.dtype, device=targets.device)
+    alpha_cls = (torch.cos(gt[..., 11:12]) > 0).to(targets.dtype)
+    return targets, alpha_cls
 
 
 def decode(anchors: torch.Tensor, deltas: torch.Tensor, mean_std: torch.Tensor,

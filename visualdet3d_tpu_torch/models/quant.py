@@ -347,10 +347,15 @@ class InferenceMixin:
     def load_flax_variables(self, variables) -> List[str]:
         """Load the JAX package's ``{params, batch_stats}`` (as numpy
         arrays) through the weight bridge; returns the skipped leaf names
-        (the train-only parameters)."""
-        skipped = convert.load_flax_variables(self.net, variables, self.TRAIN_ONLY_PARAMS)
+        (:meth:`bridge_skip`'s)."""
+        skipped = convert.load_flax_variables(self.net, variables, self.bridge_skip())
         self.weights_changed()
         return skipped
+
+    def bridge_skip(self) -> Tuple[str, ...]:
+        """The flax module paths the weight bridge skips: the train-only
+        parameters, which the network does not hold."""
+        return self.TRAIN_ONLY_PARAMS
 
     # ------------------------------------------------------------- folding
     def fold_inference_variables(self, image_hw, batch_size: int = 1):

@@ -13,11 +13,13 @@ The mixed-precision policy (``compute_dtype='bfloat16'``, the counterpart
 of ``_mixed_precision_interceptor`` / ``_mp_scope``): the network runs on
 a bf16 copy of every floating parameter made inside the step by a
 differentiable cast (``torch.func.functional_call``), so the gradients
-arrive in the f32 master parameters; its input is cast to bf16, so every
-conv (the trunk's, the DCN offset convs, the head towers) and every DCN
-takes bf16 inputs and bf16 weights; the norms (``models/blocks.py``
-``BatchNorm2d``) compute f32 statistics, keep f32 running statistics and
-return bf16; the loss is f32 (the detector upcasts the head's maps).
+arrive in the f32 master parameters; its inputs are cast to bf16, so every
+conv (the trunk's, the DCN offset convs, the head towers, the 3-D convs)
+and every DCN and correlation volume takes bf16 inputs and bf16 weights;
+the norms (``models/blocks.py`` ``_FlaxBatchNorm``) compute f32
+statistics, keep f32 running statistics and return bf16, in eval mode too
+(the trunk's under ``norm_eval``); the loss is f32 (the detector upcasts
+the predictions).
 """
 from __future__ import annotations
 
@@ -25,7 +27,6 @@ from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
-from torch import nn
 
 from visualdet3d_tpu_torch.solver.optimizers import Optimizer
 
@@ -40,22 +41,37 @@ class TrainState:
     step: int = 0
 
 
-def mixed_precision_apply(compute_dtype: Optional[str]) -> Callable[[nn.Module, torch.Tensor],
-                                                                    Dict[str, torch.Tensor]]:
-    """``apply(net, images)`` under the policy of ``compute_dtype``: the
+def mixed_precision_apply(compute_dtype: Optional[str]) -> Callable[..., object]:
+    """``apply(net, *inputs)`` under the policy of ``compute_dtype``: the
     plain call for f32, else the network on a ``compute_dtype`` cast of its
-    floating parameters (buffers untouched) with its input cast too."""
+    floating parameters (buffers untouched) with its inputs cast too."""
     if compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f'compute_dtype {compute_dtype!r}: one of {sorted(map(str, COMPUTE_DTYPES))}')
     dtype = COMPUTE_DTYPES[compute_dtype]
     if dtype == torch.float32:
-        return lambda net, images: net(images)
+        return lambda net, *inputs: net(*inputs)
 
-    def apply(net, images):
+    def apply(net, *inputs):
         params = {name: p.to(dtype) if p.is_floating_point() else p
                   for name, p in net.named_parameters()}
-        return torch.func.functional_call(net, params, (images.to(dtype),))
+        return torch.func.functional_call(net, params, tuple(x.to(dtype) for x in inputs))
     return apply
+
+
+def _update(state: TrainState, system, total: torch.Tensor,
+            loss_dict: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The backward of ``total`` and the skip rule: the optimizer updates
+    the parameters (and its state) only when total > 0, read on the host
+    (one sync per step); the running statistics the forward updated stay
+    either way. Returns the detached loss terms and ``total``."""
+    total.backward()
+    if bool(total > 0):
+        state.optimizer.step()
+        system.weights_changed()
+    state.step += 1
+    metrics = {k: v.detach() for k, v in loss_dict.items()}
+    metrics['total'] = total.detach()
+    return metrics
 
 
 def make_simple_train_step(system, batch_keys: Tuple[str, ...],
@@ -71,15 +87,28 @@ def make_simple_train_step(system, batch_keys: Tuple[str, ...],
         kwargs = {'epoch': batch['epoch']} if 'epoch' in batch else {}
         loss, loss_dict = system.loss(*[batch[k] for k in batch_keys], apply_fn=apply_fn,
                                       **kwargs)
-        total = loss.mean()
-        total.backward()
-        # the skip rule reads the loss on the host: one sync per step
-        if bool(total > 0):
-            state.optimizer.step()
-            system.weights_changed()
-        state.step += 1
-        metrics = {k: v.detach() for k, v in loss_dict.items()}
-        metrics['total'] = total.detach()
-        return metrics
+        return _update(state, system, loss.mean(), loss_dict)
+
+    return step
+
+
+def make_stereo_train_step(system, compute_dtype: Optional[str] = None) -> Callable:
+    """Step for the stereo detector (``Stereo3D.loss``): the detection loss
+    plus the stereo focal disparity loss, the backward, then clipping and
+    the optimizer under the skip rule. Returns ``step(state, batch) ->
+    metrics``; ``batch`` holds left_images, right_images, P2, P3,
+    annotations and optionally disparity. The class tower's dropout masks
+    come from the step's own ``torch.Generator`` on the system's device
+    (seed 0), drawn anew each step."""
+    apply_fn = mixed_precision_apply(compute_dtype)
+    generator = torch.Generator(device=system.device).manual_seed(0)
+
+    def step(state: TrainState, batch: Dict) -> Dict[str, torch.Tensor]:
+        state.optimizer.zero_grad()
+        cls_loss, reg_loss, loss_dict = system.loss(
+            batch['left_images'], batch['right_images'], batch['P2'], batch['P3'],
+            batch['annotations'], disparity=batch.get('disparity'), apply_fn=apply_fn,
+            generator=generator)
+        return _update(state, system, cls_loss.mean() + reg_loss.mean(), loss_dict)
 
     return step

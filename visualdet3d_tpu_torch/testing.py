@@ -1,9 +1,9 @@
 """Synthetic fixtures for smoke runs and tests (counterpart of
 ``visualdet3d_tpu/testing.py``): the YOLOStereo3D, KM3D and MonoFlex
-configs, synthetic anchor priors, seeded values for the zero-initialised
-prediction, offset and heatmap convs of a random-weight model, and
-synthetic KM3D and MonoFlex training batches built by the ported target
-builders."""
+configs and their optimizers, synthetic anchor priors, seeded values for
+the zero-initialised prediction, offset and heatmap convs of a
+random-weight model, synthetic KM3D and MonoFlex training batches built by
+the ported target builders, and synthetic stereo training batches."""
 from __future__ import annotations
 
 import contextlib
@@ -324,6 +324,58 @@ def calibrate_head_convs(system, images, generator: torch.Generator) -> None:
         conv.weight.mul_(a)
         conv.bias.fill_(mean - a * float(preds.mean()))
     system.weights_changed()
+
+
+def stereo_train_cfg(steps_per_epoch: int = 1) -> edict:
+    """The optimizer and schedule of ``configs/stereo3d.py``: Adam, lr 1e-4,
+    no weight decay, gradients clipped to global norm 0.1,
+    CosineAnnealingLR over ``T_max`` 80 epochs down to 5e-6, stepped per
+    epoch of ``steps_per_epoch`` updates."""
+    return edict(
+        optimizer=edict(type_name='adam', keywords=edict(lr=1e-4, weight_decay=0),
+                        clipped_gradient_norm=0.1),
+        scheduler=edict(type_name='CosineAnnealingLR',
+                        keywords=edict(T_max=80, eta_min=5e-6)),
+        steps_per_epoch=steps_per_epoch,
+    )
+
+
+# the right camera of KITTI: P2 with the stereo baseline times fx in [0, 3]
+KITTI_P3_TX = -339.5
+
+
+def stereo_training_batch(rng: np.random.Generator, batch_size: int, image_hw,
+                          cars_per_image=(2, 4), max_objects: int = 32) -> dict:
+    """A synthetic stereo training batch as numpy arrays: standard-normal
+    left and right images [B, H, W, 3]; the KITTI P2 scaled by W / 1280
+    (at 1280 columns the P2 of the JAX package's stereo benchmark) and P3
+    (P2 with the baseline term); annotations [B, max_objects, 12]
+    (rows ``[x1, y1, x2, y2, cls, cx, cy, z, w, h, l, alpha]``, class -1
+    padding) with a few Cars (class 0) per image, their 2-D boxes inside it
+    (8-25% of its width, aspect 0.5-1) at depths 8-40 m; and a
+    non-negative disparity map [B, H/4, W/4] (|normal| x 20, as the JAX
+    package's stereo training benchmark draws it)."""
+    h, w = image_hw
+    P2 = KITTI_P2.copy()
+    P2[:2] *= w / KITTI_P2_HW[1]  # resized from 1280 columns, aspect kept
+    P3 = P2.copy()
+    P3[0, 3] = KITTI_P3_TX * w / KITTI_P2_HW[1]
+    ann = np.full((batch_size, max_objects, 12), -1.0, np.float32)
+    for b in range(batch_size):
+        for j in range(int(rng.integers(*cars_per_image, endpoint=True))):
+            bw = rng.uniform(0.08, 0.25) * w
+            bh = min(bw * rng.uniform(0.5, 1.0), 0.8 * h)
+            x1, y1 = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+            dims = rng.normal((1.63, 1.53, 3.88), (0.08, 0.1, 0.3))
+            ann[b, j] = [x1, y1, x1 + bw, y1 + bh, 0, x1 + bw / 2, y1 + bh / 2,
+                         rng.uniform(8.0, 40.0), *dims, rng.uniform(-np.pi, np.pi)]
+    return dict(
+        left_images=rng.standard_normal((batch_size, h, w, 3), dtype=np.float32),
+        right_images=rng.standard_normal((batch_size, h, w, 3), dtype=np.float32),
+        P2=np.tile(P2, (batch_size, 1, 1)), P3=np.tile(P3, (batch_size, 1, 1)),
+        annotations=ann,
+        disparity=(np.abs(rng.standard_normal((batch_size, h // 4, w // 4))) * 20
+                   ).astype(np.float32))
 
 
 def km3d_train_cfg(steps_per_epoch: int = 1) -> edict:
