@@ -123,6 +123,31 @@ each printed as one JSON line:
    artifact quantized on the CPU, batch-1 int8 predict on the card against
    the CPU's, with the JAX package's decode gates).
 
+9. GAC mono (``entry.build_gac_system``, ``build_gac_trainer``; Car and
+   Pedestrian, ResNet-101 with the s2d stem, 288x1280, 1024-channel
+   features, 32 anchors a location), for both heads: gac_slice and
+   yolo3d_slice (``GroundAwareYolo3D.predict`` and the DCN-headed
+   ``Yolo3D.predict`` at batch 16 in f32 and bf16 over distinct request
+   batches: fps, bs1 p50, peak memory, valid detections; Yolo3D exactly 1
+   DCN forward launch per predict, on the per-tap kernel, also under both
+   switches; GAC none); gac_profile and yolo3d_profile (a profiler
+   breakdown of one predict with ``grid_sample``'s or the DCN kernel's
+   device time, and the trunk, the head and ``LookGround`` alone by CUDA
+   events: the head's share); gac_parity and yolo3d_parity (batch-1 f32
+   on the card against the CPU, at the stereo decode gates);
+   gac_head_dcn_kernel (K3/K5 and K7's dx and dW at the head's [16, 18,
+   80, 1024] -> 1024 with seeded offsets, against their plain versions at
+   batch 16, in CUDA events and device time beside their bounds, with
+   ``dx_f32_plan``'s tile, ``dw_plan``'s split and a cuDNN dense 3x3 conv
+   of the shape); gac_train and yolo3d_train (batch 8, bf16 mixed
+   precision and f32: ms per step, img/s, peak memory, a profile, the
+   loss falling over 10 steps on one batch; Yolo3D 1 DCN forward, 1 dx, 1
+   dW and 1 dW reduce launch a step); gac_train_parity and
+   yolo3d_train_parity (one f32 step at batch 2 on the card and on the
+   CPU, both against the same step on the CPU in f64, at the KM3D step
+   gates with the CPU's own distance to f64 as the floor, and each DCN or
+   LookGround leaf of the card's step within 1e-3 of the f64 step).
+
 Then a ``wall`` line (the script's seconds), the ``kernels`` summary line,
 the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
@@ -652,16 +677,15 @@ def corr_bwd_edge_phase(torch, cv):
          dtypes=['float32', 'bfloat16'], autograd_gradient_strides=strides)
 
 
-def stereo_train_batches(torch, n, batch_size, seed):
-    """n distinct synthetic stereo training batches
-    (``testing.stereo_training_batch`` at 288x1280, numpy generator
-    ``seed``), moved to the card before any timing."""
+def train_batches_of(torch, make, n, batch_size, seed):
+    """n distinct synthetic training batches from the batch builder ``make``
+    (``testing.stereo_training_batch`` or ``testing.mono_training_batch``)
+    at 288x1280, numpy generator ``seed``, moved to the card before any
+    timing."""
     from visualdet3d_tpu_torch.entry import IMAGE_HW
-    from visualdet3d_tpu_torch.testing import stereo_training_batch
     rng = np.random.default_rng(seed)
     return [{k: torch.as_tensor(v, device='cuda')
-             for k, v in stereo_training_batch(rng, batch_size, IMAGE_HW).items()}
-            for _ in range(n)]
+             for k, v in make(rng, batch_size, IMAGE_HW).items()} for _ in range(n)]
 
 
 CORR_KERNEL_NAMES = {'forward': 'correlation_kernel', 'backward': 'correlation_bwd_kernel'}
@@ -677,12 +701,14 @@ def stereo_train_phase(torch, cv, compute_dtype):
     device's busy share; then N_FALL_STEPS steps on one repeated batch, in
     which the loss and the disparity loss stay finite and positive and
     fall."""
+    from visualdet3d_tpu_torch import testing
     from visualdet3d_tpu_torch.entry import IMAGE_HW, build_stereo_trainer
     name = compute_dtype or 'float32'
     batch_size = STEREO_TRAIN_BATCH[name]
     system, state, step = build_stereo_trainer(device='cuda', compute_dtype=compute_dtype,
                                                batch_size=batch_size)
-    batches = stereo_train_batches(torch, N_TRAIN_WARMUP + N_BATCHES, batch_size, seed=33)
+    batches = train_batches_of(torch, testing.stereo_training_batch, N_TRAIN_WARMUP + N_BATCHES,
+                               batch_size, seed=33)
     for b in batches[:N_TRAIN_WARMUP]:
         step(b)
     torch.cuda.synchronize()
@@ -756,8 +782,9 @@ def stereo_train_parity_phase(torch):
     over all parameters within 3x the floor's; the running statistics after
     the step within 1e-4 of their largest value; the parameters after the
     Adam step within 2.5 * lr."""
+    from visualdet3d_tpu_torch import testing
     from visualdet3d_tpu_torch.entry import build_stereo_trainer
-    batch = stereo_train_batches(torch, 1, 2, seed=34)[0]
+    batch = train_batches_of(torch, testing.stereo_training_batch, 1, 2, seed=34)[0]
     gpu, gpu_state, gpu_step = build_stereo_trainer(device='cuda', batch_size=2)
     cpu, cpu_state, cpu_step = build_stereo_trainer(device='cpu', batch_size=2)
     init = {k: v.cpu() for k, v in gpu.net.state_dict().items()}
@@ -2893,6 +2920,588 @@ def int8_parity_phase(torch):
     del gpu
 
 
+# ---------------------------------------------------------------------------
+# GAC monocular 3D detection (slice 12): GroundAwareYolo3D and the DCN-headed
+# Yolo3D, inference and training; K3/K5/K7 at the 1024-channel stride-16 head
+# ---------------------------------------------------------------------------
+
+GAC_TRAIN_BATCH = 8  # configs/yolo3d_gac.py's batch
+GAC_HEAD_DCN = (18, 80, 1024, 1024)  # the head DCN at stride 16 of 288x1280: H, W, C_in, C_out
+GAC_PHASE = {'ground_aware': 'gac', 'dcn': 'yolo3d'}
+# DCN forward launches per predict (and per training step) of each head
+GAC_DCN_PER_FORWARD = {'ground_aware': 0, 'dcn': 1}
+
+
+def gac_inputs(torch, n, batch, seed):
+    """n distinct request batches of standard-normal images [batch, 288,
+    1280, 3] on the card, and the KITTI P2 tiled to the batch."""
+    from visualdet3d_tpu_torch.entry import IMAGE_HW, KITTI_P2
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    images = [torch.randn((batch, *IMAGE_HW, 3), generator=gen, device='cuda') for _ in range(n)]
+    return images, torch.as_tensor(np.tile(KITTI_P2, (batch, 1, 1)), device='cuda')
+
+
+def build_gac(torch, head):
+    """``entry.build_gac_system(head=...)`` on the card, random weights from
+    seed 0, made ready to predict on 4 images (``prepare_mono_for_predict``:
+    Yolo3D's head DCN offsets seeded to std 2 px, GAC's LookGround alpha
+    0.5, the prediction convs calibrated)."""
+    from visualdet3d_tpu_torch.entry import build_gac_system
+    from visualdet3d_tpu_torch.testing import prepare_mono_for_predict
+    system = build_gac_system(device='cuda', head=head)
+    (calib,), P2 = gac_inputs(torch, 1, 4, seed=41)
+    prepare_mono_for_predict(system, calib, P2, torch.Generator().manual_seed(42))
+    return system
+
+
+def gac_predict_run(torch, dc, system, batches, P2, want, what):
+    """predict over ``batches`` with the launch counts set to 0 just
+    before: (ms per batch, outputs, launches); each DCN forward kernel's
+    launches must be ``want`` (per-tap, all-taps, premul) per predict."""
+    dc.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = [system.predict(images, P2) for images in batches]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    launches = {k: dc.LAUNCHES[k] for k in DCN_FORWARD_KERNELS}
+    per_predict = tuple(launches[k] / len(batches) for k in DCN_FORWARD_KERNELS)
+    check(per_predict == want, f'{what}: DCN launches per predict {per_predict} of '
+                               f'{DCN_FORWARD_KERNELS} (expected {want})')
+    return ms, outs, launches
+
+
+def gac_slice_phase(torch, dc, system, head, dtype_name):
+    """``predict`` of GAC (``head='ground_aware'``) or Yolo3D (``'dcn'``) at
+    batch 16 over N_BATCHES distinct request batches: ms per batch, fps,
+    batch-1 p50, peak memory, valid detections, the DCN forward launches
+    (GAC none; Yolo3D exactly 1 per predict, on the per-tap kernel: K3 in
+    bf16, K5 in f32); for Yolo3D also a run under both switches
+    (``VD3D_DCN_ALLTAPS``, ``VD3D_DCN_PREMUL``), which the 1024 -> 1024
+    head leaves on the per-tap kernel (premul needs C_out < C_in, all-taps
+    at most 4 MiB of tap weights)."""
+    from visualdet3d_tpu_torch.entry import IMAGE_HW
+    phase = f'{GAC_PHASE[head]}_slice'
+    system.cfg.inference_dtype = dtype_name
+    batches, P2 = gac_inputs(torch, N_BATCHES + 1, BATCH, seed=43)
+    n_dcn = GAC_DCN_PER_FORWARD[head]
+    want = (n_dcn, 0, 0)
+    system.predict(batches[0], P2)  # warm-up: cuDNN algorithm choice, cast copy
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms_batch, outs, launches = gac_predict_run(torch, dc, system, batches[1:], P2, want,
+                                               f'{phase} {dtype_name}')
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_valid = [int(o['valid'].sum()) for o in outs]
+    for o in outs:
+        check(o['bboxes'].shape == (BATCH, 32, 11) and o['scores'].shape == (BATCH, 32),
+              f'{phase} {dtype_name}: output shapes {o["bboxes"].shape} {o["scores"].shape}')
+        for key in ('scores', 'bboxes'):
+            check(bool(torch.isfinite(o[key]).all()), f'{phase} {dtype_name}: non-finite {key}')
+    check(min(n_valid) > 0, f'{phase} {dtype_name}: a batch with no valid detection {n_valid}')
+    switched = None
+    if n_dcn:
+        with dcn_switches(alltaps=True, premul=True):
+            _, _, switched = gac_predict_run(torch, dc, system, batches[1:3], P2, want,
+                                             f'{phase} {dtype_name} under both switches')
+    P21 = P2[:1]
+    ones = [images[:1].clone() for images in batches]
+    system.predict(ones[0], P21)
+    lats = []
+    for i in range(N_BS1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        system.predict(ones[i % len(ones)], P21)
+        torch.cuda.synchronize()
+        lats.append((time.perf_counter() - t) * 1e3)
+    result = dict(model=GAC_PHASE[head], dtype=dtype_name, batch=BATCH, image_hw=list(IMAGE_HW),
+                  ms_per_batch=ms_batch, fps=BATCH / ms_batch * 1e3,
+                  bs1_p50_ms=statistics.median(lats), bs1_ms=lats, valid_per_batch=n_valid,
+                  launches=launches['modulated_deform_conv'], launches_by_kernel=launches,
+                  launches_per_predict=launches['modulated_deform_conv'] / N_BATCHES,
+                  launches_under_both_switches_2_predicts=switched, peak_memory_gb=peak_gb)
+    emit(phase, **result)
+    return result, batches[1], P2
+
+
+def gac_profile_phase(torch, system, head, images, P2, dtype_name):
+    """A profiler breakdown of one batch-16 predict: device time, the busy
+    share, the top ops and kernels, ``grid_sample``'s device time (GAC) or
+    the DCN kernel's (Yolo3D) and its share; and, by CUDA events on the
+    inference network, the trunk alone, the head alone on the trunk's
+    features (and GAC's ``LookGround`` alone), against the whole predict:
+    the head's share."""
+    phase = f'{GAC_PHASE[head]}_profile'
+    system.cfg.inference_dtype = dtype_name
+    system.predict(images, P2)
+    torch.cuda.synchronize()
+    wall_ms, kernels, ops, device_ms = device_profile(torch, lambda: system.predict(images, P2))
+    grid = [e for e in kernels if 'grid_sampler' in e.key]
+    dcn = [e for e in kernels if 'deform_conv_kernel' in e.key]
+    check(sum(e.count for e in dcn) == GAC_DCN_PER_FORWARD[head],
+          f'{phase} {dtype_name}: {sum(e.count for e in dcn)} DCN kernels in one predict')
+    check(bool(grid) == (head == 'ground_aware'),
+          f'{phase} {dtype_name}: grid_sample kernels {[e.key for e in grid]}')
+    net = system.inference_net()
+    x = system._images(images, system.inference_dtype())
+    with torch.inference_mode():
+        feats = net.ResNet_0(x)[0]
+        runs = range(5)
+        trunk_ms = cuda_ms(lambda _: net.ResNet_0(x), runs, warmup=1)
+        head_ms = cuda_ms(lambda _: net.head(feats, P2), runs, warmup=1)
+        look_ms = (cuda_ms(lambda _: net.head.LookGround_0(feats, P2), runs, warmup=1)
+                   if head == 'ground_aware' else None)
+    predict_ms = cuda_ms(lambda _: system.predict(images, P2), runs, warmup=1)
+    grid_ms = sum(e.self_device_time_total for e in grid) / 1e3
+    dcn_ms = sum(e.self_device_time_total for e in dcn) / 1e3
+    emit(phase, dtype=dtype_name, batch=BATCH, wall_ms=wall_ms, device_ms=device_ms,
+         device_busy_share=device_ms / wall_ms, grid_sample_ms=grid_ms,
+         grid_sample_share_of_device=grid_ms / device_ms, dcn_kernel_ms=dcn_ms,
+         dcn_share_of_device=dcn_ms / device_ms, events_predict_ms=predict_ms,
+         events_trunk_ms=trunk_ms, events_head_ms=head_ms, events_look_ground_ms=look_ms,
+         head_share_of_predict=head_ms / predict_ms, top_ops=top_events(ops, 12),
+         top_kernels=top_events(kernels, 12))
+
+
+def gac_parity_phase(torch, system, head):
+    """Batch 1, f32, TF32 off: the card's GAC (or Yolo3D) against the same
+    weights on the CPU, at the stereo decode gates: the same valid set and
+    labels, boxes within rtol = atol = 1e-3 (cuDNN and oneDNN sum the convs
+    in different orders), raw outputs within 1e-3 of their largest value."""
+    from visualdet3d_tpu_torch.entry import IMAGE_HW, KITTI_P2, build_gac_system
+    phase = f'{GAC_PHASE[head]}_parity'
+    system.cfg.inference_dtype = 'float32'
+    cpu = build_gac_system(device='cpu', head=head)
+    cpu.net.load_state_dict({k: v.cpu() for k, v in system.net.state_dict().items()})
+    cpu.weights_changed()
+    rng = np.random.default_rng(44)
+    image = torch.from_numpy(rng.standard_normal((1, *IMAGE_HW, 3)).astype(np.float32))
+    P2 = torch.from_numpy(KITTI_P2[None])
+    out_gpu = {k: v.cpu() for k, v in system.predict(image, P2).items()}
+    raw_gpu = [t.float().cpu() for t in system.predict_raw(image, P2)]
+    out_cpu = cpu.predict(image, P2)
+    raw_cpu = [t.float() for t in cpu.predict_raw(image, P2)]
+    raw_err = [float((g - c).abs().max() / c.abs().max()) for g, c in zip(raw_gpu, raw_cpu)]
+    check(max(raw_err) <= 1e-3, f'{phase}: raw outputs differ {raw_err}')
+    valid = out_cpu['valid']
+    n_valid = int(valid.sum())
+    check(n_valid > 0, f'{phase}: no valid detection at batch 1')
+    check(torch.equal(out_gpu['valid'], valid),
+          f'{phase}: valid sets differ: gpu {out_gpu["valid"].nonzero().tolist()} '
+          f'cpu {valid.nonzero().tolist()}')
+    check(torch.equal(out_gpu['labels'][valid], out_cpu['labels'][valid]),
+          f'{phase}: labels differ')
+    box_err = float((out_gpu['bboxes'][valid] - out_cpu['bboxes'][valid]).abs().max())
+    check(torch.allclose(out_gpu['bboxes'][valid], out_cpu['bboxes'][valid], rtol=1e-3,
+                         atol=1e-3), f'{phase}: boxes differ by up to {box_err}')
+    emit(phase, batch=1, dtype='float32', tf32=False, n_valid=n_valid, max_box_abs_err=box_err,
+         raw_rel_err_cls_reg=raw_err,
+         max_score_abs_err=float((out_gpu['scores'] - out_cpu['scores']).abs().max()))
+    del cpu
+
+
+# the bf16 forward's accumulation allowance at the head, in f32 ulps of the
+# sum of the absolute tap products: mma.sync's f32 accumulator adds each
+# 16-product step with the tensor core's alignment and truncation, measured
+# at up to 8 such ulps at [4, 18, 80, 1024] -> 1024 and 2.7-3.5 at the KM3D
+# neck's shapes (cuBLAS's f32 GEMM of the plain version: 0.25)
+HEAD_DCN_ACC_ULPS = 16
+
+
+def dcn_exact_f64(torch, dc, x, offset, mask, weight):
+    """The exact pre-bias DCN output of the kernel's own bf16 samples and
+    weights (the plain version's lerps and rounding points, the tap
+    products summed in f64, where the sums of products of two bf16 values
+    are exact), and the sum of the absolute tap products, both [B, Ho, Wo,
+    C_out] f64 (stride 1, padding 1)."""
+    b, h, w, c_in = x.shape
+    kh, kw, _, c_out = weight.shape
+    y0, x0, weights = dc._corners(offset, mask, h, w, kh, kw, 1, 1, 1, x.dtype)
+    flat = x.reshape(b, h * w, c_in).float()
+    wk = weight.reshape(kh * kw, c_in, c_out).double()
+    exact = torch.zeros((b, h * w, c_out), dtype=torch.float64, device=x.device)
+    absum = torch.zeros_like(exact)
+    for k in range(kh * kw):
+        sampled = dc._sample_tap(flat, y0, x0, weights, k, h, w).to(x.dtype).double()
+        exact += sampled @ wk[k]
+        absum += sampled.abs() @ wk[k].abs()
+    return exact.reshape(b, h, w, c_out), absum.reshape(b, h, w, c_out)
+
+
+def head_dcn_bf16_check(torch, dc, args, weight, bias, what):
+    """K3 at the head shape against the plain version (f32 sums) and the f64
+    sums of the same bf16 samples, per element: within one bf16 ulp of the
+    pre-bias output and one of the output (as ``dcn_check``), plus the
+    accumulation allowance HEAD_DCN_ACC_ULPS f32 ulps of the sum of the
+    absolute tap products. ``dcn_check``'s premise, that only a last-bit
+    sum-order difference can flip a rounding, fails where the 9216 products
+    nearly cancel: there the tensor core's accumulation error is many ulps
+    of the small output. Returns (max abs err to the plain version,
+    tolerance text, the kernel's and the plain version's worst error to the
+    f64 sums in f32 ulps of the sum of the absolute products)."""
+    out = dc.modulated_deform_conv(*args, weight, bias).double()
+    ref = dc.modulated_deform_conv_plain(*args, weight, bias).double()
+    pre = dc.modulated_deform_conv_plain(*args, weight, None).float()
+    exact, absum = dcn_exact_f64(torch, dc, *args, weight)
+    torch.cuda.synchronize()
+    eps = 2.0 ** -23
+    allow = HEAD_DCN_ACC_ULPS * eps * absum
+    tol = bf16_ulp(pre).double() + bf16_ulp(ref.float()).double() + allow
+    oracle = (exact.to(torch.bfloat16) + bias).double()
+    err_plain = (out - ref).abs()
+    err_exact = (out - oracle).abs()
+    ulps_of = lambda v: float(((v.to(torch.bfloat16).double() - exact).abs()
+                               - bf16_ulp(exact.float()).double() / 2).clamp_min(0).div(
+                                   (eps * absum).clamp_min(1e-30)).max())
+    acc_ulps = {'kernel': ulps_of(dc.modulated_deform_conv(*args, weight, None).double()),
+                'plain': ulps_of(pre.double())}
+    text = (f'one bf16 ulp of the pre-bias output + one of the output + {HEAD_DCN_ACC_ULPS} f32 '
+            'ulps of sum|tap products|, per element, against the f32 plain version and the f64 '
+            'sums of the same bf16 samples (batch 16)')
+    ok = bool((err_plain <= tol).all()) and bool((err_exact <= tol).all())
+    check(ok, f'{what}: max abs err {float(err_plain.max())} to the plain version, '
+              f'{float(err_exact.max())} to the f64 sums, outside {text}')
+    return float(err_plain.max()), text, acc_ulps
+
+
+def gac_head_dcn_kernel_phase(torch, dc, peaks):
+    """K3/K5 (the per-tap DCN forward) and K7 (dx and dW apart) at the
+    Yolo3D head's shape, [16, 18, 80, 1024] -> 1024, f32 and bf16, offsets
+    seeded (std 2 px, 5% of them 20-40 px, outside the map): each against
+    its plain version on the same inputs at batch 16 (``dcn_check`` in f32,
+    ``head_dcn_bf16_check`` in bf16, ``bwd_check``), its time in CUDA
+    events and in device time (the forward from CUDA graphs, dx and dW
+    apart from a profiler pass by kernel name), its bound, a cuDNN dense 3x3
+    conv of the same shape as a reference point, ``dx_f32_plan``'s tile and
+    ``dw_plan``'s split."""
+    import torch.nn.functional as F
+    bw, f32_peak, bf16_peak = peaks
+    h, w, c_in, c_out = GAC_HEAD_DCN
+    gen = torch.Generator(device='cuda').manual_seed(45)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    results = {}
+    for dt, dtype in (('f32', torch.float32), ('bf16', torch.bfloat16)):
+        runs, weight, bias = dcn_inputs(torch, gen, BATCH, h, w, c_in, c_out, dtype,
+                                        N_KERNEL_RUNS)
+        what = f'gac head modulated_deform_conv {dt} {h}x{w} {c_in}->{c_out}'
+        acc_ulps = None
+        if dtype == torch.bfloat16:
+            fwd_err, fwd_tol, acc_ulps = head_dcn_bf16_check(torch, dc, runs[0], weight, bias,
+                                                             what)
+        else:
+            fwd_err, fwd_tol = dcn_check(torch, dc, runs[0], weight, bias, what)
+        fwd = lambda a: dc.modulated_deform_conv(*a, weight, bias)
+        ms = cuda_ms(fwd, runs)
+        device = graph_ms(fwd, runs[:4])  # device time: no host time in it
+        plain_ms = cuda_ms(lambda a: dc.modulated_deform_conv_plain(*a, weight, bias), runs[:3],
+                           warmup=1)
+        w_oihw = weight.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        dense_ms = cuda_ms(lambda a: F.conv2d(a[0].permute(0, 3, 1, 2), w_oihw, bias, padding=1),
+                           runs)
+        isz = runs[0][0].element_size()
+        pixels = BATCH * h * w
+        n_bytes = isz * (pixels * (c_in + 27 + c_out) + 9 * c_in * c_out + c_out)
+        n_flops = 2 * pixels * 9 * c_in * c_out
+        bound_ms, bound_by = bound_of(n_bytes / bw * 1e3,
+                                      n_flops / (f32_peak if dt == 'f32' else bf16_peak) * 1e3)
+        # the backward
+        grads = [torch.randn((BATCH, h, w, c_out), generator=gen, device='cuda').to(dtype)
+                 for _ in range(N_KERNEL_RUNS)]
+        bwhat = f'gac head modulated_deform_conv_backward {dt} {h}x{w} {c_in}->{c_out}'
+        bwd_err, bwd_tol, errs = bwd_check(torch, dc, runs[0], weight, grads[0], bwhat)
+        pairs = list(zip(runs, grads))
+        bwd = lambda a: dc.modulated_deform_conv_backward(*a[0], weight, a[1])
+        bwd_ms = cuda_ms(bwd, pairs)
+        bwd_plain_ms = cuda_ms(lambda a: dc.modulated_deform_conv_backward_plain(
+            *a[0], weight, a[1]), pairs[:2], warmup=1)
+        dev = bwd_device_ms(torch, bwd, pairs)
+        bounds = bwd_bounds(pixels, c_in, c_out, isz, peaks, dt)
+        err_of = {k: (e if dt == 'f32' else e['abs']) for k, e in errs.items()}
+        adds = dx_adds(torch, dc, dtype, runs[0][1], h, w, c_in)
+        r = dict(x=[BATCH, h, w, c_in], c_out=c_out, max_abs_err=fwd_err, tolerance=fwd_tol,
+                 accumulation_error_f32_ulps_of_abs_sum=acc_ulps,
+                 ms=ms, device_ms=device, plain_ms=plain_ms, dense_conv_ms=dense_ms,
+                 bound_ms=bound_ms, bound_by=bound_by, bytes=n_bytes, flops=n_flops,
+                 share_of_bound_device=bound_ms / device if device else None,
+                 tflops=n_flops / (ms * 1e-3) / 1e12,
+                 backward_ms_events=bwd_ms, backward_plain_ms=bwd_plain_ms,
+                 backward_tolerance=bwd_tol, backward_errors=errs,
+                 max_abs_err_dx=err_of['dx'], max_abs_err_dw=err_of['d_weight'],
+                 dx_ms=dev['dx'], dw_ms=dev['dw'] + dev['dw_reduce'], dw_reduce_ms=dev['dw_reduce'],
+                 **{f'{k}_{f}': v for k in ('dx', 'dw')
+                    for f, v in zip(('bound_ms', 'bound_by'), bound_of(*bounds[k]))},
+                 dw_splits=dc.dw_plan(dc.dw_stages(BATCH, h, w, dtype), c_in, c_out, 9, n_sm),
+                 dx_adds={k: adds[k] for k in DX_ADD_KEYS},
+                 **(dict(dx_tile=adds['tile'], dx_window=adds['window_hw']) if dt == 'bf16'
+                    else dict(dx_tile_dy_resident_smem=dc.dx_f32_plan(c_out))))
+        check(dt == 'bf16' or r['dx_tile_dy_resident_smem'][0] is not None,
+              f'gac head dx_f32_plan({c_out}): no tile fits')
+        results[dt] = r
+        emit('gac_head_dcn_kernel', kernel='modulated_deform_conv + backward', dtype=dt,
+             plain_batch=BATCH, **r)
+        del runs, grads, pairs
+        torch.cuda.empty_cache()
+    return results
+
+
+def gac_train_phase(torch, dc, compute_dtype, head):
+    """The GAC (or Yolo3D) training step (``build_gac_trainer``) at batch 8,
+    288x1280, bf16 mixed precision or f32: ms per step and img/s over
+    N_BATCHES distinct batches after N_TRAIN_WARMUP warm-up steps, ending in
+    ``synchronize()``; the DCN launches of that run (Yolo3D: 1 forward on
+    the per-tap kernel, 1 dx, 1 dW and 1 dW reduce a step; GAC none); peak
+    memory; a profiler breakdown of one step (the DCN kernels' and
+    ``grid_sample``'s forward and backward device time); then N_FALL_STEPS
+    steps on one repeated batch, in which the loss must fall."""
+    from visualdet3d_tpu_torch import testing
+    from visualdet3d_tpu_torch.entry import IMAGE_HW, build_gac_trainer
+    from visualdet3d_tpu_torch.testing import prepare_mono_for_training
+    name = compute_dtype or 'float32'
+    phase = f'{GAC_PHASE[head]}_train'
+    system, state, step = build_gac_trainer(device='cuda', compute_dtype=compute_dtype,
+                                            batch_size=GAC_TRAIN_BATCH, head=head)
+    batches = train_batches_of(torch, testing.mono_training_batch, N_TRAIN_WARMUP + N_BATCHES,
+                               GAC_TRAIN_BATCH, seed=46)
+    # running statistics set to the batch's; Yolo3D's offsets of std 2 px in that regime
+    prepare_mono_for_training(system, batches[0]['images'][:4], batches[0]['P2'][:4],
+                              torch.Generator().manual_seed(47))
+    for b in batches[:N_TRAIN_WARMUP]:
+        step(b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    dc.reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = [step(b) for b in batches[N_TRAIN_WARMUP:]]
+    torch.cuda.synchronize()
+    ms_step = (time.perf_counter() - t0) * 1e3 / N_BATCHES
+    launches = dict(dc.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n = GAC_DCN_PER_FORWARD[head]
+    per_step = {'modulated_deform_conv': n, 'modulated_deform_conv_alltaps': 0,
+                'modulated_deform_conv_premul_accum': 0,
+                'modulated_deform_conv_backward_input': n,
+                'modulated_deform_conv_backward_weight': n,
+                'modulated_deform_conv_backward_weight_reduce': n}
+    check(launches == {k: v * N_BATCHES for k, v in per_step.items()},
+          f'{phase} {name}: {launches} DCN launches for {N_BATCHES} steps (expected {per_step} '
+          'a step)')
+    losses = [float(m['total']) for m in metrics]
+    check(all(np.isfinite(losses)) and min(losses) > 0, f'{phase} {name}: losses {losses}')
+    check(state.optimizer.count == state.step == N_TRAIN_WARMUP + N_BATCHES,
+          f'{phase} {name}: {state.optimizer.count} updates in {state.step} steps')
+    for p in system.net.parameters():
+        check(p.dtype == torch.float32 and bool(torch.isfinite(p).all()),
+              f'{phase} {name}: a master parameter is {p.dtype} or non-finite')
+    for buf in system.net.buffers():
+        check(not buf.is_floating_point() or buf.dtype == torch.float32,
+              f'{phase} {name}: a running statistic is {buf.dtype}')
+
+    wall_ms, kernels, ops, device_ms = device_profile(torch, lambda: step(batches[-1]))
+    prefix = {'deform_conv_kernel': ('deform_conv_kernel<', 'deform_conv_kernelI'),
+              'deform_conv_bwd_input_kernel': BWD_KERNEL_NAMES['dx'],
+              'deform_conv_bwd_weight_kernel': BWD_KERNEL_NAMES['dw'],
+              'deform_conv_bwd_weight_reduce_kernel': BWD_KERNEL_NAMES['dw_reduce'],
+              'grid_sampler': ('grid_sampler',)}
+    found = {kind: [e for e in kernels if any(p in e.key for p in prefix[kind])]
+             for kind in prefix}
+    counts = {kind: sum(e.count for e in evs) for kind, evs in found.items()}
+    check(all(counts[kind] == n for kind in prefix if kind != 'grid_sampler'),
+          f'{phase} {name} profile: DCN kernels in one step {counts}')
+    kernel_ms = {kind: sum(e.self_device_time_total for e in evs) / 1e3
+                 for kind, evs in found.items()}
+
+    fall = [float(step(batches[-1])['total']) for _ in range(N_FALL_STEPS)]
+    check(all(np.isfinite(fall)) and fall[-1] < fall[0],
+          f'{phase} {name}: the loss did not fall over {N_FALL_STEPS} steps on one batch: {fall}')
+    result = dict(compute_dtype=name, batch=GAC_TRAIN_BATCH, image_hw=list(IMAGE_HW),
+                  ms_per_step=ms_step, img_per_s=GAC_TRAIN_BATCH / ms_step * 1e3, losses=losses,
+                  launches=launches,
+                  launches_per_step={k: v / N_BATCHES for k, v in launches.items()},
+                  peak_memory_gb=peak_gb, profile_wall_ms=wall_ms, device_ms=device_ms,
+                  device_busy_share=device_ms / wall_ms,
+                  device_busy_share_of_timed_step=device_ms / ms_step, kernel_ms=kernel_ms,
+                  kernels_per_step=counts,
+                  dcn_share_of_device=sum(v for k, v in kernel_ms.items()
+                                          if k != 'grid_sampler') / device_ms,
+                  loss_on_one_batch=fall, top_ops=top_events(ops, 14),
+                  top_kernels=top_events(kernels, 14))
+    emit(phase, **result)
+    del system, state, step, batches
+    torch.cuda.empty_cache()
+    return result
+
+
+# the residual branches' last BatchNorm scale in the GAC step parity: at
+# flax's init (1) a random ResNet-101's gradients explode through the 30
+# bottlenecks, and the f32 steps of both devices sit 3-5% from the f64 step
+# (the CPU's also moves that much when the images move by two f32 ulps),
+# which no gate could read; at 0.1 both are within 0.5% and every branch
+# still learns
+GAC_PARITY_RESIDUAL_SCALE = 0.1
+# the card's own norm-wise error of each DCN or LookGround leaf against the
+# f64 step: an H100 reads 3e-5 (LookGround) to 1e-4 (the head's DCN)
+GAC_HEAD_LEAF_REL_CAP = 1e-3
+
+
+def gac_train_parity_phase(torch, head):
+    """One f32 training step (TF32 off) of ``build_gac_trainer`` at batch 2
+    on the card against the same step on the CPU, same weights and batch
+    (each bottleneck's last BatchNorm scale at GAC_PARITY_RESIDUAL_SCALE;
+    running statistics set to the batch's; Yolo3D's offsets of std 0.5
+    px; alpha and the prediction convs seeded, so that the gradient reaches
+    the whole network), dropout off on both, at the KM3D step gates with
+    another floor: both f32 steps are held against the same step on the
+    CPU in f64, and the card's distance to it must stay within the CPU's
+    own f32 distance times the gates' factors. Each loss term within
+    max(8x the floor's difference, 2e-4 of its value); the gradients
+    before the update clips them: the largest elementwise difference within
+    8x the floor's (and 5e-2 of the largest gradient), the norm-wise
+    difference over all parameters within 3x the floor's, each DCN or
+    LookGround leaf within 4x the larger of its own floor and the
+    all-parameter floor and within GAC_HEAD_LEAF_REL_CAP of the f64 step
+    on its own (the floors of the DCN leaves are 0.6-0.9%, so the floor
+    gate alone holds the step's wiring of K7 far looser than the kernel
+    phase holds the kernel); the running statistics after the step within 1e-4
+    of the CPU's; the parameters after the Adam step within 2.5 * lr of the
+    CPU's.
+
+    The KM3D phase's floor, the CPU's own step with the images moved by
+    two f32 ulps, underestimates here: the BatchNorm backward after the
+    head's DCN nearly cancels (the upstream gradient is mostly a
+    per-channel constant, which it projects out), and there the CPU's f32
+    gradients of the DCN leaves are 0.6-0.9% from the f64 step while the
+    card's are 0.01% (measured on an H100); an input move does not show that
+    rounding, the f64 step does."""
+    from visualdet3d_tpu_torch import testing
+    from visualdet3d_tpu_torch.entry import build_gac_system, build_gac_trainer
+    from visualdet3d_tpu_torch.models.backbones.resnet import Bottleneck
+    from visualdet3d_tpu_torch.testing import prepare_mono_for_training
+    phase = f'{GAC_PHASE[head]}_train_parity'
+    batch = train_batches_of(torch, testing.mono_training_batch, 1, 2, seed=48)[0]
+    gpu, gpu_state, gpu_step = build_gac_trainer(device='cuda', batch_size=2, head=head)
+    with torch.no_grad():
+        for m in gpu.net.modules():
+            if isinstance(m, Bottleneck):
+                m.BatchNorm_2.weight.mul_(GAC_PARITY_RESIDUAL_SCALE)
+    prepare_mono_for_training(gpu, batch['images'], batch['P2'],
+                              torch.Generator().manual_seed(49), offset_std=0.5)
+    init = {k: v.cpu() for k, v in gpu.net.state_dict().items()}
+    cpu, cpu_state, cpu_step = build_gac_trainer(device='cpu', batch_size=2, head=head)
+    cpu.net.load_state_dict(init)
+    cpu.weights_changed()
+    grads = {}
+    for tag, sys_, state in (('gpu', gpu, gpu_state), ('cpu', cpu, cpu_state)):
+        sys_.dropout = False
+        update = state.optimizer.step
+
+        def recording_update(tag=tag, sys_=sys_, update=update):
+            grads[tag] = [(torch.zeros_like(p) if p.grad is None else p.grad).detach()
+                          .double().cpu() for p in sys_.net.parameters()]
+            update()
+        state.optimizer.step = recording_update
+    lr = cpu_state.optimizer.schedule(0)
+    m_gpu = {k: float(v) for k, v in gpu_step(batch).items()}
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    t0 = time.perf_counter()
+    m_cpu = {k: float(v) for k, v in cpu_step(cpu_batch).items()}
+    cpu_s = time.perf_counter() - t0
+    # the reference: the same step's loss and gradients on the CPU in f64
+    # (the loss itself in f32 on the f64 predictions, as in every step)
+    ref = build_gac_system(device='cpu', head=head)
+    ref.net.load_state_dict(init)
+    ref.net.double()
+    ref.dropout = False
+    t0 = time.perf_counter()
+    cls_loss, reg_loss, terms = ref.loss(
+        cpu_batch['images'], cpu_batch['P2'], cpu_batch['annotations'],
+        apply_fn=lambda net, images, P2: net(images.double(), P2=P2.double()))
+    total = cls_loss.mean() + reg_loss.mean()
+    total.backward()
+    ref_s = time.perf_counter() - t0
+    m_ref = {k: float(v.detach()) for k, v in terms.items()}
+    m_ref['total'] = float(total.detach())
+    g_ref = [(torch.zeros_like(p) if p.grad is None else p.grad).detach().double()
+             for p in ref.net.parameters()]
+
+    loss_err = {k: abs(m_gpu[k] - v) / max(abs(v), 1e-30) for k, v in m_ref.items()}
+    loss_floor = {k: abs(m_cpu[k] - v) / max(abs(v), 1e-30) for k, v in m_ref.items()}
+    g_gpu, g_cpu = grads['gpu'], grads['cpu']
+    worst = max(float((a - b).abs().max()) for a, b in zip(g_gpu, g_ref))
+    floor = max(float((a - b).abs().max()) for a, b in zip(g_cpu, g_ref))
+    gmax = max(float(b.abs().max()) for b in g_ref)
+    den = sum(float(b.norm()) ** 2 for b in g_ref)
+    rel = (sum(float((a - b).norm()) ** 2 for a, b in zip(g_gpu, g_ref)) / den) ** 0.5
+    rel_floor = (sum(float((a - b).norm()) ** 2 for a, b in zip(g_cpu, g_ref)) / den) ** 0.5
+    rel_card_cpu = (sum(float((a - b).norm()) ** 2 for a, b in zip(g_gpu, g_cpu)) / den) ** 0.5
+    names = [n for n, _ in cpu.net.named_parameters()]
+    leaf = {n: (float((a - r).norm() / r.norm().clamp_min(1e-30)),
+                float((c - r).norm() / r.norm().clamp_min(1e-30)), float(r.abs().max()))
+            for a, c, r, n in zip(g_gpu, g_cpu, g_ref, names)}
+    per_leaf = sorted(((e, n) for n, (e, _, _) in leaf.items()), reverse=True)
+    # the leaves the aggregate gates cannot see: the DCN's weight and offset
+    # conv, LookGround's disparity conv (learning through the grid, at 5%)
+    # and alpha
+    own = {n: v for n, v in leaf.items()
+           if n.endswith(('ModulatedDeformConv_0.weight', 'ModulatedDeformConv_0.Conv_0.weight',
+                          'LookGround_0.Conv_0.weight', 'LookGround_0.alpha'))}
+    param_err = max(float((pg.detach().cpu() - pc.detach()).abs().max())
+                    for pg, pc in zip(gpu.net.parameters(), cpu.net.parameters()))
+    stats_err = max(float((bg.cpu() - bc).abs().max() / bc.abs().max().clamp_min(1e-30))
+                    for bg, bc in zip(gpu.net.buffers(), cpu.net.buffers())
+                    if bg.is_floating_point())
+    emit(phase, batch=2, dtype='float32', tf32=False, reference='the CPU step in f64',
+         loss_rel_err=loss_err, loss_rel_err_floor=loss_floor, grad_max_abs_err=worst,
+         grad_max_abs_err_floor=floor, grad_max=gmax, grad_rel_err_all=rel,
+         grad_rel_err_all_floor=rel_floor, grad_rel_diff_card_cpu=rel_card_cpu,
+         grad_rel_err_worst_leaves=per_leaf[:4],
+         grad_rel_err_median_leaf=statistics.median(e for e, _ in per_leaf),
+         head_leaves_rel_err_floor_max=own, param_max_abs_err=param_err, lr=lr,
+         running_stats_rel_err=stats_err, cpu_step_s=cpu_s, f64_step_s=ref_s,
+         total=m_gpu['total'])
+    bad = {k: (loss_err[k], loss_floor[k]) for k in m_ref
+           if loss_err[k] > max(8 * loss_floor[k], 2e-4)}
+    check(not bad, f'{phase}: loss terms differ beyond the floor {bad}')
+    check(worst <= max(8 * floor, 1e-5 * gmax) and worst <= 5e-2 * gmax and rel <= 3 * rel_floor,
+          f'{phase}: gradients differ: max abs {worst} (floor {floor}, gmax {gmax}), '
+          f'norm-wise {rel} (floor {rel_floor})')
+    bad = {n: e for n, e in own.items()
+           if e[0] > min(4 * max(e[1], rel_floor), GAC_HEAD_LEAF_REL_CAP) or e[2] == 0}
+    check(len(own) == 2 and not bad,
+          f'{phase}: {len(own)} head leaves, these differ beyond their floor or beyond '
+          f'{GAC_HEAD_LEAF_REL_CAP}, or have no gradient (error, floor, max): {bad}')
+    check(param_err <= 2.5 * lr, f'{phase}: parameters after the step differ by {param_err} '
+                                 f'(lr {lr})')
+    check(stats_err <= 1e-4, f'{phase}: running statistics differ by {stats_err}')
+    del gpu, cpu, ref
+    torch.cuda.empty_cache()
+
+
+def gac_phases(torch, dc, peaks):
+    """The GAC slice: for each head, the predict at batch 16 in f32 and bf16
+    with a profile, batch-1 parity with the CPU; K3/K5/K7 at the head DCN's
+    shape; the training step in bf16 and f32 for each head; one f32 step of
+    each head against the CPU. Returns the numbers the ``kernels`` line
+    reads."""
+    slices, trains = {}, {}
+    for head in ('ground_aware', 'dcn'):
+        system = build_gac(torch, head)
+        slices[head] = {}
+        for dtype_name in ('float32', 'bfloat16'):
+            slices[head][dtype_name], images, P2 = gac_slice_phase(torch, dc, system, head,
+                                                                   dtype_name)
+            gac_profile_phase(torch, system, head, images, P2, dtype_name)
+            del images
+        gac_parity_phase(torch, system, head)
+        del system
+        torch.cuda.empty_cache()
+    kernel = gac_head_dcn_kernel_phase(torch, dc, peaks)
+    for head in ('ground_aware', 'dcn'):
+        trains[head] = {name: gac_train_phase(torch, dc, cd, head)
+                        for name, cd in (('bfloat16', 'bfloat16'), ('float32', None))}
+        gac_train_parity_phase(torch, head)
+    return slices, kernel, trains
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2934,7 +3543,7 @@ def main() -> int:
     system = build_system(depth=34, device='cuda')
     gen = torch.Generator().manual_seed(5)
     calib = [torch.randn((4, *IMAGE_HW, 3), generator=gen).cuda() for _ in range(2)]
-    calibrate_prediction_convs(system, calib[0], calib[1], gen)
+    calibrate_prediction_convs(system, (calib[0], calib[1]), gen)
 
     slices = {}
     for dtype_name in ('float32', 'bfloat16'):
@@ -2997,6 +3606,7 @@ def main() -> int:
     km3d_train_parity_phase(torch)
     monoflex_trains = {name: km3d_train_phase(torch, dc, cd, 'monoflex', MONOFLEX_BATCH)
                        for name, cd in (('bfloat16', 'bfloat16'), ('float32', None))}
+    gac_slices, gac_kernel, gac_trains = gac_phases(torch, dc, peaks)
 
     dtype_of = {'f32': 'float32', 'bf16': 'bfloat16'}
     replaces = {  # the TPU kernel bodies _corr_kernel_eyes and _corr_kernel
@@ -3112,6 +3722,41 @@ def main() -> int:
             per_forward='the dW kernels (split sums and their reduce) of the 16 DCNs of one '
                         'KM3D training step, batch 16 (shapes weighted by count), device time',
             per_shape=r['per_shape']))
+    for dt, r in gac_kernel.items():  # the head DCN of Yolo3D: K3/K5 forward, K7 backward
+        yolo3d_slice = gac_slices['dcn'][dtype_of[dt]]
+        yolo3d_train = gac_trains['dcn'][dtype_of[dt]]['launches']
+        common = dict(route='cuda', source='visualdet3d_tpu_torch/csrc/deform_conv.cu',
+                      library_ms=None, shape='[16, 18, 80, 1024] -> 1024, the Yolo3D head DCN '
+                      'at stride 16 of 288x1280, batch 16; plain versions at batch 16')
+        summary.append(dict(
+            name=f'modulated_deform_conv[{dt}, gac_head]', replaces=dcn_replaces[dt],
+            launches=yolo3d_slice['launches'],
+            launches_in_training=yolo3d_train['modulated_deform_conv'],
+            max_abs_err=r['max_abs_err'], ms=r['ms'], device_ms=r['device_ms'],
+            plain_ms=r['plain_ms'], bound_ms=r['bound_ms'], bound_by=r['bound_by'],
+            dense_conv_ms=r['dense_conv_ms'],
+            per_forward='one call; launches: 6 Yolo3D batch-16 predicts (and 6 training steps '
+                        'at batch 8)', **common))
+        summary.append(dict(
+            name=f'modulated_deform_conv_backward_input[{dt}, gac_head]',
+            replaces='visualdet3d_tpu/ops/deform_conv.py:663',
+            launches=yolo3d_train['modulated_deform_conv_backward_input'],
+            max_abs_err=r['max_abs_err_dx'], ms=r['dx_ms'], plain_ms=r['backward_plain_ms'],
+            plain='the whole plain backward', bound_ms=r['dx_bound_ms'],
+            bound_by=r['dx_bound_by'], backward_ms_events=r['backward_ms_events'],
+            dx_f32_plan=r.get('dx_tile_dy_resident_smem'), dx_adds=r['dx_adds'],
+            per_forward='the dx kernel, one call, device time; launches: 6 Yolo3D training '
+                        'steps at batch 8', **common))
+        summary.append(dict(
+            name=f'modulated_deform_conv_backward_weight[{dt}, gac_head]',
+            replaces='visualdet3d_tpu/ops/deform_conv.py:663',
+            launches=yolo3d_train['modulated_deform_conv_backward_weight'],
+            launches_of_reduce=yolo3d_train['modulated_deform_conv_backward_weight_reduce'],
+            max_abs_err=r['max_abs_err_dw'], ms=r['dw_ms'], reduce_ms=r['dw_reduce_ms'],
+            plain_ms=r['backward_plain_ms'], plain='the whole plain backward',
+            bound_ms=r['dw_bound_ms'], bound_by=r['dw_bound_by'], dw_splits=r['dw_splits'],
+            per_forward='the dW kernels (split sums and their reduce), one call, device time; '
+                        'launches: 6 Yolo3D training steps at batch 8', **common))
     summary.append(dict(
         name='int8_conv2d', route='cuda', source='visualdet3d_tpu_torch/csrc/int8_conv.cu',
         replaces='visualdet3d_tpu/models/quant.py:295 (XLA s8 conv_general_dilated; no Pallas '

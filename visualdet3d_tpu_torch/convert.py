@@ -9,6 +9,7 @@ Conv_0`` is ``ResNet_0.layer1_0.Conv_0``), so the bridge maps path for path:
 * BatchNorm ``scale``/``bias`` -> ``weight``/``bias``, ``batch_stats``
   ``mean``/``var`` -> ``running_mean``/``running_var`` (eps 1e-5 on both
   sides; flax momentum 0.9 is torch momentum 0.1, set by the modules);
+* a module's own parameter keeps its name (``LookGround_0/alpha``);
 * the int8 ``quant`` collection (``quant_from_flax``) -> the port's int8
   artifact, keyed by flax path: ``kernel_q`` int8 HWIO -> int8
   ``[C_out, kh, kw, C_in]`` (the layout the int8 conv kernel reads),
@@ -30,8 +31,8 @@ from torch import nn
 
 _KERNEL_PERM = {4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}
 _LEAF = {('params', 'kernel'): 'weight', ('params', 'bias'): 'bias',
-         ('params', 'scale'): 'weight', ('batch_stats', 'mean'): 'running_mean',
-         ('batch_stats', 'var'): 'running_var'}
+         ('params', 'scale'): 'weight', ('params', 'alpha'): 'alpha',
+         ('batch_stats', 'mean'): 'running_mean', ('batch_stats', 'var'): 'running_var'}
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):

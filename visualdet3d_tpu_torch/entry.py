@@ -20,6 +20,18 @@ disparity loss of the train-only disparity head; f32 or bf16 mixed
 precision; both correlation volumes' forward and backward on the CUDA
 kernels.
 
+``build_gac_system()`` is GAC monocular 3D detection
+(``configs/yolo3d_gac.py``: ResNet-101 with the s2d stem to stride 16,
+288x1280, 1024-channel features, a 512-wide class tower, 32 anchors a
+location; Car and Pedestrian, as the JAX package's ``bench.py`` runs it)
+with random weights from a seed: ``head='ground_aware'``
+(``GroundAwareYolo3D``: ``LookGround``'s ground-aware sampling, then the
+1024-wide regression tower) or ``head='dcn'`` (``Yolo3D``: the tower opens
+with a 1024 -> 1024 modulated deformable conv on the CUDA kernels).
+``build_gac_trainer()`` is its training step: Adam, lr 1e-4, gradients
+clipped to global norm 0.1, CosineAnnealingLR over 30 epochs down to
+3e-5, batch 8, f32 or bf16 mixed precision.
+
 ``build_km3d_system()`` is the KM3D system of ``configs/km3d.py`` (DLA-34,
 the DCN neck on the CUDA deformable-conv kernel, ``head_features=256``) for
 384x1280 images (``KM3D_IMAGE_HW``), random weights from a seed.
@@ -49,13 +61,14 @@ from visualdet3d_tpu_torch.device import resolve_device
 from visualdet3d_tpu_torch.ops.kernel_build import BUILD_DIR
 from visualdet3d_tpu_torch.registry import DETECTOR_DICT
 from visualdet3d_tpu_torch.testing import (
-    KITTI_P2, calibrate_prediction_convs, int8_calibration_batches, km3d_detector_cfg,
-    km3d_train_cfg, monoflex_detector_cfg, monoflex_train_cfg, stereo3d_detector_cfg,
-    stereo_train_cfg, write_synthetic_priors)
+    KITTI_P2, calibrate_prediction_convs, gac_detector_cfg, gac_train_cfg,
+    int8_calibration_batches, km3d_detector_cfg, km3d_train_cfg, monoflex_detector_cfg,
+    monoflex_train_cfg, stereo3d_detector_cfg, stereo_train_cfg, write_synthetic_priors)
 
 IMAGE_HW = (288, 1280)
 KM3D_IMAGE_HW = (384, 1280)
 KITTI_TRAIN_FRAMES = 3712  # the chen split's training frames (splits/chen_split/train.txt)
+GAC_HEADS = {'ground_aware': 'GroundAwareYolo3D', 'dcn': 'Yolo3D'}
 
 
 def build_system(depth: int = 34, device: Optional[Union[str, torch.device]] = None,
@@ -89,14 +102,33 @@ def build_int8_system(int8_block=None, device: Optional[Union[str, torch.device]
     device = resolve_device(device)
     system = build_system(device=device)
     batches = int8_calibration_batches(IMAGE_HW)
-    calibrate_prediction_convs(system, batches[0][0], batches[0][1],
-                               torch.Generator().manual_seed(5))
+    calibrate_prediction_convs(system, batches[0][:2], torch.Generator().manual_seed(5))
     system.fold_inference_variables(IMAGE_HW)
     system.cfg.int8_all = True
     system.cfg.int8_block = int8_block
     system.quantize_int8(system.calibrate_int8(batches))
     system.cfg.inference_dtype = 'int8'
     return system
+
+
+def build_gac_system(device: Optional[Union[str, torch.device]] = None,
+                     head: str = 'ground_aware', preprocessed: Optional[str] = None):
+    """GAC (``configs/yolo3d_gac.py``; Car, Pedestrian) with random weights
+    from seed 0 on ``device`` (the card unless the caller names another):
+    ``head='ground_aware'`` is ``GroundAwareYolo3D``, ``head='dcn'`` is
+    ``Yolo3D``. Synthetic priors (16 scales x 2 ratios) go to
+    ``preprocessed``, by default inside the package's build directory."""
+    import visualdet3d_tpu_torch.models  # noqa: F401  (registers the mono detectors)
+
+    if head not in GAC_HEADS:
+        raise ValueError(f'head {head!r}: one of {sorted(GAC_HEADS)}')
+    device = resolve_device(device)
+    if preprocessed is None:
+        preprocessed = os.path.join(BUILD_DIR, 'priors_mono')
+    obj_types = ('Car', 'Pedestrian')
+    write_synthetic_priors(preprocessed, obj_types, num_ratios=2)
+    cfg = gac_detector_cfg(preprocessed, obj_types=obj_types, name=GAC_HEADS[head])
+    return DETECTOR_DICT[cfg.name](cfg, device=device)
 
 
 def build_km3d_system(device: Optional[Union[str, torch.device]] = None):
@@ -169,6 +201,28 @@ def build_stereo_trainer(device: Optional[Union[str, torch.device]] = None,
 
     def step(batch):
         _check_batch_size(batch['left_images'].shape[0], batch_size)
+        return train_step(state, batch)
+    return system, state, step
+
+
+def build_gac_trainer(device: Optional[Union[str, torch.device]] = None,
+                      compute_dtype: Optional[str] = None, batch_size: int = 8,
+                      head: str = 'ground_aware'):
+    """GAC training on ``device`` (the card unless the caller names
+    another): returns ``(system, state, step)``. ``system`` is
+    :func:`build_gac_system`'s (``head`` as there); ``state`` holds the
+    optimizer of ``configs/yolo3d_gac.py`` (an epoch is the chen split's
+    training frames at ``batch_size``, 8 in the config); ``step(batch)``
+    takes ``{'images', 'P2', 'annotations'}`` (``testing.mono_training_batch``)
+    of ``batch_size`` images, raising on another size, and makes one update
+    in place, returning the loss terms. ``compute_dtype='bfloat16'`` is the
+    mixed-precision policy (``pipelines/train_state.py``)."""
+    cfg = gac_train_cfg(steps_per_epoch=math.ceil(KITTI_TRAIN_FRAMES / batch_size))
+    system = build_gac_system(device=device, head=head)
+    state, train_step = _trainer(system, cfg, 'train_mono_detection', compute_dtype)
+
+    def step(batch):
+        _check_batch_size(batch['images'].shape[0], batch_size)
         return train_step(state, batch)
     return system, state, step
 

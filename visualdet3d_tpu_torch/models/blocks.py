@@ -1,4 +1,4 @@
-"""Reusable model blocks, stereo and DCN subset (counterpart of
+"""Reusable model blocks, the stereo, DCN and GAC subset (counterpart of
 ``visualdet3d_tpu/models/blocks.py``).
 
 Modules take NCHW tensors and keep activations in ``torch.channels_last``
@@ -9,6 +9,8 @@ flax tree onto a ``state_dict`` path for path.
 from __future__ import annotations
 
 import contextlib
+import contextvars
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -17,6 +19,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from visualdet3d_tpu_torch.ops.deform_conv import modulated_deform_conv
+from visualdet3d_tpu_torch.ops.sampling import grid_sample
 
 
 class _FlaxBatchNorm:
@@ -36,22 +39,28 @@ class _FlaxBatchNorm:
     buffers stay f32. Scale and bias enter in f32 in both modes, so the
     normalisation is computed in f32 and rounded once, as flax promotes them
     (an all-bf16 ``F.batch_norm`` on the CPU rounds the per-channel factors
-    to bf16, an error that does not average out across a channel).
+    to bf16, an error that does not average out across a channel). An f64
+    network (a reference step) computes in f64 throughout.
     """
 
     freeze_stats = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
-            if self.weight.dtype == self.running_mean.dtype:  # f32, or a cast inference copy
-                return super().forward(x)
-            return F.batch_norm(x, self.running_mean, self.running_var, self.weight.float(),
-                                self.bias.float(), False, 0.0, self.eps)
-        y = F.batch_norm(x, None, None, self.weight.float(), self.bias.float(), True, 0.0,
+            if (self.weight.dtype == self.running_mean.dtype
+                    == torch.promote_types(x.dtype, self.weight.dtype)):
+                return super().forward(x)  # f32, or a cast inference copy on its own dtype
+            # flax promotes: bf16 scale and bias against f32 statistics (the
+            # policy), or a cast copy's bf16 parameters against an f32 input
+            # (GAC's regression tower in bf16 inference); the output keeps x's dtype
+            return F.batch_norm(x, self.running_mean.float(), self.running_var.float(),
+                                self.weight.float(), self.bias.float(), False, 0.0, self.eps)
+        acc = torch.promote_types(x.dtype, torch.float32)  # f64 stays f64 (a reference step)
+        y = F.batch_norm(x, None, None, self.weight.to(acc), self.bias.to(acc), True, 0.0,
                          self.eps)
         if not self.freeze_stats:
             with torch.no_grad():
-                xf = x.float()
+                xf = x.to(acc)
                 dims = (0, *range(2, x.dim()))
                 mean = xf.mean(dim=dims)
                 var = ((xf * xf).mean(dim=dims) - mean * mean).clamp(min=0.0)
@@ -137,6 +146,38 @@ class ConvBnReLU(nn.Module):
     def forward(self, x):
         x = self.BatchNorm_0(self.Conv_0(x))
         return F.relu(x) if self.relu else x
+
+
+# the dtype the mixed-precision policy casts every conv input to (None
+# outside it): the counterpart of the JAX package's interceptor, which casts
+# the input of every flax Conv under ``_mixed_precision_interceptor``
+_CONV_INPUT_DTYPE: contextvars.ContextVar = contextvars.ContextVar('conv_input_dtype',
+                                                                  default=None)
+
+
+@contextlib.contextmanager
+def conv_inputs_cast_to(dtype: torch.dtype):
+    """Within the block, every :class:`FlaxConv2d` casts its input to
+    ``dtype`` (the mixed-precision policy, ``pipelines/train_state.py``)."""
+    token = _CONV_INPUT_DTYPE.set(dtype)
+    try:
+        yield
+    finally:
+        _CONV_INPUT_DTYPE.reset(token)
+
+
+class FlaxConv2d(nn.Conv2d):
+    """``nn.Conv2d`` with flax's dtypes, for modules whose input dtype may
+    differ from their weights': under the mixed-precision policy the input
+    is cast to the policy's dtype (:func:`conv_inputs_cast_to`); otherwise
+    input, weight and bias are promoted to a common dtype (flax's
+    ``promote_dtype``: a bf16 inference copy fed an f32 tensor runs in
+    f32). An ``nn.Conv2d`` for the hooks of BN folding and calibration."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = _CONV_INPUT_DTYPE.get() or torch.promote_types(x.dtype, self.weight.dtype)
+        bias = None if self.bias is None else self.bias.to(dtype)
+        return self._conv_forward(x.to(dtype), self.weight.to(dtype), bias)
 
 
 def anchor_flatten(x: torch.Tensor, num_output_channel: int) -> torch.Tensor:
@@ -271,3 +312,92 @@ def flax_default_init_(module: nn.Module, generator: torch.Generator) -> nn.Modu
         if isinstance(m, ModulatedDeformConv):
             m.reset_parameters(generator)
     return module
+
+
+def linspace(start: float, stop: float, num: int, dtype: torch.dtype,
+             device=None) -> torch.Tensor:
+    """``jnp.linspace(start, stop, num, dtype=dtype)`` rounded as JAX rounds
+    it: ``step = iota / (num - 1)`` and ``start * (1 - step) + stop * step``
+    in ``dtype``, each operation rounded, the last point ``stop`` (in bf16
+    ``torch.linspace`` differs from it at about half the points of 80)."""
+    t = functools.partial(torch.tensor, dtype=dtype, device=device)
+    if num == 1:
+        return t([start])
+    div = num - 1
+    step = torch.arange(div, dtype=dtype, device=device) / t(div)
+    out = t(start) * (1 - step) + t(stop) * step
+    return torch.cat([out, t([stop])])
+
+
+def ground_plane_disparity(feat_shape, P2: torch.Tensor, baseline: float,
+                           relative_elevation: float, stride_scale: float,
+                           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Per-row disparity of the analytic ground plane at feature resolution,
+    ``fy * baseline * (v - cy) / |fy * elev + Ty|`` (ReLU'd) with the P2
+    intrinsics divided by the feature stride; ``feat_shape`` starts with
+    (B, H, W). The rows are ``dtype`` (the features'), P2's dtype carries
+    the rest: with an f32 P2 the result is f32 whatever ``dtype`` is, as in
+    the JAX package. Returns [B, H, W]."""
+    b, h, w = feat_shape[0], feat_shape[1], feat_shape[2]
+    fy = P2[:, 1, 1] / stride_scale
+    cy = P2[:, 1, 2] / stride_scale
+    ty = P2[:, 1, 3]
+    rows = torch.arange(h, dtype=dtype, device=P2.device)
+    yy = rows[None, :, None].expand(b, h, w)
+    disparity = fy[:, None, None] * baseline * (yy - cy[:, None, None]) / (
+        torch.abs(fy[:, None, None] * relative_elevation + ty[:, None, None]) + 1e-10)
+    return F.relu(disparity)
+
+
+class LookGround(nn.Module):
+    """Ground-aware feature sampling: a 1-channel 3x3 conv predicts a
+    disparity correction (tanh, 5% of its gradient kept, x 0.1); the
+    sampling grid (``linspace`` in the features' dtype) is shifted down
+    toward the ground-contact row by an analytic shift and the correction;
+    [ground-plane disparity, features] are sampled there (border,
+    align_corners), projected by a 1x1 conv and added to the features
+    through the zero-initialised ``alpha``, then ReLU.
+
+    The dtypes are the JAX package's, not a policy's: with an f32 P2 the
+    disparity and the shift are f32, so the grid and the sampled tensor
+    are f32 whatever the features are; the 1x1 conv then runs in f32 in
+    bf16 inference (flax's promotion), in bf16 under the mixed-precision
+    policy (its input cast), and so does everything after it.
+    """
+
+    def __init__(self, features: int, baseline: float = 0.54,
+                 relative_elevation: float = 1.65, stride_scale: float = 16.0):
+        super().__init__()
+        self.baseline, self.relative_elevation = baseline, relative_elevation
+        self.stride_scale = stride_scale
+        self.Conv_0 = FlaxConv2d(features, 1, 3, padding=1)
+        self.Conv_1 = FlaxConv2d(features + 1, features, 1)
+        self.alpha = nn.Parameter(torch.zeros(1))
+
+    def forward(self, x: torch.Tensor, P2: torch.Tensor) -> torch.Tensor:
+        """x: NCHW features (channels_last), P2 [B, 3, 4]."""
+        b, _, h, w = x.shape
+        disp_pred = torch.tanh(self.Conv_0(x))[:, 0]  # [B, H, W]
+        # mostly stop-gradient: 5% of the gradient flows
+        disp_pred = 0.1 * (0.05 * disp_pred + 0.95 * disp_pred.detach())
+        shape = (b, h, w)
+        disparity = ground_plane_disparity(shape, P2, self.baseline, self.relative_elevation,
+                                           self.stride_scale, dtype=x.dtype)
+        x_base = linspace(-1.0, 1.0, w, x.dtype, x.device)[None, None, :].expand(shape)
+        y_base = linspace(-1.0, 1.0, h, x.dtype, x.device)[None, :, None].expand(shape)
+        # analytic downward shift toward the ground-contact row
+        h_mean = 1.535
+        rows = torch.arange(h, dtype=x.dtype, device=x.device)
+        yy = rows[None, :, None].expand(shape)
+        cy = (P2[:, 1, 2] / self.stride_scale)[:, None, None]
+        y_shift = F.relu(h_mean * (yy - cy) /
+                         (2 * (self.relative_elevation - 0.5 * h_mean))) / (h * 0.5)
+        flow_y = y_base + y_shift + disp_pred
+        flow = torch.stack([x_base.to(flow_y.dtype), flow_y], dim=-1)
+
+        dtype = torch.promote_types(disparity.dtype, x.dtype)
+        features = torch.cat([disparity[:, None].to(dtype), x.to(dtype)], dim=1)
+        sampled = grid_sample(features.permute(0, 2, 3, 1), flow.to(dtype),
+                              padding_mode='border', align_corners=True)
+        extracted = self.Conv_1(sampled.permute(0, 3, 1, 2))
+        return F.relu(x + extracted * self.alpha)

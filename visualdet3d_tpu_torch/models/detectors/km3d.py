@@ -36,7 +36,7 @@ class KM3DCore(nn.Module):
         if name == 'resnet':
             raise NotImplementedError(
                 "KM3DCore: the 'resnet' core (bilinear up + conv chain) is not ported "
-                'yet; see ROADMAP.md Queue A, item 15 (KM3D resnet core)')
+                'yet; see ROADMAP.md Queue A, A3 item 1 (the KM3D resnet core)')
         if name != 'dla':
             raise NotImplementedError(name)
         self.DLA_0 = dlanet(**cfg)

@@ -22,9 +22,9 @@ import torch.nn.functional as F
 
 from visualdet3d_tpu_torch.models.backbones.resnet import BasicBlock, resnet
 from visualdet3d_tpu_torch.models.blocks import (
-    ChannelDropout, ResGhostModule, bn2d, bn3d, channels_last_, flax_default_init_)
+    ResGhostModule, bn2d, bn3d, channels_last_, flax_default_init_)
 from visualdet3d_tpu_torch.models.detectors.yolo3d import Yolo3DSystem
-from visualdet3d_tpu_torch.models.heads.detection_3d_head import StereoHead, detection_3d_loss
+from visualdet3d_tpu_torch.models.heads.detection_3d_head import StereoHead
 from visualdet3d_tpu_torch.models.heads.losses import stereo_focal_loss
 from visualdet3d_tpu_torch.ops.cost_volume import concat_volume, correlation_volume_interleaved
 from visualdet3d_tpu_torch.registry import DETECTOR_DICT
@@ -226,11 +226,6 @@ class Stereo3D(Yolo3DSystem):
         left, right = batch[:2]
         return self.net(self._images(left, torch.float32), self._images(right, torch.float32))
 
-    def _images(self, images: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        """[B, H, W, 3] images -> NCHW channels_last in ``dtype`` on the device."""
-        images = torch.as_tensor(images, device=self.device)
-        return _nchw(images.to(dtype).contiguous())
-
     def loss(self, left_images, right_images, P2, P3, annotations, disparity=None,
              apply_fn: Optional[Callable] = None, generator: Optional[torch.Generator] = None):
         """The loss of a batch: ``(cls_loss [1], reg_loss [1], loss_dict)``,
@@ -254,45 +249,13 @@ class Stereo3D(Yolo3DSystem):
         if not self.for_training:
             raise RuntimeError('Stereo3D.loss needs the disparity head: build the system '
                                'with training=True')
-        if self.dropout and generator is None:
-            raise ValueError('Stereo3D.loss: the class tower\'s dropout needs a generator '
-                             '(or set system.dropout = False)')
-        apply_fn = apply_fn or (lambda net, *x: net(*x))
         image_hw = (left_images.shape[1], left_images.shape[2])
-        left = self._images(left_images, torch.float32)
-        right = self._images(right_images, torch.float32)
-        dropouts = [m for m in self.net.modules() if isinstance(m, ChannelDropout)]
-        for m in dropouts:
-            m.generator = generator if self.dropout else None
-        self.net.train()
-        try:
-            cls_preds, reg_preds, depth_output = apply_fn(self.net, left, right)
-        finally:
-            self.net.eval()
-            for m in dropouts:
-                m.generator = None
-        cls_preds, reg_preds = cls_preds.float(), reg_preds.float()
+        cls_preds, reg_preds, depth_output = self._train_forward(
+            apply_fn, generator, self._images(left_images, torch.float32),
+            self._images(right_images, torch.float32))
         depth_output = depth_output.float().permute(0, 2, 3, 1)  # [B, H/4, W/4, 96]
-
-        P2 = torch.as_tensor(P2, dtype=torch.float32, device=self.device)
-        annotations = torch.as_tensor(annotations, dtype=torch.float32, device=self.device)
-        pack = self.anchor_pack(image_hw)
-        if self.loss_cfg.get('filter_anchor', True):
-            useful = self.anchors.useful_mask(pack, P2)
-        else:
-            useful = torch.ones((P2.shape[0], pack['anchors'].shape[0]), dtype=torch.bool,
-                                device=self.device)
-        cls_loss, reg_loss, loss_dict = detection_3d_loss(
-            cls_preds, reg_preds, pack['anchors'], pack['anchor_mean_std'], useful, annotations,
-            num_classes=self.num_classes,
-            focal_loss_gamma=self.loss_cfg.get('focal_loss_gamma', 0.0),
-            balance_weights=self.loss_cfg.get('balance_weight', [1.0] * self.num_classes),
-            regression_weight=self.loss_cfg.get(
-                'regression_weight', [1.0] * self.num_regression_loss_terms),
-            L1_regression_alpha=self.loss_cfg.get('L1_regression_alpha', 25.0),
-            fg_iou_threshold=self.loss_cfg.get('fg_iou_threshold', 0.5),
-            bg_iou_threshold=self.loss_cfg.get('bg_iou_threshold', 0.4),
-            match_low_quality=self.loss_cfg.get('match_low_quality', True))
+        cls_loss, reg_loss, loss_dict = self.detection_loss(
+            cls_preds.float(), reg_preds.float(), P2, annotations, image_hw)
         if disparity is not None:
             disparity = torch.as_tensor(disparity, dtype=torch.float32, device=self.device)
             disp_loss = stereo_focal_loss(depth_output, disparity, variance=0.5, sparse=True)

@@ -1,7 +1,9 @@
-"""The YOLOStereo3D head, the anchor assignment and the detection loss, and
-the batched decode + NMS (counterpart of ``StereoHead``, ``_ClsBranch``,
-``assign_anchors``, ``detection_3d_loss``, ``get_bboxes_batched`` and
-``_decode_candidates`` in ``visualdet3d_tpu/models/heads/detection_3d_head.py``).
+"""The anchor heads (YOLOStereo3D's, GAC's ground-aware one and Yolo3D's
+DCN-headed one), the anchor assignment and the detection loss, and the
+batched decode + NMS (counterpart of ``StereoHead``, ``GroundAwareHead``,
+``AnchorBasedDetection3DHead``, ``_ClsBranch``, ``assign_anchors``,
+``detection_3d_loss``, ``get_bboxes_batched`` and ``_decode_candidates`` in
+``visualdet3d_tpu/models/heads/detection_3d_head.py``).
 
 The JAX package maps its per-image assignment and loss over the batch with
 ``vmap``; here the batch is a leading dimension, and each anchor's assigned
@@ -18,7 +20,8 @@ import torch.nn.functional as F
 
 from visualdet3d_tpu_torch.geometry import calc_iou, clip_boxes
 from visualdet3d_tpu_torch.models.backbones.resnet import BasicBlock
-from visualdet3d_tpu_torch.models.blocks import ChannelDropout, ConvBnReLU, anchor_flatten
+from visualdet3d_tpu_torch.models.blocks import (
+    ChannelDropout, ConvBnReLU, FlaxConv2d, LookGround, ModulatedDeformConv, anchor_flatten, bn2d)
 from visualdet3d_tpu_torch.models.heads import target_coding
 from visualdet3d_tpu_torch.models.heads.losses import (
     bce_with_logits, modified_smooth_l1, sigmoid_focal_loss)
@@ -281,3 +284,68 @@ class StereoHead(nn.Module):
         x = F.relu(self.BasicBlock_0(self.ConvBnReLU_0(features)))
         reg = anchor_flatten(self.Conv_0(x), self.num_reg_output)
         return cls, reg
+
+
+class AnchorBasedDetection3DHead(nn.Module):
+    """Yolo3D's head: the class tower, and a regression tower opening with
+    a modulated deformable conv (the CUDA kernels on the card: the forward
+    K3/K5, the backward K7), each conv followed by BatchNorm + ReLU, then
+    the zero-initialised prediction conv. Flax numbers each module type on
+    its own, hence ``Conv_0`` after ``ModulatedDeformConv_0``."""
+
+    def __init__(self, in_channels: int, num_anchors: int, num_cls_output: int,
+                 num_reg_output: int = 12, cls_feature_size: int = 1024,
+                 reg_feature_size: int = 1024):
+        super().__init__()
+        self.num_reg_output = num_reg_output
+        self._ClsBranch_0 = _ClsBranch(in_channels, num_anchors, num_cls_output,
+                                       cls_feature_size)
+        self.ModulatedDeformConv_0 = ModulatedDeformConv(in_channels, reg_feature_size, 3)
+        self.BatchNorm_0 = bn2d(reg_feature_size)
+        self.Conv_0 = nn.Conv2d(reg_feature_size, reg_feature_size, 3, padding=1)
+        self.BatchNorm_1 = bn2d(reg_feature_size)
+        self.Conv_1 = nn.Conv2d(reg_feature_size, num_anchors * num_reg_output, 3, padding=1)
+
+    def prediction_convs(self):
+        """The two zero-initialised output convs: (class, regression)."""
+        return self._ClsBranch_0.Conv_2, self.Conv_1
+
+    def forward(self, features, P2=None):
+        cls = self._ClsBranch_0(features)
+        x = F.relu(self.BatchNorm_0(self.ModulatedDeformConv_0(features)))
+        x = F.relu(self.BatchNorm_1(self.Conv_0(x)))
+        return cls, anchor_flatten(self.Conv_1(x), self.num_reg_output)
+
+
+class GroundAwareHead(nn.Module):
+    """GAC's head: the class tower, and a regression tower fed by
+    ``LookGround``'s ground-aware sampling: two 3x3 convs with BatchNorm +
+    ReLU, then the zero-initialised prediction conv. No deformable conv.
+    In bf16 inference the tower after ``LookGround`` runs in f32 on the
+    bf16 weights (``FlaxConv2d``), as flax's promotion runs it; its
+    regression output is then f32."""
+
+    def __init__(self, in_channels: int, num_anchors: int, num_cls_output: int,
+                 num_reg_output: int = 12, cls_feature_size: int = 512,
+                 reg_feature_size: int = 1024):
+        super().__init__()
+        self.num_reg_output = num_reg_output
+        self._ClsBranch_0 = _ClsBranch(in_channels, num_anchors, num_cls_output,
+                                       cls_feature_size)
+        self.LookGround_0 = LookGround(in_channels)
+        self.Conv_0 = FlaxConv2d(in_channels, reg_feature_size, 3, padding=1)
+        self.BatchNorm_0 = bn2d(reg_feature_size)
+        self.Conv_1 = FlaxConv2d(reg_feature_size, reg_feature_size, 3, padding=1)
+        self.BatchNorm_1 = bn2d(reg_feature_size)
+        self.Conv_2 = FlaxConv2d(reg_feature_size, num_anchors * num_reg_output, 3, padding=1)
+
+    def prediction_convs(self):
+        """The two zero-initialised output convs: (class, regression)."""
+        return self._ClsBranch_0.Conv_2, self.Conv_2
+
+    def forward(self, features, P2):
+        cls = self._ClsBranch_0(features)
+        x = self.LookGround_0(features, P2)
+        x = F.relu(self.BatchNorm_0(self.Conv_0(x)))
+        x = F.relu(self.BatchNorm_1(self.Conv_1(x)))
+        return cls, anchor_flatten(self.Conv_2(x), self.num_reg_output)

@@ -19,7 +19,10 @@ and every DCN and correlation volume takes bf16 inputs and bf16 weights;
 the norms (``models/blocks.py`` ``_FlaxBatchNorm``) compute f32
 statistics, keep f32 running statistics and return bf16, in eval mode too
 (the trunk's under ``norm_eval``); the loss is f32 (the detector upcasts
-the predictions).
+the predictions). Tensors a module makes itself keep the JAX package's
+dtypes: GAC's ``LookGround`` samples in f32 (its P2 stays f32) and casts
+the result to bf16 at its 1x1 conv, as the JAX interceptor casts every
+conv input.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from visualdet3d_tpu_torch.models.blocks import conv_inputs_cast_to
 from visualdet3d_tpu_torch.solver.optimizers import Optimizer
 
 COMPUTE_DTYPES = {None: torch.float32, 'float32': torch.float32, 'bfloat16': torch.bfloat16}
@@ -42,19 +46,24 @@ class TrainState:
 
 
 def mixed_precision_apply(compute_dtype: Optional[str]) -> Callable[..., object]:
-    """``apply(net, *inputs)`` under the policy of ``compute_dtype``: the
-    plain call for f32, else the network on a ``compute_dtype`` cast of its
-    floating parameters (buffers untouched) with its inputs cast too."""
+    """``apply(net, *inputs, **kwargs)`` under the policy of
+    ``compute_dtype``: the plain call for f32, else the network on a
+    ``compute_dtype`` cast of its floating parameters (buffers untouched)
+    with its positional inputs cast too (keyword inputs, such as GAC's P2,
+    pass as they are) and every ``FlaxConv2d`` casting its input
+    (``models/blocks.conv_inputs_cast_to``)."""
     if compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f'compute_dtype {compute_dtype!r}: one of {sorted(map(str, COMPUTE_DTYPES))}')
     dtype = COMPUTE_DTYPES[compute_dtype]
     if dtype == torch.float32:
-        return lambda net, *inputs: net(*inputs)
+        return lambda net, *inputs, **kwargs: net(*inputs, **kwargs)
 
-    def apply(net, *inputs):
+    def apply(net, *inputs, **kwargs):
         params = {name: p.to(dtype) if p.is_floating_point() else p
                   for name, p in net.named_parameters()}
-        return torch.func.functional_call(net, params, tuple(x.to(dtype) for x in inputs))
+        with conv_inputs_cast_to(dtype):
+            return torch.func.functional_call(net, params, tuple(x.to(dtype) for x in inputs),
+                                              kwargs)
     return apply
 
 
@@ -108,6 +117,27 @@ def make_stereo_train_step(system, compute_dtype: Optional[str] = None) -> Calla
         cls_loss, reg_loss, loss_dict = system.loss(
             batch['left_images'], batch['right_images'], batch['P2'], batch['P3'],
             batch['annotations'], disparity=batch.get('disparity'), apply_fn=apply_fn,
+            generator=generator)
+        return _update(state, system, cls_loss.mean() + reg_loss.mean(), loss_dict)
+
+    return step
+
+
+def make_detection_train_step(system, compute_dtype: Optional[str] = None) -> Callable:
+    """Step for the monocular anchor detectors (``Yolo3D.loss``,
+    ``GroundAwareYolo3D.loss``): the detection loss, the backward, then
+    clipping and the optimizer under the skip rule. Returns ``step(state,
+    batch) -> metrics``; ``batch`` holds images, P2 and annotations. The
+    class tower's dropout masks come from the step's own
+    ``torch.Generator`` on the system's device (seed 0), drawn anew each
+    step."""
+    apply_fn = mixed_precision_apply(compute_dtype)
+    generator = torch.Generator(device=system.device).manual_seed(0)
+
+    def step(state: TrainState, batch: Dict) -> Dict[str, torch.Tensor]:
+        state.optimizer.zero_grad()
+        cls_loss, reg_loss, loss_dict = system.loss(
+            batch['images'], batch['P2'], batch['annotations'], apply_fn=apply_fn,
             generator=generator)
         return _update(state, system, cls_loss.mean() + reg_loss.mean(), loss_dict)
 

@@ -1,9 +1,10 @@
 """Synthetic fixtures for smoke runs and tests (counterpart of
-``visualdet3d_tpu/testing.py``): the YOLOStereo3D, KM3D and MonoFlex
-configs and their optimizers, synthetic anchor priors, seeded values for
-the zero-initialised prediction, offset and heatmap convs of a
+``visualdet3d_tpu/testing.py``): the YOLOStereo3D, GAC / Yolo3D, KM3D and
+MonoFlex configs and their optimizers, synthetic anchor priors, seeded
+values for the zero-initialised prediction, offset and heatmap convs of a
 random-weight model, synthetic KM3D and MonoFlex training batches built by
-the ported target builders, and synthetic stereo training batches."""
+the ported target builders, and synthetic stereo and mono training
+batches."""
 from __future__ import annotations
 
 import contextlib
@@ -100,18 +101,79 @@ def stereo3d_detector_cfg(preprocessed_path: str, obj_types=('Car', 'Pedestrian'
     return detector
 
 
+def gac_detector_cfg(preprocessed_path: str, obj_types=('Car',), depth: int = 101,
+                     name: str = 'GroundAwareYolo3D') -> edict:
+    """The GAC config (mirrors ``configs/yolo3d_gac.py``: ResNet-101 with the
+    s2d stem to stride 16, 1024-channel features, a 512-wide class tower and
+    a 1024-wide regression tower, 16 scales x 2 ratios = 32 anchors a
+    location); ``name='Yolo3D'`` takes the DCN-headed head instead."""
+    obj_types = list(obj_types)
+    anchors = edict(
+        pyramid_levels=[4], strides=[16], sizes=[24],
+        ratios=np.array([0.5, 1.0]),
+        scales=np.array([2 ** (i / 4.0) for i in range(16)]),
+    )
+    detector = edict(
+        obj_types=obj_types,
+        name=name,
+        backbone=edict(depth=depth, pretrained=False, frozen_stages=-1,
+                       num_stages=3, out_indices=(2,), norm_eval=False,
+                       dilations=(1, 1, 1), s2d_stem=True),
+        head=edict(
+            num_regression_loss_terms=13,
+            preprocessed_path=preprocessed_path,
+            num_classes=len(obj_types),
+            anchors_cfg=anchors,
+            layer_cfg=edict(
+                num_features_in=1024,
+                num_cls_output=len(obj_types) + 1,
+                num_reg_output=12,
+                cls_feature_size=512,
+                reg_feature_size=1024,
+            ),
+            loss_cfg=edict(
+                fg_iou_threshold=0.5, bg_iou_threshold=0.4,
+                L1_regression_alpha=25, focal_loss_gamma=2.0,
+                match_low_quality=False,
+                balance_weight=[20.0],
+                regression_weight=[1, 1, 1, 1, 1, 1, 3, 1, 1, 0.5, 0.5, 0.5, 1],
+            ),
+            test_cfg=edict(score_thr=0.75, cls_agnostic=False,
+                           nms_iou_thr=0.5, post_optimization=True),
+        ),
+    )
+    detector.anchors = detector.head.anchors_cfg
+    detector.loss = detector.head.loss_cfg
+    return detector
+
+
+def gac_train_cfg(steps_per_epoch: int = 1) -> edict:
+    """The optimizer and schedule of ``configs/yolo3d_gac.py``: Adam, lr
+    1e-4, no weight decay, gradients clipped to global norm 0.1,
+    CosineAnnealingLR over ``T_max`` 30 epochs down to 3e-5, stepped per
+    epoch of ``steps_per_epoch`` updates."""
+    return edict(
+        optimizer=edict(type_name='adam', keywords=edict(lr=1e-4, weight_decay=0),
+                        clipped_gradient_norm=0.1),
+        scheduler=edict(type_name='CosineAnnealingLR',
+                        keywords=edict(T_max=30, eta_min=3e-5)),
+        steps_per_epoch=steps_per_epoch,
+    )
+
+
 # logit statistics of calibrate_prediction_convs: mean -3 and std 1.5 put a
-# few hundred of the 69,120 anchors of a 288x1280 image above score 0.75
+# few hundred of the 69,120 anchors of a 288x1280 stereo image (46,080 mono)
+# above score 0.75
 CLS_LOGIT_MEAN, CLS_LOGIT_STD, REG_STD = -3.0, 1.5, 0.5
 
 
 @torch.no_grad()
-def calibrate_prediction_convs(system, left_images, right_images,
-                               generator: torch.Generator) -> None:
-    """Give a random-weight model's zero-initialised prediction convs seeded
-    values, scaled so that on these images the class logits have mean
-    ``CLS_LOGIT_MEAN`` and std ``CLS_LOGIT_STD`` and the regressions std
-    ``REG_STD``.
+def calibrate_prediction_convs(system, inputs, generator: torch.Generator) -> None:
+    """Give a random-weight anchor detector's zero-initialised prediction
+    convs seeded values, scaled so that on ``inputs`` (the arguments of
+    ``system.predict_raw``: Stereo3D's image pairs, Yolo3D's images and P2)
+    the class logits have mean ``CLS_LOGIT_MEAN`` and std ``CLS_LOGIT_STD``
+    and the regressions std ``REG_STD``.
 
     With zero prediction convs every score is sigmoid(0) = 0.5, under any
     useful ``score_thr``, so decode and NMS would see no candidate. The
@@ -124,7 +186,7 @@ def calibrate_prediction_convs(system, left_images, right_images,
         conv.weight.copy_(w.to(conv.weight.device))
         conv.bias.zero_()
     system.weights_changed()
-    cls_preds, reg_preds = system.predict_raw(left_images, right_images)
+    cls_preds, reg_preds = system.predict_raw(*inputs)
     for conv, preds, mean, std in ((cls_conv, cls_preds, CLS_LOGIT_MEAN, CLS_LOGIT_STD),
                                    (reg_conv, reg_preds, 0.0, REG_STD)):
         preds = preds.float()
@@ -201,8 +263,18 @@ def monoflex_detector_cfg(obj_types=('Car',), head_features: int = 256,
     )
 
 
+def _net_f32(system, images, P2=None):
+    """One f32 forward of ``system.net`` on [B, H, W, 3] ``images`` (and
+    P2 [B, 3, 4], which the mono anchor detectors' networks take)."""
+    args = (system._images(images, torch.float32),)
+    if P2 is not None:
+        args += (torch.as_tensor(P2, dtype=torch.float32, device=system.device),)
+    return system.net(*args)
+
+
 @torch.no_grad()
-def seed_offset_convs(system, generator: torch.Generator, scale: float, images) -> None:
+def seed_offset_convs(system, generator: torch.Generator, scale: float, images,
+                      P2=None) -> None:
     """Give the zero-initialised offset convs of every ``ModulatedDeformConv``
     seeded normal weights (zero bias), scaled so that on these images each
     DCN's offsets have std ``scale`` pixels: fractions of a pixel to beyond
@@ -213,7 +285,7 @@ def seed_offset_convs(system, generator: torch.Generator, scale: float, images) 
     One f32 forward pass: a hook on each offset conv rescales its weight
     and its output (linear in the weight, with zero bias) before the next
     layer reads it, so every DCN sees the offsets the seeded model will
-    produce.
+    produce. ``P2``: the mono anchor detectors' second input.
     """
     from visualdet3d_tpu_torch.models.blocks import ModulatedDeformConv
 
@@ -231,8 +303,10 @@ def seed_offset_convs(system, generator: torch.Generator, scale: float, images) 
                               .to(conv.weight.device))
             conv.bias.zero_()
             hooks.append(conv.register_forward_hook(rescale))
+    if not hooks:
+        return
     try:
-        system.net(system._images(images, torch.float32))
+        _net_f32(system, images, P2)
     finally:
         for h in hooks:
             h.remove()
@@ -240,7 +314,7 @@ def seed_offset_convs(system, generator: torch.Generator, scale: float, images) 
 
 
 @torch.no_grad()
-def calibrate_batch_statistics(system, images) -> None:
+def calibrate_batch_statistics(system, images, P2=None) -> None:
     """Set every BatchNorm's running statistics to the batch statistics
     (mean, biased variance) of its input on these images, layer after
     layer, so that eval mode normalises them as train mode does. A
@@ -259,7 +333,7 @@ def calibrate_batch_statistics(system, images) -> None:
     hooks = [m.register_forward_pre_hook(set_stats) for m in system.net.modules()
              if isinstance(m, BatchNorm2d)]
     try:
-        system.net(system._images(images, torch.float32))
+        _net_f32(system, images, P2)
     finally:
         for h in hooks:
             h.remove()
@@ -279,6 +353,50 @@ def prepare_km3d_for_training(system, images, generator: torch.Generator,
     calibrate_batch_statistics(system, images)
     if calibrate_head:
         calibrate_head_convs(system, images, generator)
+
+
+# LookGround's residual weight in a seeded GAC: alpha is zero-initialised,
+# which would leave the ground-aware sampling out of every output
+LOOK_GROUND_ALPHA = 0.5
+
+
+@torch.no_grad()
+def prepare_mono_for_predict(system, images, P2, generator: torch.Generator,
+                             offset_std: float = 2.0) -> None:
+    """A random-weight GAC / Yolo3D made ready to predict on ``images`` and
+    P2: Yolo3D's head DCN offsets seeded to std ``offset_std`` px
+    (``seed_offset_convs``), GAC's ``LookGround`` alpha set to
+    ``LOOK_GROUND_ALPHA``, then the prediction convs calibrated
+    (``calibrate_prediction_convs``) so that decode has detections."""
+    seed_offset_convs(system, generator, offset_std, images, P2)
+    _calibrate_mono_head(system, images, P2, generator)
+
+
+@torch.no_grad()
+def _calibrate_mono_head(system, images, P2, generator: torch.Generator) -> None:
+    """GAC's ``LookGround`` alpha set to ``LOOK_GROUND_ALPHA``, then the
+    prediction convs calibrated (``calibrate_prediction_convs``)."""
+    from visualdet3d_tpu_torch.models.blocks import LookGround
+    for m in system.net.modules():
+        if isinstance(m, LookGround):
+            m.alpha.fill_(LOOK_GROUND_ALPHA)
+    system.weights_changed()
+    calibrate_prediction_convs(system, (images, P2), generator)
+
+
+@torch.no_grad()
+def prepare_mono_for_training(system, images, P2, generator: torch.Generator,
+                              offset_std: float = 2.0) -> None:
+    """A random-weight GAC / Yolo3D made ready to train on ``images``, as
+    ``prepare_km3d_for_training`` does KM3D: running statistics set to the
+    batch statistics, Yolo3D's head DCN offsets seeded to std
+    ``offset_std`` px in that regime, the statistics set again, GAC's
+    alpha set and the prediction convs calibrated: with them zero, as
+    initialised, no gradient reaches the network below them."""
+    calibrate_batch_statistics(system, images, P2)
+    seed_offset_convs(system, generator, offset_std, images, P2)
+    calibrate_batch_statistics(system, images, P2)
+    _calibrate_mono_head(system, images, P2, generator)
 
 
 # statistics of the head's output maps after calibrate_head_convs, (mean, std)
@@ -344,22 +462,21 @@ def stereo_train_cfg(steps_per_epoch: int = 1) -> edict:
 KITTI_P3_TX = -339.5
 
 
-def stereo_training_batch(rng: np.random.Generator, batch_size: int, image_hw,
-                          cars_per_image=(2, 4), max_objects: int = 32) -> dict:
-    """A synthetic stereo training batch as numpy arrays: standard-normal
-    left and right images [B, H, W, 3]; the KITTI P2 scaled by W / 1280
-    (at 1280 columns the P2 of the JAX package's stereo benchmark) and P3
-    (P2 with the baseline term); annotations [B, max_objects, 12]
-    (rows ``[x1, y1, x2, y2, cls, cx, cy, z, w, h, l, alpha]``, class -1
-    padding) with a few Cars (class 0) per image, their 2-D boxes inside it
-    (8-25% of its width, aspect 0.5-1) at depths 8-40 m; and a
-    non-negative disparity map [B, H/4, W/4] (|normal| x 20, as the JAX
-    package's stereo training benchmark draws it)."""
-    h, w = image_hw
+def _kitti_P2(w: int) -> np.ndarray:
+    """The KITTI P2 scaled by ``w / 1280`` (at 1280 columns the P2 of the
+    JAX package's benchmarks), aspect kept."""
     P2 = KITTI_P2.copy()
-    P2[:2] *= w / KITTI_P2_HW[1]  # resized from 1280 columns, aspect kept
-    P3 = P2.copy()
-    P3[0, 3] = KITTI_P3_TX * w / KITTI_P2_HW[1]
+    P2[:2] *= w / KITTI_P2_HW[1]
+    return P2
+
+
+def _car_annotations(rng: np.random.Generator, batch_size: int, image_hw,
+                     cars_per_image, max_objects: int) -> np.ndarray:
+    """Annotations [B, max_objects, 12] (rows ``[x1, y1, x2, y2, cls, cx,
+    cy, z, w, h, l, alpha]``, class -1 padding) with a few Cars (class 0)
+    per image, their 2-D boxes inside it (8-25% of its width, aspect
+    0.5-1) at depths 8-40 m."""
+    h, w = image_hw
     ann = np.full((batch_size, max_objects, 12), -1.0, np.float32)
     for b in range(batch_size):
         for j in range(int(rng.integers(*cars_per_image, endpoint=True))):
@@ -369,6 +486,22 @@ def stereo_training_batch(rng: np.random.Generator, batch_size: int, image_hw,
             dims = rng.normal((1.63, 1.53, 3.88), (0.08, 0.1, 0.3))
             ann[b, j] = [x1, y1, x1 + bw, y1 + bh, 0, x1 + bw / 2, y1 + bh / 2,
                          rng.uniform(8.0, 40.0), *dims, rng.uniform(-np.pi, np.pi)]
+    return ann
+
+
+def stereo_training_batch(rng: np.random.Generator, batch_size: int, image_hw,
+                          cars_per_image=(2, 4), max_objects: int = 32) -> dict:
+    """A synthetic stereo training batch as numpy arrays: standard-normal
+    left and right images [B, H, W, 3]; the KITTI P2 scaled to the width
+    (``_kitti_P2``) and P3 (P2 with the baseline term); a few Cars an image
+    (``_car_annotations``); and a non-negative disparity map [B, H/4, W/4]
+    (|normal| x 20, as the JAX package's stereo training benchmark draws
+    it)."""
+    h, w = image_hw
+    P2 = _kitti_P2(w)
+    P3 = P2.copy()
+    P3[0, 3] = KITTI_P3_TX * w / KITTI_P2_HW[1]
+    ann = _car_annotations(rng, batch_size, image_hw, cars_per_image, max_objects)
     return dict(
         left_images=rng.standard_normal((batch_size, h, w, 3), dtype=np.float32),
         right_images=rng.standard_normal((batch_size, h, w, 3), dtype=np.float32),
@@ -376,6 +509,17 @@ def stereo_training_batch(rng: np.random.Generator, batch_size: int, image_hw,
         annotations=ann,
         disparity=(np.abs(rng.standard_normal((batch_size, h // 4, w // 4))) * 20
                    ).astype(np.float32))
+
+
+def mono_training_batch(rng: np.random.Generator, batch_size: int, image_hw,
+                        cars_per_image=(2, 4), max_objects: int = 32) -> dict:
+    """A synthetic GAC / Yolo3D training batch as numpy arrays:
+    standard-normal images [B, H, W, 3], the KITTI P2 scaled to the width
+    and a few Cars an image, as ``stereo_training_batch`` draws them."""
+    h, w = image_hw
+    ann = _car_annotations(rng, batch_size, image_hw, cars_per_image, max_objects)
+    return dict(images=rng.standard_normal((batch_size, h, w, 3), dtype=np.float32),
+                P2=np.tile(_kitti_P2(w), (batch_size, 1, 1)), annotations=ann)
 
 
 def km3d_train_cfg(steps_per_epoch: int = 1) -> edict:
