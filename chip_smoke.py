@@ -148,6 +148,27 @@ each printed as one JSON line:
    gates with the CPU's own distance to f64 as the floor, and each DCN or
    LookGround leaf of the card's step within 1e-3 of the f64 step).
 
+10. Training from a KITTI tree on disk: data_io (the port's PNG writer and
+   reader, each filter type's round trip bit for bit at 375x1242 RGB and
+   16-bit gray; decode ms an image with the C unfilter and the plain numpy
+   one, serially and on 8 threads); kitti_precompute
+   (``testing.write_synthetic_kitti``: 32 full-size frames, the rows of
+   every PNG cycling through the five filters; the imdb precompute of
+   ``configs/km3d.py`` and ``configs/stereo3d.py`` with the anchor priors,
+   the disparity precompute; record counts, finite priors, the disparity
+   maps' shapes, the seconds of each); cli_train_km3d and cli_train_stereo
+   (``python -m visualdet3d_tpu_torch.cli.train`` in a subprocess on a
+   config that loads ``configs/km3d.py`` / ``configs/stereo3d.py`` and sets
+   only the paths, ``max_epochs`` and the evaluation: one epoch of 2 steps
+   (KM3D at batch 16, 384x1280; Stereo3D at batch 4, 288x1280), then
+   ``--resume`` to a second; finite losses, 16 DCN forward, dx and dW
+   launches a KM3D step, 2 K1 and 2 CB a Stereo3D step, 2 checkpoints, the
+   checkpoint restored on the card bit for bit; the loader's ms a batch
+   and each stage of an item against the step's ms, the host-to-device
+   copies' share, the loader wait's share of an epoch);
+   km3d_resnet_parity (KM3D on the depth-18 ``resnet`` core, batch 1, f32,
+   the card against the CPU at the KM3D gates).
+
 Then a ``wall`` line (the script's seconds), the ``kernels`` summary line,
 the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
@@ -158,6 +179,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import pickle
 import statistics
 import subprocess
 import sys
@@ -1768,17 +1790,19 @@ def km3d_profile_phase(torch, system, images, P2, dtype_name, phase='km3d_profil
          top_kernels=top_events(kernels, 12))
 
 
-def km3d_parity_phase(torch, system, model='km3d'):
+def km3d_parity_phase(torch, system, model='km3d', make=None):
     """Batch 1, f32, TF32 off: the card's KM3D (or MonoFlex) against the
     same weights on the CPU. The same valid set and labels; 2D boxes, dimensions and alpha
     within rtol = atol = 1e-3 and the 3D centre within rtol 1e-2 (cuDNN and
     oneDNN sum the convs in different orders; the centre comes from a 3x3
     least-squares solve and a division by depth); raw maps within 1e-3 of
-    their largest value."""
+    their largest value. ``make(device)`` builds the CPU system (default:
+    ``entry.build_<model>_system``)."""
     from visualdet3d_tpu_torch import entry
     from visualdet3d_tpu_torch.entry import KITTI_P2, KM3D_IMAGE_HW
     system.cfg.inference_dtype = 'float32'
-    cpu = getattr(entry, f'build_{model}_system')(device='cpu')
+    make = make or (lambda device: getattr(entry, f'build_{model}_system')(device=device))
+    cpu = make('cpu')
     cpu.net.load_state_dict({k: v.cpu() for k, v in system.net.state_dict().items()})
     cpu.weights_changed()
     rng = np.random.default_rng(15)
@@ -3502,6 +3526,332 @@ def gac_phases(torch, dc, peaks):
     return slices, kernel, trains
 
 
+# --------------------------------------------------------------------------
+# training from a KITTI tree: image I/O, the precompute CLIs, the train CLI
+# --------------------------------------------------------------------------
+
+KITTI_HW = (375, 1242)    # the KITTI object benchmark's image size
+KM3D_TREE_FRAMES = 32     # 2 KM3D steps at batch 16 (no right-image doubling)
+STEREO_TREE_FRAMES = 8    # 2 Stereo3D steps at batch 4
+VAL_FRAMES = 4
+N_DECODE = 16             # images decoded serially and by 8 threads
+
+
+def data_io_phase():
+    """The port's PNG writer and reader (``data/image_io.py``): each filter
+    type's round trip bit for bit at 375x1242 RGB and 16-bit gray (C
+    unfilter); the decode ms an image by filter type; the plain numpy
+    unfilter on an image whose rows cycle through the five filters (bit for
+    bit to the C one; its time); N_DECODE images decoded serially and by 8
+    threads (ctypes releases the interpreter lock)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from visualdet3d_tpu_torch.data import image_io
+    rng = np.random.default_rng(31)
+    images = {'rgb8': rng.integers(0, 256, (*KITTI_HW, 3), np.uint8),
+              'gray16': rng.integers(0, 65536, KITTI_HW, np.uint16)}
+    image_io.decode_png(image_io.encode_png(images['rgb8'][:8]))  # builds the C unfilter
+    decode_ms = {}
+    for kind, image in images.items():
+        decode_ms[kind] = {}
+        for ftype in image_io.FILTER_TYPES:
+            data = image_io.encode_png(image, (ftype,))
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                out = image_io.decode_png(data)
+                times.append((time.perf_counter() - t0) * 1e3)
+            check(out.dtype == image.dtype and np.array_equal(out, image),
+                  f'data_io: {kind} filter {ftype} does not round-trip')
+            decode_ms[kind][ftype] = statistics.median(times)
+    cycling = image_io.encode_png(images['rgb8'], image_io.FILTER_TYPES)
+    t0 = time.perf_counter()
+    plain = image_io.decode_png(cycling, plain=True)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    fast = image_io.decode_png(cycling)
+    c_ms = (time.perf_counter() - t0) * 1e3
+    check(np.array_equal(plain, images['rgb8']) and np.array_equal(fast, plain),
+          'data_io: the plain and C unfilters differ on the cycling-filter image')
+    t0 = time.perf_counter()
+    for _ in range(N_DECODE):
+        image_io.decode_png(cycling)
+    serial_ms = (time.perf_counter() - t0) * 1e3 / N_DECODE
+    with ThreadPoolExecutor(8) as pool:
+        t0 = time.perf_counter()
+        list(pool.map(image_io.decode_png, [cycling] * N_DECODE))
+        threaded_ms = (time.perf_counter() - t0) * 1e3 / N_DECODE
+    emit('data_io', image_hw=list(KITTI_HW), decode_ms_by_filter=decode_ms,
+         all_paeth_rgb_decode_ms=decode_ms['rgb8'][4], cycling_rgb_decode_ms=c_ms,
+         cycling_rgb_plain_decode_ms=plain_ms, serial_ms_per_image=serial_ms,
+         eight_threads_ms_per_image=threaded_ms, png_bytes_cycling_rgb=len(cycling),
+         host_cpus=os.cpu_count())
+
+
+def smoke_config(work, base, name, data_root, split, max_epochs):
+    """A config file that loads ``configs/<base>`` through the port's
+    ``cfg_from_file`` and sets only the paths, ``max_epochs`` and the
+    evaluation (off: the evaluators are not ported)."""
+    path = os.path.join(work, f'{name}.py')
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(path, 'w') as f:
+        f.write(f"""import os
+from visualdet3d_tpu_torch.config import cfg_from_file
+cfg = cfg_from_file({os.path.join(root, 'configs', base)!r})
+out = os.path.join({work!r}, {name!r})
+cfg.path.data_path = {data_root!r}
+cfg.path.project_path = out
+cfg.path.log_path = os.path.join(out, 'log')
+cfg.path.checkpoint_path = os.path.join(out, 'checkpoint')
+cfg.path.preprocessed_path = os.path.join(out, 'output')
+if 'preprocessed_path' in cfg.detector.head:
+    cfg.detector.head.preprocessed_path = cfg.path.preprocessed_path
+cfg.data.train_split_file, cfg.data.val_split_file = {split[0]!r}, {split[1]!r}
+cfg.trainer.max_epochs = {max_epochs}
+cfg.trainer.test_iter = 0
+""")
+    return path
+
+
+def kitti_precompute_phase(work):
+    """``testing.write_synthetic_kitti``: KM3D_TREE_FRAMES full-size frames
+    (the port's PNG writer, the rows cycling through all five filters); the
+    port's imdb precompute for ``configs/km3d.py`` (its training split:
+    every frame) and ``configs/stereo3d.py`` (the first STEREO_TREE_FRAMES;
+    with the anchor priors), then the disparity precompute for the stereo
+    config. Checks the record counts, finite priors and the disparity
+    PNGs' shapes; prints the seconds of each. Returns the config paths."""
+    from visualdet3d_tpu_torch import testing
+    from visualdet3d_tpu_torch.cli import disparity_compute, imdb_precompute_3d
+    from visualdet3d_tpu_torch.config import cfg_from_file
+    from visualdet3d_tpu_torch.data.image_io import read_png
+    os.environ['VD3D_WORKDIR'] = os.path.join(work, 'workdirs')  # the configs make dirs there
+    seconds = {}
+    t0 = time.perf_counter()
+    root = testing.write_synthetic_kitti(os.path.join(work, 'kitti'), KM3D_TREE_FRAMES, seed=7)
+    seconds['write_tree'] = time.perf_counter() - t0
+    val = range(KM3D_TREE_FRAMES - VAL_FRAMES, KM3D_TREE_FRAMES)
+    splits = {'km3d': testing.write_split_files(os.path.join(work, 'split_km3d'),
+                                                range(KM3D_TREE_FRAMES), val),
+              'stereo': testing.write_split_files(os.path.join(work, 'split_stereo'),
+                                                  range(STEREO_TREE_FRAMES), val)}
+    configs, records = {}, {}
+    for name, base, frames in (('km3d', 'km3d.py', KM3D_TREE_FRAMES),
+                               ('stereo', 'stereo3d.py', STEREO_TREE_FRAMES)):
+        configs[name] = smoke_config(work, base, name, root, splits[name], 1)
+        cfg = cfg_from_file(configs[name])
+        t0 = time.perf_counter()
+        imdb_precompute_3d.run(cfg)
+        seconds[f'imdb_{name}'] = time.perf_counter() - t0
+        for split, n in (('training', frames), ('validation', VAL_FRAMES)):
+            with open(os.path.join(cfg.path.preprocessed_path, split, 'imdb.pkl'), 'rb') as f:
+                got = len(pickle.load(f))
+            check(got == n, f'kitti_precompute {name}: {got} {split} records, expected {n}')
+            records[f'{name}_{split}'] = got
+    cfg = cfg_from_file(configs['stereo'])
+    priors = {}
+    for t in cfg.obj_types:
+        stats = {stat: np.load(os.path.join(cfg.path.preprocessed_path, 'training',
+                                            f'anchor_{stat}_{t}.npy')) for stat in ('mean', 'std')}
+        for stat, arr in stats.items():
+            check(arr.shape == (16, 3, 6) and np.isfinite(arr).all(),
+                  f'kitti_precompute: anchor_{stat}_{t} {arr.shape}, finite {np.isfinite(arr).all()}')
+        priors[t] = int((stats['mean'][..., 0] > 0).sum())  # bins of ten samples or more
+    t0 = time.perf_counter()
+    disparity_compute.run(cfg)
+    seconds['disparity_stereo'] = time.perf_counter() - t0
+    disp_dir = os.path.join(cfg.path.preprocessed_path, 'training', 'disp')
+    names = sorted(os.listdir(disp_dir))
+    check(len(names) == 2 * STEREO_TREE_FRAMES, f'kitti_precompute: {len(names)} disparity maps')
+    nonzero = []
+    for n in names:
+        disp = read_png(os.path.join(disp_dir, n))
+        check(disp.dtype == np.uint16 and disp.shape == (288 // 4, 1280 // 4),
+              f'kitti_precompute: disparity map {n} is {disp.dtype} {disp.shape}')
+        nonzero.append(int((disp > 0).sum()))
+    emit('kitti_precompute', frames=KM3D_TREE_FRAMES, image_hw=list(KITTI_HW), seconds=seconds,
+         records=records, prior_bins_with_samples=priors,
+         disparity_maps=len(names), disparity_nonzero_min=min(nonzero),
+         disparity_nonzero_mean=float(np.mean(nonzero)))
+    return configs
+
+
+def run_train_cli(config, resume, log_path):
+    """``python -m visualdet3d_tpu_torch.cli.train`` in a subprocess (the
+    card by default); its output goes to ``log_path``. Returns the wall
+    seconds and the output."""
+    cmd = [sys.executable, '-m', 'visualdet3d_tpu_torch.cli.train', '--config', config]
+    if resume:
+        cmd.append('--resume')
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    with open(log_path, 'a') as f:
+        f.write(proc.stdout + proc.stderr)
+    check(proc.returncode == 0, f'{" ".join(cmd[1:])} failed (rc {proc.returncode}):\n'
+                                f'{proc.stderr[-3000:]}')
+    return wall, proc.stdout
+
+
+def cli_train_phase(torch, config, phase, per_step):
+    """The train CLI on ``config`` (the config's batch and size): one epoch
+    of 2 steps, then ``max_epochs=2`` with ``--resume``, which must go on at
+    step 2. Gates: finite losses, ``per_step`` kernel launches a step in
+    each epoch, 2 checkpoints, and the checkpoint of step 2 restored into a
+    fresh system on the card bit for bit (``checkpoint.load_train_state``,
+    as ``--resume`` does). Prints the loader's ms a batch (8 threads, no
+    step) against the step's ms, the host-to-device copies' share of a
+    step and the share of the epoch's wall the loop waited on the loader."""
+    from visualdet3d_tpu_torch import checkpoint
+    from visualdet3d_tpu_torch.cli import train as train_cli
+    from visualdet3d_tpu_torch.config import cfg_from_file
+    from visualdet3d_tpu_torch.data.loader import build_dataloader
+    from visualdet3d_tpu_torch.pipelines.train_state import TrainState
+    from visualdet3d_tpu_torch.registry import DATASET_DICT
+    from visualdet3d_tpu_torch.solver.optimizers import build_optimizer
+    import visualdet3d_tpu_torch.data  # noqa: F401
+    cfg = cfg_from_file(config)
+    log = os.path.join(os.path.dirname(config), f'{phase}.log')
+    walls = [run_train_cli(config, False, log)[0]]
+    with open(config, 'a') as f:
+        f.write('cfg.trainer.max_epochs = 2\n')
+    wall, out = run_train_cli(config, True, log)
+    walls.append(wall)
+    check('resumed from step 2 (epoch 1)' in out, f'{phase}: --resume did not go on at step 2:\n'
+                                                  f'{out[-2000:]}')
+    with open(os.path.join(cfg.path.log_path, 'train_stats.jsonl')) as f:
+        epochs = [json.loads(line) for line in f]
+    check([(e['epoch'], e['steps'], e['global_step']) for e in epochs] == [(0, 2, 2), (1, 2, 4)],
+          f'{phase}: epochs {[(e["epoch"], e["steps"], e["global_step"]) for e in epochs]}')
+    for e in epochs:
+        check(np.isfinite(e['loss']), f'{phase}: epoch {e["epoch"]} loss {e["loss"]}')
+        got = {k: v / e['steps'] for k, v in e['launches'].items() if k in per_step}
+        check(got == per_step, f'{phase}: epoch {e["epoch"]} launched {e["launches"]} in '
+                               f'{e["steps"]} steps, expected {per_step} a step')
+    manager = checkpoint.CheckpointManager(cfg.path.checkpoint_path)
+    check(manager.all_steps() == [2, 4], f'{phase}: checkpoints {manager.all_steps()}')
+
+    # --resume's restore, in this process on the card: bit for bit
+    saved = manager.restore(2)
+    system = train_cli.build_system(cfg, torch.device('cuda'))
+    state = TrainState(build_optimizer(system.net.parameters(), cfg.optimizer, cfg.scheduler, 1))
+    checkpoint.load_train_state(system.net, state, saved)
+    restored = system.net.state_dict()
+    check(all(torch.equal(restored[k].cpu(), v) for k, v in saved['model'].items()),
+          f'{phase}: the restored network differs from checkpoint 2')
+    check(state.step == 2 and state.optimizer.count == saved['scheduler']['count'],
+          f'{phase}: restored step {state.step}, count {state.optimizer.count} '
+          f'(saved {saved["scheduler"]["count"]})')
+    opt = state.optimizer.torch_optimizer.state_dict()['state']
+    check(all(torch.equal(opt[i][k].cpu(), v[k]) for i, v in saved['optimizer']['state'].items()
+              for k in v), f'{phase}: the restored Adam state differs from checkpoint 2')
+    del system, state, saved, restored, opt
+    torch.cuda.empty_cache()
+
+    # the loader alone (the config's threads), as the CLI builds it
+    dataset = DATASET_DICT[cfg.data.train_dataset](cfg, 'training')
+    loader = build_dataloader(dataset, num_workers=cfg.data.num_workers,
+                              batch_size=cfg.data.batch_size, training=True,
+                              collate_fn=lambda items: dataset.collate_fn(
+                                  items, obj_types=cfg.obj_types))
+    it = iter(loader)
+    next(it)
+    t0 = time.perf_counter()
+    for _ in range(2):
+        next(it)
+    loader_ms = (time.perf_counter() - t0) * 1e3 / 2
+    it.close()
+    warm_ms = [e['step_ms'][-1] for e in epochs]  # each process's second step
+    result = dict(
+        batch=cfg.data.batch_size, image_hw=list(cfg.data.rgb_shape[:2]),
+        loader_threads=cfg.data.num_workers, loader_ms_per_batch=loader_ms,
+        item_stage_ms=item_stage_ms(dataset), step_ms=[e['step_ms'] for e in epochs],
+        second_step_ms=warm_ms, loader_over_second_step=loader_ms / min(warm_ms),
+        losses=[e['loss'] for e in epochs],
+        launches_per_step={k: v / epochs[-1]['steps'] for k, v in epochs[-1]['launches'].items()},
+        copy_device_ms_per_step=[e['copy_device_ms'] / e['steps'] for e in epochs],
+        copy_share_of_second_step=[e['copy_device_ms'] / e['steps'] / w
+                                   for e, w in zip(epochs, warm_ms)],
+        loader_wait_share_of_epoch=[e['loader_wait_s'] / e['wall_s'] for e in epochs],
+        epoch_wall_s=[e['wall_s'] for e in epochs], setup_s=[e['setup_s'] for e in epochs],
+        checkpoint_save_s=[e['checkpoint_save_s'] for e in epochs], process_wall_s=walls)
+    emit(phase, **result)
+    return result
+
+
+def item_stage_ms(dataset):
+    """The ms of each stage of one training item, serially: decoding its
+    image(s), each transform of the train augmentation in turn, and the
+    targets (KM3D, MonoFlex)."""
+    import copy
+    from visualdet3d_tpu_torch.data.augmentations import SAMPLE_KEYS
+    from visualdet3d_tpu_torch.data.image_io import read_image
+    record = dataset.imdb[0]
+    stereo = 'Stereo' in type(dataset).__name__
+    times = {}
+    t0 = time.perf_counter()
+    sample = dict.fromkeys(SAMPLE_KEYS)
+    sample['left_image'] = read_image(record['image_2_path'])
+    if stereo:
+        sample['right_image'] = read_image(record['image_3_path'])
+        sample['p3'] = record['calib']['P3'].copy()
+    times['decode'] = (time.perf_counter() - t0) * 1e3
+    sample['p2'] = record['calib']['P2'].copy()
+    sample['labels'] = [copy.deepcopy(o) for o in record['label'] if o.type in dataset.obj_types]
+    np.random.seed(0)
+    for i, transform in enumerate(dataset.transform.transforms):
+        t0 = time.perf_counter()
+        sample = transform(sample)
+        times[f'{i}_{type(transform).__name__}'] = (time.perf_counter() - t0) * 1e3
+    if hasattr(dataset, 'builder'):
+        t0 = time.perf_counter()
+        dataset.builder.build_target(sample['left_image'].shape[:2], sample['p2'],
+                                     sample['labels'])
+        times['targets'] = (time.perf_counter() - t0) * 1e3
+    times['total'] = sum(times.values())
+    return times
+
+
+def km3d_resnet_parity_phase(torch):
+    """KM3D on the ``resnet`` core (depth 18, the rest as
+    ``configs/km3d.py``) at batch 1, f32: the card against the CPU at the
+    KM3D gates (``km3d_parity_phase``)."""
+    from visualdet3d_tpu_torch.config import EasyDict
+    from visualdet3d_tpu_torch.entry import KM3D_IMAGE_HW
+    from visualdet3d_tpu_torch.registry import DETECTOR_DICT
+    from visualdet3d_tpu_torch.testing import calibrate_head_convs, km3d_detector_cfg
+    import visualdet3d_tpu_torch.models  # noqa: F401
+
+    def make(device):
+        cfg = km3d_detector_cfg()
+        cfg.backbone = EasyDict(name='resnet', depth=18)
+        return DETECTOR_DICT['KM3D'](cfg, device=device)
+    system = make('cuda')
+    gen = torch.Generator().manual_seed(17)
+    calibrate_head_convs(system, torch.randn((4, *KM3D_IMAGE_HW, 3), generator=gen).cuda(), gen)
+    km3d_parity_phase(torch, system, 'km3d_resnet', make=make)
+    del system
+    torch.cuda.empty_cache()
+
+
+def kitti_training_phases(torch):
+    """Training from a KITTI tree on disk: data_io, kitti_precompute,
+    cli_train_km3d, cli_train_stereo, km3d_resnet_parity. Returns the CLI
+    phases' results."""
+    import tempfile
+    data_io_phase()
+    with tempfile.TemporaryDirectory(prefix='vd3d_smoke_') as work:
+        configs = kitti_precompute_phase(work)
+        dcn = {'modulated_deform_conv': DCN_PER_FORWARD,
+               'modulated_deform_conv_backward_input': DCN_PER_FORWARD,
+               'modulated_deform_conv_backward_weight': DCN_PER_FORWARD}
+        km3d = cli_train_phase(torch, configs['km3d'], 'cli_train_km3d', dcn)
+        corr = {'correlation_volume_interleaved': 2, 'correlation_backward_interleaved': 2}
+        stereo = cli_train_phase(torch, configs['stereo'], 'cli_train_stereo', corr)
+    km3d_resnet_parity_phase(torch)
+    return km3d, stereo
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3607,6 +3957,7 @@ def main() -> int:
     monoflex_trains = {name: km3d_train_phase(torch, dc, cd, 'monoflex', MONOFLEX_BATCH)
                        for name, cd in (('bfloat16', 'bfloat16'), ('float32', None))}
     gac_slices, gac_kernel, gac_trains = gac_phases(torch, dc, peaks)
+    cli_km3d, cli_stereo = kitti_training_phases(torch)
 
     dtype_of = {'f32': 'float32', 'bf16': 'bfloat16'}
     replaces = {  # the TPU kernel bodies _corr_kernel_eyes and _corr_kernel
@@ -3621,6 +3972,8 @@ def main() -> int:
             replaces=replaces[kernel],
             launches=slices[dtype_of[dt]]['launches'][kernel],
             launches_in_training=stereo_trains[dtype_of[dt]]['launches'][kernel],
+            launches_per_step_in_cli_training=(cli_stereo['launches_per_step'].get(kernel)
+                                               if dt == 'f32' else None),
             max_abs_err=r['max_abs_err'], ms=r['ms'], graph_ms=r['graph_ms'],
             plain_ms=r['plain_ms'], bound_ms=r['bound_ms'], bound_by=r['bound_by'],
             share_of_bound=r['share_of_bound'], share_of_bound_device=r['share_of_bound_device'],
@@ -3635,6 +3988,8 @@ def main() -> int:
             source='visualdet3d_tpu_torch/csrc/correlation.cu',
             replaces='visualdet3d_tpu/ops/cost_volume.py:270 (XLA vjp; no Pallas kernel)',
             launches=stereo_trains[dtype_of[dt]]['launches']['correlation_backward_interleaved'],
+            launches_per_step_in_cli_training=(cli_stereo['launches_per_step'].get(
+                'correlation_backward_interleaved') if dt == 'f32' else None),
             max_abs_err=r['max_abs_err'], ms=r['ms'], graph_ms=r['graph_ms'],
             plain_ms=r['plain_ms'], bound_ms=r['bound_ms'], bound_by=r['bound_by'],
             share_of_bound=r['share_of_bound'], share_of_bound_device=r['share_of_bound_device'],
@@ -3658,6 +4013,8 @@ def main() -> int:
             bound_ms=r['bound_ms'], bound_by=r['bound_by'], library_ms=None,
             dense_conv_ms=r['dense_conv_ms'],
             launches_in_training=trains[dtype_of[dt]]['launches']['modulated_deform_conv'],
+            launches_per_step_in_cli_training=(cli_km3d['launches_per_step'].get(
+                'modulated_deform_conv') if dt == 'f32' else None),
             launches_in_monoflex_training=monoflex_trains[dtype_of[dt]]['launches'][
                 'modulated_deform_conv'],
             per_forward='the 16 DCNs of one KM3D forward, batch 16 (shapes weighted by count)',
@@ -3708,6 +4065,8 @@ def main() -> int:
             name=f'modulated_deform_conv_backward_input[{dt}]',
             launches=step_launches['modulated_deform_conv_backward_input'],
             launches_in_monoflex_training=mono_launches['modulated_deform_conv_backward_input'],
+            launches_per_step_in_cli_training=(cli_km3d['launches_per_step'].get(
+                'modulated_deform_conv_backward_input') if dt == 'f32' else None),
             max_abs_err=r['max_abs_err_dx'], ms=r['dx_ms'], bound_ms=r['dx_bound_ms'],
             bound_by=r['dx_bound_by'], **common,
             per_forward='the dx kernel of the 16 DCNs of one KM3D training step, batch 16 '
@@ -3717,6 +4076,8 @@ def main() -> int:
             launches=step_launches['modulated_deform_conv_backward_weight'],
             launches_of_reduce=step_launches['modulated_deform_conv_backward_weight_reduce'],
             launches_in_monoflex_training=mono_launches['modulated_deform_conv_backward_weight'],
+            launches_per_step_in_cli_training=(cli_km3d['launches_per_step'].get(
+                'modulated_deform_conv_backward_weight') if dt == 'f32' else None),
             max_abs_err=r['max_abs_err_dw'], ms=r['dw_ms'], reduce_ms=r['dw_reduce_ms'],
             bound_ms=r['dw_bound_ms'], bound_by=r['dw_bound_by'], **common,
             per_forward='the dW kernels (split sums and their reduce) of the 16 DCNs of one '

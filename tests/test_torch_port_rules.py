@@ -1,18 +1,22 @@
 """Rules of the port that no parity test shows.
 
 * Nothing under ``visualdet3d_tpu_torch/``, nor ``chip_smoke.py``,
-  ``dcn_study.py``, ``int8_study.py`` or ``stream_study.py``, imports JAX,
-  flax, optax or the JAX package. The scan is static (an AST walk),
-  because this test process has JAX imported already. The package imports
-  none of the root scripts.
+  ``dcn_study.py``, ``int8_study.py``, ``stream_study.py`` or
+  ``loader_study.py``, imports JAX, flax, optax or the JAX package, nor
+  OpenCV or PIL (neither is a dependency of the port: images go through
+  ``data/image_io.py`` and ``data/cv_ops.py``). The scan is static
+  (an AST walk), because this test process has JAX imported already. The
+  package imports none of the root scripts.
 * A wheel of the package carries the kernel sources (package data).
 * The entry points (inference, the stereo trainer, the KM3D and MonoFlex
-  systems and trainers) run on the card by default and raise without CUDA
-  instead of running on the CPU.
+  systems and trainers, the train CLI) run on the card by default and
+  raise without CUDA instead of running on the CPU.
 * Kernels build from the package's sources only (``csrc/correlation.cu``,
   ``csrc/deform_conv.cu``, ``csrc/int8_conv.cu``, ``csrc/int8_block.cu``),
   include nothing but CUDA's headers and the package's own, rebuild when a
-  source changes, and raise when ``nvcc`` is missing.
+  source changes, and raise when ``nvcc`` is missing; the host C source of
+  the PNG unfilter raises when no C compiler is found, and the PNG reader
+  never falls back to its plain numpy unfilter.
 * The int8 path has no ``try`` that catches: a kernel that fails to build or
   launch raises, and never gives way to the plain version.
 * Every launcher of ``csrc/deform_conv.cu`` is bound by its wrapper, and
@@ -27,6 +31,7 @@ import ast
 import pathlib
 import re
 
+import numpy as np
 import pytest
 import torch
 
@@ -35,13 +40,13 @@ from visualdet3d_tpu_torch.ops import kernel_build
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'visualdet3d_tpu')
+ROOT_SCRIPTS = ('chip_smoke', 'dcn_study', 'int8_study', 'stream_study', 'loader_study')
 
 
 def _port_sources():
     build = kernel_build.BUILD_DIR  # build outputs, not sources
     files = sorted(p for p in (ROOT / 'visualdet3d_tpu_torch').rglob('*.py')
-                   if build not in p.parents) + [ROOT / 'chip_smoke.py', ROOT / 'dcn_study.py',
-                                                 ROOT / 'int8_study.py', ROOT / 'stream_study.py']
+                   if build not in p.parents) + [ROOT / f'{name}.py' for name in ROOT_SCRIPTS]
     assert len(files) > 10 and all(p.exists() for p in files)
     return files
 
@@ -67,12 +72,19 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert offenders == []
 
 
+def test_port_imports_neither_opencv_nor_pil():
+    offenders = [f'{path.relative_to(ROOT)}: {root}'
+                 for path in _port_sources() for root in _imported_roots(path)
+                 if root in ('cv2', 'PIL')]
+    assert offenders == []
+
+
 def test_package_imports_no_root_script():
     """The smoke and the studies drive the package; it never imports them."""
     offenders = [f'{path.relative_to(ROOT)}: {root}'
                  for path in _port_sources() if ROOT / 'visualdet3d_tpu_torch' in path.parents
                  for root in _imported_roots(path)
-                 if root in ('chip_smoke', 'dcn_study', 'int8_study', 'stream_study')]
+                 if root in ROOT_SCRIPTS]
     assert offenders == []
 
 
@@ -99,6 +111,34 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.delenv('CUDA_PATH', raising=False)
     with pytest.raises(RuntimeError, match='nvcc not found'):
         kernel_build.find_nvcc()
+
+
+def test_png_unfilter_build_raises_without_a_c_compiler(monkeypatch, tmp_path):
+    """No compiler: building the unfilter raises, and so does reading a PNG
+    (no quiet fallback to the plain numpy unfilter)."""
+    from visualdet3d_tpu_torch.data import image_io
+    monkeypatch.setattr(kernel_build.shutil, 'which', lambda name: None)
+    monkeypatch.delenv('CC', raising=False)
+    monkeypatch.setattr(kernel_build, 'BUILD_DIR', tmp_path)
+    monkeypatch.setattr(kernel_build, '_loaded', {})
+    with pytest.raises(RuntimeError, match='no C compiler found'):
+        kernel_build.load_host('png_unfilter')
+    data = image_io.encode_png(np.zeros((4, 5, 3), np.uint8))
+    with pytest.raises(RuntimeError, match='no C compiler found'):
+        image_io.decode_png(data)
+    assert list(tmp_path.iterdir()) == []
+
+
+def test_png_reader_has_no_catching_try():
+    tree = ast.parse((ROOT / 'visualdet3d_tpu_torch' / 'data' / 'image_io.py').read_text())
+    assert [node.lineno for node in ast.walk(tree) if isinstance(node, ast.Try)] == []
+
+
+def test_train_cli_raises_without_cuda(monkeypatch):
+    from visualdet3d_tpu_torch.cli import train as train_cli
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        train_cli.main(['--config', str(ROOT / 'configs' / 'km3d.py')])
 
 
 def test_library_is_keyed_by_the_source(monkeypatch, tmp_path):
@@ -312,4 +352,8 @@ def test_pyproject_ships_the_kernel_sources():
     sources = sorted(p.relative_to(kernel_build.PKG_DIR).as_posix()
                      for p in kernel_build.CSRC_DIR.iterdir() if p.suffix in ('.cu', '.cuh'))
     assert sources and all(any(fnmatch.fnmatch(s, g) for g in globs) for s in sources)
+    host = sorted(p.relative_to(kernel_build.PKG_DIR).as_posix()
+                  for p in kernel_build.CSRC_DIR.glob('*.c'))
+    assert host == ['csrc/png_unfilter.c']
+    assert all(any(fnmatch.fnmatch(s, g) for g in globs) for s in host)
 

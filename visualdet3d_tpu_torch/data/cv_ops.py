@@ -1,0 +1,128 @@
+"""Host image operations in place of the four OpenCV calls of the JAX
+package's augmentations (``cv2.resize``, ``cv2.warpAffine``,
+``cv2.cvtColor`` RGB <-> HSV): torch CPU ops and numpy, both of which
+release the interpreter lock for the data loader's threads.
+
+* :func:`resize`: bilinear with half-pixel centres (``INTER_LINEAR``, no
+  antialiasing when shrinking) through ``F.interpolate(align_corners=False)``,
+  or ``INTER_NEAREST``'s source index ``floor(dst * (1 / (out / in)))``
+  (OpenCV's rounding: ``dst * in / out`` differs at exact multiples);
+* :func:`warp_affine`: ``warpAffine(M, INTER_LINEAR)`` with a zero border,
+  sampling each output pixel at ``M^-1 (x, y, 1)`` exactly (float64
+  coordinates), bilinearly, through ``F.grid_sample``;
+* :func:`rgb_to_hsv`, :func:`hsv_to_rgb`: OpenCV's float formulas (H in
+  degrees, [0, 360); S and V unscaled), in float32.
+
+Images are [H, W] or [H, W, C] numpy arrays; the result keeps the input's
+dtype (uint8 is rounded and clipped, as OpenCV saturates).
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+INTER_NEAREST, INTER_LINEAR = 0, 1
+FLT_EPSILON = np.float32(np.finfo(np.float32).eps)
+
+
+def _as_float_chw(image: np.ndarray) -> torch.Tensor:
+    """[H, W(, C)] -> [1, C, H, W] float32 tensor (a view where it can be)."""
+    t = torch.from_numpy(np.ascontiguousarray(image))
+    if t.dim() == 2:
+        t = t[:, :, None]
+    return t.permute(2, 0, 1)[None].float()
+
+
+def _back(t: torch.Tensor, like: np.ndarray) -> np.ndarray:
+    """[1, C, H, W] float -> the layout and dtype of ``like``."""
+    out = t[0].permute(1, 2, 0)
+    if like.ndim == 2:
+        out = out[:, :, 0]
+    if like.dtype == np.uint8:
+        out = out.round().clamp(0, 255)
+    return np.ascontiguousarray(out.to(torch.from_numpy(like[:0]).dtype).numpy())
+
+
+def resize(image: np.ndarray, size_wh: Tuple[int, int],
+           interpolation: int = INTER_LINEAR) -> np.ndarray:
+    """``cv2.resize(image, size_wh, interpolation=...)``: ``size_wh`` is
+    (width, height), as OpenCV takes it."""
+    w, h = int(size_wh[0]), int(size_wh[1])
+    if interpolation == INTER_NEAREST:
+        rows = np.minimum(np.floor(np.arange(h) * (1.0 / (h / image.shape[0]))).astype(np.int64),
+                          image.shape[0] - 1)
+        cols = np.minimum(np.floor(np.arange(w) * (1.0 / (w / image.shape[1]))).astype(np.int64),
+                          image.shape[1] - 1)
+        return np.ascontiguousarray(image[rows][:, cols])
+    if interpolation != INTER_LINEAR:
+        raise NotImplementedError(f'interpolation {interpolation}')
+    out = F.interpolate(_as_float_chw(image), size=(h, w), mode='bilinear',
+                        align_corners=False, antialias=False)
+    return _back(out, image)
+
+
+def warp_affine(image: np.ndarray, matrix: np.ndarray, size_wh: Tuple[int, int]) -> np.ndarray:
+    """``cv2.warpAffine(image, matrix, size_wh, flags=INTER_LINEAR)`` with
+    ``BORDER_CONSTANT`` 0: output pixel (x, y) is the bilinear sample of
+    ``image`` at ``M^-1 (x, y, 1)``, corners outside the image counting 0.
+    One ``F.grid_sample`` in float64: a float32 grid would round the
+    source coordinates, which OpenCV keeps exact for float warps."""
+    w, h = int(size_wh[0]), int(size_wh[1])
+    m = np.concatenate([np.asarray(matrix, np.float64).reshape(2, 3), [[0.0, 0.0, 1.0]]])
+    inv = np.linalg.inv(m)[:2]
+    hs, ws = image.shape[:2]
+    xs, ys = np.arange(w, dtype=np.float64)[None], np.arange(h, dtype=np.float64)[:, None]
+    sx = inv[0, 0] * xs + inv[0, 1] * ys + inv[0, 2]
+    sy = inv[1, 0] * xs + inv[1, 1] * ys + inv[1, 2]
+    # pixel centres to grid_sample's [-1, 1] (align_corners=False)
+    grid = torch.from_numpy(np.stack([(2 * sx + 1) / ws - 1, (2 * sy + 1) / hs - 1], axis=-1))
+    out = F.grid_sample(_as_float_chw(image).double(), grid[None], mode='bilinear',
+                        padding_mode='zeros', align_corners=False)
+    return _back(out.float(), image)
+
+
+def rgb_to_hsv(image: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(image, COLOR_RGB2HSV)`` of a float32 [H, W, 3] image:
+    H in degrees [0, 360), S = (V - min) / V, V = max."""
+    x = np.asarray(image, np.float32)
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    v = np.maximum(np.maximum(r, g), b)
+    vmin = np.minimum(np.minimum(r, g), b)
+    diff = v - vmin
+    s = diff / (np.abs(v) + FLT_EPSILON)
+    diff = np.float32(60.0) / (diff + FLT_EPSILON)
+    h = np.where(v == r, (g - b) * diff,
+                 np.where(v == g, (b - r) * diff + np.float32(120.0),
+                          (r - g) * diff + np.float32(240.0)))
+    h = np.where(h < 0, h + np.float32(360.0), h)
+    return np.stack([h, s, v], axis=-1).astype(np.float32)
+
+
+# per sector of the hue: which of (v, v(1-s), v(1-sh), v(1-s(1-h))) is
+# (b, g, r), OpenCV's table
+_SECTOR_BGR = np.array([[1, 3, 0], [1, 0, 2], [3, 0, 1], [0, 2, 1], [0, 1, 3], [2, 1, 0]])
+
+
+def hsv_to_rgb(image: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(image, COLOR_HSV2RGB)`` of a float32 [H, W, 3] image
+    with H in degrees."""
+    x = np.asarray(image, np.float32)
+    h, s, v = x[..., 0], x[..., 1], x[..., 2]
+    h = h * np.float32(6.0 / 360.0)
+    h = np.fmod(h, np.float32(6.0))
+    h = np.where(h < 0, h + np.float32(6.0), h)
+    sector = np.floor(h).astype(np.int64)
+    h = h - sector
+    bad = (sector < 0) | (sector >= 6)
+    sector = np.where(bad, 0, sector)
+    h = np.where(bad, np.float32(0.0), h).astype(np.float32)
+    one = np.float32(1.0)
+    tab = np.stack([v, v * (one - s), v * (one - s * h), v * (one - s * (one - h))], axis=-1)
+    idx = _SECTOR_BGR[sector]  # [H, W, 3] in (b, g, r) order
+    bgr = np.take_along_axis(tab, idx, axis=-1)
+    rgb = bgr[..., ::-1]
+    gray = (s == 0)[..., None]
+    return np.ascontiguousarray(np.where(gray, v[..., None], rgb).astype(np.float32))

@@ -8,19 +8,24 @@ the 10 keypoints (8 corners + the bottom and top face centers) with the
 projected 3-D center as the heatmap peak, FCOS 2-D box targets,
 keypoint-depth validity masks and the boundary indices of edge fusion.
 
-It needs no image file: it takes the image's height and width. The KITTI
-dataset class, its I/O and augmentations come with a later slice.
-Heatmaps are built [H, W, C] (NHWC), the head's layout.
+The builders need no image file: they take the image's height and width.
+``KittiRTM3DDataset`` and ``KittiMonoFlexDataset`` are the KITTI datasets
+on top of them (the mono dataset's imdb, image and augmentations, no
+right-image doubling). Heatmaps are built [H, W, C] (NHWC), the head's
+layout.
 """
 from __future__ import annotations
 
+import copy
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
 from visualdet3d_tpu_torch import geometry
+from visualdet3d_tpu_torch.data.kitti.dataset.mono_dataset import KittiMonoDataset
 from visualdet3d_tpu_torch.data.kitti.kittidata import KittiObj
 from visualdet3d_tpu_torch.models.heads.rtm3d_utils import gaussian_radius, gen_hm_radius
+from visualdet3d_tpu_torch.registry import DATASET_DICT
 
 # 9-point corner matrix: 8 corners + the 3-D center
 RTM3D_CORNERS = np.concatenate(
@@ -305,3 +310,40 @@ class MonoFlexTargetBuilder(RTM3DTargetBuilder):
             'location': location, 'ori': orientation,
             'edge_indices': edge_indices,
         }
+
+
+@DATASET_DICT.register_module
+class KittiRTM3DDataset(KittiMonoDataset):
+    """KITTI images with KM3D targets (``RTM3DTargetBuilder``), 32 objects
+    an image."""
+
+    target_builder = RTM3DTargetBuilder
+
+    def __init__(self, cfg, split='training'):
+        super().__init__(cfg, split)
+        self.builder = self.target_builder(self.obj_types, max_objects=32)
+
+    def __getitem__(self, index):
+        record, image, P2 = self._load_record(index)
+        label = [copy.deepcopy(o) for o in record['label'] if o.type in self.obj_types]
+        transformed_image, transformed_P2, transformed_label = self.transform(
+            image, p2=P2.copy(), labels=label)
+        targets = self.builder.build_target(transformed_image.shape[:2], transformed_P2,
+                                            transformed_label)
+        return {'calib': transformed_P2, 'image': transformed_image,
+                'label': targets, 'original_shape': image.shape,
+                'original_P': record['calib']['P2'].copy()}
+
+    def __len__(self):
+        return len(self.imdb)
+
+    @staticmethod
+    def collate_fn(batch, obj_types=None, max_objects: int = 32):
+        return RTM3DTargetBuilder.collate_fn(batch)
+
+
+@DATASET_DICT.register_module
+class KittiMonoFlexDataset(KittiRTM3DDataset):
+    """KITTI images with MonoFlex targets (``MonoFlexTargetBuilder``)."""
+
+    target_builder = MonoFlexTargetBuilder

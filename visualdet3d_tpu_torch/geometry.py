@@ -1,7 +1,8 @@
 """Box geometry (counterpart of ``visualdet3d_tpu/geometry.py``): the 2-D
 box helpers on tensors (leading batch dimensions broadcast), and the 3-D
-corner matrix and alpha/theta conversions on numpy arrays or floats, for
-the host-side target builders."""
+corner matrix, alpha/theta conversions, the 3-D box projection and the
+annotation packing on numpy arrays or floats, for the host-side data
+layer and target builders."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -32,6 +33,46 @@ def theta2alpha_3d(theta, x, z, P2):
     """Yaw theta -> observation angle alpha from the 3-D position (x, z)."""
     offset = P2[..., 0, 3] / P2[..., 0, 0]
     return theta - np.arctan2(x + offset, z)
+
+
+def project_bbox3d(bbox_3d: np.ndarray, P2: np.ndarray):
+    """Project [N, 7] boxes (x, y, z, w, h, l, alpha; y at the box centre)
+    through P2 [3, 4]: (abs_corners [N, 8, 3] in the camera frame,
+    homo_coord [N, 8, 3] in the image (x, y, depth-normalised), thetas [N]
+    global yaw), in the boxes' dtype."""
+    corner_matrix = CORNER_MATRIX.astype(bbox_3d.dtype)
+    rel = 0.5 * corner_matrix[None, :, :] * bbox_3d[:, None, 3:6]
+    thetas = alpha2theta_3d(bbox_3d[..., 6], bbox_3d[..., 0], bbox_3d[..., 2], P2)
+    _cos = np.cos(thetas)[:, None]
+    _sin = np.sin(thetas)[:, None]
+    rot_x = rel[:, :, 2] * _cos + rel[:, :, 0] * _sin
+    rot_z = -rel[:, :, 2] * _sin + rel[:, :, 0] * _cos
+    abs_corners = np.stack([rot_x, rel[:, :, 1], rot_z], axis=-1) + bbox_3d[:, None, 0:3]
+    ones = np.ones(abs_corners.shape[:-1] + (1,), dtype=abs_corners.dtype)
+    camera_coord = np.einsum('ij,nkj->nki', P2, np.concatenate([abs_corners, ones], axis=-1))
+    homo_coord = camera_coord / (camera_coord[:, :, 2:] + 1e-6)
+    return abs_corners, homo_coord, thetas
+
+
+def corner_bbox_to_xyxy(corner_box: np.ndarray) -> np.ndarray:
+    """[..., K, >=2] projected corners -> their enclosing [x1, y1, x2, y2]."""
+    return np.concatenate([corner_box[..., 0:2].min(axis=-2),
+                           corner_box[..., 0:2].max(axis=-2)], axis=-1)
+
+
+def compound_annotation(labels, max_length: int, bbox2d, bbox_3d, obj_types) -> np.ndarray:
+    """Pack each image's variable-length ground truth into a fixed
+    [B, max_length, 12] array, rows [x1, y1, x2, y2, cls_index, cx, cy, z,
+    w, h, l, alpha], empty rows -1 (cls_index -1 marks padding)."""
+    num_3d = bbox_3d[0].shape[-1] if len(bbox_3d) > 0 and len(bbox_3d[0]) > 0 else 7
+    annotations = np.full([len(labels), max_length, num_3d + 5], -1.0, dtype=np.float32)
+    for i, label in enumerate(labels):
+        for j, obj_type in enumerate(label):
+            if j >= max_length:
+                break
+            annotations[i, j] = np.concatenate([
+                bbox2d[i][j], [obj_types.index(obj_type)], bbox_3d[i][j]])
+    return annotations
 
 
 def calc_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -7,19 +7,23 @@ is the same network with its own head branches, loss and decode.
 
 Modules take NCHW tensors in channels_last memory format; the head's maps
 go to the loss and the decode as NHWC views, the JAX package's layout.
-The ``resnet`` core comes with a later slice.
+``backbone.name='resnet'`` takes the ResNet core instead of DLA: the
+trunk's last stage brought back to stride 4 by three bilinear x2 resizes,
+each followed by a 3x3 conv, BN and ReLU.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, Optional, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from visualdet3d_tpu_torch.device import resolve_device
 from visualdet3d_tpu_torch.models.backbones.dla import dlanet
 from visualdet3d_tpu_torch.models.backbones.dla_utils import DLASegUpsample
-from visualdet3d_tpu_torch.models.blocks import channels_last_, flax_default_init_
+from visualdet3d_tpu_torch.models.backbones.resnet import resnet
+from visualdet3d_tpu_torch.models.blocks import bn2d, channels_last_, flax_default_init_
 from visualdet3d_tpu_torch.models.heads import km3d_head as km3d_lib
 from visualdet3d_tpu_torch.models.heads import monoflex_head as monoflex_lib
 from visualdet3d_tpu_torch.models.quant import InferenceMixin
@@ -27,26 +31,55 @@ from visualdet3d_tpu_torch.registry import DETECTOR_DICT
 
 
 class KM3DCore(nn.Module):
-    """Backbone + upsampling to stride 4."""
+    """Backbone + upsampling to stride 4: DLA with its DCN neck, or a
+    ResNet with three bilinear x2 resizes, each followed by a 3x3 conv
+    (256, no bias), BN and ReLU."""
+
+    RESNET_UP_FEATURES = 256
 
     def __init__(self, backbone_cfg: dict):
         super().__init__()
         cfg = dict(backbone_cfg)
-        name = cfg.pop('name', 'dla').lower()
-        if name == 'resnet':
-            raise NotImplementedError(
-                "KM3DCore: the 'resnet' core (bilinear up + conv chain) is not ported "
-                'yet; see ROADMAP.md Queue A, A3 item 1 (the KM3D resnet core)')
-        if name != 'dla':
-            raise NotImplementedError(name)
-        self.DLA_0 = dlanet(**cfg)
-        self.DLASegUpsample_0 = DLASegUpsample(
-            input_channels=(16, 32, 64, 128, 256, 512), down_ratio=4, last_level=5,
-            out_channel=64)
-        self.out_channels = self.DLASegUpsample_0.out_channels
+        self.name = cfg.pop('name', 'dla').lower()
+        if self.name == 'dla':
+            self.DLA_0 = dlanet(**cfg)
+            self.DLASegUpsample_0 = DLASegUpsample(
+                input_channels=(16, 32, 64, 128, 256, 512), down_ratio=4, last_level=5,
+                out_channel=64)
+            self.out_channels = self.DLASegUpsample_0.out_channels
+        elif self.name == 'resnet':
+            self.ResNet_0 = resnet(**cfg)
+            channels = self.ResNet_0.out_channels[-1]
+            for i in range(3):
+                self.add_module(f'Conv_{i}', nn.Conv2d(channels, self.RESNET_UP_FEATURES, 3,
+                                                       padding=1, bias=False))
+                self.add_module(f'BatchNorm_{i}', bn2d(self.RESNET_UP_FEATURES))
+                channels = self.RESNET_UP_FEATURES
+            self.out_channels = channels
+        else:
+            raise NotImplementedError(self.name)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """The resnet core's up-convs take normal(0.001) kernels, as flax's
+        ``kernel_init`` there."""
+        if self.name == 'resnet':
+            for i in range(3):
+                conv = getattr(self, f'Conv_{i}')
+                w = torch.randn(conv.weight.shape, generator=generator) * 0.001
+                conv.weight.copy_(w.to(conv.weight.device))
 
     def forward(self, images):
-        return self.DLASegUpsample_0(self.DLA_0(images))
+        if self.name == 'dla':
+            return self.DLASegUpsample_0(self.DLA_0(images))
+        x = self.ResNet_0(images)[-1]
+        for i in range(3):
+            # jax.image.resize 'bilinear' at x2: half-pixel centres, the
+            # edge samples' weights renormalised, which is the clamped
+            # source coordinate of align_corners=False
+            x = F.interpolate(x, scale_factor=2, mode='bilinear', align_corners=False)
+            x = F.relu(getattr(self, f'BatchNorm_{i}')(getattr(self, f'Conv_{i}')(x)))
+        return x
 
 
 class KM3DNet(nn.Module):
@@ -83,6 +116,7 @@ class KM3D(InferenceMixin):
                       layer_cfg.get('head_features', 64))
         generator = torch.Generator().manual_seed(0)
         flax_default_init_(net, generator)
+        net.KM3DCore_0.reset_parameters(generator)
         net.KM3DHeadNet_0.reset_out_convs(generator)
         self.net = channels_last_(net.to(self.device)).eval()
         self._init_inference_cache()

@@ -7,6 +7,10 @@ built at first use into ``visualdet3d_tpu_torch/build/`` (listed in
 source is rebuilt and an unchanged one is not. Only sources in the package
 are compiled. Without ``nvcc`` this raises: a CUDA tensor never falls back
 to the plain path.
+
+Host C sources (``csrc/<name>.c``: the PNG unfilter of ``data/image_io.py``)
+are built the same way with the host C compiler (``$CC``, else ``cc``) and
+raise the same way without one.
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -24,7 +29,10 @@ BUILD_DIR = PKG_DIR / 'build'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
+HOST_CFLAGS = ('-O3', '-shared', '-fPIC', '-std=c99')
+
 _loaded: Dict[str, ctypes.CDLL] = {}
+_host_lock = threading.Lock()  # the data loader's threads load the host library together
 
 
 def find_nvcc() -> str:
@@ -34,6 +42,44 @@ def find_nvcc() -> str:
             return cand
     raise RuntimeError('nvcc not found (PATH, $CUDA_HOME/bin): the CUDA kernels '
                        'of visualdet3d_tpu_torch are built from source at first use')
+
+
+def find_cc() -> str:
+    for cand in (os.environ.get('CC'), 'cc', 'gcc', 'clang'):
+        path = shutil.which(cand) if cand else None
+        if path:
+            return path
+    raise RuntimeError('no C compiler found ($CC, cc, gcc, clang): the host C sources '
+                       'of visualdet3d_tpu_torch (csrc/*.c) are built at first use')
+
+
+def host_library_path(name: str) -> Path:
+    """Where the library for ``csrc/<name>.c`` lives for the current source."""
+    src = CSRC_DIR / f'{name}.c'
+    h = hashlib.sha256(' '.join(HOST_CFLAGS).encode())
+    h.update(src.read_bytes())
+    return BUILD_DIR / f'lib{name}-host-{h.hexdigest()[:16]}.so'
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded library for the host source ``csrc/<name>.c``, built
+    first with the host C compiler if it is missing."""
+    key = f'host:{name}'
+    with _host_lock:
+        if key not in _loaded:
+            so = host_library_path(name)
+            if not so.exists():
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp = so.with_name(f'{so.name}.{os.getpid()}.tmp')
+                proc = subprocess.run([find_cc(), *HOST_CFLAGS, '-o', str(tmp),
+                                       str(CSRC_DIR / f'{name}.c')],
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                if proc.returncode != 0:
+                    raise RuntimeError(f'the C compiler failed for csrc/{name}.c '
+                                       f'(rc {proc.returncode}):\n{proc.stdout}')
+                os.replace(tmp, so)  # atomic: a concurrent process sees all or nothing
+            _loaded[key] = ctypes.CDLL(str(so))
+        return _loaded[key]
 
 
 def library_path(name: str) -> Path:

@@ -2,7 +2,9 @@
 
 The port keeps its own instances: the JAX package's registries already hold
 ``Stereo3D`` and friends, and registering a name twice raises. Importing
-``visualdet3d_tpu_torch.pipelines.trainers`` fills ``PIPELINE_DICT``.
+``visualdet3d_tpu_torch.pipelines.trainers`` fills ``PIPELINE_DICT``;
+importing ``visualdet3d_tpu_torch.data`` fills ``DATASET_DICT``,
+``AUGMENTATION_DICT`` and ``SAMPLER_DICT``.
 """
 from __future__ import annotations
 
@@ -58,3 +60,6 @@ class Registry:
 BACKBONE_DICT = Registry('backbones')
 DETECTOR_DICT = Registry('detectors')
 PIPELINE_DICT = Registry('pipelines')
+DATASET_DICT = Registry('datasets')
+AUGMENTATION_DICT = Registry('augmentations')
+SAMPLER_DICT = Registry('samplers')

@@ -612,3 +612,98 @@ def monoflex_training_batch(rng: np.random.Generator, batch_size: int, image_hw,
     from visualdet3d_tpu_torch.data.kitti.dataset.km3d_dataset import MonoFlexTargetBuilder
     return _training_batch(MonoFlexTargetBuilder(obj_types, max_objects), rng, batch_size,
                            image_hw, objects_per_image)
+
+
+# the KITTI object benchmark's image size and a calibration of its
+# training set (frame 000000's P2; P3 with the stereo baseline)
+KITTI_IMAGE_HW = (375, 1242)
+KITTI_CALIB = {
+    'P2': np.array([[721.5377, 0.0, 609.5593, 44.85728],
+                    [0.0, 721.5377, 172.854, 0.2163791],
+                    [0.0, 0.0, 1.0, 0.002745884]]),
+    'P3': np.array([[721.5377, 0.0, 609.5593, -339.5242],
+                    [0.0, 721.5377, 172.854, 2.199936],
+                    [0.0, 0.0, 1.0, 0.002729905]]),
+    'R0_rect': np.array([[0.9999239, 0.00983776, -0.007445048],
+                         [-0.009869795, 0.9999421, -0.004278459],
+                         [0.007402527, 0.004351614, 0.9999631]]),
+    'Tr_velo_to_cam': np.array([[7.533745e-03, -9.999714e-01, -6.166020e-04, -4.069766e-03],
+                                [1.480249e-02, 7.280733e-04, -9.998902e-01, -7.631618e-02],
+                                [9.998621e-01, 7.523790e-03, 1.480755e-02, -2.717806e-01]]),
+}
+# (type, mean (h, w, l), std) of the synthetic objects
+KITTI_OBJECT_SHAPES = (('Car', (1.53, 1.63, 3.88), (0.1, 0.08, 0.3)),
+                       ('Pedestrian', (1.76, 0.66, 0.84), (0.1, 0.05, 0.1)))
+
+
+def _kitti_label_rows(rng: np.random.Generator, P2: np.ndarray, image_hw, n: int):
+    """``n`` KITTI label rows (Cars and Pedestrians, occlusion 0-2, 4-45 m
+    away) whose projected 3-D boxes lie inside the image, 2-D boxes their
+    extent, plus one DontCare row."""
+    from visualdet3d_tpu_torch.geometry import project_bbox3d, theta2alpha_3d
+    h_img, w_img = image_hw
+    rows = []
+    while len(rows) < n:
+        kind, mean, std = KITTI_OBJECT_SHAPES[int(rng.random() < 0.25)]
+        h, w, l = (float(v) for v in rng.normal(mean, std))
+        z = float(rng.uniform(4.0, 45.0))
+        u = rng.uniform(0.1, 0.9) * w_img
+        x = float((u - P2[0, 2]) * z / P2[0, 0])
+        y = float(rng.normal(1.65, 0.1))
+        ry = float(rng.uniform(-np.pi, np.pi))
+        alpha = float((theta2alpha_3d(ry, x, z, P2) + np.pi) % (2 * np.pi) - np.pi)
+        _, homo, _ = project_bbox3d(np.array([[x, y - h / 2, z, w, h, l, alpha]]), P2)
+        uv = homo[0, :, :2]
+        if uv.min() < 0 or uv[:, 0].max() > w_img - 1 or uv[:, 1].max() > h_img - 1:
+            continue
+        x1, y1 = uv.min(axis=0)
+        x2, y2 = uv.max(axis=0)
+        rows.append(f'{kind} 0.00 {int(rng.integers(0, 3))} {alpha:.2f} {x1:.2f} {y1:.2f} '
+                    f'{x2:.2f} {y2:.2f} {h:.2f} {w:.2f} {l:.2f} {x:.2f} {y:.2f} {z:.2f} '
+                    f'{ry:.2f}')
+    rows.append('DontCare -1 -1 -10 500.00 170.00 540.00 190.00 -1 -1 -1 -1000 -1000 -1000 -10')
+    return rows
+
+
+def write_synthetic_kitti(root: str, n_frames: int, seed: int = 0,
+                          image_hw=KITTI_IMAGE_HW) -> str:
+    """A synthetic KITTI object tree: ``root/{calib,image_2,image_3,label_2,
+    velodyne}/%06d.{txt,png,bin}`` for ``n_frames`` frames, as
+    ``tests/kitti_fixture.build_mini_kitti`` lays it out, at KITTI's full
+    375x1242. Images are uniform noise (the worst case for the PNG
+    decoder), written by the port's PNG writer with the rows cycling
+    through all five filter types; 1-5 labelled objects a frame; 20,000
+    velodyne points a frame in front of the car. Returns ``root``."""
+    from visualdet3d_tpu_torch.data.image_io import FILTER_TYPES, write_png
+    rng = np.random.default_rng(seed)
+    for sub in ('calib', 'image_2', 'image_3', 'label_2', 'velodyne'):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    calib = dict(KITTI_CALIB, P0=KITTI_CALIB['P2'], P1=KITTI_CALIB['P2'])
+    calib_text = ''.join(
+        f'{key}: ' + ' '.join(f'{v:.12e}' for v in calib[key].reshape(-1)) + '\n'
+        for key in ('P0', 'P1', 'P2', 'P3', 'R0_rect', 'Tr_velo_to_cam'))
+    for i in range(n_frames):
+        name = '%06d' % i
+        with open(os.path.join(root, 'calib', name + '.txt'), 'w') as f:
+            f.write(calib_text)
+        for sub in ('image_2', 'image_3'):
+            image = rng.integers(0, 256, (*image_hw, 3), np.uint8)
+            write_png(os.path.join(root, sub, name + '.png'), image, FILTER_TYPES)
+        rows = _kitti_label_rows(rng, KITTI_CALIB['P2'], image_hw, int(rng.integers(1, 6)))
+        with open(os.path.join(root, 'label_2', name + '.txt'), 'w') as f:
+            f.write('\n'.join(rows) + '\n')
+        pts = rng.uniform([3, -15, -2, 0], [60, 15, 1, 1], size=(20000, 4)).astype(np.float32)
+        pts.tofile(os.path.join(root, 'velodyne', name + '.bin'))
+    return root
+
+
+def write_split_files(out_dir: str, train_ids, val_ids):
+    """``out_dir/train.txt`` and ``val.txt`` listing the frames
+    (``%06d``); returns their paths."""
+    os.makedirs(out_dir, exist_ok=True)
+    paths = []
+    for name, ids in (('train.txt', train_ids), ('val.txt', val_ids)):
+        paths.append(os.path.join(out_dir, name))
+        with open(paths[-1], 'w') as f:
+            f.write('\n'.join('%06d' % i for i in ids) + '\n')
+    return tuple(paths)
