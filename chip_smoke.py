@@ -169,6 +169,28 @@ each printed as one JSON line:
    km3d_resnet_parity (KM3D on the depth-18 ``resnet`` core, batch 1, f32,
    the card against the CPU at the KM3D gates).
 
+11. Evaluation on the KITTI tree (before km3d_resnet_parity, in the same
+   tree): kitti_eval_oracle (160 frames of synthetic labels written back as
+   results: Car AP 100 on bbox, BEV, 3D and AOS at every difficulty; every
+   box moved 1 m in x and z: 3D AP below bbox AP; the native matcher's
+   tables equal to the Python matcher's; the evaluator's seconds);
+   cli_eval_km3d and cli_eval_stereo (``cli.eval`` in this process on the
+   train CLI phases' checkpoints, their prediction convs calibrated on the
+   4 validation frames, f32 then bf16: a result txt a frame, detections,
+   the AP table parsed and finite, 16 DCN forwards (K5 / K3) and 2 K1 a
+   frame, ms a frame, the evaluator's seconds); cli_eval_gac_postopt
+   (``configs/yolo3d_gac.py`` with its hill-climbing post-optimisation, a
+   seeded GAC saved by ``checkpoint.py``: at least one detection refined,
+   the post-optimisation's ms a frame); cli_quantize_eval_int8
+   (``python -m visualdet3d_tpu_torch.cli.quantize`` on
+   ``configs/stereo3d_int8.py``, then the eval CLI from the artifact and
+   calibrating on the fly: the same result files byte for byte, B8, the
+   quantize and 2 K1 a frame); cli_eval_parity (the f32 result files of
+   the card against ``--device cpu``: the same lines and labels, numbers
+   at the predict parity gates); cli_train_eval (the train CLI with
+   ``test_iter=1`` on KM3D: the AP table after its epoch, 16 DCN launches
+   a frame).
+
 Then a ``wall`` line (the script's seconds), the ``kernels`` summary line,
 the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
@@ -3590,7 +3612,8 @@ def data_io_phase():
 def smoke_config(work, base, name, data_root, split, max_epochs):
     """A config file that loads ``configs/<base>`` through the port's
     ``cfg_from_file`` and sets only the paths, ``max_epochs`` and the
-    evaluation (off: the evaluators are not ported)."""
+    evaluation (off: the training phases time training alone;
+    ``cli_train_eval`` turns it on)."""
     path = os.path.join(work, f'{name}.py')
     root = os.path.dirname(os.path.abspath(__file__))
     with open(path, 'w') as f:
@@ -3834,10 +3857,492 @@ def km3d_resnet_parity_phase(torch):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# evaluation on a KITTI tree: the evaluators, the eval and quantize CLIs, the
+# evaluation inside the train CLI
+# ---------------------------------------------------------------------------
+
+ORACLE_FRAMES = 160       # label files only: every difficulty has 41+ valid Cars
+ORACLE_SPLIT_FRAMES = 3769  # the frames of KITTI's usual validation split (3DOP's)
+EVAL_REPEATS = 25         # a timed evaluation lists the VAL_FRAMES frames 25 times
+
+
+def timed_eval_config(config):
+    """``config`` evaluated on its VAL_FRAMES validation frames listed
+    EVAL_REPEATS times, as ``loader_study.py`` lists its training frames:
+    a split file and a validation imdb of the repeated frames under
+    ``<preprocessed_path>_timed`` (its ``training`` a link to the config's
+    own, which the int8 calibration reads), so that one run times
+    VAL_FRAMES * EVAL_REPEATS frames. Result file i holds frame i mod
+    VAL_FRAMES. Returns the new config's path."""
+    from visualdet3d_tpu_torch.config import cfg_from_file
+    cfg = cfg_from_file(config)
+    src = cfg.path.preprocessed_path
+    dst = src + '_timed'
+    os.makedirs(os.path.join(dst, 'validation'), exist_ok=True)
+    if not os.path.exists(os.path.join(dst, 'training')):
+        os.symlink(os.path.join(src, 'training'), os.path.join(dst, 'training'))
+    with open(os.path.join(src, 'validation', 'imdb.pkl'), 'rb') as f:
+        imdb = pickle.load(f)
+    check(len(imdb) == VAL_FRAMES, f'timed_eval_config: {len(imdb)} validation records')
+    with open(os.path.join(dst, 'validation', 'imdb.pkl'), 'wb') as f:
+        pickle.dump(list(imdb) * EVAL_REPEATS, f)
+    with open(cfg.data.val_split_file) as f:
+        ids = f.read().split()
+    split = os.path.join(dst, 'val_repeated.txt')
+    with open(split, 'w') as f:
+        f.write('\n'.join(ids * EVAL_REPEATS) + '\n')
+    path = f'{config[:-3]}_timed.py'
+    with open(config) as f, open(path, 'w') as g:
+        g.write(f.read() + f'cfg.path.preprocessed_path = {dst!r}\n'
+                           f'cfg.data.val_split_file = {split!r}\n')
+    return path
+
+
+def dtype_config(config, dtype):
+    """``config`` with ``detector.inference_dtype`` = ``dtype``; returns its path."""
+    path = f'{config[:-3]}_{dtype}.py'
+    with open(config) as f, open(path, 'w') as g:
+        g.write(f.read() + f'cfg.detector.inference_dtype = {dtype!r}\n')
+    return path
+
+
+def spread(ms):
+    """The median, 10th and 90th percentiles, least and most of ``ms``."""
+    a = np.asarray(ms, np.float64)
+    return dict(n=len(a), median=float(np.median(a)), p10=float(np.percentile(a, 10)),
+                p90=float(np.percentile(a, 90)), min=float(a.min()), max=float(a.max()))
+
+
+def ap_table(text):
+    """The AP rows of a KITTI report: {'<class> AP@<overlaps> <metric>': [easy,
+    moderate, hard]}; every value must parse and be finite."""
+    table, head = {}, None
+    for line in text.splitlines():
+        if 'AP(Average Precision)@' in line:
+            head = line.split(':')[0].replace(' AP(Average Precision)', ' AP')
+        elif head and 'AP:' in line:
+            metric, values = line.split('AP:')
+            table[f'{head} {metric.strip()}'] = [float(v) for v in values.split(',')]
+    check(table and all(len(v) == 3 and np.isfinite(v).all() for v in table.values()),
+          f'the AP table did not parse or is not finite:\n{text[-2000:]}')
+    return table
+
+
+def kitti_eval_oracle_phase(work):
+    """The KITTI object evaluator on ORACLE_FRAMES label files
+    (``testing.write_synthetic_labels``): the labels written back as results
+    (score 1) give Car AP 100 on bbox, BEV, 3D and AOS at every difficulty
+    (each has 41+ valid Cars, which the 40-point AP needs); every box moved
+    1 m in x and z gives 3D AP below bbox AP; the native matcher's tables
+    equal the Python matcher's on the moved results. Then the labels of
+    ORACLE_SPLIT_FRAMES frames, the size of KITTI's validation split,
+    written back as results: AP 100 again. Prints the evaluator's seconds
+    for each split (the report end to end, files included) and both
+    matchers' seconds for their tables."""
+    from visualdet3d_tpu_torch import testing
+    from visualdet3d_tpu_torch.evaluator.kitti_object import eval as kitti_eval
+    from visualdet3d_tpu_torch.evaluator.kitti_object.evaluate import evaluate
+    from visualdet3d_tpu_torch.evaluator.kitti_object.kitti_common import get_label_annos
+    root = os.path.join(work, 'oracle')
+    frames = range(ORACLE_FRAMES)
+    label_dir = testing.write_synthetic_labels(os.path.join(root, 'label_2'), frames, seed=5)
+    split = testing.write_split_files(os.path.join(root, 'split'), [], frames)[1]
+    gts = get_label_annos(label_dir, list(frames))
+    valid_cars = [kitti_eval._prepare_data(gts, gts, 0, d)[-1] for d in range(3)]
+    check(min(valid_cars) >= 41, f'kitti_eval_oracle: valid Cars by difficulty {valid_cars}')
+
+    def write_results(name, shift, label_dir=label_dir, frames=frames):
+        out = os.path.join(root, name)
+        os.makedirs(out, exist_ok=True)
+        for i in frames:
+            with open(os.path.join(label_dir, '%06d.txt' % i)) as f:
+                rows = [line.split() for line in f if line.strip() and
+                        not line.startswith('DontCare')]
+            for r in rows:
+                r[11] = f'{float(r[11]) + shift:.2f}'
+                r[13] = f'{float(r[13]) + shift:.2f}'
+            with open(os.path.join(out, '%06d.txt' % i), 'w') as f:
+                f.write(''.join(' '.join(r) + ' 1.0\n' for r in rows))
+        return out
+
+    seconds, tables = {}, {}
+    for name, shift in (('exact', 0.0), ('moved', 1.0)):
+        result_dir = write_results(name, shift)
+        t0 = time.perf_counter()
+        [report] = evaluate(label_dir, result_dir, split, current_classes=[0])
+        seconds[f'evaluator_{name}'] = time.perf_counter() - t0
+        tables[name] = ap_table(report)
+    exact = tables['exact']
+    check(all(v == [100.0, 100.0, 100.0] for v in exact.values()),
+          f'kitti_eval_oracle: the ground truth as results gives {exact}')
+    moved = tables['moved']
+    for overlaps in ('0.70, 0.70, 0.70', '0.70, 0.50, 0.50'):
+        bbox, d3 = moved[f'Car AP@{overlaps} bbox'], moved[f'Car AP@{overlaps} 3d']
+        check(bbox == [100.0] * 3 and all(a < b for a, b in zip(d3, bbox)),
+              f'kitti_eval_oracle: boxes moved 1 m give bbox {bbox}, 3d {d3}')
+
+    dts = get_label_annos(os.path.join(root, 'moved'))
+    overlaps = np.stack([np.array([[0.7]] * 3), np.array([[0.7], [0.5], [0.5]])])
+    same = {}
+    for metric in (0, 1, 2):
+        got = {}
+        for matcher in ('native', 'python'):
+            t0 = time.perf_counter()
+            got[matcher] = kitti_eval.eval_class(gts, dts, [0], (0, 1, 2), metric, overlaps,
+                                                 compute_aos=True, matcher=matcher)
+            seconds[f'{matcher}_metric{metric}'] = time.perf_counter() - t0
+        same[metric] = all(np.array_equal(got['native'][k], got['python'][k])
+                           for k in ('precision', 'orientation'))
+    check(all(same.values()), f'kitti_eval_oracle: native and Python matchers differ {same}')
+
+    full = range(ORACLE_SPLIT_FRAMES)
+    full_labels = testing.write_synthetic_labels(os.path.join(root, 'full_label_2'), full, seed=6)
+    full_split = testing.write_split_files(os.path.join(root, 'full_split'), [], full)[1]
+    result_dir = write_results('full_exact', 0.0, full_labels, full)
+    t0 = time.perf_counter()
+    [report] = evaluate(full_labels, result_dir, full_split, current_classes=[0])
+    seconds['evaluator_full_split'] = time.perf_counter() - t0
+    full_exact = ap_table(report)
+    check(all(v == [100.0, 100.0, 100.0] for v in full_exact.values()),
+          f'kitti_eval_oracle: {ORACLE_SPLIT_FRAMES} frames of ground truth give {full_exact}')
+    emit('kitti_eval_oracle', frames=ORACLE_FRAMES, valid_cars_by_difficulty=valid_cars,
+         exact=exact, moved_1m=moved, matchers_equal=same,
+         full_split_frames=ORACLE_SPLIT_FRAMES, full_split_exact=full_exact, seconds=seconds)
+
+
+def eval_ready_checkpoint(torch, config, name, prepare):
+    """The train CLI's latest checkpoint of ``config`` loaded into the
+    config's inference system on the card, ``prepare(system, batch)`` on the
+    validation frames (seeded weights that barely trained give no score
+    above the thresholds), saved as a checkpoint of its own; returns its
+    directory."""
+    from visualdet3d_tpu_torch import checkpoint
+    from visualdet3d_tpu_torch.cli import eval as eval_cli
+    from visualdet3d_tpu_torch.config import cfg_from_file
+    cfg = cfg_from_file(config)
+    cfg.detector.inference_dtype = 'float32'
+    system = eval_cli.load_system(cfg, cfg.path.checkpoint_path, torch.device('cuda'))
+    val = eval_cli.dataset_of(cfg, 'validation')
+    prepare(system, val.collate_fn([val[i] for i in range(len(val))]))
+    out = os.path.join(os.path.dirname(config), f'{name}_eval_checkpoint')
+    checkpoint.CheckpointManager(out).save(0, {'model': system.net.state_dict()})
+    del system
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_eval_cli(torch, config, ckpt, phase, device=None, quantized_path=None,
+                 frames=VAL_FRAMES * EVAL_REPEATS):
+    """``cli.eval.main`` in this process on the validation split (the card
+    unless ``device``), the launch counts set to 0 just before: (its
+    eval_stats line, its output, the result files' text, the counts). The
+    split must hold ``frames`` frames (a config of ``timed_eval_config``,
+    else VAL_FRAMES)."""
+    import contextlib
+    import io
+    from visualdet3d_tpu_torch.cli import eval as eval_cli
+    from visualdet3d_tpu_torch.config import cfg_from_file
+    from visualdet3d_tpu_torch.ops import launch_counts, reset_launch_counts
+    cfg = cfg_from_file(config)
+    argv = ['--config', config, '--checkpoint_path', ckpt]
+    argv += ['--device', device] if device else []
+    argv += ['--quantized_path', quantized_path] if quantized_path else []
+    reset_launch_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        eval_cli.main(argv)
+    launches = launch_counts()
+    out = buf.getvalue()
+    with open(os.path.join(cfg.path.log_path, 'eval_stats.jsonl')) as f:
+        stats = json.loads(f.readlines()[-1])
+    result_dir = os.path.join(cfg.path.preprocessed_path, 'validation', 'data')
+    files = {}
+    for n in sorted(os.listdir(result_dir)):
+        with open(os.path.join(result_dir, n)) as f:
+            files[n] = f.read()
+    check(len(files) == stats['frames'] == frames,
+          f'{phase}: {len(files)} result files for {stats["frames"]} frames, expected {frames}')
+    return stats, out, files, launches
+
+
+def eval_summary(stats, files, table, launches):
+    """A run's frames, the ms of a frame on the card (predict, decode, NMS,
+    the copy to the host) and of its item on the host, each after the
+    first frame (cuDNN's first calls at batch 1), the first frame's,
+    the evaluator's and the set-up's seconds, the detections, the launches
+    a frame and the moderate Car APs."""
+    frames = stats['frames']
+    return dict(
+        frames=frames, frame_ms=spread(stats['frame_ms'][1:]),
+        first_frame_ms=stats['frame_ms'][0], item_ms=spread(stats['load_ms'][1:]),
+        evaluator_s=stats['evaluator_s'],
+        setup_s=stats['setup_s'], detections=sum(t.count('\n') for t in files.values()),
+        frames_with_detections=sum(bool(t) for t in files.values()),
+        launches_per_frame={k: v / frames for k, v in launches.items() if v},
+        car_ap_moderate={k: v[1] for k, v in table.items() if k.startswith('Car')})
+
+
+def cli_eval_phase(torch, config, ckpt, phase, dtype, per_frame):
+    """The eval CLI on the card on ``config`` with ``inference_dtype`` =
+    ``dtype``: a txt a frame, a frame with detections, the AP table parsed
+    and finite, ``per_frame`` kernel launches a frame over the frames (the
+    CLI's count around the evaluation; the whole run's, set to 0 just
+    before it, also holds the bf16 fold's forward). Returns (the summary,
+    the result files)."""
+    stats, out, files, launches = run_eval_cli(torch, dtype_config(config, dtype), ckpt, phase)
+    check(any(files.values()), f'{phase}: no detection in any frame')
+    table = ap_table(out)
+    got = {k: stats['launches'].get(k, 0) / stats['frames'] for k in per_frame}
+    check(got == per_frame, f'{phase}: launches a frame {got}, expected {per_frame}')
+    check(all(launches[k] >= v for k, v in stats['launches'].items()),
+          f'{phase}: the CLI counted {stats["launches"]}, the whole run {launches}')
+    result = dict(dtype=dtype, **eval_summary(stats, files, table, stats['launches']),
+                  launches_in_cli_run={k: v for k, v in launches.items() if v})
+    emit(phase, **result)
+    return result, files
+
+
+def result_rows(text):
+    rows = [line.split() for line in text.splitlines()]
+    return [r[0] for r in rows], np.array([[float(v) for v in r[1:]] for r in rows]).reshape(-1, 15)
+
+
+def cli_eval_parity_phase(torch, runs):
+    """The result files of the card (f32, TF32 off; the first VAL_FRAMES
+    of its timed run) against the eval CLI with ``--device cpu`` on the
+    same checkpoints and frames: the same lines and
+    labels, numbers within the predict parity gates (rtol = atol = 1e-3;
+    KM3D's location, and the yaw computed from it, within rtol 1e-2, as
+    ``km3d_parity`` holds the centre). Lines are matched one to one in any
+    order: two detections whose scores lie within the devices' difference
+    (5e-7 apart in one Stereo3D frame on an H100) may come in either order."""
+    out = {}
+    for name, (config, ckpt, card_files) in runs.items():
+        t0 = time.perf_counter()
+        _, _, cpu_files, _ = run_eval_cli(torch, config, ckpt, f'cli_eval_parity {name}',
+                                          device='cpu', frames=VAL_FRAMES)
+        cpu_s = time.perf_counter() - t0
+        loose = np.zeros(15, bool)  # KM3D's centre and the yaw computed from it
+        loose[[10, 11, 12, 13]] = name == 'km3d'
+
+        def close(a, b):
+            return (np.isclose(a[~loose], b[~loose], rtol=1e-3, atol=1e-3).all()
+                    and np.isclose(a[loose], b[loose], rtol=1e-2, atol=1e-3).all())
+        errs, lines, reordered = [], 0, 0
+        for n, text in card_files.items():
+            names, vals = result_rows(text)
+            cpu_names, cpu_vals = result_rows(cpu_files[n])
+            check(len(names) == len(cpu_names),
+                  f'cli_eval_parity {name} {n}: {len(names)} lines on the card, '
+                  f'{len(cpu_names)} on the CPU')
+            unused = list(range(len(cpu_names)))
+            for i in range(len(names)):
+                hit = next((j for j in unused if cpu_names[j] == names[i]
+                            and close(vals[i], cpu_vals[j])), None)
+                check(hit is not None, f'cli_eval_parity {name} {n}: the card\'s line {i} has '
+                                       f'no match on the CPU:\n{text}CPU\n{cpu_files[n]}')
+                unused.remove(hit)
+                reordered += hit != i
+                errs.append(float(np.abs(vals[i] - cpu_vals[hit]).max()))
+            lines += len(names)
+        check(lines > 0, f'cli_eval_parity {name}: no result line to compare')
+        out[name] = dict(lines=lines, lines_in_another_order=reordered, max_abs_diff=max(errs),
+                         cpu_eval_s=cpu_s)
+    emit('cli_eval_parity', **out)
+
+
+def cli_eval_gac_postopt_phase(torch, work, root, split):
+    """``configs/yolo3d_gac.py`` (``post_optimization=True``) on the tree:
+    the imdb precompute, synthetic priors in place of the 8-frame ones
+    (bins with fewer than 10 samples drop their anchors), the port's GAC
+    with seeded weights made ready to predict on the validation frames
+    (``testing.prepare_mono_for_predict``, then the class bias shifted so
+    that the top 0.5% of the anchors the decode keeps score above
+    sigmoid(1.5): ResNet-101's logits put the calibrated tail elsewhere)
+    saved by ``checkpoint.py``, then the eval CLI. At least one detection must be refined by the hill climb
+    (its alpha moved). The eval runs on the repeated frames of
+    ``timed_eval_config``; prints the post-optimisation's ms a frame."""
+    from visualdet3d_tpu_torch import checkpoint, testing
+    from visualdet3d_tpu_torch.cli import eval as eval_cli
+    from visualdet3d_tpu_torch.cli import imdb_precompute_3d
+    from visualdet3d_tpu_torch.config import cfg_from_file
+    from visualdet3d_tpu_torch.models.fast_utils import hill_climbing
+    from visualdet3d_tpu_torch.registry import DETECTOR_DICT
+    import visualdet3d_tpu_torch.models  # noqa: F401
+    config = smoke_config(work, 'yolo3d_gac.py', 'gac', root, split, 1)
+    cfg = cfg_from_file(config)
+    check(cfg.detector.head.test_cfg.post_optimization, 'the GAC config does not post-optimise')
+    imdb_precompute_3d.run(cfg)
+    testing.write_synthetic_priors(cfg.path.preprocessed_path, cfg.obj_types, num_ratios=2)
+    system = DETECTOR_DICT[cfg.detector.name](cfg.detector, device='cuda')
+    val = eval_cli.dataset_of(cfg, 'validation')
+    batch = val.collate_fn([val[i] for i in range(len(val))])
+    images = torch.as_tensor(batch['images'], device='cuda')
+    P2 = torch.as_tensor(batch['P2'], device='cuda')
+    testing.prepare_mono_for_predict(system, images, P2, torch.Generator().manual_seed(42))
+    with torch.no_grad():  # the logits' tail onto the anchors the decode keeps
+        cls = system.predict_raw(images, P2)[0][..., 0].float()
+        useful = system.anchors.useful_mask(system.anchor_pack(tuple(images.shape[1:3])), P2)
+        system.prediction_convs()[0].bias += 1.5 - torch.quantile(cls[useful], 0.995)
+    system.weights_changed()
+    ckpt = os.path.join(work, 'gac_checkpoint')
+    checkpoint.CheckpointManager(ckpt).save(0, {'model': system.net.state_dict()})
+    del system, images, P2
+    torch.cuda.empty_cache()
+
+    refined = []
+    real = hill_climbing.post_optimization
+
+    def counting(bbox_2d, state, P2, names, **kw):
+        out = real(bbox_2d, state, P2, names, **kw)
+        refined.append(int((out[:, 6] != np.asarray(state)[:, 6]).sum()))
+        return out
+    hill_climbing.post_optimization = counting
+    try:
+        stats, out, files, launches = run_eval_cli(torch, timed_eval_config(config), ckpt,
+                                                   'cli_eval_gac_postopt')
+    finally:
+        hill_climbing.post_optimization = real
+    check(any(files.values()), 'cli_eval_gac_postopt: no detection in any frame')
+    check(sum(refined) >= 1, f'cli_eval_gac_postopt: the hill climb refined {refined} detections')
+    emit('cli_eval_gac_postopt', refined=sum(refined), refined_per_frame=spread(refined),
+         post_opt_ms=spread(stats['post_opt_ms'][1:]),
+         **eval_summary(stats, files, ap_table(out), stats['launches']))
+
+
+def cli_quantize_eval_int8_phase(torch, work, stereo_config, ckpt):
+    """``configs/stereo3d_int8.py`` on the stereo tree: ``python -m
+    visualdet3d_tpu_torch.cli.quantize`` (a subprocess) writes the int8
+    artifact of the stereo checkpoint; then the eval CLI with
+    ``--quantized_path`` and the eval CLI calibrating on the fly (training
+    frames): their result files equal byte for byte, with detections; B8,
+    the quantize and 2 K1 launches a frame."""
+    config = os.path.join(work, 'stereo_int8.py')
+    with open(stereo_config) as f, open(config, 'w') as g:
+        g.write(f.read().replace(os.path.join('configs', 'stereo3d.py'),
+                                 os.path.join('configs', 'stereo3d_int8.py')))
+    artifact = os.path.join(work, 'stereo_int8.pt')
+    cmd = [sys.executable, '-m', 'visualdet3d_tpu_torch.cli.quantize', '--config', config,
+           '--checkpoint_path', ckpt, '--output_path', artifact]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    quantize_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f'cli.quantize failed (rc {proc.returncode}):\n'
+                                f'{proc.stderr[-3000:]}')
+    runs = {}
+    for name, path in (('artifact', artifact), ('on_the_fly', None)):
+        t0 = time.perf_counter()
+        stats, out, files, launches = run_eval_cli(torch, config, ckpt,
+                                                   f'cli_quantize_eval_int8 {name}',
+                                                   quantized_path=path)
+        runs[name] = dict(process_s=time.perf_counter() - t0, files=files,
+                          **eval_summary(stats, files, ap_table(out), stats['launches']),
+                          launches_in_cli_run={k: v for k, v in launches.items() if v})
+    check(runs['artifact']['files'] == runs['on_the_fly']['files'],
+          'cli_quantize_eval_int8: the artifact and the on-the-fly calibration wrote different '
+          'results')
+    check(any(runs['artifact']['files'].values()), 'cli_quantize_eval_int8: no detection')
+    for name, r in runs.items():
+        per = r['launches_per_frame']
+        check(per.get('correlation_volume_interleaved') == 2 and per.get('int8_conv2d', 0) > 0
+              and per.get('int8_quantize', 0) > 0,
+              f'cli_quantize_eval_int8 {name}: launches a frame {per}')
+        del r['files']
+    emit('cli_quantize_eval_int8', quantize_process_s=quantize_s, results_equal=True, **runs)
+    return runs
+
+
+def cli_train_eval_phase(torch, km3d_config):
+    """The train CLI (in this process) on the KM3D smoke config with
+    ``test_iter=1``: one epoch of 2 steps at batch 16, then the evaluation
+    of the validation split, which must print the AP table and write its
+    stats line (16 DCN launches a frame, the training weights in f32)."""
+    import contextlib
+    import io
+    from visualdet3d_tpu_torch.cli import train as train_cli
+    from visualdet3d_tpu_torch.config import cfg_from_file
+    config = km3d_config[:-3] + '_train_eval.py'
+    with open(km3d_config) as f, open(config, 'w') as g:
+        g.write(f.read() + "cfg.path.checkpoint_path = os.path.join(out, 'train_eval_ckpt')\n"
+                           "cfg.path.log_path = os.path.join(out, 'train_eval_log')\n"
+                           'cfg.trainer.max_epochs = 1\ncfg.trainer.test_iter = 1\n')
+    cfg = cfg_from_file(config)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        train_cli.main(['--config', config])
+    wall = time.perf_counter() - t0
+    out = buf.getvalue()
+    check('/**** finish testing after training epoch 0 ******/' in out,
+          f'cli_train_eval: no evaluation after the epoch:\n{out[-2000:]}')
+    table = ap_table(out)
+    with open(os.path.join(cfg.path.log_path, 'eval_stats.jsonl')) as f:
+        [stats] = [json.loads(line) for line in f]
+    per_frame = stats['launches'].get('modulated_deform_conv', 0) / stats['frames']
+    check(stats['epoch'] == 0 and per_frame == DCN_PER_FORWARD,
+          f'cli_train_eval: stats {stats}')
+    emit('cli_train_eval', wall_s=wall, frames=stats['frames'],
+         frame_ms=spread(stats['frame_ms']), evaluator_s=stats['evaluator_s'],
+         dcn_launches_per_frame=per_frame, car_ap_moderate={k: v[1] for k, v in table.items()})
+
+
+def kitti_eval_phases(torch, work, configs):
+    """Evaluation on the KITTI tree, after the train CLI phases: the
+    oracle, the eval CLI on KM3D and Stereo3D (f32, then bf16), GAC with
+    post-optimisation, the int8 artifact against calibrating on the fly
+    (each on VAL_FRAMES * EVAL_REPEATS frames: ``timed_eval_config``), the
+    card's results against the CPU's (VAL_FRAMES frames), and the train
+    CLI's evaluation (VAL_FRAMES frames).
+    Returns the launches a frame by kernel and dtype."""
+    from visualdet3d_tpu_torch import testing
+    from visualdet3d_tpu_torch.config import cfg_from_file
+    t0 = time.perf_counter()
+    kitti_eval_oracle_phase(work)
+
+    def km3d_prepare(system, batch):
+        images = torch.as_tensor(batch['images'], device='cuda')
+        testing.calibrate_head_convs(system, images, torch.Generator().manual_seed(43))
+
+    def stereo_prepare(system, batch):
+        inputs = tuple(torch.as_tensor(batch[k], device='cuda')
+                       for k in ('left_images', 'right_images'))
+        testing.calibrate_prediction_convs(system, inputs, torch.Generator().manual_seed(44))
+
+    stereo_cfg = cfg_from_file(configs['stereo'])
+    stereo_split = (stereo_cfg.data.train_split_file, stereo_cfg.data.val_split_file)
+    # the 8-frame priors leave every bin under 10 samples, which drops its anchors
+    testing.write_synthetic_priors(stereo_cfg.path.preprocessed_path, stereo_cfg.obj_types,
+                                   num_ratios=3)
+    ckpts = {'km3d': eval_ready_checkpoint(torch, configs['km3d'], 'km3d', km3d_prepare),
+             'stereo': eval_ready_checkpoint(torch, configs['stereo'], 'stereo', stereo_prepare)}
+    per_frame = {'km3d': {'modulated_deform_conv': DCN_PER_FORWARD},
+                 'stereo': {'correlation_volume_interleaved': 2}}
+    timed = {name: timed_eval_config(configs[name]) for name in ('km3d', 'stereo')}
+    launches, f32_files = {}, {}
+    for name in ('km3d', 'stereo'):
+        for dtype in ('float32', 'bfloat16'):
+            result, files = cli_eval_phase(torch, timed[name], ckpts[name], f'cli_eval_{name}',
+                                           dtype, per_frame[name])
+            launches[(name, dtype)] = result['launches_per_frame']
+            if dtype == 'float32':
+                first = {n: files[n] for n in sorted(files)[:VAL_FRAMES]}
+                f32_files[name] = (dtype_config(configs[name], dtype), ckpts[name], first)
+    cli_eval_gac_postopt_phase(torch, work, stereo_cfg.path.data_path, stereo_split)
+    int8 = cli_quantize_eval_int8_phase(torch, work, timed['stereo'], ckpts['stereo'])
+    launches[('stereo', 'int8')] = int8['artifact']['launches_per_frame']
+    cli_eval_parity_phase(torch, f32_files)
+    cli_train_eval_phase(torch, configs['km3d'])
+    emit('kitti_eval_phases', seconds=time.perf_counter() - t0)
+    return launches
+
+
 def kitti_training_phases(torch):
-    """Training from a KITTI tree on disk: data_io, kitti_precompute,
-    cli_train_km3d, cli_train_stereo, km3d_resnet_parity. Returns the CLI
-    phases' results."""
+    """Training and evaluation from a KITTI tree on disk: data_io,
+    kitti_precompute, cli_train_km3d, cli_train_stereo, then the evaluation
+    phases (``kitti_eval_phases``), km3d_resnet_parity. Returns the CLI
+    training phases' results and the launches a frame of the evaluations."""
     import tempfile
     data_io_phase()
     with tempfile.TemporaryDirectory(prefix='vd3d_smoke_') as work:
@@ -3848,8 +4353,9 @@ def kitti_training_phases(torch):
         km3d = cli_train_phase(torch, configs['km3d'], 'cli_train_km3d', dcn)
         corr = {'correlation_volume_interleaved': 2, 'correlation_backward_interleaved': 2}
         stereo = cli_train_phase(torch, configs['stereo'], 'cli_train_stereo', corr)
+        eval_launches = kitti_eval_phases(torch, work, configs)
     km3d_resnet_parity_phase(torch)
-    return km3d, stereo
+    return km3d, stereo, eval_launches
 
 
 def main() -> int:
@@ -3957,7 +4463,7 @@ def main() -> int:
     monoflex_trains = {name: km3d_train_phase(torch, dc, cd, 'monoflex', MONOFLEX_BATCH)
                        for name, cd in (('bfloat16', 'bfloat16'), ('float32', None))}
     gac_slices, gac_kernel, gac_trains = gac_phases(torch, dc, peaks)
-    cli_km3d, cli_stereo = kitti_training_phases(torch)
+    cli_km3d, cli_stereo, eval_launches = kitti_training_phases(torch)
 
     dtype_of = {'f32': 'float32', 'bf16': 'bfloat16'}
     replaces = {  # the TPU kernel bodies _corr_kernel_eyes and _corr_kernel
@@ -3974,6 +4480,9 @@ def main() -> int:
             launches_in_training=stereo_trains[dtype_of[dt]]['launches'][kernel],
             launches_per_step_in_cli_training=(cli_stereo['launches_per_step'].get(kernel)
                                                if dt == 'f32' else None),
+            launches_per_eval_frame=eval_launches[('stereo', dtype_of[dt])].get(kernel, 0),
+            launches_per_int8_eval_frame=(eval_launches[('stereo', 'int8')].get(kernel, 0)
+                                          if dt == 'bf16' else None),
             max_abs_err=r['max_abs_err'], ms=r['ms'], graph_ms=r['graph_ms'],
             plain_ms=r['plain_ms'], bound_ms=r['bound_ms'], bound_by=r['bound_by'],
             share_of_bound=r['share_of_bound'], share_of_bound_device=r['share_of_bound_device'],
@@ -4017,6 +4526,8 @@ def main() -> int:
                 'modulated_deform_conv') if dt == 'f32' else None),
             launches_in_monoflex_training=monoflex_trains[dtype_of[dt]]['launches'][
                 'modulated_deform_conv'],
+            launches_per_eval_frame=eval_launches[('km3d', dtype_of[dt])].get(
+                'modulated_deform_conv', 0),
             per_forward='the 16 DCNs of one KM3D forward, batch 16 (shapes weighted by count)',
             per_shape=r['per_shape']))
     summary.append(dict(  # the TPU kernel body _lerp_matmul_alltaps_kernel
@@ -4129,6 +4640,7 @@ def main() -> int:
         library='cuDNN bf16 conv of the same shapes (not the same function)',
         launches_by_path={k: int8_slices['int8']['launches'][f'int8_conv2d_{k}']
                           for k in ('wgmma', 'wgmma_splitk', 'cp_async')},
+        launches_per_eval_frame=eval_launches[('stereo', 'int8')].get('int8_conv2d', 0),
         int8_predict_by_plan_variant=b8_plan['predict'],
         per_forward='every quantized conv of one batch-16 int8 predict, bf16 out '
                     '(shapes weighted by count)', per_shape=b8['per_shape']))
@@ -4138,6 +4650,7 @@ def main() -> int:
                  'kernel)',
         launches=int8_slices['int8']['launches']['int8_quantize'],
         launches_with_fused_blocks=int8_slices['int8+K8']['launches']['int8_quantize'],
+        launches_per_eval_frame=eval_launches[('stereo', 'int8')].get('int8_quantize', 0),
         max_abs_err=0.0, ms=b8['quantize']['ms'], graph_ms=b8['quantize']['graph_ms'],
         plain_ms=b8['quantize']['plain_ms'], bound_ms=b8['quantize']['bound_ms'],
         bound_by='bytes', library_ms=b8['quantize']['library_ms'],

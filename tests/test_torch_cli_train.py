@@ -12,7 +12,8 @@ the CPU:
   restored state equal to the saved one, the epoch's steps, the
   scheduler's units in steps as ``tests/test_cli_train_eval.py`` checks
   for JAX), Stereo3D at depth 18 through the disparity precompute, and the
-  start-up raises (an evaluation the port lacks, the multi-process options);
+  start-up raises (an evaluation the port lacks, ``evaluate_kitti_depth``;
+  the multi-process options);
 * KM3D on the ``resnet`` core against the JAX package: the f32 raw outputs
   (rtol 1e-4, atol 1e-4 of each map's std, as ``test_torch_km3d.py``) and
   the training loss's terms (rtol 2e-4, the bound of the whole-step test in
@@ -374,13 +375,16 @@ def test_cli_warm_starts_the_backbone(km3d_run, tmp_path, capsys):
 
 
 def test_cli_refuses_an_evaluation_it_cannot_run(km3d_run):
+    """An evaluator the port lacks (MonoDepth's ``evaluate_kitti_depth``)
+    within ``max_epochs``: a raise at start. ``evaluate_kitti_obj`` runs
+    (``tests/test_torch_cli_eval.py``)."""
     config, _, _ = km3d_run
-    _set(config, trainer__test_iter=1)
+    _set(config, trainer__test_iter=1, trainer__evaluate_func='evaluate_kitti_depth')
     try:
-        with pytest.raises(NotImplementedError, match="'evaluate_kitti_obj' after epochs"):
+        with pytest.raises(NotImplementedError, match="'evaluate_kitti_depth' after epochs"):
             train_cli.main(['--config', config, '--device', 'cpu'])
     finally:
-        _set(config, trainer__test_iter=0)
+        _set(config, trainer__test_iter=0, trainer__evaluate_func='evaluate_kitti_obj')
     trainer = EasyDict(max_epochs=20, test_iter=10)
     assert train_cli.evaluation_epochs(trainer, 0) == [9, 19]
     assert train_cli.evaluation_epochs(trainer, 19) == [19]

@@ -803,10 +803,9 @@ def test_entry_points_run_on_the_card_unless_told(monkeypatch):
     assert dict(train.scheduler.keywords) == {'T_max': 30, 'eta_min': 3e-5}
 
 
-def test_km3d_resnet_core_message_points_at_the_roadmap():
-    """The roadmap item the message named (Queue A, A3 item 1, the resnet
-    core) is ported: the core builds; another core name still raises,
-    naming it."""
+def test_km3d_core_builds_resnet_and_refuses_other_names():
+    """KM3D's ``resnet`` core (Queue A, A3 item 1) builds; another core
+    name raises, naming it."""
     assert KM3DCore({'name': 'resnet', 'depth': 18}).out_channels == 256
     with pytest.raises(NotImplementedError, match='vgg'):
         KM3DCore({'name': 'vgg'})

@@ -9,14 +9,16 @@
   package imports none of the root scripts.
 * A wheel of the package carries the kernel sources (package data).
 * The entry points (inference, the stereo trainer, the KM3D and MonoFlex
-  systems and trainers, the train CLI) run on the card by default and
-  raise without CUDA instead of running on the CPU.
+  systems and trainers, the train, eval and quantize CLIs) run on the card
+  by default and raise without CUDA instead of running on the CPU.
 * Kernels build from the package's sources only (``csrc/correlation.cu``,
   ``csrc/deform_conv.cu``, ``csrc/int8_conv.cu``, ``csrc/int8_block.cu``),
   include nothing but CUDA's headers and the package's own, rebuild when a
   source changes, and raise when ``nvcc`` is missing; the host C source of
   the PNG unfilter raises when no C compiler is found, and the PNG reader
-  never falls back to its plain numpy unfilter.
+  never falls back to its plain numpy unfilter; the KITTI evaluator's
+  native matcher (``csrc/kitti_eval.cpp``) has no catching ``try`` on its
+  path (``tests/test_torch_eval.py`` shows a failed build raising).
 * The int8 path has no ``try`` that catches: a kernel that fails to build or
   launch raises, and never gives way to the plain version.
 * Every launcher of ``csrc/deform_conv.cu`` is bound by its wrapper, and
@@ -139,6 +141,28 @@ def test_train_cli_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         train_cli.main(['--config', str(ROOT / 'configs' / 'km3d.py')])
+
+
+@pytest.mark.parametrize('cli', ['eval', 'quantize'])
+def test_eval_and_quantize_clis_raise_without_cuda(monkeypatch, tmp_path, cli):
+    import importlib
+    main = importlib.import_module(f'visualdet3d_tpu_torch.cli.{cli}').main
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    argv = ['--config', str(ROOT / 'configs' / 'stereo3d_int8.py'),
+            '--checkpoint_path', str(tmp_path)]
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        main(argv + (['--output_path', str(tmp_path / 'int8.pt')] if cli == 'quantize' else []))
+
+
+@pytest.mark.parametrize('module', ['evaluator/kitti_object/native.py',
+                                    'evaluator/kitti_object/eval.py', 'ops/kernel_build.py'])
+def test_evaluator_matcher_has_no_catching_try(module):
+    """A failed build of the native matcher raises: no ``try`` on its path
+    catches, so nothing falls back to the Python matcher."""
+    tree = ast.parse((ROOT / 'visualdet3d_tpu_torch' / module).read_text())
+    handlers = [node.lineno for node in ast.walk(tree)
+                if isinstance(node, ast.Try) and node.handlers]
+    assert handlers == [], f'{module}: try with except at lines {handlers}'
 
 
 def test_library_is_keyed_by_the_source(monkeypatch, tmp_path):
@@ -353,7 +377,7 @@ def test_pyproject_ships_the_kernel_sources():
                      for p in kernel_build.CSRC_DIR.iterdir() if p.suffix in ('.cu', '.cuh'))
     assert sources and all(any(fnmatch.fnmatch(s, g) for g in globs) for s in sources)
     host = sorted(p.relative_to(kernel_build.PKG_DIR).as_posix()
-                  for p in kernel_build.CSRC_DIR.glob('*.c'))
-    assert host == ['csrc/png_unfilter.c']
+                  for p in kernel_build.CSRC_DIR.iterdir() if p.suffix in ('.c', '.cpp'))
+    assert host == ['csrc/kitti_eval.cpp', 'csrc/png_unfilter.c']
     assert all(any(fnmatch.fnmatch(s, g) for g in globs) for s in host)
 

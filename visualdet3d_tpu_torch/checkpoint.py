@@ -8,12 +8,16 @@ stopped. Files are written to a temporary name and renamed into place, so
 a reader never sees half a checkpoint; the last ``max_to_keep`` are kept.
 Reading a JAX (orbax) checkpoint needs JAX, so it goes through
 ``convert.py`` in a script or test that imports both packages.
+
+An eval-only artifact (``save_params`` / ``load_params``: the int8 artifact
+of ``cli/quantize.py``, the folded network's ``state_dict`` and its
+``quant`` entries) is one ``torch.save`` file, written the same way.
 """
 from __future__ import annotations
 
 import os
 import re
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -41,9 +45,7 @@ class CheckpointManager:
         """Write ``state`` (``state_dict``s and plain values) as the
         checkpoint of ``step``, then drop all but the last ``max_to_keep``."""
         path = self.path(step)
-        tmp = f'{path}.tmp.{os.getpid()}'
-        torch.save({**state, 'step': int(step)}, tmp)
-        os.replace(tmp, path)
+        _atomic_save({**state, 'step': int(step)}, path)
         for old in self.all_steps()[:-self.max_to_keep]:
             os.remove(self.path(old))
         return path
@@ -57,6 +59,40 @@ class CheckpointManager:
         if step is None:
             return None
         return torch.load(self.path(step), map_location=map_location, weights_only=True)
+
+
+def _atomic_save(obj: Any, path: str) -> None:
+    tmp = f'{path}.tmp.{os.getpid()}'
+    torch.save(obj, tmp)
+    os.replace(tmp, path)
+
+
+def save_params(path: str, params: Dict[str, Any]) -> str:
+    """One-shot save of an eval-only artifact (``state_dict``s, tensors and
+    plain values) to the file ``path``, atomically."""
+    path = os.path.abspath(path)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    _atomic_save(params, path)
+    return path
+
+
+def load_params(path: str, map_location: Any = 'cpu') -> Dict[str, Any]:
+    """The artifact :func:`save_params` wrote to ``path``."""
+    return torch.load(path, map_location=map_location, weights_only=True)
+
+
+def load_model_weights(net: nn.Module, model_state: Dict[str, Any],
+                       train_only: Tuple[str, ...] = ()) -> None:
+    """Load a checkpoint's ``model`` into ``net`` for inference: every key
+    of ``net`` must be in it, and the only extra keys allowed are those of
+    the train-only modules ``train_only`` (flax paths, ``/``-separated:
+    Stereo3D's disparity head, which an inference network does not hold)."""
+    prefixes = tuple(p.replace('/', '.') + '.' for p in train_only)
+    missing, unexpected = net.load_state_dict(model_state, strict=False)
+    unexpected = [k for k in unexpected if not k.startswith(prefixes)]
+    if missing or unexpected:
+        raise KeyError(f'the checkpoint does not fit the network: missing {missing[:5]}, '
+                       f'unexpected {unexpected[:5]}')
 
 
 def train_state_dict(net: nn.Module, state) -> Dict[str, Any]:

@@ -9,10 +9,15 @@ draws differ); the scheduler's units are converted to steps unless
 ``is_iter_based``; ``train_rtm3d`` gets the epoch in its batch; the loss
 terms are buffered on the device and read every ``disp_iter`` steps; a
 checkpoint (``checkpoint.py``) is saved every epoch and ``--resume``
-continues from the latest. Two raises at start where the JAX CLI would go
-on: a config whose ``evaluate_func`` the port lacks while an evaluation
-would fall within ``max_epochs`` (the evaluators are not ported yet), and
-the multi-process options (one process on one device).
+continues from the latest. Every ``test_iter`` epochs the config's
+``evaluate_func`` (``pipelines/evaluators.py``) runs on the validation
+split after the checkpoint, as the JAX loop does: the training weights in
+f32 (``inference_dtype`` is set aside for it), the network in eval mode,
+then back; its timings go to ``<log_path>/eval_stats.jsonl``. Two raises
+at start where the JAX CLI would go on: a config whose ``evaluate_func``
+the port lacks (``evaluate_kitti_depth``, which comes with MonoDepth)
+while an evaluation would fall within ``max_epochs``, and the
+multi-process options (one process on one device).
 
 Each epoch also appends one JSON line to ``<log_path>/train_stats.jsonl``:
 its steps and wall seconds, the seconds the loop waited on the loader
@@ -28,26 +33,18 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import inspect
 import itertools
 import json
 import os
 import time
-from typing import Dict, Optional
+from typing import Optional
 
 import numpy as np
 import torch
 
-LAUNCH_COUNTERS = ('deform_conv', 'cost_volume', 'int8_conv', 'int8_block')
-
-
-def launch_counts() -> Dict[str, int]:
-    """Every kernel launch counter of the port's ops, by kernel name."""
-    import importlib
-    counts = {}
-    for name in LAUNCH_COUNTERS:
-        counts.update(importlib.import_module(f'visualdet3d_tpu_torch.ops.{name}').LAUNCHES)
-    return counts
+from visualdet3d_tpu_torch.ops import launch_counts
 
 
 def host_batch(batch: dict, pin: bool) -> dict:
@@ -81,6 +78,22 @@ def evaluation_epochs(trainer_cfg, start_epoch: int):
     if test_iter <= 0:
         return []
     return [e for e in range(start_epoch, trainer_cfg.max_epochs) if (e + 1) % test_iter == 0]
+
+
+@contextlib.contextmanager
+def evaluation_mode(system):
+    """The training system as the evaluation reads it: its weights in f32
+    (``cfg.inference_dtype`` set to 'float32') and the network in eval
+    mode; both restored after."""
+    dtype = system.cfg.get('inference_dtype', 'float32')
+    was_training = system.net.training
+    system.cfg.inference_dtype = 'float32'
+    system.net.eval()
+    try:
+        yield
+    finally:
+        system.cfg.inference_dtype = dtype
+        system.net.train(was_training)
 
 
 def parse_args(argv=None):
@@ -128,7 +141,7 @@ def main(argv=None) -> None:
     from visualdet3d_tpu_torch.utils import LossLogger, MetricWriter, Timer
     import visualdet3d_tpu_torch.data  # noqa: F401  (registers the datasets)
     import visualdet3d_tpu_torch.models  # noqa: F401  (registers the detectors)
-    import visualdet3d_tpu_torch.pipelines.trainers  # noqa: F401  (registers the trainers)
+    from visualdet3d_tpu_torch.pipelines import evaluators, testers, trainers  # noqa: F401
 
     device = resolve_device(args.device)
     cfg = cfg_from_file(args.config)
@@ -139,13 +152,13 @@ def main(argv=None) -> None:
     resume_step = ckpt.latest_step() if args.resume else None
     start_epoch = 0 if resume_step is None else resume_step // steps_per_epoch
     evaluate_func = cfg.trainer.get('evaluate_func')
-    if evaluate_func and evaluate_func not in PIPELINE_DICT:
-        epochs = evaluation_epochs(cfg.trainer, start_epoch)
-        if epochs:
-            raise NotImplementedError(
-                f'the config evaluates with {evaluate_func!r} after epochs {epochs[:3]}..., '
-                'which the port does not have yet (ROADMAP.md Queue A, A5); set '
-                'trainer.test_iter to 0 or past max_epochs to train without it')
+    eval_epochs = evaluation_epochs(cfg.trainer, start_epoch) if evaluate_func else []
+    if eval_epochs and evaluate_func not in PIPELINE_DICT:
+        raise NotImplementedError(
+            f'the config evaluates with {evaluate_func!r} after epochs {eval_epochs[:3]}..., '
+            'which the port does not have yet (ROADMAP.md Queue A, A6); set '
+            'trainer.test_iter to 0 or past max_epochs to train without it')
+    dataset_val = DATASET_DICT[cfg.data.val_dataset](cfg, 'validation') if eval_epochs else None
 
     writer = MetricWriter(cfg.path.log_path)
     loss_logger = LossLogger(writer, 'train')
@@ -252,6 +265,20 @@ def main(argv=None) -> None:
         with open(stats_path, 'a') as f:
             f.write(json.dumps(stats) + '\n')
         print(f'\nepoch {epoch_num}: {json.dumps(stats)}')
+
+        if epoch_num in eval_epochs:
+            print(f'\n/**** start testing after training epoch {epoch_num} ******/')
+            eval_stats = {}
+            before = launch_counts()
+            with evaluation_mode(system):
+                PIPELINE_DICT[evaluate_func](cfg, system, dataset_val, writer, epoch_num,
+                                             stats=eval_stats)
+            after = launch_counts()
+            evaluators.write_eval_stats(cfg, dict(
+                epoch=epoch_num, split='validation', frames=len(dataset_val), device=str(device),
+                inference_dtype='float32', **eval_stats,
+                launches={k: after[k] - before[k] for k in after if after[k] != before[k]}))
+            print(f'/**** finish testing after training epoch {epoch_num} ******/')
         writer.flush()
 
     writer.close()

@@ -1,8 +1,9 @@
 """Box geometry (counterpart of ``visualdet3d_tpu/geometry.py``): the 2-D
 box helpers on tensors (leading batch dimensions broadcast), and the 3-D
-corner matrix, alpha/theta conversions, the 3-D box projection and the
-annotation packing on numpy arrays or floats, for the host-side data
-layer and target builders."""
+corner matrix, alpha/theta conversions, the 3-D box projection, the
+back-projection of image-frame box states and the annotation packing on
+numpy arrays or floats, for the host-side data layer, the training targets
+and evaluation."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -21,6 +22,22 @@ CORNER_MATRIX = np.array(
      [-1, -1, 1],
      [-1, 1, 1],
      [-1, 1, -1]], dtype=np.float32)  # [8, 3]
+
+
+def convert_alpha_to_rot(alpha, cx, P2):
+    """alpha + image-column ray angle -> global yaw, wrapped to (-pi, pi]
+    (reference visualDet3D/utils/utils.py:30-37, convertAlpha2Rot)."""
+    ry3d = alpha + np.arctan2(cx - P2[..., 0, 2], P2[..., 0, 0])
+    ry3d = np.where(ry3d > np.pi, ry3d - 2 * np.pi, ry3d)
+    return np.where(ry3d <= -np.pi, ry3d + 2 * np.pi, ry3d)
+
+
+def convert_rot_to_alpha(ry3d, cx, P2):
+    """Inverse of :func:`convert_alpha_to_rot` (reference utils.py:40-45,
+    convertRot2Alpha)."""
+    alpha = ry3d - np.arctan2(cx - P2[..., 0, 2], P2[..., 0, 0])
+    alpha = np.where(alpha > np.pi, alpha - 2 * np.pi, alpha)
+    return np.where(alpha <= -np.pi, alpha + 2 * np.pi, alpha)
 
 
 def alpha2theta_3d(alpha, x, z, P2):
@@ -52,6 +69,17 @@ def project_bbox3d(bbox_3d: np.ndarray, P2: np.ndarray):
     camera_coord = np.einsum('ij,nkj->nki', P2, np.concatenate([abs_corners, ones], axis=-1))
     homo_coord = camera_coord / (camera_coord[:, :, 2:] + 1e-6)
     return abs_corners, homo_coord, thetas
+
+
+def back_projection(bbox3d: np.ndarray, P2: np.ndarray) -> np.ndarray:
+    """Image-frame 3-D box states [N, 7] (image_x, image_y, z, w, h, l,
+    alpha) -> camera-frame states [N, 7] (x3d, y3d, z, w, h, l, alpha)
+    through P2 [3, 4] (reference networks/utils/utils.py:255-279)."""
+    fx, fy, cx, cy, tx, ty = P2[0, 0], P2[1, 1], P2[0, 2], P2[1, 2], P2[0, 3], P2[1, 3]
+    z3d = bbox3d[:, 2:3]
+    x3d = (bbox3d[:, 0:1] * z3d - cx * z3d - tx) / fx
+    y3d = (bbox3d[:, 1:2] * z3d - cy * z3d - ty) / fy
+    return np.concatenate([x3d, y3d, bbox3d[:, 2:]], axis=1)
 
 
 def corner_bbox_to_xyxy(corner_box: np.ndarray) -> np.ndarray:

@@ -154,6 +154,11 @@ class KM3D(InferenceMixin):
         images = torch.as_tensor(images, device=self.device)
         return images.to(dtype).contiguous().permute(0, 3, 1, 2)
 
+    def _net_inputs(self, image_hw, batch_size: int = 1):
+        """Example inputs of ``net`` (the BN fold's forward pass)."""
+        img = torch.zeros((batch_size, *image_hw, 3), device=self.device)
+        return (self._images(img, torch.float32),)
+
     @torch.inference_mode()
     def predict_raw(self, images) -> Dict[str, torch.Tensor]:
         """[B, H, W, 3] images -> the head's maps, NHWC [B, H/4, W/4, C], in

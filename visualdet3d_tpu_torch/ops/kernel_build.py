@@ -8,9 +8,11 @@ source is rebuilt and an unchanged one is not. Only sources in the package
 are compiled. Without ``nvcc`` this raises: a CUDA tensor never falls back
 to the plain path.
 
-Host C sources (``csrc/<name>.c``: the PNG unfilter of ``data/image_io.py``)
-are built the same way with the host C compiler (``$CC``, else ``cc``) and
-raise the same way without one.
+Host sources are built the same way with the host's compilers and raise
+the same way without one: C (``csrc/<name>.c``: the PNG unfilter of
+``data/image_io.py``) with ``$CC``, else ``cc``; C++ (``csrc/<name>.cpp``:
+the KITTI evaluator's matcher, ``evaluator/kitti_object/native.py``) with
+``$CXX``, else ``c++``.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 HOST_CFLAGS = ('-O3', '-shared', '-fPIC', '-std=c99')
+HOST_CXXFLAGS = ('-O3', '-shared', '-fPIC', '-std=c++17')
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _host_lock = threading.Lock()  # the data loader's threads load the host library together
@@ -53,29 +56,54 @@ def find_cc() -> str:
                        'of visualdet3d_tpu_torch (csrc/*.c) are built at first use')
 
 
+def find_cxx() -> str:
+    for cand in (os.environ.get('CXX'), 'c++', 'g++', 'clang++'):
+        path = shutil.which(cand) if cand else None
+        if path:
+            return path
+    raise RuntimeError('no C++ compiler found ($CXX, c++, g++, clang++): the host C++ '
+                       'sources of visualdet3d_tpu_torch (csrc/*.cpp) are built at first use')
+
+
+def host_source(name: str) -> Path:
+    """``csrc/<name>.c`` or ``csrc/<name>.cpp``, whichever exists."""
+    for suffix in ('.c', '.cpp'):
+        src = CSRC_DIR / f'{name}{suffix}'
+        if src.exists():
+            return src
+    raise FileNotFoundError(f'no host source csrc/{name}.c or csrc/{name}.cpp')
+
+
+def _host_flags(src: Path):
+    return HOST_CXXFLAGS if src.suffix == '.cpp' else HOST_CFLAGS
+
+
 def host_library_path(name: str) -> Path:
-    """Where the library for ``csrc/<name>.c`` lives for the current source."""
-    src = CSRC_DIR / f'{name}.c'
-    h = hashlib.sha256(' '.join(HOST_CFLAGS).encode())
+    """Where the library for ``csrc/<name>.c`` (or ``.cpp``) lives for the
+    current source."""
+    src = host_source(name)
+    h = hashlib.sha256(' '.join(_host_flags(src)).encode())
     h.update(src.read_bytes())
     return BUILD_DIR / f'lib{name}-host-{h.hexdigest()[:16]}.so'
 
 
 def load_host(name: str) -> ctypes.CDLL:
-    """The loaded library for the host source ``csrc/<name>.c``, built
-    first with the host C compiler if it is missing."""
+    """The loaded library for the host source ``csrc/<name>.c`` (or
+    ``.cpp``), built first with the host's C (C++) compiler if it is
+    missing."""
     key = f'host:{name}'
     with _host_lock:
         if key not in _loaded:
             so = host_library_path(name)
             if not so.exists():
+                src = host_source(name)
+                compiler = find_cxx() if src.suffix == '.cpp' else find_cc()
                 BUILD_DIR.mkdir(parents=True, exist_ok=True)
                 tmp = so.with_name(f'{so.name}.{os.getpid()}.tmp')
-                proc = subprocess.run([find_cc(), *HOST_CFLAGS, '-o', str(tmp),
-                                       str(CSRC_DIR / f'{name}.c')],
+                proc = subprocess.run([compiler, *_host_flags(src), '-o', str(tmp), str(src)],
                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
                 if proc.returncode != 0:
-                    raise RuntimeError(f'the C compiler failed for csrc/{name}.c '
+                    raise RuntimeError(f'the compiler failed for csrc/{src.name} '
                                        f'(rc {proc.returncode}):\n{proc.stdout}')
                 os.replace(tmp, so)  # atomic: a concurrent process sees all or nothing
             _loaded[key] = ctypes.CDLL(str(so))

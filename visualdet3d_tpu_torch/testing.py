@@ -697,6 +697,21 @@ def write_synthetic_kitti(root: str, n_frames: int, seed: int = 0,
     return root
 
 
+def write_synthetic_labels(label_dir: str, frame_ids, seed: int = 0,
+                           image_hw=KITTI_IMAGE_HW) -> str:
+    """Label files only, ``label_dir/%06d.txt`` for each of ``frame_ids``:
+    1-5 objects a frame and a DontCare row, as ``write_synthetic_kitti``
+    draws them (from another stream: the images are not drawn). For an
+    evaluator run on many frames without images. Returns ``label_dir``."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(label_dir, exist_ok=True)
+    for i in frame_ids:
+        rows = _kitti_label_rows(rng, KITTI_CALIB['P2'], image_hw, int(rng.integers(1, 6)))
+        with open(os.path.join(label_dir, '%06d.txt' % i), 'w') as f:
+            f.write('\n'.join(rows) + '\n')
+    return label_dir
+
+
 def write_split_files(out_dir: str, train_ids, val_ids):
     """``out_dir/train.txt`` and ``val.txt`` listing the frames
     (``%06d``); returns their paths."""
