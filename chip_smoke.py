@@ -191,6 +191,37 @@ each printed as one JSON line:
    ``test_iter=1`` on KM3D: the AP table after its epoch, 16 DCN launches
    a frame).
 
+12. RetinaNet 2D and MonoDepth (``entry.build_retinanet_system``,
+   ``build_monodepth_system`` and their trainers), after the GAC phases:
+   retinanet_slice, retinanet_profile (``RetinaNet.predict`` at batch 16,
+   384x1280, f32 and bf16: ms a batch, fps, bs1 p50, valid detections, a
+   profile with the network's share against decode and NMS),
+   retinanet_parity (batch-1 f32 against the CPU); monodepth_slice,
+   monodepth_profile (``MonoDepth.predict`` at batch 8, 352x1216, f32 and
+   bf16: 3 DCN launches a forward on the per-tap kernel, the dtype each DCN
+   computes in (f32 in both: the decoder runs f32 after ``LookGround``, so
+   K5), positive finite depth, the DCN share of the device time),
+   monodepth_parity; monodepth_dcn_kernel (K5 and K3 forward, K7's dx and
+   dW at the U-Net's three shapes, batch 8, against their plain versions,
+   in events and device time beside the bound and a cuDNN dense 3x3;
+   monodepth_dcn_alltaps and monodepth_dcn_premul: K4 at each shape, K6 at
+   up0 and up1, bit for bit on the same table); retinanet_train,
+   monodepth_train (batch 8, bf16 mixed precision and f32: ms a step, img/s,
+   peak memory, a profile, the loss falling over 10 steps; MonoDepth 3 DCN
+   forward, dx, dW and dW-reduce launches a step, and one bf16 step under
+   ``VD3D_DCN_ALLTAPS=1`` on K4); retinanet_train_parity,
+   monodepth_train_parity (one f32 step at batch 2 on the card and on the
+   CPU, both against the CPU's step in f64, the leaves of the DCNs and of
+   ``LookGround`` each held on its own). After the evaluation phases of 11,
+   on disk: depth_data (``testing.write_synthetic_kitti_depth``: 16 frames
+   and 4 validation frames at 375x1242, the item's ms by stage, the depth
+   prior precompute CLI's seconds); cli_train_monodepth and
+   cli_train_retinanet (the train CLI in a subprocess, one epoch of 2 steps
+   at batch 8 and the evaluation after it: 16-bit depth PNGs and the nine
+   metrics; RetinaNet's 2-D results and AP table); cli_eval_monodepth (the
+   eval CLI at batch 1 over 100 frames: the frame's, the item's and the
+   PNG's ms; the card's metrics against ``--device cpu``'s within 1e-4).
+
 Then a ``wall`` line (the script's seconds), the ``kernels`` summary line,
 the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
@@ -223,8 +254,12 @@ CARD_PEAKS = {
 }
 
 
+T_START = time.perf_counter()  # the elapsed seconds each line carries count from here
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({'phase': phase, **fields}), flush=True)
+    print(json.dumps({'phase': phase, **fields, 'elapsed_s': time.perf_counter() - T_START}),
+          flush=True)
 
 
 def fail(msg: str) -> None:
@@ -3202,7 +3237,7 @@ def head_dcn_bf16_check(torch, dc, args, weight, bias, what):
                 'plain': ulps_of(pre.double())}
     text = (f'one bf16 ulp of the pre-bias output + one of the output + {HEAD_DCN_ACC_ULPS} f32 '
             'ulps of sum|tap products|, per element, against the f32 plain version and the f64 '
-            'sums of the same bf16 samples (batch 16)')
+            'sums of the same bf16 samples')
     ok = bool((err_plain <= tol).all()) and bool((err_exact <= tol).all())
     check(ok, f'{what}: max abs err {float(err_plain.max())} to the plain version, '
               f'{float(err_exact.max())} to the f64 sums, outside {text}')
@@ -4354,8 +4389,1061 @@ def kitti_training_phases(torch):
         corr = {'correlation_volume_interleaved': 2, 'correlation_backward_interleaved': 2}
         stereo = cli_train_phase(torch, configs['stereo'], 'cli_train_stereo', corr)
         eval_launches = kitti_eval_phases(torch, work, configs)
+        a6_cli = a6_tree_phases(torch, work, configs['km3d'])
     km3d_resnet_parity_phase(torch)
-    return km3d, stereo, eval_launches
+    return km3d, stereo, eval_launches, a6_cli
+
+
+def a6_tree_phases(torch, work, km3d_config):
+    """The A6 slice from trees on disk: depth_data (the synthetic depth
+    tree, the datasets, the prior precompute), cli_train_monodepth,
+    cli_eval_monodepth, and cli_train_retinanet on the KITTI object tree of
+    ``km3d_config``. Returns the launches a step and a frame they counted."""
+    from visualdet3d_tpu_torch.config import cfg_from_file
+    t0 = time.perf_counter()
+    _, config = depth_data_phase(work)
+    train = cli_train_monodepth_phase(torch, config)
+    evaluation = cli_eval_monodepth_phase(torch, config)
+    root = cfg_from_file(km3d_config).path.data_path
+    cli_train_retinanet_phase(torch, work, root,
+                              range(KM3D_TREE_FRAMES - VAL_FRAMES, KM3D_TREE_FRAMES))
+    emit('a6_tree_phases', seconds=time.perf_counter() - t0)
+    return dict(launches_per_step=train['launches_per_step'],
+                eval_launches_per_frame=evaluation['launches_per_frame'])
+
+
+# ---------------------------------------------------------------------------
+# RetinaNet 2D and MonoDepth (slice A6): inference, training, the depth data
+# path, the CLIs, and K3/K5/K7 (K4/K6) at the U-Net's three DCN shapes
+# ---------------------------------------------------------------------------
+
+A6_TRAIN_BATCH = 8       # both configs' training batch
+MONODEPTH_BATCH = 8      # configs/monodepth.py's batch: MonoDepth's predict batch too
+# the U-Net's DCNs at 352x1216: (name, H, W, C_in, C_out)
+MONODEPTH_DCNS = (('up0', 22, 76, 768, 256), ('up1', 44, 152, 384, 64),
+                  ('up2', 88, 304, 64, 64))
+MONODEPTH_DCN_PER_FORWARD = len(MONODEPTH_DCNS)
+DEPTH_TREE_FRAMES = 16   # 2 MonoDepth steps at batch 8
+RETINA_TREE_FRAMES = 16  # 2 RetinaNet steps at batch 8, from the KM3D tree's frames
+A6_RESIDUAL_SCALE = 0.1  # the residual branches' last BN scale in the step parities
+# the learning rate of RetinaNet's loss-fall check: at the config's SGD lr 0.01 a
+# random-weight RetinaNet swings over 10 steps on one batch (90 to 3720 on the CPU at
+# 192x640; 43 to 18737 in f32 on the card), at 1e-3 it falls (90 to 22)
+RETINANET_FALL_LR = 1e-3
+# MonoDepth's DCN and LookGround leaves in the step parity, each on its own
+# against the f64 step: the CPU's own f32 step sits 0.04-0.26% from it there
+# (not GAC's 0.6-0.9%), and the card within 2.5x of that (on an H100), so
+# the floor gate holds them; the cap only bounds a gross error
+MONODEPTH_LEAF_REL_CAP = 1e-2
+
+
+def a6_inputs(torch, n, batch, image_hw, seed):
+    """n distinct request batches of standard-normal images on the card and
+    the KITTI P2 scaled to the width, tiled to the batch."""
+    from visualdet3d_tpu_torch.testing import _kitti_P2
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    images = [torch.randn((batch, *image_hw, 3), generator=gen, device='cuda') for _ in range(n)]
+    P2 = torch.as_tensor(np.tile(_kitti_P2(image_hw[1]), (batch, 1, 1)), device='cuda')
+    return images, P2
+
+
+def build_retinanet(torch):
+    """``entry.build_retinanet_system`` on the card, random weights from
+    seed 0, made ready on 4 images (``testing.prepare_retinanet``: batch
+    statistics, the prediction convs calibrated: zero as initialised,
+    every score sits at the prior 0.01)."""
+    from visualdet3d_tpu_torch.entry import RETINANET_IMAGE_HW, build_retinanet_system
+    from visualdet3d_tpu_torch.testing import prepare_retinanet
+    system = build_retinanet_system(device='cuda')
+    (calib,), _ = a6_inputs(torch, 1, 4, RETINANET_IMAGE_HW, seed=61)
+    prepare_retinanet(system, calib, torch.Generator().manual_seed(62))
+    return system
+
+
+def build_monodepth(torch):
+    """``entry.build_monodepth_system`` on the card, random weights from
+    seed 0, made ready on 4 images (``testing.prepare_monodepth``: batch
+    statistics, the DCNs' offsets at std 2 px, ``LookGround`` alpha 0.5)."""
+    from visualdet3d_tpu_torch.entry import MONODEPTH_IMAGE_HW, build_monodepth_system
+    from visualdet3d_tpu_torch.testing import prepare_monodepth
+    system = build_monodepth_system(device='cuda')
+    (calib,), P2 = a6_inputs(torch, 1, 4, MONODEPTH_IMAGE_HW, seed=63)
+    prepare_monodepth(system, calib, P2, torch.Generator().manual_seed(64))
+    return system
+
+
+def bs1_latencies(torch, fn, inputs):
+    """Host ms of ``fn(x)`` one at a time, synchronised, over N_BS1 calls
+    cycling through ``inputs`` after one warm-up call."""
+    fn(inputs[0])
+    lats = []
+    for i in range(N_BS1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn(inputs[i % len(inputs)])
+        torch.cuda.synchronize()
+        lats.append((time.perf_counter() - t) * 1e3)
+    return lats
+
+
+def retinanet_slice_phase(torch, system, dtype_name):
+    """``RetinaNet.predict`` at batch 16, 384x1280, over N_BATCHES distinct
+    request batches: ms per batch, fps, batch-1 p50, peak memory, valid
+    detections (the decode and NMS on the card); outputs [B, 64] finite."""
+    from visualdet3d_tpu_torch.entry import RETINANET_IMAGE_HW
+    system.cfg.inference_dtype = dtype_name
+    batches, _ = a6_inputs(torch, N_BATCHES + 1, BATCH, RETINANET_IMAGE_HW, seed=65)
+    system.predict(batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    outs = [system.predict(images) for images in batches[1:]]
+    torch.cuda.synchronize()
+    ms_batch = (time.perf_counter() - t0) * 1e3 / N_BATCHES
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_valid = [int(o['valid'].sum()) for o in outs]
+    for o in outs:
+        check(o['bboxes'].shape == (BATCH, 64, 4) and o['scores'].shape == (BATCH, 64),
+              f'retinanet_slice {dtype_name}: output shapes {o["bboxes"].shape}')
+        for key in ('scores', 'bboxes'):
+            check(bool(torch.isfinite(o[key]).all()), f'retinanet_slice {dtype_name}: {key}')
+    check(min(n_valid) > 0, f'retinanet_slice {dtype_name}: a batch with no detection {n_valid}')
+    lats = bs1_latencies(torch, system.predict, [b[:1].clone() for b in batches])
+    result = dict(dtype=dtype_name, batch=BATCH, image_hw=list(RETINANET_IMAGE_HW),
+                  anchors=int(system.anchor_pack(RETINANET_IMAGE_HW).shape[0]),
+                  ms_per_batch=ms_batch, fps=BATCH / ms_batch * 1e3,
+                  bs1_p50_ms=statistics.median(lats), bs1_ms=lats, valid_per_batch=n_valid,
+                  peak_memory_gb=peak_gb)
+    emit('retinanet_slice', **result)
+    return result, batches[1]
+
+
+def retinanet_profile_phase(torch, system, images, dtype_name):
+    """A profiler breakdown of one batch-16 predict, and by CUDA events the
+    network alone against the whole predict (decode and NMS the rest)."""
+    system.cfg.inference_dtype = dtype_name
+    system.predict(images)
+    torch.cuda.synchronize()
+    wall_ms, kernels, ops, device_ms = device_profile(torch, lambda: system.predict(images))
+    net = system.inference_net()
+    x = system._images(images, system.inference_dtype())
+    runs = range(5)
+    with torch.inference_mode():
+        net_ms = cuda_ms(lambda _: net(x), runs, warmup=1)
+    predict_ms = cuda_ms(lambda _: system.predict(images), runs, warmup=1)
+    emit('retinanet_profile', dtype=dtype_name, batch=BATCH, wall_ms=wall_ms,
+         device_ms=device_ms, device_busy_share=device_ms / wall_ms,
+         events_predict_ms=predict_ms, events_network_ms=net_ms,
+         decode_nms_share_of_predict=1 - net_ms / predict_ms, top_ops=top_events(ops, 12),
+         top_kernels=top_events(kernels, 12))
+
+
+def retinanet_parity_phase(torch, system):
+    """Batch 1, f32, TF32 off: the card's RetinaNet against the same weights
+    on the CPU: the same number of detections, matched one to one in any
+    order (the same label, scores within 1e-3, boxes within rtol = atol =
+    1e-3; cuDNN and oneDNN move the logits by up to 3e-4, the scores by
+    5e-5), raw maps within 1e-3 of their largest value.
+
+    The class bias is first moved so that the score threshold falls in the
+    widest gap between the image's 30th to 60th largest class logits: with
+    the calibrated head some 6000 logits of the 276,210 pass it, their
+    scores crowd together, and greedy NMS then keeps another of two
+    overlapping boxes whose scores the two devices order differently (a
+    Pedestrian at 0.9347 had no match on the CPU, on an H100)."""
+    from visualdet3d_tpu_torch.entry import RETINANET_IMAGE_HW, build_retinanet_system
+    system.cfg.inference_dtype = 'float32'
+    rng = np.random.default_rng(66)
+    image = torch.from_numpy(rng.standard_normal((1, *RETINANET_IMAGE_HW, 3)).astype(np.float32))
+    with torch.no_grad():
+        top = system.predict_raw(image)[0].float().flatten().topk(61).values.cpu()
+        k = 30 + int((top[29:60] - top[30:61]).argmax())  # the threshold between top[k-1] and top[k]
+        system.net.retina_cls.bias -= float(top[k - 1] + top[k]) / 2
+    system.weights_changed()
+    cpu = build_retinanet_system(device='cpu')
+    cpu.net.load_state_dict({k: v.cpu() for k, v in system.net.state_dict().items()})
+    cpu.weights_changed()
+    out_gpu = {k: v.cpu() for k, v in system.predict(image).items()}
+    raw_gpu = [t.float().cpu() for t in system.predict_raw(image)]
+    out_cpu = cpu.predict(image)
+    raw_cpu = [t.float() for t in cpu.predict_raw(image)]
+    raw_err = [float((g - c).abs().max() / c.abs().max()) for g, c in zip(raw_gpu, raw_cpu)]
+    check(max(raw_err) <= 1e-3, f'retinanet_parity: raw maps differ {raw_err}')
+    valid = out_cpu['valid']
+    check(int(valid.sum()) > 0, 'retinanet_parity: no valid detection at batch 1')
+    check(torch.equal(out_gpu['valid'], valid),
+          f'retinanet_parity: valid sets differ: gpu {out_gpu["valid"].nonzero().tolist()} '
+          f'cpu {valid.nonzero().tolist()}')
+    # the detections as a set: NMS keeps them in score order, and two scores
+    # a few ulps apart may come in the other order on the other device
+    rows = {}
+    for tag, out in (('gpu', out_gpu), ('cpu', out_cpu)):
+        v = out['valid'][0]
+        rows[tag] = (out['labels'][0][v].tolist(), out['bboxes'][0][v].double(),
+                     out['scores'][0][v].double())
+    used, box_err, score_err, swapped = set(), 0.0, 0.0, 0
+    for i, (label, box, score) in enumerate(zip(*rows['gpu'])):
+        found = None
+        for j, (label_c, box_c, score_c) in enumerate(zip(*rows['cpu'])):
+            if (j not in used and label_c == label and abs(float(score - score_c)) <= 1e-3
+                    and bool(torch.allclose(box, box_c, rtol=1e-3, atol=1e-3))):
+                found = j
+                break
+        check(found is not None, f'retinanet_parity: the card\'s detection {i} (label {label}, '
+                                 f'score {float(score)}, box {box.tolist()}) has no match on '
+                                 'the CPU')
+        used.add(found)
+        swapped += found != i
+        box_err = max(box_err, float((box - rows['cpu'][1][found]).abs().max()))
+        score_err = max(score_err, abs(float(score - rows['cpu'][2][found])))
+    emit('retinanet_parity', batch=1, dtype='float32', tf32=False, n_valid=int(valid.sum()),
+         logits_above_threshold=k, threshold_margin=float(top[k - 1] - top[k]) / 2,
+         max_box_abs_err=box_err, max_score_abs_err=score_err,
+         detections_in_another_order=swapped, raw_rel_err_cls_reg=raw_err)
+    del cpu
+
+
+def monodepth_predict_run(torch, dc, system, batches, P2, what):
+    """predict over ``batches`` with the launch counts set to 0 just before,
+    and a forward hook on each DCN recording the dtype it computes in:
+    (ms per batch, outputs, launches, the DCNs' dtypes). Each predict must
+    launch MONODEPTH_DCN_PER_FORWARD per-tap DCN forwards."""
+    from visualdet3d_tpu_torch.models.blocks import ModulatedDeformConv
+    dtypes, hooks = {}, []
+    for name, m in system.inference_net().named_modules():
+        if isinstance(m, ModulatedDeformConv):
+            hooks.append(m.register_forward_hook(
+                lambda mod, a, out, name=name: dtypes.__setitem__(name, str(out.dtype)[6:])))
+    try:
+        dc.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs = [system.predict(images, P2) for images in batches]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+        launches = {k: dc.LAUNCHES[k] for k in DCN_FORWARD_KERNELS}
+    finally:
+        for h in hooks:
+            h.remove()
+    want = {'modulated_deform_conv': MONODEPTH_DCN_PER_FORWARD * len(batches),
+            'modulated_deform_conv_alltaps': 0, 'modulated_deform_conv_premul_accum': 0}
+    check(launches == want, f'{what}: DCN launches {launches} for {len(batches)} predicts '
+                            f'(expected {want})')
+    return ms, outs, launches, dtypes
+
+
+def monodepth_slice_phase(torch, dc, system, dtype_name):
+    """``MonoDepth.predict`` at batch 8 (the config's) and batch 1, 352x1216,
+    over N_BATCHES distinct request batches: ms per batch, fps, bs1 p50,
+    peak memory; 3 DCN launches a forward on the per-tap kernel, and the
+    dtype each DCN computes in (f32 in both: the JAX package's bf16
+    inference runs the decoder in f32 after ``LookGround``, so the f32
+    kernel K5); positive, finite depth [B, H, W, 1]."""
+    from visualdet3d_tpu_torch.entry import MONODEPTH_IMAGE_HW
+    system.cfg.inference_dtype = dtype_name
+    batches, P2 = a6_inputs(torch, N_BATCHES + 1, MONODEPTH_BATCH, MONODEPTH_IMAGE_HW, seed=67)
+    system.predict(batches[0], P2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms_batch, outs, launches, dtypes = monodepth_predict_run(
+        torch, dc, system, batches[1:], P2, f'monodepth_slice {dtype_name}')
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(sorted(dtypes.values()) == ['float32'] * MONODEPTH_DCN_PER_FORWARD,
+          f'monodepth_slice {dtype_name}: the DCNs compute in {dtypes}')
+    for o in outs:
+        t = o['target']
+        check(t.shape == (MONODEPTH_BATCH, *MONODEPTH_IMAGE_HW, 1),
+              f'monodepth_slice {dtype_name}: depth shape {tuple(t.shape)}')
+        check(bool(torch.isfinite(t).all()) and float(t.min()) > 0,
+              f'monodepth_slice {dtype_name}: depth not positive and finite')
+    lats = bs1_latencies(torch, lambda x: system.predict(x, P2[:1]),
+                         [b[:1].clone() for b in batches])
+    depth = outs[0]['target']
+    result = dict(dtype=dtype_name, batch=MONODEPTH_BATCH, image_hw=list(MONODEPTH_IMAGE_HW),
+                  ms_per_batch=ms_batch, fps=MONODEPTH_BATCH / ms_batch * 1e3,
+                  bs1_p50_ms=statistics.median(lats), bs1_ms=lats, launches_by_kernel=launches,
+                  launches=launches['modulated_deform_conv'],
+                  launches_per_predict=launches['modulated_deform_conv'] / N_BATCHES,
+                  dcn_dtypes=dtypes, kernel_by_dcn={k: 'K5' if v == 'float32' else 'K3'
+                                                    for k, v in dtypes.items()},
+                  depth_min_m=float(depth.min()), depth_median_m=float(depth.median()),
+                  depth_max_m=float(depth.max()), peak_memory_gb=peak_gb)
+    emit('monodepth_slice', **result)
+    return result, batches[1], P2
+
+
+def monodepth_profile_phase(torch, system, images, P2, dtype_name):
+    """A profiler breakdown of one batch-8 predict: the DCN kernel's device
+    time and its share, the busy share, the top ops and kernels; by CUDA
+    events the trunk alone against the whole predict."""
+    system.cfg.inference_dtype = dtype_name
+    system.predict(images, P2)
+    torch.cuda.synchronize()
+    wall_ms, kernels, ops, device_ms = device_profile(torch, lambda: system.predict(images, P2))
+    dcn = [e for e in kernels if 'deform_conv_kernel' in e.key]
+    check(sum(e.count for e in dcn) == MONODEPTH_DCN_PER_FORWARD,
+          f'monodepth_profile {dtype_name}: {sum(e.count for e in dcn)} DCN kernels')
+    dcn_ms = sum(e.self_device_time_total for e in dcn) / 1e3
+    net = system.inference_net()
+    x = system._images(images, system.inference_dtype())
+    runs = range(5)
+    with torch.inference_mode():
+        trunk_ms = cuda_ms(lambda _: net.ResNet_0(x), runs, warmup=1)
+    predict_ms = cuda_ms(lambda _: system.predict(images, P2), runs, warmup=1)
+    emit('monodepth_profile', dtype=dtype_name, batch=MONODEPTH_BATCH, wall_ms=wall_ms,
+         device_ms=device_ms, device_busy_share=device_ms / wall_ms, dcn_kernel_ms=dcn_ms,
+         dcn_share_of_device=dcn_ms / device_ms, events_predict_ms=predict_ms,
+         events_trunk_ms=trunk_ms, decoder_share_of_predict=1 - trunk_ms / predict_ms,
+         top_ops=top_events(ops, 12), top_kernels=top_events(kernels, 12))
+
+
+def monodepth_parity_phase(torch, system):
+    """Batch 1, f32, TF32 off: the card's MonoDepth against the same weights
+    on the CPU: the three log-depth maps within 1e-3 of their largest
+    value, the depth within 1e-3 relative."""
+    from visualdet3d_tpu_torch.entry import MONODEPTH_IMAGE_HW, build_monodepth_system
+    system.cfg.inference_dtype = 'float32'
+    cpu = build_monodepth_system(device='cpu')
+    cpu.net.load_state_dict({k: v.cpu() for k, v in system.net.state_dict().items()})
+    cpu.weights_changed()
+    (image,), P2 = a6_inputs(torch, 1, 1, MONODEPTH_IMAGE_HW, seed=68)
+    image, P2 = image.cpu(), P2.cpu()
+    raw_gpu = {k: v.float().cpu() for k, v in system.predict_raw(image, P2).items()}
+    depth_gpu = system.predict(image, P2)['target'].cpu()
+    raw_cpu = cpu.predict_raw(image, P2)
+    depth_cpu = cpu.predict(image, P2)['target']
+    raw_err = {k: float((raw_gpu[k] - raw_cpu[k]).abs().max() / raw_cpu[k].abs().max())
+               for k in raw_cpu}
+    depth_err = float(((depth_gpu - depth_cpu).abs() / depth_cpu).max())
+    check(max(raw_err.values()) <= 1e-3 and depth_err <= 1e-3,
+          f'monodepth_parity: maps differ {raw_err}, depth by {depth_err} relative')
+    emit('monodepth_parity', batch=1, dtype='float32', tf32=False, raw_rel_err=raw_err,
+         depth_max_rel_err=depth_err, depth_median_m=float(depth_cpu.median()))
+    del cpu
+
+
+def monodepth_dcn_kernel_phase(torch, dc, peaks):
+    """K5 (f32) and K3 (bf16) forward, K7's dx and dW, at the U-Net's three
+    DCN shapes at batch 8 (22x76 768->256, 44x152 384->64, 88x304 64->64),
+    offsets seeded (std 2 px, 5% of them 20-40 px): each against its plain
+    version on the same inputs (``dcn_check`` in f32; in bf16
+    ``head_dcn_bf16_check``, the f64 sums of the kernel's own bf16 samples
+    with the tensor cores' accumulation allowance; ``bwd_check``), in CUDA
+    events and device time (the forward from CUDA graphs, dx and dW apart
+    from a profiler pass), beside its bound and a cuDNN dense 3x3 conv of
+    the shape; then K4 (all taps) at each shape against its plain version
+    and B4, and K6 (premul) bit for bit on the same table where the switch
+    would take it (C_out < C_in: up0, up1), with their times. Returns the
+    per-shape results by dtype and the sums over one forward."""
+    import torch.nn.functional as F
+    bw, f32_peak, bf16_peak = peaks
+    gen = torch.Generator(device='cuda').manual_seed(69)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    b = MONODEPTH_BATCH
+    results = {'f32': {}, 'bf16': {}, 'alltaps': {}, 'premul': {}}
+    for name, h, w, c_in, c_out in MONODEPTH_DCNS:
+        pixels = b * h * w
+        for dt, dtype in (('f32', torch.float32), ('bf16', torch.bfloat16)):
+            runs, weight, bias = dcn_inputs(torch, gen, b, h, w, c_in, c_out, dtype,
+                                            N_KERNEL_RUNS)
+            what = f'monodepth {name} modulated_deform_conv {dt} {h}x{w} {c_in}->{c_out}'
+            acc_ulps = None
+            if dtype == torch.bfloat16:
+                fwd_err, fwd_tol, acc_ulps = head_dcn_bf16_check(torch, dc, runs[0], weight,
+                                                                 bias, what)
+            else:
+                fwd_err, fwd_tol = dcn_check(torch, dc, runs[0], weight, bias, what)
+            fwd = lambda a: dc.modulated_deform_conv(*a, weight, bias)
+            ms = cuda_ms(fwd, runs)
+            device = graph_ms(fwd, runs[:4])
+            plain_ms = cuda_ms(lambda a: dc.modulated_deform_conv_plain(*a, weight, bias),
+                               runs[:3], warmup=1)
+            w_oihw = weight.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            dense_ms = cuda_ms(lambda a: F.conv2d(a[0].permute(0, 3, 1, 2), w_oihw, bias,
+                                                  padding=1), runs)
+            isz = runs[0][0].element_size()
+            n_bytes = isz * (pixels * (c_in + 27 + c_out) + 9 * c_in * c_out + c_out)
+            n_flops = 2 * pixels * 9 * c_in * c_out
+            bound_ms, bound_by = bound_of(n_bytes / bw * 1e3,
+                                          n_flops / (f32_peak if dt == 'f32' else bf16_peak) * 1e3)
+            grads = [torch.randn((b, h, w, c_out), generator=gen, device='cuda').to(dtype)
+                     for _ in range(N_KERNEL_RUNS)]
+            bwhat = f'monodepth {name} modulated_deform_conv_backward {dt}'
+            bwd_err, bwd_tol, errs = bwd_check(torch, dc, runs[0], weight, grads[0], bwhat)
+            pairs = list(zip(runs, grads))
+            bwd = lambda a: dc.modulated_deform_conv_backward(*a[0], weight, a[1])
+            bwd_ms = cuda_ms(bwd, pairs)
+            bwd_plain_ms = cuda_ms(lambda a: dc.modulated_deform_conv_backward_plain(
+                *a[0], weight, a[1]), pairs[:2], warmup=1)
+            dev = bwd_device_ms(torch, bwd, pairs)
+            bounds = bwd_bounds(pixels, c_in, c_out, isz, peaks, dt)
+            err_of = {k: (e if dt == 'f32' else e['abs']) for k, e in errs.items()}
+            adds = dx_adds(torch, dc, dtype, runs[0][1], h, w, c_in)
+            r = dict(dcn=name, x=[b, h, w, c_in], c_out=c_out, max_abs_err=fwd_err,
+                     tolerance=fwd_tol, accumulation_error_f32_ulps_of_abs_sum=acc_ulps,
+                     ms=ms, device_ms=device, plain_ms=plain_ms, dense_conv_ms=dense_ms,
+                     bound_ms=bound_ms, bound_by=bound_by, bytes=n_bytes, flops=n_flops,
+                     share_of_bound_device=bound_ms / device,
+                     backward_ms_events=bwd_ms, backward_plain_ms=bwd_plain_ms,
+                     backward_tolerance=bwd_tol, backward_errors=errs,
+                     max_abs_err_dx=err_of['dx'], max_abs_err_dw=err_of['d_weight'],
+                     dx_ms=dev['dx'], dw_ms=dev['dw'] + dev['dw_reduce'],
+                     dw_reduce_ms=dev['dw_reduce'],
+                     **{f'{k}_{f}': v for k in ('dx', 'dw')
+                        for f, v in zip(('bound_ms', 'bound_by'), bound_of(*bounds[k]))},
+                     dw_splits=dc.dw_plan(dc.dw_stages(b, h, w, dtype), c_in, c_out, 9, n_sm),
+                     dx_adds={k: adds[k] for k in DX_ADD_KEYS},
+                     **(dict(dx_tile=adds['tile'], dx_window=adds['window_hw']) if dt == 'bf16'
+                        else dict(dx_tile_dy_resident_smem=dc.dx_f32_plan(c_out))))
+            results[dt][name] = r
+            emit('monodepth_dcn_kernel', kernel='modulated_deform_conv + backward', dtype=dt,
+                 **r)
+            if dtype == torch.bfloat16:  # K4 and K6 on the same inputs
+                with dcn_switches(alltaps=True):
+                    check(dc.forward_variant(h * w, c_in, c_out, dtype, True) == 'alltaps',
+                          f'monodepth {name}: the all-taps gate refuses the shape')
+                err, diff, equal = alltaps_check(torch, dc, runs[0], weight, bias,
+                                                 f'monodepth {name} alltaps')
+                k4_ms = cuda_ms(lambda a: dc.modulated_deform_conv_alltaps(*a, weight, bias),
+                                runs)
+                results['alltaps'][name] = dict(
+                    dcn=name, ms=k4_ms, per_tap_ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by=bound_by, max_abs_err=err, max_abs_diff_per_tap=diff,
+                    bitwise_equal_per_tap=equal)
+                emit('monodepth_dcn_alltaps', **results['alltaps'][name])
+                if c_out < c_in:
+                    share, op_err = premul_check(torch, dc, runs[0], weight, bias,
+                                                 f'monodepth {name} premul')
+                    tables = [dc.premul_table(a[0], weight) for a in runs]
+                    k6_ms = cuda_ms(lambda i: dc.premul_lerp_accumulate(
+                        tables[i], *runs[i][1:], bias), list(range(len(runs))))
+                    k6_dev = graph_ms(lambda i: dc.premul_lerp_accumulate(
+                        tables[i], *runs[i][1:], bias), list(range(4)))
+                    k6_plain = cuda_ms(lambda i: dc.premul_lerp_accumulate_plain(
+                        tables[i], *runs[i][1:], bias), [0, 1, 2], warmup=1)
+                    del tables
+                    k6_bytes = 2 * (pixels * 9 * c_out + pixels * 27 + pixels * c_out + c_out)
+                    k6_bound, k6_by = bound_of(k6_bytes / bw * 1e3,
+                                               10 * pixels * 9 * c_out / f32_peak * 1e3)
+                    results['premul'][name] = dict(
+                        dcn=name, ms=k6_ms, graph_ms=k6_dev, plain_ms=k6_plain,
+                        table_ms=cuda_ms(lambda a: dc.premul_table(a[0], weight), runs),
+                        op_ms=cuda_ms(lambda a: dc.modulated_deform_conv_premul(
+                            *a, weight, bias), runs),
+                        bound_ms=k6_bound, bound_by=k6_by, max_abs_err=0.0,
+                        op_max_abs_err=op_err, op_share_within_2ulp=share)
+                    emit('monodepth_dcn_premul', **results['premul'][name])
+            del runs, grads, pairs
+            torch.cuda.empty_cache()
+    per_forward = {}
+    for dt in ('f32', 'bf16'):
+        rs = results[dt].values()
+        per_forward[dt] = {k: sum(r[k] for r in rs) for k in (
+            'ms', 'device_ms', 'plain_ms', 'dense_conv_ms', 'bound_ms', 'backward_ms_events',
+            'backward_plain_ms', 'dx_ms', 'dw_ms', 'dw_reduce_ms', 'dx_bound_ms', 'dw_bound_ms')}
+        per_forward[dt]['max_abs_err'] = max(r['max_abs_err'] for r in rs)
+        per_forward[dt]['max_abs_err_dx'] = max(r['max_abs_err_dx'] for r in rs)
+        per_forward[dt]['max_abs_err_dw'] = max(r['max_abs_err_dw'] for r in rs)
+        for k in ('', 'dx_', 'dw_'):
+            by = [r[f'{k}bound_by'] for r in rs]
+            per_forward[dt][f'{k}bound_by'] = max(set(by), key=by.count)
+        emit('monodepth_dcn_kernel_per_forward', dtype=dt, batch=b,
+             dcn_launches=MONODEPTH_DCN_PER_FORWARD, **per_forward[dt])
+    for kind in ('alltaps', 'premul'):
+        rs = results[kind].values()
+        per_forward[kind] = {k: sum(r[k] for r in rs) for k in ('ms', 'plain_ms', 'bound_ms')}
+        per_forward[kind]['max_abs_err'] = max(r['max_abs_err'] for r in rs)
+        by = [r['bound_by'] for r in rs]
+        per_forward[kind]['bound_by'] = max(set(by), key=by.count)
+    results['per_forward'] = per_forward
+    return results
+
+
+def a6_step_parity(torch, phase, gpu, gpu_state, gpu_step, cpu, cpu_state, cpu_step, ref,
+                   batch, ref_loss, leaf_suffixes, param_gate, leaf_cap=None):
+    """One f32 step (TF32 off) on the card and on the CPU from the same
+    weights and batch, both held against the same step's loss and
+    gradients on the CPU in f64 (``ref_loss(ref, cpu_batch)`` returns its
+    (total, loss terms); ``ref`` holds the weights in f64), as
+    ``gac_train_parity_phase`` holds GAC's: each loss term within max(8x
+    the CPU's own f32 distance, 2e-4 of its value); the gradients before
+    the update: the largest elementwise difference within 8x the CPU's
+    (and 5e-2 of the largest gradient), the norm-wise difference within 3x
+    the CPU's, each leaf ending in ``leaf_suffixes`` within 4x the larger of
+    its own floor and the all-parameter floor (and, with ``leaf_cap``,
+    within that of the f64 step on its own: the kernels' leaves); the
+    running statistics after the step within 1e-4 of the CPU's; the
+    parameters after the update within ``param_gate(lr, floor)``."""
+    grads = {}
+    for tag, sys_, state in (('gpu', gpu, gpu_state), ('cpu', cpu, cpu_state)):
+        update = state.optimizer.step
+
+        def recording_update(tag=tag, sys_=sys_, update=update):
+            grads[tag] = [p.grad.detach().double().cpu() for p in sys_.net.parameters()]
+            update()
+        state.optimizer.step = recording_update
+    lr = cpu_state.optimizer.schedule(0)
+    m_gpu = {k: float(v) for k, v in gpu_step(batch).items()}
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    t0 = time.perf_counter()
+    m_cpu = {k: float(v) for k, v in cpu_step(cpu_batch).items()}
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    total, terms = ref_loss(ref, cpu_batch)
+    total.backward()
+    ref_s = time.perf_counter() - t0
+    m_ref = {k: float(v.detach()) for k, v in terms.items()}
+    m_ref['total'] = float(total.detach())
+    g_ref = [(torch.zeros_like(p) if p.grad is None else p.grad).detach().double()
+             for p in ref.net.parameters()]
+    loss_err = {k: abs(m_gpu[k] - v) / max(abs(v), 1e-30) for k, v in m_ref.items()}
+    loss_floor = {k: abs(m_cpu[k] - v) / max(abs(v), 1e-30) for k, v in m_ref.items()}
+    g_gpu, g_cpu = grads['gpu'], grads['cpu']
+    worst = max(float((a - r).abs().max()) for a, r in zip(g_gpu, g_ref))
+    floor = max(float((c - r).abs().max()) for c, r in zip(g_cpu, g_ref))
+    gmax = max(float(r.abs().max()) for r in g_ref)
+    den = sum(float(r.norm()) ** 2 for r in g_ref)
+    rel = (sum(float((a - r).norm()) ** 2 for a, r in zip(g_gpu, g_ref)) / den) ** 0.5
+    rel_floor = (sum(float((c - r).norm()) ** 2 for c, r in zip(g_cpu, g_ref)) / den) ** 0.5
+    names = [n for n, _ in cpu.net.named_parameters()]
+    leaf = {n: (float((a - r).norm() / r.norm().clamp_min(1e-30)),
+                float((c - r).norm() / r.norm().clamp_min(1e-30)), float(r.abs().max()))
+            for a, c, r, n in zip(g_gpu, g_cpu, g_ref, names) if n.endswith(leaf_suffixes)}
+    param_err = max(float((pg.detach().cpu() - pc.detach()).abs().max())
+                    for pg, pc in zip(gpu.net.parameters(), cpu.net.parameters()))
+    stats_err = max(float((bg.cpu() - bc).abs().max() / bc.abs().max().clamp_min(1e-30))
+                    for bg, bc in zip(gpu.net.buffers(), cpu.net.buffers())
+                    if bg.is_floating_point())
+    emit(phase, batch=2, dtype='float32', tf32=False, reference='the CPU step in f64',
+         loss_rel_err=loss_err, loss_rel_err_floor=loss_floor, grad_max_abs_err=worst,
+         grad_max_abs_err_floor=floor, grad_max=gmax, grad_rel_err_all=rel,
+         grad_rel_err_all_floor=rel_floor, leaves_rel_err_floor_max=leaf,
+         param_max_abs_err=param_err, param_gate=param_gate(lr, floor), lr=lr,
+         running_stats_rel_err=stats_err, cpu_step_s=cpu_s, f64_step_s=ref_s,
+         total=m_gpu['total'])
+    bad = {k: (loss_err[k], loss_floor[k]) for k in m_ref
+           if loss_err[k] > max(8 * loss_floor[k], 2e-4)}
+    check(not bad, f'{phase}: loss terms differ beyond the floor {bad}')
+    check(worst <= max(8 * floor, 1e-5 * gmax) and worst <= 5e-2 * gmax
+          and rel <= max(3 * rel_floor, 1e-6),
+          f'{phase}: gradients differ: max abs {worst} (floor {floor}, gmax {gmax}), '
+          f'norm-wise {rel} (floor {rel_floor})')
+    cap = float('inf') if leaf_cap is None else leaf_cap
+    bad = {n: e for n, e in leaf.items()
+           if e[0] > min(4 * max(e[1], rel_floor), cap) or e[2] == 0}
+    check(leaf and not bad, f'{phase}: {len(leaf)} leaves, these differ beyond their floor or '
+                            f'beyond {leaf_cap}, or have no gradient (error, floor, max): {bad}')
+    check(param_err <= param_gate(lr, floor),
+          f'{phase}: parameters after the step differ by {param_err} (lr {lr})')
+    check(stats_err <= 1e-4, f'{phase}: running statistics differ by {stats_err}')
+
+
+def damp_residuals(torch, net):
+    """Each residual branch's last BatchNorm scale times A6_RESIDUAL_SCALE
+    (as ``gac_train_parity_phase``): at a random init the trunk's gradients
+    otherwise grow through the blocks until rounding moves them by percents."""
+    from visualdet3d_tpu_torch.models.backbones.resnet import BasicBlock, Bottleneck
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, BasicBlock):
+                m.BatchNorm_1.weight.mul_(A6_RESIDUAL_SCALE)
+            elif isinstance(m, Bottleneck):
+                m.BatchNorm_2.weight.mul_(A6_RESIDUAL_SCALE)
+
+
+def a6_train_batches(torch, model, n, batch_size, seed):
+    """n distinct synthetic training batches on the card: RetinaNet's
+    (``testing.mono_training_batch``: Cars, 384x1280) or MonoDepth's
+    (``testing.depth_training_batch``: 5% of the pixels below the horizon
+    with ground depth, 352x1216)."""
+    from visualdet3d_tpu_torch import testing
+    from visualdet3d_tpu_torch.entry import MONODEPTH_IMAGE_HW, RETINANET_IMAGE_HW
+    if model == 'retinanet':
+        make = lambda rng: testing.mono_training_batch(rng, batch_size, RETINANET_IMAGE_HW)
+    else:
+        make = lambda rng: testing.depth_training_batch(rng, batch_size, MONODEPTH_IMAGE_HW)
+    rng = np.random.default_rng(seed)
+    return [{k: torch.as_tensor(v, device='cuda') for k, v in make(rng).items()}
+            for _ in range(n)]
+
+
+def prepare_a6_for_training(torch, model, system, batch, seed, offset_std=2.0,
+                            calibrate_head=False):
+    """RetinaNet: ``testing.prepare_retinanet`` on the batch's images, the
+    prediction convs calibrated only with ``calibrate_head`` (the step
+    parity, so that the gradient reaches the towers): SGD at lr 0.01 trains
+    from the config's own init (zero prediction kernels, the class bias at
+    the 0.01 prior), and from calibrated ones its loss swings (34 to 181
+    over 10 steps on one batch, bf16, on an H100); without the batch
+    statistics a random ResNet-50 under ``norm_eval`` diverges (f32: 43 to
+    18737). MonoDepth: ``testing.prepare_monodepth``."""
+    from visualdet3d_tpu_torch import testing
+    gen = torch.Generator().manual_seed(seed)
+    if model == 'retinanet':
+        testing.prepare_retinanet(system, batch['images'][:4], gen, calibrate_head)
+    else:
+        testing.prepare_monodepth(system, batch['images'][:4], batch['P2'][:4], gen,
+                                  offset_std=offset_std)
+
+
+def a6_train_phase(torch, dc, model, compute_dtype):
+    """The RetinaNet or MonoDepth training step (``entry.build_<model>_trainer``)
+    at batch 8, bf16 mixed precision or f32: ms per step and img/s over
+    N_BATCHES distinct batches after N_TRAIN_WARMUP warm-up steps, ending
+    in ``synchronize()``; MonoDepth's DCN launches of that run (3 forward on
+    the per-tap kernel, 3 dx, 3 dW and 3 dW reduce a step: K3 and K7 in
+    bf16, K5 and K7 in f32); peak memory; a profile of one step; the loss
+    falling over N_FALL_STEPS steps on one batch (RetinaNet's at
+    RETINANET_FALL_LR); for MonoDepth in bf16 then one step under
+    ``VD3D_DCN_ALLTAPS=1`` (the all-taps forward K4)."""
+    from visualdet3d_tpu_torch import entry
+    name = compute_dtype or 'float32'
+    phase = f'{model}_train'
+    system, state, step = getattr(entry, f'build_{model}_trainer')(
+        device='cuda', compute_dtype=compute_dtype, batch_size=A6_TRAIN_BATCH)
+    batches = a6_train_batches(torch, model, N_TRAIN_WARMUP + N_BATCHES, A6_TRAIN_BATCH, seed=70)
+    prepare_a6_for_training(torch, model, system, batches[0], seed=71)
+    for b in batches[:N_TRAIN_WARMUP]:
+        step(b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dc.reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = [step(b) for b in batches[N_TRAIN_WARMUP:]]
+    torch.cuda.synchronize()
+    ms_step = (time.perf_counter() - t0) * 1e3 / N_BATCHES
+    launches = dict(dc.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n = MONODEPTH_DCN_PER_FORWARD if model == 'monodepth' else 0
+    per_step = {'modulated_deform_conv': n, 'modulated_deform_conv_alltaps': 0,
+                'modulated_deform_conv_premul_accum': 0,
+                'modulated_deform_conv_backward_input': n,
+                'modulated_deform_conv_backward_weight': n,
+                'modulated_deform_conv_backward_weight_reduce': n}
+    check(launches == {k: v * N_BATCHES for k, v in per_step.items()},
+          f'{phase} {name}: {launches} DCN launches for {N_BATCHES} steps (expected {per_step} '
+          'a step)')
+    losses = [float(m['total']) for m in metrics]
+    check(all(np.isfinite(losses)) and min(losses) > 0, f'{phase} {name}: losses {losses}')
+    check(state.optimizer.count == state.step == N_TRAIN_WARMUP + N_BATCHES,
+          f'{phase} {name}: {state.optimizer.count} updates in {state.step} steps')
+    for p in system.net.parameters():
+        check(p.dtype == torch.float32 and bool(torch.isfinite(p).all()),
+              f'{phase} {name}: a master parameter is {p.dtype} or non-finite')
+    wall_ms, kernels, ops, device_ms = device_profile(torch, lambda: step(batches[-1]))
+    prefix = {'deform_conv_kernel': ('deform_conv_kernel<', 'deform_conv_kernelI'),
+              'deform_conv_bwd_input_kernel': BWD_KERNEL_NAMES['dx'],
+              'deform_conv_bwd_weight_kernel': BWD_KERNEL_NAMES['dw'],
+              'deform_conv_bwd_weight_reduce_kernel': BWD_KERNEL_NAMES['dw_reduce']}
+    found = {kind: [e for e in kernels if any(p in e.key for p in prefix[kind])]
+             for kind in prefix}
+    counts = {kind: sum(e.count for e in evs) for kind, evs in found.items()}
+    check(all(c == n for c in counts.values()),
+          f'{phase} {name} profile: DCN kernels in one step {counts}')
+    kernel_ms = {kind: sum(e.self_device_time_total for e in evs) / 1e3
+                 for kind, evs in found.items()}
+    fall_lr = state.optimizer.schedule(state.optimizer.count)
+    if model == 'retinanet':
+        fall_lr = RETINANET_FALL_LR
+        state.optimizer.schedule = lambda count: RETINANET_FALL_LR
+    fall = [float(step(batches[-1])['total']) for _ in range(N_FALL_STEPS)]
+    check(all(np.isfinite(fall)) and fall[-1] < fall[0],
+          f'{phase} {name}: the loss did not fall over {N_FALL_STEPS} steps on one batch: {fall}')
+    alltaps = None
+    if model == 'monodepth' and compute_dtype == 'bfloat16':
+        dc.reset_launch_counts()
+        with dcn_switches(alltaps=True):
+            loss = float(step(batches[0])['total'])
+        torch.cuda.synchronize()
+        alltaps = dict(dc.LAUNCHES)
+        want = dict(per_step, modulated_deform_conv=0, modulated_deform_conv_alltaps=n)
+        check(alltaps == want and np.isfinite(loss),
+              f'{phase} {name}: one step under VD3D_DCN_ALLTAPS=1 launched {alltaps} '
+              f'(expected {want}), loss {loss}')
+    image_hw = list(batches[0]['images'].shape[1:3])
+    result = dict(compute_dtype=name, batch=A6_TRAIN_BATCH, image_hw=image_hw,
+                  ms_per_step=ms_step, img_per_s=A6_TRAIN_BATCH / ms_step * 1e3, losses=losses,
+                  launches=launches,
+                  launches_per_step={k: v / N_BATCHES for k, v in launches.items()},
+                  peak_memory_gb=peak_gb, profile_wall_ms=wall_ms, device_ms=device_ms,
+                  device_busy_share=device_ms / wall_ms,
+                  device_busy_share_of_timed_step=device_ms / ms_step, kernel_ms=kernel_ms,
+                  dcn_kernels_per_step=counts,
+                  dcn_share_of_device=sum(kernel_ms.values()) / device_ms,
+                  loss_on_one_batch=fall, fall_lr=fall_lr,
+                  launches_of_one_alltaps_step=alltaps,
+                  top_ops=top_events(ops, 14), top_kernels=top_events(kernels, 14))
+    emit(phase, **result)
+    del system, state, step, batches
+    torch.cuda.empty_cache()
+    return result
+
+
+def a6_train_parity_phase(torch, model):
+    """One f32 training step at batch 2 on the card against the CPU, both
+    against the CPU's step in f64 (``a6_step_parity``), from the same
+    weights (the residual branches damped, ``damp_residuals``; RetinaNet's
+    prediction convs calibrated; MonoDepth prepared with offsets of 0.5 px)
+    and batch. RetinaNet: SGD, so the parameters after the step within lr
+    x 8x the gradient floor (+1e-6), its frozen stem and stage 1 moved by
+    the weight decay alone; MonoDepth: Adam, within 2.5 * lr; its leaves
+    held one by one: each DCN's weight and offset conv, each
+    ``LookGround``'s disparity conv and alpha, also within
+    MONODEPTH_LEAF_REL_CAP of the f64 step."""
+    from visualdet3d_tpu_torch import entry
+    batch = a6_train_batches(torch, model, 1, 2, seed=72)[0]
+    build = getattr(entry, f'build_{model}_trainer')
+    gpu, gpu_state, gpu_step = build(device='cuda', batch_size=2)
+    damp_residuals(torch, gpu.net)
+    prepare_a6_for_training(torch, model, gpu, batch, seed=73, offset_std=0.5,
+                            calibrate_head=True)
+    init = {k: v.cpu() for k, v in gpu.net.state_dict().items()}
+    cpu, cpu_state, cpu_step = build(device='cpu', batch_size=2)
+    cpu.net.load_state_dict(init)
+    cpu.weights_changed()
+    ref = getattr(entry, f'build_{model}_system')(device='cpu')
+    ref.net.load_state_dict(init)
+    ref.net.double()
+    if model == 'retinanet':
+        def ref_loss(sys_, b):
+            cls_loss, reg_loss, terms = sys_.loss(b['images'], b['P2'], b['annotations'],
+                                                  apply_fn=lambda net, x: net(x.double()))
+            return cls_loss.mean() + reg_loss.mean(), terms
+        leaves = ('retina_cls.weight', 'retina_reg.weight', 'cls_conv_0.weight',
+                  'FPN_0.lateral_0.weight', 'ResNet_0.layer2_0.Conv_0.weight')
+        gate = lambda lr, floor: 1e-6 + lr * 8 * floor
+        cap = None  # no kernel: the CPU's own f32 step is 0.7% from f64 at layer2 (an H100 run)
+    else:
+        def ref_loss(sys_, b):
+            loss, terms = sys_.loss(b['images'], b['P2'], b['gts'],
+                                    apply_fn=lambda net, x, P2: net(x.double(), P2=P2.double()))
+            return loss, terms
+        leaves = ('ModulatedDeformConv_0.weight', 'ModulatedDeformConv_0.Conv_0.weight',
+                  'LookGround_0.Conv_0.weight', 'LookGround_0.alpha')
+        gate = lambda lr, floor: 2.5 * lr
+        cap = MONODEPTH_LEAF_REL_CAP
+    a6_step_parity(torch, f'{model}_train_parity', gpu, gpu_state, gpu_step, cpu, cpu_state,
+                   cpu_step, ref, batch, ref_loss, leaves, gate, cap)
+    del gpu, cpu, ref
+    torch.cuda.empty_cache()
+
+
+def depth_config(work, name, tree, max_epochs, test_iter):
+    """A config file that loads ``configs/monodepth.py`` and sets its paths
+    to the synthetic depth tree ``tree``, ``max_epochs`` and ``test_iter``."""
+    path = os.path.join(work, f'{name}.py')
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(path, 'w') as f:
+        f.write(f"""import os
+from visualdet3d_tpu_torch.config import cfg_from_file
+cfg = cfg_from_file({os.path.join(root, 'configs', 'monodepth.py')!r})
+out = os.path.join({work!r}, {name!r})
+cfg.path.raw_path = {tree['raw_path']!r}
+cfg.path.depth_path = {tree['depth_path']!r}
+cfg.path.validation_path = {tree['validation_path']!r}
+cfg.path.project_path = out
+cfg.path.log_path = os.path.join(out, 'log')
+cfg.path.checkpoint_path = os.path.join(out, 'checkpoint')
+cfg.path.preprocessed_path = os.path.join(out, 'output')
+cfg.detector.preprocessed_path = cfg.path.preprocessed_path
+cfg.trainer.max_epochs = {max_epochs}
+cfg.trainer.test_iter = {test_iter}
+""")
+    return path
+
+
+def depth_data_phase(work):
+    """``testing.write_synthetic_kitti_depth``: DEPTH_TREE_FRAMES full-size
+    frames (both eyes' images and ground truth, the PNG rows cycling
+    through the five filters) and VAL_FRAMES validation frames at
+    375x1242; the training dataset's item ms by stage (each eye's image and
+    ground truth decoded, each transform of ``configs/monodepth.py``'s
+    augmentation), the validation item's ms; ``python -m
+    visualdet3d_tpu_torch.cli.depth_precompute``'s seconds and its prior
+    (finite, between 1 and 80 m). Returns (the tree, the config path)."""
+    from visualdet3d_tpu_torch import testing
+    from visualdet3d_tpu_torch.config import cfg_from_file
+    from visualdet3d_tpu_torch.data.augmentations import SAMPLE_KEYS
+    from visualdet3d_tpu_torch.data.kitti.dataset.depth_dataset import read_depth
+    from visualdet3d_tpu_torch.data.kitti.kittidata import read_image
+    from visualdet3d_tpu_torch.models.detectors.monodepth import prior_mean_of
+    from visualdet3d_tpu_torch.registry import DATASET_DICT
+    import visualdet3d_tpu_torch.data  # noqa: F401
+    t0 = time.perf_counter()
+    tree = testing.write_synthetic_kitti_depth(os.path.join(work, 'kitti_depth'),
+                                               DEPTH_TREE_FRAMES, seed=74, n_val=VAL_FRAMES)
+    write_s = time.perf_counter() - t0
+    config = depth_config(work, 'monodepth', tree, 1, 1)
+    cfg = cfg_from_file(config)
+    dataset = DATASET_DICT[cfg.data.train_dataset](cfg, 'training')
+    check(len(dataset) == DEPTH_TREE_FRAMES, f'depth_data: {len(dataset)} training items')
+    stages = []
+    np.random.seed(0)
+    for i in range(4):
+        record, times = dataset.imdb[i], {}
+        t0 = time.perf_counter()
+        sample = dict.fromkeys(SAMPLE_KEYS)
+        sample['left_image'] = read_image(record['image_2_file'])
+        times['decode_image'] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        sample['image_gt'] = read_depth(record['gt_2_file'])
+        times['decode_depth'] = (time.perf_counter() - t0) * 1e3
+        sample['p2'] = record['P2'].copy()
+        for j, transform in enumerate(dataset.transform.transforms):
+            t0 = time.perf_counter()
+            sample = transform(sample)
+            times[f'{j}_{type(transform).__name__}'] = (time.perf_counter() - t0) * 1e3
+        times['total'] = sum(times.values())
+        stages.append(times)
+        check(sample['left_image'].shape == (352, 1216, 3)
+              and sample['image_gt'].shape == (352, 1216),
+              f'depth_data: item {sample["left_image"].shape} {sample["image_gt"].shape}')
+    t0 = time.perf_counter()
+    item = dataset[0]
+    item_ms = (time.perf_counter() - t0) * 1e3
+    check(float((item['gt'] > 0).mean()) > 0.005, 'depth_data: no ground truth in the item')
+    val = DATASET_DICT[cfg.data.val_dataset](cfg, 'validation')
+    t0 = time.perf_counter()
+    v = val[0]
+    val_item_ms = (time.perf_counter() - t0) * 1e3
+    check(len(val) == VAL_FRAMES and v['image'].shape == (352, 1216, 3),
+          f'depth_data: {len(val)} validation items of {v["image"].shape}')
+    cmd = [sys.executable, '-m', 'visualdet3d_tpu_torch.cli.depth_precompute', '--config', config]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    precompute_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f'depth_precompute failed:\n{proc.stderr[-3000:]}')
+    prior = prior_mean_of(cfg.path.preprocessed_path)
+    check(np.isfinite(prior) and np.log(1.0) < prior < np.log(80.0),
+          f'depth_data: prior mean log depth {prior}')
+    emit('depth_data', frames=DEPTH_TREE_FRAMES, val_frames=VAL_FRAMES,
+         image_hw=list(KITTI_HW), write_tree_s=write_s,
+         item_stage_ms={k: statistics.median(s[k] for s in stages) for k in stages[0]},
+         item_ms=item_ms, val_item_ms=val_item_ms,
+         gt_valid_share=float((item['gt'] > 0).mean()), depth_precompute_s=precompute_s,
+         prior_mean_depth_m=float(np.exp(prior)))
+    return tree, config
+
+
+def a6_cli_train_phase(torch, config, phase, per_step, evaluation):
+    """``python -m visualdet3d_tpu_torch.cli.train`` in a subprocess on the
+    card: one epoch of 2 steps at the config's batch and size, then the
+    config's evaluation after it (``test_iter=1``). Gates: a finite loss,
+    ``per_step`` kernel launches a step, the checkpoint, ``evaluation(out,
+    eval_stats)``'s checks on the report and the evaluation's stats line."""
+    from visualdet3d_tpu_torch import checkpoint
+    from visualdet3d_tpu_torch.config import cfg_from_file
+    cfg = cfg_from_file(config)
+    log = os.path.join(os.path.dirname(config), f'{phase}.log')
+    wall, out = run_train_cli(config, False, log)
+    with open(os.path.join(cfg.path.log_path, 'train_stats.jsonl')) as f:
+        [epoch] = [json.loads(line) for line in f]
+    check(epoch['steps'] == 2 and np.isfinite(epoch['loss']),
+          f'{phase}: {epoch["steps"]} steps, loss {epoch["loss"]}')
+    got = {k: v / epoch['steps'] for k, v in epoch['launches'].items() if k in per_step}
+    check(got == per_step, f'{phase}: launched {epoch["launches"]} in {epoch["steps"]} steps, '
+                           f'expected {per_step} a step')
+    check(checkpoint.CheckpointManager(cfg.path.checkpoint_path).all_steps() == [2],
+          f'{phase}: no checkpoint of step 2')
+    check('/**** finish testing after training epoch 0 ******/' in out,
+          f'{phase}: no evaluation after the epoch:\n{out[-2000:]}')
+    with open(os.path.join(cfg.path.log_path, 'eval_stats.jsonl')) as f:
+        [stats] = [json.loads(line) for line in f]
+    report = evaluation(out, stats)
+    result = dict(batch=cfg.data.batch_size, image_hw=list(cfg.data.rgb_shape[:2]),
+                  process_wall_s=wall, setup_s=epoch['setup_s'], step_ms=epoch['step_ms'],
+                  loss=epoch['loss'],
+                  launches_per_step={k: v / epoch['steps'] for k, v in epoch['launches'].items()},
+                  loader_wait_share_of_epoch=epoch['loader_wait_s'] / epoch['wall_s'],
+                  eval_frames=stats['frames'], eval_frame_ms=spread(stats['frame_ms']),
+                  eval_item_ms=spread(stats['load_ms']), evaluator_s=stats['evaluator_s'],
+                  eval_launches_per_frame={k: v / stats['frames']
+                                           for k, v in stats['launches'].items()},
+                  report=report)
+    emit(phase, **result)
+    return result
+
+
+def depth_metrics(text):
+    """The nine 'mean <metric> : <value>' lines of a depth report, parsed
+    and finite."""
+    rows = {line.split(':')[0].strip(): float(line.split(':')[1])
+            for line in text.splitlines() if line.startswith('mean ')}
+    check(len(rows) == 9 and all(np.isfinite(v) for v in rows.values()),
+          f'the depth report did not parse or is not finite:\n{text[-2000:]}')
+    return rows
+
+
+def cli_train_monodepth_phase(torch, config):
+    """``configs/monodepth.py`` through the train CLI (batch 8, 352x1216):
+    3 DCN forward, dx, dW launches a step; ``evaluate_kitti_depth`` after
+    the epoch: a 16-bit PNG a validation frame at 375x1242, the nine
+    metrics, 3 DCN launches a frame."""
+    from visualdet3d_tpu_torch.config import cfg_from_file
+    from visualdet3d_tpu_torch.data.image_io import read_png
+    cfg = cfg_from_file(config)
+    n = MONODEPTH_DCN_PER_FORWARD
+
+    def evaluation(out, stats):
+        data = os.path.join(cfg.path.preprocessed_path, 'validation', 'data')
+        pngs = [read_png(os.path.join(data, p)) for p in sorted(os.listdir(data))]
+        check(len(pngs) == VAL_FRAMES and all(p.dtype == np.uint16 and p.shape == KITTI_HW
+                                              and p.min() >= 1 for p in pngs),
+              f'cli_train_monodepth: {len(pngs)} PNGs')
+        per_frame = stats['launches'].get('modulated_deform_conv', 0) / stats['frames']
+        check(per_frame == n, f'cli_train_monodepth: {per_frame} DCN launches a frame')
+        return depth_metrics(out)
+    return a6_cli_train_phase(torch, config, 'cli_train_monodepth',
+                              {'modulated_deform_conv': n,
+                               'modulated_deform_conv_backward_input': n,
+                               'modulated_deform_conv_backward_weight': n}, evaluation)
+
+
+def cli_train_retinanet_phase(torch, work, root, val_ids):
+    """``configs/retinanet_2d.py`` on the KITTI object tree: the imdb
+    precompute of RETINA_TREE_FRAMES training frames, then the train CLI
+    (batch 8, 384x1280, SGD) for one epoch of 2 steps and
+    ``evaluate_kitti_obj`` after it: the 2-D branch of ``test_one``, a
+    result txt a validation frame and the AP table (Car, Pedestrian,
+    Cyclist) parsed and finite."""
+    from visualdet3d_tpu_torch import testing
+    from visualdet3d_tpu_torch.cli import imdb_precompute_3d
+    from visualdet3d_tpu_torch.config import cfg_from_file
+    split = testing.write_split_files(os.path.join(work, 'split_retinanet'),
+                                      range(RETINA_TREE_FRAMES), val_ids)
+    config = smoke_config(work, 'retinanet_2d.py', 'retinanet', root, split, 1)
+    with open(config, 'a') as f:
+        f.write('cfg.trainer.test_iter = 1\n')
+    cfg = cfg_from_file(config)
+    t0 = time.perf_counter()
+    imdb_precompute_3d.run(cfg)
+    precompute_s = time.perf_counter() - t0
+
+    def evaluation(out, stats):
+        data = os.path.join(cfg.path.preprocessed_path, 'validation', 'data')
+        check(len(os.listdir(data)) == len(val_ids), f'cli_train_retinanet: result files '
+                                                      f'{sorted(os.listdir(data))}')
+        table = ap_table(out)
+        return dict(imdb_precompute_s=precompute_s, table_rows=len(table),
+                    ap_moderate={k: v[1] for k, v in table.items()})
+    return a6_cli_train_phase(torch, config, 'cli_train_retinanet', {}, evaluation)
+
+
+def timed_depth_config(config):
+    """``config`` evaluated on its VAL_FRAMES validation frames listed
+    EVAL_REPEATS times (links in a validation tree of their own, the names
+    numbered so that the sorted lists repeat the frames in turn). Returns
+    the new config's path."""
+    from visualdet3d_tpu_torch.config import cfg_from_file
+    cfg = cfg_from_file(config)
+    src = cfg.path.validation_path
+    dst = src.rstrip('/') + '_timed'
+    for sub in ('image', 'groundtruth_depth', 'intrinsics'):
+        os.makedirs(os.path.join(dst, sub), exist_ok=True)
+        names = sorted(os.listdir(os.path.join(src, sub)))
+        check(len(names) == VAL_FRAMES, f'timed_depth_config: {len(names)} files in {sub}')
+        for r in range(EVAL_REPEATS):
+            for i, n in enumerate(names):
+                link = os.path.join(dst, sub, f'{r:03d}_{i}_{n}')
+                if not os.path.exists(link):
+                    os.symlink(os.path.join(src, sub, n), link)
+    path = f'{config[:-3]}_timed.py'
+    with open(config) as f, open(path, 'w') as g:
+        g.write(f.read() + f'cfg.path.validation_path = {dst!r}\n'
+                           "cfg.path.log_path = os.path.join(out, 'timed_log')\n")
+    return path
+
+
+def run_depth_eval_cli(torch, config, ckpt, device=None):
+    """``cli.eval.main`` in this process (the card unless ``device``), the
+    launch counts set to 0 just before: (its eval_stats line, its output,
+    the metrics, the counts)."""
+    import contextlib
+    import io
+    from visualdet3d_tpu_torch.cli import eval as eval_cli
+    from visualdet3d_tpu_torch.config import cfg_from_file
+    from visualdet3d_tpu_torch.ops import launch_counts, reset_launch_counts
+    cfg = cfg_from_file(config)
+    argv = ['--config', config, '--checkpoint_path', ckpt] + (['--device', device] if device
+                                                             else [])
+    reset_launch_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        eval_cli.main(argv)
+    launches = launch_counts()
+    out = buf.getvalue()
+    with open(os.path.join(cfg.path.log_path, 'eval_stats.jsonl')) as f:
+        stats = json.loads(f.readlines()[-1])
+    return stats, out, depth_metrics(out), launches
+
+
+def cli_eval_monodepth_phase(torch, config):
+    """The eval CLI on the card at batch 1 on ``configs/monodepth.py``'s
+    train-CLI checkpoint, over VAL_FRAMES * EVAL_REPEATS frames
+    (``timed_depth_config``): the median and p10-p90 of the frame's ms (the
+    predict and the copy to the host), of the item's and of the PNG's, 3
+    DCN launches a frame; then the VAL_FRAMES frames on the card and with
+    ``--device cpu``: the nine metrics of the card's PNGs within 1e-4
+    relative of the CPU's."""
+    from visualdet3d_tpu_torch.config import cfg_from_file
+    ckpt = cfg_from_file(config).path.checkpoint_path
+    stats, _, timed_metrics, launches = run_depth_eval_cli(torch, timed_depth_config(config),
+                                                           ckpt)
+    frames = VAL_FRAMES * EVAL_REPEATS
+    check(stats['frames'] == frames, f'cli_eval_monodepth: {stats["frames"]} frames')
+    per_frame = stats['launches'].get('modulated_deform_conv', 0) / frames
+    check(per_frame == MONODEPTH_DCN_PER_FORWARD,
+          f'cli_eval_monodepth: {per_frame} DCN launches a frame')
+    card_stats, _, card, _ = run_depth_eval_cli(torch, config, ckpt)
+    t0 = time.perf_counter()
+    cpu_stats, _, cpu, _ = run_depth_eval_cli(torch, config, ckpt, device='cpu')
+    cpu_s = time.perf_counter() - t0
+    rel = {k: abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-30) for k in cpu}
+    check(max(rel.values()) <= 1e-4, f'cli_eval_monodepth: the card\'s metrics differ from the '
+                                     f'CPU\'s {rel}')
+    emit('cli_eval_monodepth', frames=frames, frame_ms=spread(stats['frame_ms'][1:]),
+         first_frame_ms=stats['frame_ms'][0], item_ms=spread(stats['load_ms'][1:]),
+         png_ms=spread(stats['write_ms'][1:]), evaluator_s=stats['evaluator_s'],
+         setup_s=stats['setup_s'], launches_per_frame={k: v / frames for k, v in
+                                                       stats['launches'].items()},
+         launches_in_cli_run={k: v for k, v in launches.items() if v},
+         metrics_timed=timed_metrics, metrics_card=card, metrics_cpu=cpu,
+         metrics_rel_diff_card_cpu=rel, cpu_eval_s=cpu_s, cpu_frame_ms=spread(
+             cpu_stats['frame_ms']), card_frame_ms=spread(card_stats['frame_ms']))
+    return dict(launches_per_frame=per_frame)
+
+
+def a6_phases(torch, dc, peaks):
+    """The A6 slice: RetinaNet's predict in f32 and bf16 with a profile and
+    the card-CPU parity, its training step in bf16 and f32 and the step
+    parity; MonoDepth's the same, with K3/K5/K7 (K4, K6) at its three DCN
+    shapes. Returns the numbers the ``kernels`` line reads."""
+    out = {'retinanet_slice': {}, 'monodepth_slice': {}, 'retinanet_train': {},
+           'monodepth_train': {}}
+    system = build_retinanet(torch)
+    for dtype_name in ('float32', 'bfloat16'):
+        out['retinanet_slice'][dtype_name], images = retinanet_slice_phase(torch, system,
+                                                                           dtype_name)
+        retinanet_profile_phase(torch, system, images, dtype_name)
+        del images
+    retinanet_parity_phase(torch, system)
+    del system
+    torch.cuda.empty_cache()
+    system = build_monodepth(torch)
+    for dtype_name in ('float32', 'bfloat16'):
+        out['monodepth_slice'][dtype_name], images, P2 = monodepth_slice_phase(
+            torch, dc, system, dtype_name)
+        monodepth_profile_phase(torch, system, images, P2, dtype_name)
+        del images
+    monodepth_parity_phase(torch, system)
+    del system
+    torch.cuda.empty_cache()
+    out['dcn'] = monodepth_dcn_kernel_phase(torch, dc, peaks)
+    for model in ('retinanet', 'monodepth'):
+        for name, cd in (('bfloat16', 'bfloat16'), ('float32', None)):
+            out[f'{model}_train'][name] = a6_train_phase(torch, dc, model, cd)
+        a6_train_parity_phase(torch, model)
+    return out
 
 
 def main() -> int:
@@ -4463,7 +5551,8 @@ def main() -> int:
     monoflex_trains = {name: km3d_train_phase(torch, dc, cd, 'monoflex', MONOFLEX_BATCH)
                        for name, cd in (('bfloat16', 'bfloat16'), ('float32', None))}
     gac_slices, gac_kernel, gac_trains = gac_phases(torch, dc, peaks)
-    cli_km3d, cli_stereo, eval_launches = kitti_training_phases(torch)
+    a6 = a6_phases(torch, dc, peaks)
+    cli_km3d, cli_stereo, eval_launches, a6_cli = kitti_training_phases(torch)
 
     dtype_of = {'f32': 'float32', 'bf16': 'bfloat16'}
     replaces = {  # the TPU kernel bodies _corr_kernel_eyes and _corr_kernel
@@ -4545,7 +5634,12 @@ def main() -> int:
         bitwise_equal_b4=alltaps['bitwise_equal_b4'],
         per_forward='the 16 DCNs of one KM3D forward, batch 16 (shapes weighted by count); '
                     'launches: 6 KM3D bf16 predicts under VD3D_DCN_ALLTAPS=1',
-        per_shape=alltaps['per_shape']))
+        per_shape=alltaps['per_shape'],
+        launches_in_one_monodepth_bf16_step=a6['monodepth_train']['bfloat16'][
+            'launches_of_one_alltaps_step']['modulated_deform_conv_alltaps'],
+        monodepth=dict(a6['dcn']['per_forward']['alltaps'],
+                       per_forward='the three U-Net DCNs of one MonoDepth forward, batch 8, '
+                                   '352x1216')))
     summary.append(dict(  # the TPU kernel body _lerp_accum_kernel
         name='modulated_deform_conv_premul_accum[bf16]', route='cuda',
         source='visualdet3d_tpu_torch/csrc/deform_conv.cu',
@@ -4563,7 +5657,11 @@ def main() -> int:
         per_forward='the 8 proj DCNs of one KM3D forward, batch 16 (shapes weighted by '
                     'count), given the table; ms in CUDA events, graph_ms in device time; '
                     'launches: 6 KM3D bf16 predicts under VD3D_DCN_PREMUL=1',
-        per_shape=premul['per_shape']))
+        per_shape=premul['per_shape'],
+        monodepth=dict(a6['dcn']['per_forward']['premul'],
+                       per_forward='up0 and up1 of MonoDepth, batch 8, given the table; not on '
+                                   "MonoDepth's path: its bf16 inference runs the decoder in "
+                                   'f32, and training takes no premul')))
     for dt, r in dcn_bwd.items():  # the TPU kernel body _lerp_matmul_bwd_kernel (bf16)
         step_launches = trains[dtype_of[dt]]['launches']
         mono_launches = monoflex_trains[dtype_of[dt]]['launches']
@@ -4629,6 +5727,53 @@ def main() -> int:
             bound_ms=r['dw_bound_ms'], bound_by=r['dw_bound_by'], dw_splits=r['dw_splits'],
             per_forward='the dW kernels (split sums and their reduce), one call, device time; '
                         'launches: 6 Yolo3D training steps at batch 8', **common))
+    md = a6['dcn']
+    md_predict = sum(a6['monodepth_slice'][d]['launches'] for d in ('float32', 'bfloat16'))
+    for dt in ('f32', 'bf16'):  # the U-Net's DCNs: K5/K3 forward, K7 backward
+        pf = md['per_forward'][dt]
+        step = a6['monodepth_train']['bfloat16' if dt == 'bf16' else 'float32']['launches']
+        cli = a6_cli['launches_per_step'] if dt == 'f32' else {}
+        shapes = {name: {k: r[k] for k in ('x', 'c_out', 'ms', 'device_ms', 'plain_ms',
+                                             'dense_conv_ms', 'bound_ms', 'bound_by', 'dx_ms',
+                                             'dw_ms', 'dx_bound_ms', 'dw_bound_ms')}
+                  for name, r in md[dt].items()}
+        common = dict(route='cuda', source='visualdet3d_tpu_torch/csrc/deform_conv.cu',
+                      library_ms=None)
+        summary.append(dict(
+            name=f'modulated_deform_conv[{dt}, monodepth]', replaces=dcn_replaces[dt],
+            launches=md_predict if dt == 'f32' else step['modulated_deform_conv'],
+            launches_in_predict=md_predict if dt == 'f32' else 0,
+            launches_in_training=step['modulated_deform_conv'],
+            launches_per_step_in_cli_training=cli.get('modulated_deform_conv'),
+            launches_per_eval_frame=(a6_cli['eval_launches_per_frame'] if dt == 'f32' else 0),
+            max_abs_err=pf['max_abs_err'], ms=pf['ms'], device_ms=pf['device_ms'],
+            plain_ms=pf['plain_ms'], bound_ms=pf['bound_ms'], bound_by=pf['bound_by'],
+            dense_conv_ms=pf['dense_conv_ms'], per_shape=shapes,
+            per_forward='the three U-Net DCNs of one MonoDepth forward, batch 8, 352x1216; '
+                        'launches: f32 = 6 predicts in f32 and 6 in bf16 (the decoder runs f32), '
+                        'bf16 = 6 bf16 training steps', **common))
+        summary.append(dict(
+            name=f'modulated_deform_conv_backward_input[{dt}, monodepth]',
+            replaces='visualdet3d_tpu/ops/deform_conv.py:663',
+            launches=step['modulated_deform_conv_backward_input'],
+            launches_per_step_in_cli_training=cli.get('modulated_deform_conv_backward_input'),
+            max_abs_err=pf['max_abs_err_dx'], ms=pf['dx_ms'], plain_ms=pf['backward_plain_ms'],
+            plain='the whole plain backward', bound_ms=pf['dx_bound_ms'],
+            bound_by=pf['dx_bound_by'], backward_ms_events=pf['backward_ms_events'],
+            per_forward='the dx kernel of the three U-Net DCNs, batch 8, device time; '
+                        'launches: 6 training steps', **common))
+        summary.append(dict(
+            name=f'modulated_deform_conv_backward_weight[{dt}, monodepth]',
+            replaces='visualdet3d_tpu/ops/deform_conv.py:663',
+            launches=step['modulated_deform_conv_backward_weight'],
+            launches_of_reduce=step['modulated_deform_conv_backward_weight_reduce'],
+            launches_per_step_in_cli_training=cli.get('modulated_deform_conv_backward_weight'),
+            max_abs_err=pf['max_abs_err_dw'], ms=pf['dw_ms'], reduce_ms=pf['dw_reduce_ms'],
+            plain_ms=pf['backward_plain_ms'], plain='the whole plain backward',
+            bound_ms=pf['dw_bound_ms'], bound_by=pf['dw_bound_by'],
+            dw_splits={name: r['dw_splits'] for name, r in md[dt].items()},
+            per_forward='the dW kernels (split sums and their reduce) of the three U-Net DCNs, '
+                        'batch 8, device time; launches: 6 training steps', **common))
     summary.append(dict(
         name='int8_conv2d', route='cuda', source='visualdet3d_tpu_torch/csrc/int8_conv.cu',
         replaces='visualdet3d_tpu/models/quant.py:295 (XLA s8 conv_general_dilated; no Pallas '

@@ -10,10 +10,13 @@ KITTI tree (tiny configs: depth-18 trunks at 64x256):
   config (``configs/stereo3d_int8.py``) writes the same result files, byte
   for byte, as the eval that calibrates on the fly, with detections in
   them; calibration leaves the caller's numpy generator as it was;
+* the eval CLI on ``configs/monodepth.py`` (depth 18, 64x128) from the
+  train CLI's checkpoint on a synthetic KITTI depth tree: a 16-bit PNG a
+  frame, the depth metrics, equal to the evaluation the train CLI ran on
+  the same weights;
 * the refusals: ``--quantized_path`` with an f32 config, an evaluation
-  the port lacks (``evaluate_kitti_depth``: the MonoDepth config) in the
-  eval and train CLIs, int8 of a mono detector; a checkpoint that does not
-  fit the network;
+  that is not registered in the eval and train CLIs, int8 of a mono
+  detector; a checkpoint that does not fit the network;
 * ``checkpoint.save_params`` / ``load_params`` round trip.
 
 The int8 round trip compares the port with itself (no XLA int8 conv here).
@@ -207,18 +210,47 @@ def test_a_checkpoint_that_does_not_fit_raises(km3d_trained):
 
 
 def test_an_evaluation_the_port_lacks_raises(km3d_trained):
-    """MonoDepth's ``evaluate_kitti_depth`` is not registered: the eval CLI
-    raises before building anything, and the train CLI raises at start."""
+    """An ``evaluate_func`` that is not registered: the eval CLI raises
+    before building anything, and the train CLI raises at start."""
     config, work, _ = km3d_trained
-    with pytest.raises(KeyError, match='evaluate_kitti_depth'):
-        eval_cli.main(['--config', os.path.join(ROOT, 'configs', 'monodepth.py'),
-                       '--checkpoint_path', str(work / 'checkpoint'), '--device', 'cpu'])
-    _set(config, trainer__evaluate_func='evaluate_kitti_depth')
+    _set(config, trainer__evaluate_func='evaluate_kitti_tracking')
     try:
-        with pytest.raises(NotImplementedError, match="'evaluate_kitti_depth' after epochs"):
+        with pytest.raises(KeyError, match='evaluate_kitti_tracking'):
+            eval_cli.main(['--config', config, '--checkpoint_path', str(work / 'checkpoint'),
+                           '--device', 'cpu'])
+        with pytest.raises(NotImplementedError, match="'evaluate_kitti_tracking' after epochs"):
             train_cli.main(['--config', config, '--device', 'cpu'])
     finally:
         _set(config, trainer__evaluate_func='evaluate_kitti_obj')
+
+
+def test_eval_cli_evaluates_monodepth(tmp_path, capsys):
+    """``python -m visualdet3d_tpu_torch.cli.eval`` on ``configs/monodepth.py``
+    (depth 18, 64x128) from the train CLI's checkpoint of one epoch, which
+    evaluated after it: the same PNGs bit for bit and the same nine
+    metrics; the eval's line in ``eval_stats.jsonl``."""
+    from test_torch_cli_train import DEPTH_TREE_HW, monodepth_settings
+    from visualdet3d_tpu_torch.data.image_io import read_png
+    tree = testing.write_synthetic_kitti_depth(str(tmp_path / 'tree'), 4, seed=7, n_val=2,
+                                               image_hw=DEPTH_TREE_HW)
+    config = _write_config(tmp_path / 'monodepth_tiny.py', 'monodepth.py',
+                           monodepth_settings(tmp_path, tree))
+    train_cli.main(['--config', config, '--device', 'cpu'])
+    after_training = capsys.readouterr().out
+    data = tmp_path / 'output' / 'validation' / 'data'
+    trained = {p.name: read_png(str(p)) for p in sorted(data.iterdir())}
+    eval_cli.main(['--config', config, '--checkpoint_path', str(tmp_path / 'checkpoint'),
+                   '--device', 'cpu'])
+    out = capsys.readouterr().out
+    assert sorted(trained) == sorted(os.listdir(data)) == ['0000000000.png', '0000000001.png']
+    for name, depth in trained.items():
+        np.testing.assert_array_equal(read_png(str(data / name)), depth)
+    metrics = [line for line in out.splitlines() if line.startswith('mean ')]
+    assert len(metrics) == 9 and metrics == [line for line in after_training.splitlines()
+                                             if line.startswith('mean ')]
+    stats = _eval_stats(tmp_path)
+    assert stats[-1]['split'] == 'validation' and stats[-1]['frames'] == 2
+    assert stats[-1]['evaluator_s'] > 0 and len(stats[-1]['frame_ms']) == 2
 
 
 def test_save_params_round_trip(tmp_path):

@@ -11,8 +11,10 @@ the CPU:
   tree (imdb precompute, one epoch, then ``--resume`` to a second: the
   restored state equal to the saved one, the epoch's steps, the
   scheduler's units in steps as ``tests/test_cli_train_eval.py`` checks
-  for JAX), Stereo3D at depth 18 through the disparity precompute, and the
-  start-up raises (an evaluation the port lacks, ``evaluate_kitti_depth``;
+  for JAX), Stereo3D at depth 18 through the disparity precompute,
+  ``configs/monodepth.py`` at depth 18 and 64x128 on a synthetic KITTI
+  depth tree (``cli.depth_precompute``, one epoch, ``evaluate_kitti_depth``
+  after it), and the start-up raises (an evaluation that is not registered;
   the multi-process options);
 * KM3D on the ``resnet`` core against the JAX package: the f32 raw outputs
   (rtol 1e-4, atol 1e-4 of each map's std, as ``test_torch_km3d.py``) and
@@ -375,13 +377,15 @@ def test_cli_warm_starts_the_backbone(km3d_run, tmp_path, capsys):
 
 
 def test_cli_refuses_an_evaluation_it_cannot_run(km3d_run):
-    """An evaluator the port lacks (MonoDepth's ``evaluate_kitti_depth``)
-    within ``max_epochs``: a raise at start. ``evaluate_kitti_obj`` runs
-    (``tests/test_torch_cli_eval.py``)."""
+    """An evaluator that is not registered within ``max_epochs``: a raise
+    at start, naming the registered ones. ``evaluate_kitti_obj`` runs
+    (``tests/test_torch_cli_eval.py``), ``evaluate_kitti_depth`` too
+    (:func:`test_cli_trains_and_evaluates_monodepth`)."""
     config, _, _ = km3d_run
-    _set(config, trainer__test_iter=1, trainer__evaluate_func='evaluate_kitti_depth')
+    _set(config, trainer__test_iter=1, trainer__evaluate_func='evaluate_kitti_tracking')
     try:
-        with pytest.raises(NotImplementedError, match="'evaluate_kitti_depth' after epochs"):
+        with pytest.raises(NotImplementedError,
+                           match="'evaluate_kitti_tracking' after epochs.*evaluate_kitti_depth"):
             train_cli.main(['--config', config, '--device', 'cpu'])
     finally:
         _set(config, trainer__test_iter=0, trainer__evaluate_func='evaluate_kitti_obj')
@@ -389,6 +393,58 @@ def test_cli_refuses_an_evaluation_it_cannot_run(km3d_run):
     assert train_cli.evaluation_epochs(trainer, 0) == [9, 19]
     assert train_cli.evaluation_epochs(trainer, 19) == [19]
     assert train_cli.evaluation_epochs(EasyDict(max_epochs=9, test_iter=10), 0) == []
+
+
+DEPTH_TREE_HW = (80, 160)
+DEPTH_HW = (64, 128)
+
+
+def monodepth_settings(work, tree) -> dict:
+    """``configs/monodepth.py`` cut to ResNet-18 at 64x128 (the crops of the
+    80x160 tree), batch 2, one epoch, on the synthetic depth tree ``tree``
+    (``testing.write_synthetic_kitti_depth``)."""
+    return {
+        'path.raw_path': tree['raw_path'], 'path.depth_path': tree['depth_path'],
+        'path.validation_path': tree['validation_path'],
+        'path.preprocessed_path': str(work / 'output'), 'path.log_path': str(work / 'log'),
+        'path.checkpoint_path': str(work / 'checkpoint'),
+        'detector.preprocessed_path': str(work / 'output'), 'detector.backbone.depth': 18,
+        'data.batch_size': 2, 'data.num_workers': 2, 'data.rgb_shape': [*DEPTH_HW, 3],
+        'data.train_augmentation.2.keywords.output_height': DEPTH_HW[0],
+        'data.train_augmentation.3.keywords.width': DEPTH_HW[1],
+        'data.test_augmentation.1.keywords.output_height': DEPTH_HW[0],
+        'data.test_augmentation.2.keywords.output_width': DEPTH_HW[1],
+        'trainer.max_epochs': 1, 'trainer.test_iter': 1, 'trainer.disp_iter': 1}
+
+
+def test_cli_trains_and_evaluates_monodepth(tmp_path, capsys):
+    """``configs/monodepth.py`` through the CLIs on the CPU: the depth
+    prior precompute, then one epoch (2 steps of 2 images) with
+    ``evaluate_kitti_depth`` after it: a finite loss, the checkpoint, a
+    16-bit PNG a validation frame at the original size, the nine depth
+    metrics printed and the evaluation's line in ``eval_stats.jsonl``."""
+    from visualdet3d_tpu_torch.cli import depth_precompute
+    from visualdet3d_tpu_torch.data.image_io import read_png
+    tree = testing.write_synthetic_kitti_depth(str(tmp_path / 'tree'), 4, seed=6, n_val=2,
+                                               image_hw=DEPTH_TREE_HW)
+    config = _write_config(tmp_path / 'monodepth_tiny.py', 'monodepth.py',
+                           monodepth_settings(tmp_path, tree))
+    depth_precompute.main(['--config', config])
+    assert (tmp_path / 'output' / 'training' / 'log_depth_sum.npy').is_file()
+    train_cli.main(['--config', config, '--device', 'cpu'])
+    out = capsys.readouterr().out
+    [stats] = _stats(tmp_path)
+    assert stats['steps'] == 2 and np.isfinite(stats['loss']) and stats['loss'] > 0
+    assert checkpoint.CheckpointManager(str(tmp_path / 'checkpoint')).all_steps() == [2]
+    pngs = sorted((tmp_path / 'output' / 'validation' / 'data').iterdir())
+    assert [p.name for p in pngs] == ['0000000000.png', '0000000001.png']
+    for p in pngs:
+        depth = read_png(str(p))
+        assert depth.dtype == np.uint16 and depth.shape == DEPTH_TREE_HW and depth.min() >= 1
+    assert out.count('mean ') == 9 and 'mean rmse' in out
+    with open(tmp_path / 'log' / 'eval_stats.jsonl') as f:
+        [eval_stats] = [json.loads(line) for line in f]
+    assert eval_stats['frames'] == 2 and len(eval_stats['write_ms']) == 2
 
 
 @pytest.mark.parametrize('flag', [['--coordinator', 'localhost:1234'],

@@ -8,9 +8,10 @@
   (an AST walk), because this test process has JAX imported already. The
   package imports none of the root scripts.
 * A wheel of the package carries the kernel sources (package data).
-* The entry points (inference, the stereo trainer, the KM3D and MonoFlex
-  systems and trainers, the train, eval and quantize CLIs) run on the card
-  by default and raise without CUDA instead of running on the CPU.
+* The entry points (inference, the stereo trainer, the KM3D, MonoFlex,
+  RetinaNet and MonoDepth systems and trainers, the train, eval and
+  quantize CLIs) run on the card by default and raise without CUDA instead
+  of running on the CPU.
 * Kernels build from the package's sources only (``csrc/correlation.cu``,
   ``csrc/deform_conv.cu``, ``csrc/int8_conv.cu``, ``csrc/int8_block.cu``),
   include nothing but CUDA's headers and the package's own, rebuild when a
@@ -286,6 +287,15 @@ def test_int8_entry_point_raises_without_cuda(monkeypatch):
 
 @pytest.mark.parametrize('builder', ['build_monoflex_system', 'build_monoflex_trainer'])
 def test_monoflex_entry_points_raise_without_cuda(monkeypatch, builder):
+    from visualdet3d_tpu_torch import entry as entry_lib
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        getattr(entry_lib, builder)()
+
+
+@pytest.mark.parametrize('builder', ['build_retinanet_system', 'build_retinanet_trainer',
+                                     'build_monodepth_system', 'build_monodepth_trainer'])
+def test_retinanet_and_monodepth_entry_points_raise_without_cuda(monkeypatch, builder):
     from visualdet3d_tpu_torch import entry as entry_lib
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='CUDA is not available'):

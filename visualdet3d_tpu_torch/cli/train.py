@@ -15,8 +15,8 @@ split after the checkpoint, as the JAX loop does: the training weights in
 f32 (``inference_dtype`` is set aside for it), the network in eval mode,
 then back; its timings go to ``<log_path>/eval_stats.jsonl``. Two raises
 at start where the JAX CLI would go on: a config whose ``evaluate_func``
-the port lacks (``evaluate_kitti_depth``, which comes with MonoDepth)
-while an evaluation would fall within ``max_epochs``, and the
+is not registered while an evaluation would fall within ``max_epochs``
+(the JAX CLI would fail at that epoch, after training), and the
 multi-process options (one process on one device).
 
 Each epoch also appends one JSON line to ``<log_path>/train_stats.jsonl``:
@@ -29,6 +29,7 @@ epoch also the seconds from the start of ``main`` to the first step.
 
 Usage:
   python -m visualdet3d_tpu_torch.cli.train --config=configs/km3d.py [--resume]
+  python -m visualdet3d_tpu_torch.cli.train --config=configs/monodepth.py
 """
 from __future__ import annotations
 
@@ -154,10 +155,11 @@ def main(argv=None) -> None:
     evaluate_func = cfg.trainer.get('evaluate_func')
     eval_epochs = evaluation_epochs(cfg.trainer, start_epoch) if evaluate_func else []
     if eval_epochs and evaluate_func not in PIPELINE_DICT:
+        known = sorted(name for name in PIPELINE_DICT if name.startswith('evaluate'))
         raise NotImplementedError(
             f'the config evaluates with {evaluate_func!r} after epochs {eval_epochs[:3]}..., '
-            'which the port does not have yet (ROADMAP.md Queue A, A6); set '
-            'trainer.test_iter to 0 or past max_epochs to train without it')
+            f'which is not a registered evaluation ({known}); set trainer.test_iter to 0 or '
+            'past max_epochs to train without it')
     dataset_val = DATASET_DICT[cfg.data.val_dataset](cfg, 'validation') if eval_epochs else None
 
     writer = MetricWriter(cfg.path.log_path)

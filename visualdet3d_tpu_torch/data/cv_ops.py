@@ -6,7 +6,9 @@ release the interpreter lock for the data loader's threads.
 * :func:`resize`: bilinear with half-pixel centres (``INTER_LINEAR``, no
   antialiasing when shrinking) through ``F.interpolate(align_corners=False)``,
   or ``INTER_NEAREST``'s source index ``floor(dst * (1 / (out / in)))``
-  (OpenCV's rounding: ``dst * in / out`` differs at exact multiples);
+  (OpenCV's rounding: ``dst * in / out`` differs at exact multiples); a
+  uint16 image (a KITTI depth map) takes OpenCV's own float arithmetic bit
+  for bit (:func:`_resize_linear_u16`);
 * :func:`warp_affine`: ``warpAffine(M, INTER_LINEAR)`` with a zero border,
   sampling each output pixel at ``M^-1 (x, y, 1)`` exactly (float64
   coordinates), bilinearly, through ``F.grid_sample``;
@@ -14,7 +16,7 @@ release the interpreter lock for the data loader's threads.
   degrees, [0, 360); S and V unscaled), in float32.
 
 Images are [H, W] or [H, W, C] numpy arrays; the result keeps the input's
-dtype (uint8 is rounded and clipped, as OpenCV saturates).
+dtype (uint8 and uint16 are rounded and clipped, as OpenCV saturates).
 """
 from __future__ import annotations
 
@@ -59,9 +61,62 @@ def resize(image: np.ndarray, size_wh: Tuple[int, int],
         return np.ascontiguousarray(image[rows][:, cols])
     if interpolation != INTER_LINEAR:
         raise NotImplementedError(f'interpolation {interpolation}')
+    if image.dtype == np.uint16:
+        return _resize_linear_u16(image, w, h)
     out = F.interpolate(_as_float_chw(image), size=(h, w), mode='bilinear',
                         align_corners=False, antialias=False)
     return _back(out, image)
+
+
+def _fma32(a, b, c) -> np.ndarray:
+    """``fmaf(a, b, c)``: a * b + c rounded once to float32, for float32
+    inputs. The product of two 24-bit significands is exact in float64; the
+    sum is rounded to float64 and then to float32, and where the float64
+    sum was inexact (its two-sum error is not 0) and falls exactly on a
+    float32 tie, the error breaks the tie as the single rounding would."""
+    a, b, c = (np.asarray(v, np.float64) for v in (a, b, c))
+    p = a * b
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    r = s.astype(np.float32)
+    inexact = np.nonzero(err)
+    if inexact[0].size:
+        s_i, r_i, e_i = s[inexact], r[inexact], err[inexact]
+        other = np.nextafter(r_i, np.where(s_i > r_i, np.float32(np.inf), np.float32(-np.inf)))
+        tie = (r_i.astype(np.float64) + other.astype(np.float64)) / 2 == s_i
+        r[inexact] = np.where(tie & ((e_i > 0) == (other > r_i)), other, r_i)
+    return r
+
+
+def _linear_taps(n_in: int, n_out: int):
+    """OpenCV's linear taps along one axis: the source coordinate
+    ``(d + 0.5) * (1 / (out / in)) - 0.5`` in float64, its floor and
+    fraction (the fraction rounded to float32), clamped at both borders
+    to the edge sample with fraction 0."""
+    f = (np.arange(n_out, dtype=np.float64) + 0.5) * (1.0 / (n_out / n_in)) - 0.5
+    lo = np.floor(f)
+    frac = (f - lo).astype(np.float32)
+    lo = lo.astype(np.int64)
+    frac[(lo < 0) | (lo >= n_in - 1)] = 0
+    lo = np.clip(lo, 0, n_in - 1)
+    return lo, np.minimum(lo + 1, n_in - 1), frac
+
+
+def _resize_linear_u16(image: np.ndarray, w: int, h: int) -> np.ndarray:
+    """``cv2.resize(image, (w, h))`` of a uint16 image, bit for bit:
+    OpenCV resizes 16-bit images in float32, rows first, each output the
+    lerp ``fmaf(t, b - a, a)`` of its two taps (:func:`_linear_taps`), and
+    rounds half to even with saturation."""
+    trail = (1,) * (image.ndim - 2)
+    out = image.astype(np.float32)
+    if w != image.shape[1]:  # at the same size every fraction is 0: the identity
+        x0, x1, fx = _linear_taps(image.shape[1], w)
+        out = _fma32(fx.reshape((1, -1) + trail), out[:, x1] - out[:, x0], out[:, x0])
+    if h != image.shape[0]:
+        y0, y1, fy = _linear_taps(image.shape[0], h)
+        out = _fma32(fy.reshape((-1, 1) + trail), out[y1] - out[y0], out[y0])
+    return np.ascontiguousarray(np.clip(np.rint(out), 0, 65535).astype(np.uint16))
 
 
 def warp_affine(image: np.ndarray, matrix: np.ndarray, size_wh: Tuple[int, int]) -> np.ndarray:

@@ -158,9 +158,15 @@ def _filter_rows(image_bytes: np.ndarray, bpp: int, filters: Sequence[int]) -> n
     """The filtered rows [H, 1 + rowbytes] of the unfiltered bytes
     ``image_bytes`` [H, rowbytes]: row r takes filter type
     ``filters[r % len(filters)]``. Vectorised: the predictors read the
-    unfiltered bytes, which are all known."""
+    unfiltered bytes, which are all known. With type 0 on every row the
+    bytes are copied as they are (no predictor is formed)."""
+    h, n = image_bytes.shape
+    if all(f == 0 for f in filters):
+        out = np.empty((h, n + 1), np.uint8)
+        out[:, 0] = 0
+        out[:, 1:] = image_bytes
+        return out
     x = image_bytes.astype(np.int32)
-    h, n = x.shape
     left = np.zeros_like(x)
     left[:, bpp:] = x[:, :-bpp]
     up = np.zeros_like(x)

@@ -45,6 +45,17 @@ for MonoFlex (``configs/monoflex.py``: the KM3D network with MonoFlex's head
 branches, decode and loss; Adam, lr 3e-4, gradients clipped to norm 35,
 MultiStepLR at epochs 60 and 80, batch 8).
 
+``build_retinanet_system()`` and ``build_retinanet_trainer()`` are RetinaNet
+2D detection (``configs/retinanet_2d.py``: ResNet-50 with the stem and
+stage 1 frozen, FPN 256 with 5 levels, 4 stacked convs a tower, 9 anchors a
+location, 384x1280; SGD, lr 0.01, momentum 0.9, weight decay 1e-4,
+clipping at norm 35, MultiStepLR at epochs 20 and 26, batch 8).
+
+``build_monodepth_system()`` and ``build_monodepth_trainer()`` are MonoDepth
+(``configs/monodepth.py``: ResNet-34 and the U-Net decoder whose three
+``DoubleConv`` blocks end in a DCN on the CUDA kernels, 352x1216; Adam, lr
+1e-4, clipping at norm 0.1, ExponentialLR 0.98, batch 8).
+
 Under ``VD3D_DCN_ALLTAPS=1`` and ``VD3D_DCN_PREMUL=1`` the DCNs take the
 forward variants the JAX package's switches select
 (``ops/deform_conv.forward_variant``).
@@ -62,12 +73,16 @@ from visualdet3d_tpu_torch.ops.kernel_build import BUILD_DIR
 from visualdet3d_tpu_torch.registry import DETECTOR_DICT
 from visualdet3d_tpu_torch.testing import (
     KITTI_P2, calibrate_prediction_convs, gac_detector_cfg, gac_train_cfg,
-    int8_calibration_batches, km3d_detector_cfg, km3d_train_cfg, monoflex_detector_cfg,
-    monoflex_train_cfg, stereo3d_detector_cfg, stereo_train_cfg, write_synthetic_priors)
+    int8_calibration_batches, km3d_detector_cfg, km3d_train_cfg, monodepth_detector_cfg,
+    monodepth_train_cfg, monoflex_detector_cfg, monoflex_train_cfg, retinanet_detector_cfg,
+    retinanet_train_cfg, stereo3d_detector_cfg, stereo_train_cfg, write_synthetic_priors)
 
 IMAGE_HW = (288, 1280)
 KM3D_IMAGE_HW = (384, 1280)
+RETINANET_IMAGE_HW = (384, 1280)
+MONODEPTH_IMAGE_HW = (352, 1216)
 KITTI_TRAIN_FRAMES = 3712  # the chen split's training frames (splits/chen_split/train.txt)
+KITTI_DEPTH_TRAIN_FRAMES = 85898  # the frames of KITTI's depth-annotated training set
 GAC_HEADS = {'ground_aware': 'GroundAwareYolo3D', 'dcn': 'Yolo3D'}
 
 
@@ -150,6 +165,30 @@ def build_monoflex_system(device: Optional[Union[str, torch.device]] = None):
 
     device = resolve_device(device)
     cfg = monoflex_detector_cfg()
+    return DETECTOR_DICT[cfg.name](cfg, device=device)
+
+
+def build_retinanet_system(device: Optional[Union[str, torch.device]] = None):
+    """RetinaNet of ``configs/retinanet_2d.py`` (Car, Pedestrian, Cyclist)
+    with random weights from seed 0 on ``device`` (the card unless the
+    caller names another)."""
+    import visualdet3d_tpu_torch.models  # noqa: F401  (registers RetinaNet)
+
+    device = resolve_device(device)
+    cfg = retinanet_detector_cfg()
+    return DETECTOR_DICT[cfg.name](cfg, device=device)
+
+
+def build_monodepth_system(device: Optional[Union[str, torch.device]] = None,
+                           preprocessed: str = ''):
+    """MonoDepth of ``configs/monodepth.py`` with random weights from seed 0
+    on ``device`` (the card unless the caller names another); the prior
+    mean from ``preprocessed`` (``cli/depth_precompute.py``'s files), else
+    log 15 m."""
+    import visualdet3d_tpu_torch.models  # noqa: F401  (registers MonoDepth)
+
+    device = resolve_device(device)
+    cfg = monodepth_detector_cfg(preprocessed)
     return DETECTOR_DICT[cfg.name](cfg, device=device)
 
 
@@ -251,6 +290,45 @@ def build_monoflex_trainer(device: Optional[Union[str, torch.device]] = None,
     (``testing.monoflex_training_batch``)."""
     cfg = monoflex_train_cfg(steps_per_epoch=math.ceil(KITTI_TRAIN_FRAMES / batch_size))
     return _rtm3d_trainer(build_monoflex_system(device), cfg, compute_dtype, batch_size)
+
+
+def build_retinanet_trainer(device: Optional[Union[str, torch.device]] = None,
+                            compute_dtype: Optional[str] = None, batch_size: int = 8):
+    """RetinaNet training on ``device`` (the card unless the caller names
+    another): returns ``(system, state, step)``. ``system`` is
+    :func:`build_retinanet_system`'s; ``state`` holds the SGD optimizer of
+    ``configs/retinanet_2d.py`` (an epoch is the chen split's training
+    frames at ``batch_size``); ``step(batch)`` takes ``{'images', 'P2',
+    'annotations'}`` (``testing.mono_training_batch``) of ``batch_size``
+    images, raising on another size, and makes one update in place,
+    returning the loss terms. ``compute_dtype='bfloat16'`` is the
+    mixed-precision policy (``pipelines/train_state.py``)."""
+    cfg = retinanet_train_cfg(steps_per_epoch=math.ceil(KITTI_TRAIN_FRAMES / batch_size))
+    system = build_retinanet_system(device)
+    state, train_step = _trainer(system, cfg, 'train_2d_detection', compute_dtype)
+
+    def step(batch):
+        _check_batch_size(batch['images'].shape[0], batch_size)
+        return train_step(state, batch)
+    return system, state, step
+
+
+def build_monodepth_trainer(device: Optional[Union[str, torch.device]] = None,
+                            compute_dtype: Optional[str] = None, batch_size: int = 8):
+    """MonoDepth training on ``device``, as :func:`build_retinanet_trainer`:
+    :func:`build_monodepth_system`'s system, the optimizer of
+    ``configs/monodepth.py`` (an epoch is KITTI's depth-annotated training
+    frames at ``batch_size``), batches ``{'images', 'P2', 'gts'}``
+    (``testing.depth_training_batch``); every DCN's forward and backward on
+    the CUDA kernels."""
+    cfg = monodepth_train_cfg(steps_per_epoch=math.ceil(KITTI_DEPTH_TRAIN_FRAMES / batch_size))
+    system = build_monodepth_system(device)
+    state, train_step = _trainer(system, cfg, 'train_mono_depth', compute_dtype)
+
+    def step(batch):
+        _check_batch_size(batch['images'].shape[0], batch_size)
+        return train_step(state, batch)
+    return system, state, step
 
 
 def entry(device: Optional[Union[str, torch.device]] = None):

@@ -244,6 +244,13 @@ class ModulatedDeformConv(nn.Module):
     zero-initialised, so the module starts as a plain conv with mask 0.5.
     Stride 1, the only one the ported models use (the flax module's strided
     form pads its offset conv asymmetrically).
+
+    The dtypes are flax's: the offset conv is a :class:`FlaxConv2d`, and the
+    deformable conv computes in its dtype (the policy's under the
+    mixed-precision policy, else the promoted dtype of the input and the
+    weights), so a bf16 inference copy fed an f32 map (MonoDepth's decoder
+    after ``LookGround``) runs the f32 kernel, as the JAX op's dtype is its
+    input's.
     """
 
     def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
@@ -252,8 +259,8 @@ class ModulatedDeformConv(nn.Module):
         self.kernel_size, self.dilation = kernel_size, dilation
         k = kernel_size * kernel_size
         self.pad = dilation * (kernel_size - 1) // 2
-        self.Conv_0 = nn.Conv2d(in_channels, 3 * k, kernel_size, padding=self.pad,
-                                dilation=dilation)
+        self.Conv_0 = FlaxConv2d(in_channels, 3 * k, kernel_size, padding=self.pad,
+                                 dilation=dilation)
         self.weight = nn.Parameter(torch.empty(features, in_channels, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.empty(features))
         self.reset_parameters()
@@ -273,12 +280,12 @@ class ModulatedDeformConv(nn.Module):
         """x: NCHW (channels_last) -> NCHW (channels_last)."""
         k = self.kernel_size * self.kernel_size
         om = self.Conv_0(x).permute(0, 2, 3, 1)
-        offset = om[..., :2 * k]
-        mask = torch.sigmoid(om[..., 2 * k:])
-        out = modulated_deform_conv(x.permute(0, 2, 3, 1), offset, mask,
-                                    self.weight.permute(2, 3, 1, 0), self.bias,
-                                    padding=self.pad, dilation=self.dilation,
-                                    train=self.training)
+        dtype = om.dtype
+        out = modulated_deform_conv(x.to(dtype).permute(0, 2, 3, 1), om[..., :2 * k],
+                                    torch.sigmoid(om[..., 2 * k:]),
+                                    self.weight.to(dtype).permute(2, 3, 1, 0),
+                                    self.bias.to(dtype), padding=self.pad,
+                                    dilation=self.dilation, train=self.training)
         return out.permute(0, 3, 1, 2)
 
 

@@ -7,8 +7,9 @@ the offline evaluator.
 Decode and NMS run on the system's device inside ``predict``; each frame's
 kept boxes come to the host once, for the back-projection, the optional
 hill-climbing post-optimisation, the rescale to the original camera and
-the file I/O. ``evaluate_kitti_depth`` comes with MonoDepth: its name stays
-unregistered, so the train CLI refuses a config that names it.
+the file I/O. ``evaluate_kitti_depth`` writes each frame's depth as a
+16-bit PNG at the original size (``data/cv_ops.resize``, OpenCV's 16-bit
+arithmetic) and runs the KITTI depth evaluator on them.
 """
 from __future__ import annotations
 
@@ -21,6 +22,8 @@ from typing import Optional, Sized
 import numpy as np
 
 from visualdet3d_tpu_torch import geometry
+from visualdet3d_tpu_torch.data import cv_ops
+from visualdet3d_tpu_torch.data.image_io import write_png
 from visualdet3d_tpu_torch.data.kitti.utils import write_result_to_file
 from visualdet3d_tpu_torch.registry import PIPELINE_DICT
 
@@ -157,4 +160,65 @@ def evaluate_kitti_obj(cfg, system, dataset_val: Sized, writer, epoch_num: int,
                             result_text.replace(' ', '&nbsp;').replace('\n', '  \n'),
                             epoch_num + 1)
         print(result_text)
+    return result_texts
+
+
+def depth_png(depth: np.ndarray, original_hw) -> np.ndarray:
+    """A predicted depth map [h, w] (metres, float32) as the uint16 image
+    ``evaluate_kitti_depth`` writes (reference evaluators.py:19-63): depth
+    x 256 truncated to uint16, the top edge row repeated up to the original
+    height, resized to the original size (bilinear, OpenCV's 16-bit
+    arithmetic), zeros set to 1."""
+    depth_uint16 = (np.asarray(depth, np.float32) * 256).astype(np.uint16)
+    h, w = int(original_hw[0]), int(original_hw[1])
+    height_to_pad = h - depth_uint16.shape[0]
+    if height_to_pad > 0:
+        depth_uint16 = np.pad(depth_uint16, [(height_to_pad, 0), (0, 0)], mode='edge')
+    depth_uint16 = cv_ops.resize(depth_uint16, (w, h))
+    depth_uint16[depth_uint16 == 0] = 1
+    return depth_uint16
+
+
+@PIPELINE_DICT.register_module
+def evaluate_kitti_depth(cfg, system, dataset_val: Sized, writer, epoch_num: int,
+                         result_path_split='validation', stats: Optional[dict] = None):
+    """reference evaluators.py:19-63: every frame of ``dataset_val`` through
+    ``cfg.trainer.test_func`` (``test_mono_depth``) at batch 1, its depth
+    written as ``<preprocessed_path>/<split>/data/%010d.png``
+    (:func:`depth_png`), then the KITTI depth evaluator against
+    ``<validation_path>/groundtruth_depth``. Returns the report lines (None
+    for the test set). ``stats``, if given, gets the ms of each frame's
+    item (``load_ms``), inference with the copy to the host (``frame_ms``)
+    and PNG (``write_ms``), and the evaluator's seconds (``evaluator_s``)."""
+    result_path = os.path.join(cfg.path.preprocessed_path, result_path_split, 'data')
+    _fresh_dir(result_path)
+    test_fn = PIPELINE_DICT[cfg.trainer.test_func](system)
+    times = {} if stats is None else stats
+    for index in range(len(dataset_val)):
+        t0 = time.perf_counter()
+        data = dataset_val[index]
+        collated = dataset_val.collate_fn([data])
+        t1 = time.perf_counter()
+        depth = test_fn(collated)['target'][0, ..., 0].float().cpu().numpy()
+        t2 = time.perf_counter()
+        write_png(os.path.join(result_path, '%010d.png' % index),
+                  depth_png(depth, data['original_shape']))
+        t3 = time.perf_counter()
+        for key, ms in (('load_ms', t1 - t0), ('frame_ms', t2 - t1), ('write_ms', t3 - t2)):
+            times.setdefault(key, []).append(ms * 1e3)
+    if cfg.get('is_running_test_set', False):
+        print('Finish evaluation.')
+        return None
+    from visualdet3d_tpu_torch.evaluator.kitti_depth.evaluate_depth import evaluate_depth
+    t0 = time.perf_counter()
+    result_texts = evaluate_depth(
+        label_path=os.path.join(cfg.path.validation_path, 'groundtruth_depth'),
+        result_path=result_path)
+    times['evaluator_s'] = time.perf_counter() - t0
+    for index, result_text in enumerate(result_texts):
+        if writer is not None:
+            writer.add_text(f'validation result {index}',
+                            result_text.replace(' ', '&nbsp;').replace('\n', '  \n'),
+                            epoch_num + 1)
+        print(result_text, end='')
     return result_texts

@@ -7,8 +7,8 @@ Each factory takes a detector system, which holds its weights, and returns
 the valid detections of the batch's first image. Decode and NMS run on the
 system's device inside ``predict``; the outputs come to the host in one
 copy. The depth-shift score augmentation of Digging_M3D (testers.py:44-90)
-is reproduced host-side on the decoded boxes. ``test_mono_depth`` comes
-with MonoDepth.
+is reproduced host-side on the decoded boxes. ``test_mono_depth`` returns
+MonoDepth's dense prediction as it is, on the device.
 """
 from __future__ import annotations
 
@@ -79,4 +79,13 @@ def test_mono_detection_diggingmono3d(system, max_detections: int = 64,
                 out_b.append(nb)
                 out_n.append(names[i])
         return np.asarray(out_s), np.stack(out_b), out_n
+    return fn
+
+
+@PIPELINE_DICT.register_module
+def test_mono_depth(system):
+    """Dense depth prediction (``evaluate_kitti_depth``'s): batch =
+    dict(images, P2) -> ``system.predict``'s dict(target [B, H, W, 1])."""
+    def fn(batch):
+        return system.predict(batch['images'], batch['P2'])
     return fn

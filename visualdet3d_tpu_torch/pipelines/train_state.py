@@ -72,8 +72,14 @@ def _update(state: TrainState, system, total: torch.Tensor,
     """The backward of ``total`` and the skip rule: the optimizer updates
     the parameters (and its state) only when total > 0, read on the host
     (one sync per step); the running statistics the forward updated stay
-    either way. Returns the detached loss terms and ``total``."""
+    either way. A parameter the loss does not reach (a frozen trunk stage)
+    gets a zero gradient, so that weight decay and momentum move it as
+    optax moves it (``torch.optim`` would skip it). Returns the detached
+    loss terms and ``total``."""
     total.backward()
+    for p in state.optimizer.params:
+        if p.grad is None:  # not reached by the loss (a frozen stage): 0, as jax.grad gives
+            p.grad = torch.zeros_like(p)
     if bool(total > 0):
         state.optimizer.step()
         system.weights_changed()

@@ -1,6 +1,6 @@
 """Registered training pipelines (counterpart of
-``visualdet3d_tpu/pipelines/trainers.py``): the mono and stereo detection
-and rtm3d trainers; the depth and 2-D trainers come with their slices."""
+``visualdet3d_tpu/pipelines/trainers.py``): the mono and stereo detection,
+rtm3d, monocular depth and 2-D detection trainers."""
 from __future__ import annotations
 
 from visualdet3d_tpu_torch.pipelines.train_state import (
@@ -25,3 +25,16 @@ def train_stereo_detection(system, **kwargs):
 def train_rtm3d(system, **kwargs):
     """KM3D/RTM3D: batch = dict(images, gts, P2[, epoch])."""
     return make_simple_train_step(system, batch_keys=('images', 'gts', 'P2'), **kwargs)
+
+
+@PIPELINE_DICT.register_module
+def train_mono_depth(system, **kwargs):
+    """MonoDepth: batch = dict(images, P2, gts)."""
+    return make_simple_train_step(system, batch_keys=('images', 'P2', 'gts'), **kwargs)
+
+
+@PIPELINE_DICT.register_module
+def train_2d_detection(system, **kwargs):
+    """RetinaNet: batch = dict(images, P2, annotations), as the mono
+    detection trainer."""
+    return make_detection_train_step(system, **kwargs)

@@ -1,10 +1,11 @@
 """Synthetic fixtures for smoke runs and tests (counterpart of
-``visualdet3d_tpu/testing.py``): the YOLOStereo3D, GAC / Yolo3D, KM3D and
-MonoFlex configs and their optimizers, synthetic anchor priors, seeded
-values for the zero-initialised prediction, offset and heatmap convs of a
-random-weight model, synthetic KM3D and MonoFlex training batches built by
-the ported target builders, and synthetic stereo and mono training
-batches."""
+``visualdet3d_tpu/testing.py``): the YOLOStereo3D, GAC / Yolo3D, KM3D,
+MonoFlex, RetinaNet and MonoDepth configs and their optimizers, synthetic
+anchor priors, seeded values for the zero-initialised prediction, offset
+and heatmap convs of a random-weight model, synthetic KM3D and MonoFlex
+training batches built by the ported target builders, synthetic stereo,
+mono and depth training batches, and synthetic KITTI object and depth
+trees on disk."""
 from __future__ import annotations
 
 import contextlib
@@ -722,3 +723,194 @@ def write_split_files(out_dir: str, train_ids, val_ids):
         with open(paths[-1], 'w') as f:
             f.write('\n'.join('%06d' % i for i in ids) + '\n')
     return tuple(paths)
+
+
+def retinanet_detector_cfg(obj_types=('Car', 'Pedestrian', 'Cyclist'), depth: int = 50) -> edict:
+    """The RetinaNet config of ``configs/retinanet_2d.py``: ResNet-50 with
+    the stem and stage 1 frozen and BatchNorm in eval mode, the FPN at 256
+    with 5 levels (strides 8-128), 4 stacked 256-wide convs a tower, 9
+    anchors a location (3 ratios x 3 scales), focal loss with balance 20."""
+    obj_types = list(obj_types)
+    return edict(
+        obj_types=obj_types,
+        name='RetinaNet',
+        backbone=edict(depth=depth, pretrained=False, frozen_stages=1, num_stages=4,
+                       out_indices=(1, 2, 3), norm_eval=True, dilations=(1, 1, 1, 1)),
+        neck=edict(in_channels=[512, 1024, 2048], out_channels=256, num_outs=5),
+        head=edict(
+            stacked_convs=4, in_channels=256, feat_channels=256, num_classes=len(obj_types),
+            target_stds=[1.0, 1.0, 1.0, 1.0], target_means=[0.0, 0.0, 0.0, 0.0],
+            anchors_cfg=edict(pyramid_levels=[3, 4, 5, 6, 7], strides=[8, 16, 32, 64, 128],
+                              sizes=[32, 64, 128, 256, 512], ratios=np.array([0.5, 1, 2]),
+                              scales=np.array([2 ** 0, 2 ** (1 / 3), 2 ** (2 / 3)])),
+            loss_cfg=edict(fg_iou_threshold=0.5, bg_iou_threshold=0.4, match_low_quality=True,
+                           gamma=2.0, balance_weights=[20.0] * len(obj_types)),
+            test_cfg=edict(score_thr=0.5, nms_pre=1000, nms_iou_thr=0.5,
+                           post_optimization=False),
+        ),
+    )
+
+
+def retinanet_train_cfg(steps_per_epoch: int = 1) -> edict:
+    """The optimizer and schedule of ``configs/retinanet_2d.py``: SGD, lr
+    0.01, momentum 0.9, weight decay 1e-4, gradients clipped to global norm
+    35, MultiStepLR at epochs 20 and 26 (x0.1), stepped per epoch of
+    ``steps_per_epoch`` updates."""
+    return edict(
+        optimizer=edict(type_name='sgd', keywords=edict(lr=0.01, momentum=0.9, weight_decay=1e-4),
+                        clipped_gradient_norm=35.0),
+        scheduler=edict(type_name='MultiStepLR', keywords=edict(milestones=[20, 26], gamma=0.1)),
+        steps_per_epoch=steps_per_epoch,
+    )
+
+
+def monodepth_detector_cfg(preprocessed_path: str = '', depth: int = 34) -> edict:
+    """The MonoDepth config of ``configs/monodepth.py``: ResNet-34, the four
+    stages tapped, SI-log lambda 0.3, smoothness weight 0.003, the minor
+    scales weighted 0; the prior mean from ``preprocessed_path`` (log 15 m
+    without it)."""
+    return edict(
+        name='MonoDepth', max_depth=50, output_channel=1, SI_loss_lambda=0.3,
+        smooth_loss_weight=0.003, minor_weight=0.0, preprocessed_path=preprocessed_path,
+        backbone=edict(depth=depth, pretrained=False, frozen_stages=-1, num_stages=4,
+                       out_indices=(0, 1, 2, 3), norm_eval=False, dilations=(1, 1, 1, 1)),
+    )
+
+
+def monodepth_train_cfg(steps_per_epoch: int = 1) -> edict:
+    """The optimizer and schedule of ``configs/monodepth.py``: Adam, lr
+    1e-4, no weight decay, gradients clipped to global norm 0.1,
+    ExponentialLR with gamma 0.98 a epoch of ``steps_per_epoch`` updates."""
+    return edict(
+        optimizer=edict(type_name='adam', keywords=edict(lr=1e-4, weight_decay=0),
+                        clipped_gradient_norm=0.1),
+        scheduler=edict(type_name='ExponentialLR', keywords=edict(gamma=0.98)),
+        steps_per_epoch=steps_per_epoch,
+    )
+
+
+def _ground_depth(rng: np.random.Generator, P2: np.ndarray, image_hw, share: float,
+                  elevation: float = 1.65) -> np.ndarray:
+    """A sparse depth map [H, W] (metres, 0 where there is no return): a
+    random ``share`` of the pixels below the horizon row of P2 hold the
+    ground plane's depth ``fy * elevation / (v - cy)``, times 1 +- 5%,
+    clipped to [1, 80] m."""
+    h, w = image_hw
+    v = np.arange(h, dtype=np.float64)[:, None].repeat(w, axis=1)
+    below = v > P2[1, 2] + 1.0
+    depth = P2[1, 1] * elevation / np.maximum(v - P2[1, 2], 1e-6)
+    depth = np.clip(depth * rng.uniform(0.95, 1.05, (h, w)), 1.0, 80.0)
+    keep = below & (rng.random((h, w)) < share)
+    return np.where(keep, depth, 0.0).astype(np.float32)
+
+
+def depth_training_batch(rng: np.random.Generator, batch_size: int, image_hw,
+                         share: float = 0.05) -> dict:
+    """A synthetic MonoDepth training batch as numpy arrays: standard-normal
+    images [B, H, W, 3], the KITTI P2 scaled to the width and sparse ground
+    truth [B, H, W] (``share`` of the pixels below the horizon on the
+    ground plane)."""
+    h, w = image_hw
+    P2 = _kitti_P2(w)
+    return dict(images=rng.standard_normal((batch_size, h, w, 3), dtype=np.float32),
+                P2=np.tile(P2, (batch_size, 1, 1)),
+                gts=np.stack([_ground_depth(rng, P2, image_hw, share)
+                              for _ in range(batch_size)]))
+
+
+@torch.no_grad()
+def prepare_retinanet(system, images, generator: torch.Generator,
+                      calibrate_head: bool = True) -> None:
+    """A random-weight RetinaNet made ready on ``images``: every BatchNorm's
+    running statistics set to the batch statistics (the config keeps the
+    trunk's BatchNorm in eval mode, ``norm_eval``, so without them a random
+    ResNet-50's activations grow block after block and SGD at lr 0.01
+    diverges), then, with ``calibrate_head``, the prediction convs
+    calibrated (``calibrate_prediction_convs``: zero as initialised, every
+    score sits at the 0.01 prior and no gradient reaches the towers)."""
+    calibrate_batch_statistics(system, images)
+    if calibrate_head:
+        calibrate_prediction_convs(system, (images,), generator)
+
+
+@torch.no_grad()
+def prepare_monodepth(system, images, P2, generator: torch.Generator,
+                      offset_std: float = 2.0) -> None:
+    """A random-weight MonoDepth made ready to predict and train on
+    ``images`` and P2: running statistics set to the batch statistics, the
+    three DCNs' offsets seeded to std ``offset_std`` px in that regime, the
+    statistics set again, every ``LookGround`` alpha at
+    ``LOOK_GROUND_ALPHA`` (zero as initialised, which would leave the
+    ground-aware branch out)."""
+    from visualdet3d_tpu_torch.models.blocks import LookGround
+    calibrate_batch_statistics(system, images, P2)
+    seed_offset_convs(system, generator, offset_std, images, P2)
+    calibrate_batch_statistics(system, images, P2)
+    for m in system.net.modules():
+        if isinstance(m, LookGround):
+            m.alpha.fill_(LOOK_GROUND_ALPHA)
+    system.weights_changed()
+
+
+KITTI_DEPTH_SEQUENCE = ('2011_09_26', '2011_09_26_drive_0001_sync')
+
+
+def _calib_line(key: str, values) -> str:
+    return f'{key}: ' + ' '.join(f'{v:.6e}' for v in np.asarray(values).reshape(-1)) + '\n'
+
+
+def write_synthetic_kitti_depth(root: str, n_frames: int, seed: int = 0,
+                                n_val: int = 4, image_hw=KITTI_IMAGE_HW,
+                                share: float = 0.05) -> dict:
+    """A synthetic KITTI depth tree under ``root``, at 375x1242 by default:
+
+    * ``raw/<date>/<drive>_sync/image_02|03/data/%010d.png`` (uniform noise,
+      the rows cycling through the five PNG filters),
+      ``raw/<date>/calib_cam_to_cam.txt`` (P_rect_02/03 of KITTI) and
+      ``calib_velo_to_cam.txt``;
+    * ``depth/<drive>_sync/proj_depth/groundtruth/image_02|03/%010d.png``:
+      sparse 16-bit depth x 256 (``share`` of the pixels below the horizon,
+      on the ground plane);
+    * ``val_selection_cropped/{image,groundtruth_depth,intrinsics}`` with
+      ``n_val`` frames named as the depth selection names them.
+
+    Returns dict(raw_path, depth_path, validation_path)."""
+    from visualdet3d_tpu_torch.data.image_io import FILTER_TYPES, write_png
+    rng = np.random.default_rng(seed)
+    date, seq = KITTI_DEPTH_SEQUENCE
+    raw = os.path.join(root, 'raw')
+    depth = os.path.join(root, 'depth')
+    val = os.path.join(root, 'val_selection_cropped')
+    P2, P3 = KITTI_CALIB['P2'], KITTI_CALIB['P3']
+    os.makedirs(os.path.join(raw, date), exist_ok=True)
+    with open(os.path.join(raw, date, 'calib_cam_to_cam.txt'), 'w') as f:
+        f.write('calib_time: 09-Jan-2012 13:57:47\n' + _calib_line('P_rect_02', P2)
+                + _calib_line('P_rect_03', P3))
+    with open(os.path.join(raw, date, 'calib_velo_to_cam.txt'), 'w') as f:
+        f.write(_calib_line('R', KITTI_CALIB['Tr_velo_to_cam'][:, :3])
+                + _calib_line('T', KITTI_CALIB['Tr_velo_to_cam'][:, 3]))
+    for eye in ('image_02', 'image_03'):
+        os.makedirs(os.path.join(raw, date, seq, eye, 'data'), exist_ok=True)
+        os.makedirs(os.path.join(depth, seq, 'proj_depth', 'groundtruth', eye), exist_ok=True)
+    for sub in ('image', 'groundtruth_depth', 'intrinsics'):
+        os.makedirs(os.path.join(val, sub), exist_ok=True)
+
+    def depth_png(P):
+        return np.round(_ground_depth(rng, P, image_hw, share) * 256).astype(np.uint16)
+
+    for i in range(n_frames):
+        name = '%010d.png' % i
+        for eye, P in (('image_02', P2), ('image_03', P3)):
+            image = rng.integers(0, 256, (*image_hw, 3), np.uint8)
+            write_png(os.path.join(raw, date, seq, eye, 'data', name), image, FILTER_TYPES)
+            write_png(os.path.join(depth, seq, 'proj_depth', 'groundtruth', eye, name),
+                      depth_png(P), FILTER_TYPES)
+    for i in range(n_val):
+        stem = f'{seq}_%s_{i:010d}_image_02'
+        image = rng.integers(0, 256, (*image_hw, 3), np.uint8)
+        write_png(os.path.join(val, 'image', stem % 'image' + '.png'), image, FILTER_TYPES)
+        write_png(os.path.join(val, 'groundtruth_depth', stem % 'groundtruth_depth' + '.png'),
+                  depth_png(P2), FILTER_TYPES)
+        with open(os.path.join(val, 'intrinsics', stem % 'image' + '.txt'), 'w') as f:
+            f.write(' '.join(f'{v:.6f}' for v in P2[:3, :3].reshape(-1)) + '\n')
+    return dict(raw_path=raw, depth_path=depth, validation_path=val)
