@@ -219,7 +219,7 @@ each printed as one JSON line:
    cli_train_retinanet (the train CLI in a subprocess, one epoch of 2 steps
    at batch 8 and the evaluation after it: 16-bit depth PNGs and the nine
    metrics; RetinaNet's 2-D results and AP table); cli_eval_monodepth (the
-   eval CLI at batch 1 over 100 frames: the frame's, the item's and the
+   eval CLI at batch 1 over 40 frames: the frame's, the item's and the
    PNG's ms; the card's metrics against ``--device cpu``'s within 1e-4).
 
 Then a ``wall`` line (the script's seconds), the ``kernels`` summary line,
@@ -243,6 +243,7 @@ import numpy as np
 BATCH = 16
 N_BATCHES = 6     # distinct request batches per timed main-path run
 N_KERNEL_RUNS = 10  # distinct inputs per kernel timing
+PARITY_TRAIN_BATCH = 2  # the training steps held against the CPU's
 N_BS1 = 12
 MONOFLEX_BATCH = 8  # configs/monoflex.py's training batch
 
@@ -863,13 +864,15 @@ def stereo_train_parity_phase(torch):
     Adam step within 2.5 * lr."""
     from visualdet3d_tpu_torch import testing
     from visualdet3d_tpu_torch.entry import build_stereo_trainer
-    batch = train_batches_of(torch, testing.stereo_training_batch, 1, 2, seed=34)[0]
-    gpu, gpu_state, gpu_step = build_stereo_trainer(device='cuda', batch_size=2)
-    cpu, cpu_state, cpu_step = build_stereo_trainer(device='cpu', batch_size=2)
+    batch = train_batches_of(torch, testing.stereo_training_batch, 1, PARITY_TRAIN_BATCH,
+                             seed=34)[0]
+    gpu, gpu_state, gpu_step = build_stereo_trainer(device='cuda', batch_size=PARITY_TRAIN_BATCH)
+    cpu, cpu_state, cpu_step = build_stereo_trainer(device='cpu', batch_size=PARITY_TRAIN_BATCH)
     init = {k: v.cpu() for k, v in gpu.net.state_dict().items()}
     cpu.net.load_state_dict(init)
     cpu.weights_changed()
-    floor_sys, floor_state, floor_step = build_stereo_trainer(device='cpu', batch_size=2)
+    floor_sys, floor_state, floor_step = build_stereo_trainer(device='cpu',
+                                                              batch_size=PARITY_TRAIN_BATCH)
     floor_sys.net.load_state_dict(init)
     grads = {}
     for tag, sys_, state in (('gpu', gpu, gpu_state), ('cpu', cpu, cpu_state),
@@ -923,7 +926,7 @@ def stereo_train_parity_phase(torch):
                     for bg, bc in zip(gpu.net.buffers(), cpu.net.buffers())
                     if bg.is_floating_point())
     check(stats_err <= 1e-4, f'stereo_train_parity: running statistics differ by {stats_err}')
-    emit('stereo_train_parity', batch=2, dtype='float32', tf32=False,
+    emit('stereo_train_parity', batch=PARITY_TRAIN_BATCH, dtype='float32', tf32=False,
          loss_rel_err=loss_err, loss_rel_err_floor=loss_floor,
          grad_max_abs_err=worst, grad_max_abs_err_floor=floor, grad_max=gmax,
          grad_rel_err_all=rel, grad_rel_err_all_floor=rel_floor,
@@ -2128,7 +2131,7 @@ def km3d_train_phase(torch, dc, compute_dtype, model='km3d', batch_size=BATCH):
 
 def km3d_train_parity_phase(torch):
     """One f32 training step (TF32 off) on the card against the same step on
-    the CPU, same weights and batch (2 images at 384x1280; running
+    the CPU, same weights and batch (PARITY_TRAIN_BATCH images at 384x1280; running
     statistics set to the batch's, offset convs seeded to 0.5 px, the head
     as initialised).
 
@@ -2158,12 +2161,12 @@ def km3d_train_parity_phase(torch):
     measured no rounding noise at all."""
     from visualdet3d_tpu_torch.entry import KM3D_IMAGE_HW, build_km3d_system, build_km3d_trainer
     from visualdet3d_tpu_torch.testing import prepare_km3d_for_training
-    batch = train_batches(torch, 1, 2, KM3D_IMAGE_HW, seed=25)[0]
-    gpu, gpu_state, gpu_step = build_km3d_trainer(device='cuda', batch_size=2)
+    batch = train_batches(torch, 1, PARITY_TRAIN_BATCH, KM3D_IMAGE_HW, seed=25)[0]
+    gpu, gpu_state, gpu_step = build_km3d_trainer(device='cuda', batch_size=PARITY_TRAIN_BATCH)
     prepare_km3d_for_training(gpu, batch['images'], torch.Generator().manual_seed(23),
                               offset_std=0.5, calibrate_head=False)
     init = {k: v.cpu() for k, v in gpu.net.state_dict().items()}
-    cpu, cpu_state, cpu_step = build_km3d_trainer(device='cpu', batch_size=2)
+    cpu, cpu_state, cpu_step = build_km3d_trainer(device='cpu', batch_size=PARITY_TRAIN_BATCH)
     cpu.net.load_state_dict(init)
     cpu.weights_changed()
     lr = cpu_state.optimizer.schedule(0)
@@ -2230,8 +2233,8 @@ def km3d_train_parity_phase(torch):
                     for bg, bc in zip(gpu.net.buffers(), cpu.net.buffers())
                     if bg.is_floating_point())
     check(stats_err <= 1e-4, f'km3d_train_parity: running statistics differ by {stats_err}')
-    emit('km3d_train_parity', batch=2, image_hw=list(KM3D_IMAGE_HW), dtype='float32',
-         tf32=False, loss_rel_err=loss_err, loss_rel_err_floor=loss_floor,
+    emit('km3d_train_parity', batch=PARITY_TRAIN_BATCH, image_hw=list(KM3D_IMAGE_HW),
+         dtype='float32', tf32=False, loss_rel_err=loss_err, loss_rel_err_floor=loss_floor,
          grad_max_abs_err=worst, grad_max_abs_err_floor=floor, grad_max=gmax,
          grad_rel_err_all=rel, grad_rel_err_all_floor=rel_floor,
          grad_rel_err_worst_leaves=per_leaf[:4],
@@ -3458,8 +3461,10 @@ def gac_train_parity_phase(torch, head):
     from visualdet3d_tpu_torch.models.backbones.resnet import Bottleneck
     from visualdet3d_tpu_torch.testing import prepare_mono_for_training
     phase = f'{GAC_PHASE[head]}_train_parity'
-    batch = train_batches_of(torch, testing.mono_training_batch, 1, 2, seed=48)[0]
-    gpu, gpu_state, gpu_step = build_gac_trainer(device='cuda', batch_size=2, head=head)
+    batch = train_batches_of(torch, testing.mono_training_batch, 1, PARITY_TRAIN_BATCH,
+                             seed=48)[0]
+    gpu, gpu_state, gpu_step = build_gac_trainer(device='cuda', batch_size=PARITY_TRAIN_BATCH,
+                                                 head=head)
     with torch.no_grad():
         for m in gpu.net.modules():
             if isinstance(m, Bottleneck):
@@ -3467,7 +3472,8 @@ def gac_train_parity_phase(torch, head):
     prepare_mono_for_training(gpu, batch['images'], batch['P2'],
                               torch.Generator().manual_seed(49), offset_std=0.5)
     init = {k: v.cpu() for k, v in gpu.net.state_dict().items()}
-    cpu, cpu_state, cpu_step = build_gac_trainer(device='cpu', batch_size=2, head=head)
+    cpu, cpu_state, cpu_step = build_gac_trainer(device='cpu', batch_size=PARITY_TRAIN_BATCH,
+                                                 head=head)
     cpu.net.load_state_dict(init)
     cpu.weights_changed()
     grads = {}
@@ -3530,7 +3536,8 @@ def gac_train_parity_phase(torch, head):
     stats_err = max(float((bg.cpu() - bc).abs().max() / bc.abs().max().clamp_min(1e-30))
                     for bg, bc in zip(gpu.net.buffers(), cpu.net.buffers())
                     if bg.is_floating_point())
-    emit(phase, batch=2, dtype='float32', tf32=False, reference='the CPU step in f64',
+    emit(phase, batch=PARITY_TRAIN_BATCH, dtype='float32', tf32=False,
+         reference='the CPU step in f64',
          loss_rel_err=loss_err, loss_rel_err_floor=loss_floor, grad_max_abs_err=worst,
          grad_max_abs_err_floor=floor, grad_max=gmax, grad_rel_err_all=rel,
          grad_rel_err_all_floor=rel_floor, grad_rel_diff_card_cpu=rel_card_cpu,
@@ -3899,7 +3906,7 @@ def km3d_resnet_parity_phase(torch):
 
 ORACLE_FRAMES = 160       # label files only: every difficulty has 41+ valid Cars
 ORACLE_SPLIT_FRAMES = 3769  # the frames of KITTI's usual validation split (3DOP's)
-EVAL_REPEATS = 25         # a timed evaluation lists the VAL_FRAMES frames 25 times
+EVAL_REPEATS = 10         # a timed evaluation lists the VAL_FRAMES frames 10 times: 40 frames
 
 
 def timed_eval_config(config):
@@ -4376,7 +4383,9 @@ def kitti_eval_phases(torch, work, configs):
 def kitti_training_phases(torch):
     """Training and evaluation from a KITTI tree on disk: data_io,
     kitti_precompute, cli_train_km3d, cli_train_stereo, then the evaluation
-    phases (``kitti_eval_phases``), km3d_resnet_parity. Returns the CLI
+    phases (``kitti_eval_phases``), the A6 phases on the trees, the int8
+    mono and process-group phases (``int8_mono_ddp_tree_phases``),
+    km3d_resnet_parity. Returns the CLI
     training phases' results and the launches a frame of the evaluations."""
     import tempfile
     data_io_phase()
@@ -4390,8 +4399,9 @@ def kitti_training_phases(torch):
         stereo = cli_train_phase(torch, configs['stereo'], 'cli_train_stereo', corr)
         eval_launches = kitti_eval_phases(torch, work, configs)
         a6_cli = a6_tree_phases(torch, work, configs['km3d'])
+        mono_int8_cli = int8_mono_ddp_tree_phases(torch, work, configs)
     km3d_resnet_parity_phase(torch)
-    return km3d, stereo, eval_launches, a6_cli
+    return km3d, stereo, eval_launches, a6_cli, mono_int8_cli
 
 
 def a6_tree_phases(torch, work, km3d_config):
@@ -4913,7 +4923,8 @@ def a6_step_parity(torch, phase, gpu, gpu_state, gpu_step, cpu, cpu_state, cpu_s
     stats_err = max(float((bg.cpu() - bc).abs().max() / bc.abs().max().clamp_min(1e-30))
                     for bg, bc in zip(gpu.net.buffers(), cpu.net.buffers())
                     if bg.is_floating_point())
-    emit(phase, batch=2, dtype='float32', tf32=False, reference='the CPU step in f64',
+    emit(phase, batch=PARITY_TRAIN_BATCH, dtype='float32', tf32=False,
+         reference='the CPU step in f64',
          loss_rel_err=loss_err, loss_rel_err_floor=loss_floor, grad_max_abs_err=worst,
          grad_max_abs_err_floor=floor, grad_max=gmax, grad_rel_err_all=rel,
          grad_rel_err_all_floor=rel_floor, leaves_rel_err_floor_max=leaf,
@@ -5090,14 +5101,14 @@ def a6_train_parity_phase(torch, model):
     ``LookGround``'s disparity conv and alpha, also within
     MONODEPTH_LEAF_REL_CAP of the f64 step."""
     from visualdet3d_tpu_torch import entry
-    batch = a6_train_batches(torch, model, 1, 2, seed=72)[0]
+    batch = a6_train_batches(torch, model, 1, PARITY_TRAIN_BATCH, seed=72)[0]
     build = getattr(entry, f'build_{model}_trainer')
-    gpu, gpu_state, gpu_step = build(device='cuda', batch_size=2)
+    gpu, gpu_state, gpu_step = build(device='cuda', batch_size=PARITY_TRAIN_BATCH)
     damp_residuals(torch, gpu.net)
     prepare_a6_for_training(torch, model, gpu, batch, seed=73, offset_std=0.5,
                             calibrate_head=True)
     init = {k: v.cpu() for k, v in gpu.net.state_dict().items()}
-    cpu, cpu_state, cpu_step = build(device='cpu', batch_size=2)
+    cpu, cpu_state, cpu_step = build(device='cpu', batch_size=PARITY_TRAIN_BATCH)
     cpu.net.load_state_dict(init)
     cpu.weights_changed()
     ref = getattr(entry, f'build_{model}_system')(device='cpu')
@@ -5446,6 +5457,651 @@ def a6_phases(torch, dc, peaks):
     return out
 
 
+# ---------------------------------------------------------------------------
+# int8 inference of the mono families (GAC, Yolo3D, KM3D, MonoFlex), and
+# data-parallel training with synchronised BatchNorm (parallel/mesh.py)
+# ---------------------------------------------------------------------------
+
+MONO_INT8_MODELS = {'km3d': 'km3d', 'monoflex': 'monoflex', 'ground_aware': 'gac',
+                    'dcn': 'yolo3d'}  # model -> the name in the phases' lines
+MONO_CALIB = (2, 2)  # seeded calibration batches x images a batch
+MONO_DCN_PER_FORWARD = {'km3d': DCN_PER_FORWARD, 'monoflex': DCN_PER_FORWARD,
+                        'ground_aware': 0, 'dcn': 1}
+MONO_PARITY_DIV = 3  # the parity's images: a third of the model's size a side (the CPU's
+                     # int8 convs are float64 convs: 38 s for one GAC frame at full size)
+DDP_WORLD = 2        # ranks of the data-parallel stereo step, both on the one card
+DDP_BATCH = 16       # bench.py's stereo bf16 cell: 8 items a rank
+
+
+def mono_inputs(torch, model, n, batch, seed, div=1):
+    """n distinct request batches of standard-normal images on the card at
+    the model's size (KM3D and MonoFlex 384x1280, GAC and Yolo3D 288x1280;
+    each side divided by ``div`` and rounded down to a multiple of 32), the
+    KITTI P2 scaled to it and tiled to the batch, and the size."""
+    from visualdet3d_tpu_torch.entry import IMAGE_HW, KITTI_P2, KM3D_IMAGE_HW
+    full = KM3D_IMAGE_HW if model in ('km3d', 'monoflex') else IMAGE_HW
+    hw = tuple(d // div // 32 * 32 for d in full)
+    P2 = KITTI_P2.copy()
+    P2[0] *= hw[1] / full[1]
+    P2[1] *= hw[0] / full[0]
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    images = [torch.randn((batch, *hw, 3), generator=gen, device='cuda') for _ in range(n)]
+    return images, torch.as_tensor(np.tile(P2, (batch, 1, 1)), device='cuda'), hw
+
+
+def build_mono_int8(torch, model):
+    """The published model on the card made ready to predict (``build_km3d``
+    or ``build_gac``), its BatchNorms folded, calibrated in full f32 on
+    MONO_CALIB seeded batches and quantized (the 64-channel bound, the
+    model's deny list). Returns the system and the quantization's numbers."""
+    from visualdet3d_tpu_torch.models.quant import collect_block_entries, flatten_quant
+    from visualdet3d_tpu_torch.pipelines.inference_prep import full_f32
+    system = build_km3d(torch, model) if model in ('km3d', 'monoflex') else build_gac(torch, model)
+    calib, P2, hw = mono_inputs(torch, model, MONO_CALIB[0], MONO_CALIB[1], seed=61)
+    t0 = time.perf_counter()
+    system.fold_inference_variables(hw)
+    with torch.no_grad(), full_f32():
+        absmax = system.calibrate_int8([system.int8_calib_inputs({'images': im, 'P2': P2})
+                                        for im in calib])
+    quant = system.quantize_int8(absmax)
+    torch.cuda.synchronize()
+    flat = flatten_quant(quant)
+    check(not any(any(c.startswith('ModulatedDeformConv') for c in p) for p in flat),
+          f'{model}: a DCN offset conv was quantized')
+    for path in system.int8_deny:
+        check(path not in flat, f'{model}: the denied {path} was quantized')
+    return system, dict(fold_calibrate_quantize_s=time.perf_counter() - t0,
+                        quantized_convs=len(flat),
+                        block_fuse_entries=len(collect_block_entries(quant)))
+
+
+def mono_int8_shapes(torch, system, model):
+    """The int8 conv shapes of one batch-16 int8 predict with their counts
+    (``int8_conv_shapes``)."""
+    batches, P2, _ = mono_inputs(torch, model, 1, BATCH, seed=63)
+    system.cfg.int8_block = None
+    return int8_conv_shapes(torch, system, (batches[0], P2))
+
+
+def int8_mono_slice_phase(torch, dc, ic, system, model, mode, shapes):
+    """``predict`` of the quantized model at batch 16 over N_BATCHES
+    distinct request batches in ``mode``: 'int8' (the int8 copy: B8 and the
+    quantize for every quantized conv, the float remainder in bf16, its
+    DCNs on K3) or 'bfloat16' (the same folded network in bf16): ms per
+    batch, fps, bs1 p50, peak memory, valid detections, finite outputs, and
+    the launches of B8 (by path), the quantize and the DCN forward kernels
+    in that run, the counts set to 0 just before it. B8 and the quantize
+    must launch once per quantized conv that the predict runs (``shapes``),
+    the DCNs MONO_DCN_PER_FORWARD times on the per-tap kernel."""
+    name = MONO_INT8_MODELS[model]
+    system.cfg.inference_dtype = mode
+    system.cfg.int8_block = None
+    batches, P2, hw = mono_inputs(torch, model, N_BATCHES + 1, BATCH, seed=64)
+    system.predict(batches[0], P2)  # warm-up: the int8 or cast copy, cuDNN's choices
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ic.reset_launch_counts()
+    dc.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = [system.predict(images, P2) for images in batches[1:]]
+    torch.cuda.synchronize()
+    ms_batch = (time.perf_counter() - t0) * 1e3 / N_BATCHES
+    launches = {**ic.LAUNCHES, **{k: dc.LAUNCHES[k] for k in DCN_FORWARD_KERNELS}}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    per_predict = {k: v / N_BATCHES for k, v in launches.items()}
+    n_b8 = sum(shapes.values()) if mode == 'int8' else 0
+    by_path = sum(per_predict[f'int8_conv2d_{k}'] for k in ('wgmma', 'wgmma_splitk', 'cp_async'))
+    n_dcn = MONO_DCN_PER_FORWARD[model]
+    check(per_predict['int8_conv2d'] == n_b8 == per_predict['int8_quantize'] == by_path
+          and (mode != 'int8' or per_predict['int8_conv2d_wgmma'] > 0)
+          and (per_predict['modulated_deform_conv'], per_predict['modulated_deform_conv_alltaps'],
+               per_predict['modulated_deform_conv_premul_accum']) == (n_dcn, 0, 0),
+          f'int8_mono_slice {name} {mode}: launches per predict {per_predict}, expected {n_b8} '
+          f'B8 (on the wgmma path among them) and quantize, {n_dcn} per-tap DCN')
+    n_valid = [int(o['valid'].sum()) for o in outs]
+    for o in outs:
+        check(o['bboxes'].shape == (BATCH, 32, 11) and o['scores'].shape == (BATCH, 32),
+              f'int8_mono_slice {name} {mode}: output shapes {o["bboxes"].shape}')
+        for key in ('scores', 'bboxes'):
+            check(bool(torch.isfinite(o[key]).all()),
+                  f'int8_mono_slice {name} {mode}: non-finite {key}')
+    check(min(n_valid) > 0, f'int8_mono_slice {name} {mode}: a batch with no valid detection '
+                            f'{n_valid}')
+    lats = bs1_latencies(torch, lambda images: system.predict(images, P2[:1]),
+                         [images[:1].clone() for images in batches])
+    result = dict(model=name, mode=mode, batch=BATCH, image_hw=list(hw), ms_per_batch=ms_batch,
+                  fps=BATCH / ms_batch * 1e3, bs1_p50_ms=statistics.median(lats), bs1_ms=lats,
+                  valid_per_batch=n_valid, launches=launches, launches_per_predict=per_predict,
+                  peak_memory_gb=peak_gb)
+    emit('int8_mono_slice', **result)
+    return result
+
+
+def _raw_list(raw):
+    """predict_raw's outputs as a list of f32 CPU tensors (KM3D's maps in
+    key order)."""
+    if isinstance(raw, dict):
+        raw = [raw[k] for k in sorted(raw)]
+    return [t.float().cpu() for t in raw]
+
+
+def int8_mono_parity_phase(torch, system, model):
+    """The card's artifact and folded weights moved to a CPU system of the
+    same model: the batch-1 int8 predict on the card against the CPU's, on
+    images of a third of the model's size a side (MONO_PARITY_DIV; the
+    kernels are held to their plain versions at the full shapes in
+    ``int8_mono_conv_kernel``), self-calibrated as ``int8_parity``: the
+    floor is the CPU against itself with 1% of the pixels moved by one bf16
+    ulp. Gates: raw outputs within 1.5x the floor (``int8_parity`` also caps
+    them at 5e-2 of their largest value, the JAX package's bound for the
+    stereo int8 network against its f32; it holds the mono families to
+    their decoded scores, within 0.05, which the matched share reads);
+    valid counts within 2; the share of the CPU's boxes that the card
+    matches (IoU > 0.7, score within 0.05) at least half and at least the
+    floor's less 0.2 (two standard deviations of the difference of two
+    shares of 32 boxes)."""
+    from visualdet3d_tpu_torch import entry
+    name = MONO_INT8_MODELS[model]
+    (images,), P2, hw = mono_inputs(torch, model, 1, 1, seed=65, div=MONO_PARITY_DIV)
+    if model not in ('km3d', 'monoflex'):
+        # the class logits' tail onto the anchors the decode keeps at this size (the
+        # float prediction conv), as cli_eval_gac_postopt shifts them
+        system.cfg.inference_dtype = 'int8'
+        with torch.no_grad():
+            cls = system.predict_raw(images, P2)[0][..., 0].float()
+            useful = system.anchors.useful_mask(system.anchor_pack(hw), P2)
+            system.prediction_convs()[0].bias += 1.5 - torch.quantile(cls[useful], 0.9)
+        system.weights_changed()
+    t0 = time.perf_counter()
+    if model in ('km3d', 'monoflex'):
+        cpu = getattr(entry, f'build_{model}_system')(device='cpu')
+    else:
+        cpu = entry.build_gac_system(device='cpu', head=model)
+    cpu.net.load_state_dict({k: v.cpu() for k, v in system.net.state_dict().items()})
+    cpu.set_int8_quant({p: {k: v.cpu() for k, v in e.items()}
+                        for p, e in system.int8_quant.items()})
+    images, P2 = images.cpu(), P2.cpu()
+    gen = torch.Generator().manual_seed(66)
+    moved = torch.rand(images.shape, generator=gen) < 0.01
+    images_moved = torch.where(moved, images.to(torch.bfloat16).float() * (1 + 2 ** -7), images)
+
+    def run(sys_, x):
+        sys_.cfg.inference_dtype, sys_.cfg.int8_block = 'int8', None
+        dev = sys_.device
+        raw = _raw_list(sys_.predict_raw(x.to(dev)) if model in ('km3d', 'monoflex')
+                        else sys_.predict_raw(x.to(dev), P2.to(dev)))
+        out = sys_.predict(x.to(dev), P2.to(dev))
+        return raw, {k: v[0].cpu() for k, v in out.items()}
+
+    def compare(got, ref):
+        (raw_g, out_g), (raw_r, out_r) = got, ref
+        rel = [float((g - r).abs().max() / r.abs().max()) for g, r in zip(raw_g, raw_r)]
+        vg, vr = out_g['valid'], out_r['valid']
+        bg, br = out_g['bboxes'][vg, :4], out_r['bboxes'][vr, :4]
+        lt = torch.maximum(br[:, None, :2], bg[None, :, :2])
+        rb = torch.minimum(br[:, None, 2:4], bg[None, :, 2:4])
+        inter = (rb - lt).clamp_min(0).prod(-1)
+        area = lambda x: (x[..., 2] - x[..., 0]) * (x[..., 3] - x[..., 1])  # noqa: E731
+        iou = inter / (area(br)[:, None] + area(bg)[None] - inter).clamp_min(1e-6)
+        score_ok = (out_r['scores'][vr][:, None] - out_g['scores'][vg][None]).abs() < 0.05
+        matched = ((iou > 0.7) & score_ok).any(1).float().mean() if len(bg) and len(br) else 0.0
+        return dict(raw_rel_err=rel, n_valid=[int(vg.sum()), int(vr.sum())],
+                    matched_share=float(matched))
+
+    ref = run(cpu, images)
+    floor = compare(run(cpu, images_moved), ref)
+    cpu_s = time.perf_counter() - t0
+    card = compare(run(system, images), ref)
+    raw_ok = all(e <= 1.5 * f for e, f in zip(card['raw_rel_err'], floor['raw_rel_err']))
+    n_g, n_c = card['n_valid']
+    emit('int8_mono_parity', model=name, batch=1, image_hw=list(hw), card_vs_cpu=card,
+         cpu_vs_cpu_moved=floor, cpu_s=cpu_s)
+    check(raw_ok and n_c > 0 and abs(n_g - n_c) <= 2
+          and card['matched_share'] >= max(floor['matched_share'] - 0.2, 0.5),
+          f'int8_mono_parity {name}: card {card} against the floor {floor}')
+    del cpu
+
+
+def int8_mono_conv_kernel_phase(torch, ic, shapes_of, part):
+    """B8 at every conv shape of the four mono families' batch-16 int8
+    predicts (``shapes_of``: model -> {shape: count}): the s32 sums bit for
+    bit and the epilogues against the plain version (``int8_conv_check``),
+    its time in CUDA events and in device time (CUDA graphs), the plain
+    version's, a cuDNN bf16 conv of the same shape (a yardstick, not the
+    same function), the plan (path, split) and the bound; the quantize of
+    each input shape bit for bit, in events and device time. Returns per
+    model the sums a predict."""
+    import torch.nn.functional as F
+    bw = CARD_PEAKS[part][0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device='cuda').manual_seed(67)
+    inv = torch.tensor(127 / 9.0, device='cuda')
+    union = {}
+    for model, shapes in shapes_of.items():
+        for key, count in shapes.items():
+            union.setdefault(key, {})[MONO_INT8_MODELS[model]] = count
+    per_shape, quant_of = {}, {}
+    for key in sorted(union):
+        b, h, w, c, n, kh, kw, stride, padding, dilation, has_bias = key
+        xs = [torch.randint(-127, 128, (b, h, w, c), generator=gen, device='cuda',
+                            dtype=torch.int8) for _ in range(3)]
+        wq = torch.randint(-127, 128, (n, kh, kw, c), generator=gen, device='cuda',
+                           dtype=torch.int8)
+        scale = torch.rand((n,), generator=gen, device='cuda') * 1e-3
+        bias = torch.randn((n,), generator=gen, device='cuda') if has_bias else None
+        what = (f'{b}x{h}x{w}x{c}->{n} k{kh}x{kw} s{tuple(stride)} p{padding} d{tuple(dilation)}'
+                f'{" +bias" if has_bias else ""}')
+        err = int8_conv_check(torch, ic, xs[0], wq, stride, padding, dilation, bias, what)
+        fn = lambda x: ic.int8_conv2d(x, wq, stride, padding, dilation, scale, bias,  # noqa: E731
+                                      torch.bfloat16)
+        ms, device_ms = cuda_ms(fn, xs), graph_ms(fn, xs)
+        plain_ms = cuda_ms(lambda x: ic.int8_conv2d_plain(x, wq, stride, padding, dilation, scale,
+                                                          bias, torch.bfloat16), xs[:1], warmup=1)
+        xf = [x.permute(0, 3, 1, 2).to(torch.bfloat16) for x in xs]
+        wf = wq.permute(0, 3, 1, 2).to(torch.bfloat16)
+        bf = bias.to(torch.bfloat16) if bias is not None else None
+        pad = (padding[0][0], padding[1][0])
+        library_ms = cuda_ms(lambda x: F.conv2d(x, wf, bf, tuple(stride), pad, tuple(dilation)), xf)
+        plan = ic.plan_int8_conv(b, h, w, c, n, kh, kw, tuple(stride), padding, tuple(dilation),
+                                 sms=sms)
+        ho, wo = ic.output_hw(h, w, kh, kw, stride, padding, dilation)
+        ops = 2 * b * ho * wo * n * kh * kw * c
+        nbytes = (b * h * w * c + n * kh * kw * c + b * ho * wo * n * 2
+                  + 4 * n * (2 if has_bias else 1))
+        bytes_ms, ops_ms = nbytes / bw * 1e3, ops / int8_peak(part) * 1e3
+        per_shape[key] = dict(shape=what, per_predict=union[key], ms=ms, device_ms=device_ms,
+                              plain_ms=plain_ms, cudnn_bf16_ms=library_ms, path=plan.path,
+                              plan=plan._asdict(), bound_ms=max(bytes_ms, ops_ms),
+                              bound_by='bytes' if bytes_ms >= ops_ms else 'operations',
+                              share_of_bound_device=max(bytes_ms, ops_ms) / device_ms,
+                              max_abs_err_f32=err)
+        emit('int8_mono_conv_kernel', kernel='int8_conv2d', **per_shape[key])
+        qkey = (b, h, w, c)
+        if qkey not in quant_of:
+            xb = [(torch.randn(qkey, generator=gen, device='cuda') * 3).to(torch.bfloat16)
+                  for _ in range(3)]
+            got, ref = ic.quantize_act(xb[0], inv), ic.quantize_act_plain(xb[0], inv)
+            torch.cuda.synchronize()
+            check(torch.equal(got, ref), f'int8_quantize {qkey}: differs from the plain version')
+            qfn = lambda t: ic.quantize_act(t, inv)  # noqa: E731
+            quant_of[qkey] = dict(ms=cuda_ms(qfn, xb), device_ms=graph_ms(qfn, xb),
+                                  plain_ms=cuda_ms(lambda t: ic.quantize_act_plain(t, inv), xb),
+                                  bound_ms=3 * b * h * w * c / bw * 1e3)
+        del xs, xf
+    totals = {}
+    for model, shapes in shapes_of.items():
+        t = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                 max_abs_err=0.0, quantize_ms=0.0, quantize_device_ms=0.0,
+                 quantize_plain_ms=0.0, quantize_bound_ms=0.0, launches_per_predict=0,
+                 by_path={})
+        bound_by = {'bytes': 0.0, 'operations': 0.0}
+        for key, count in shapes.items():
+            r, q = per_shape[key], quant_of[key[:4]]
+            t['ms'] += count * r['ms']
+            t['device_ms'] += count * r['device_ms']
+            t['plain_ms'] += count * r['plain_ms']
+            t['library_ms'] += count * r['cudnn_bf16_ms']
+            t['bound_ms'] += count * r['bound_ms']
+            t['max_abs_err'] = max(t['max_abs_err'], r['max_abs_err_f32'])
+            t['quantize_ms'] += count * q['ms']
+            t['quantize_device_ms'] += count * q['device_ms']
+            t['quantize_plain_ms'] += count * q['plain_ms']
+            t['quantize_bound_ms'] += count * q['bound_ms']
+            t['launches_per_predict'] += count
+            t['by_path'][r['path']] = t['by_path'].get(r['path'], 0) + count
+            bound_by[r['bound_by']] += count * r['bound_ms']
+        t['bound_by'] = max(bound_by, key=bound_by.get)
+        t['shapes'] = [per_shape[key]['shape'] for key in sorted(shapes)]
+        totals[model] = t
+        emit('int8_mono_conv_kernel_per_predict', model=MONO_INT8_MODELS[model], batch=BATCH,
+             **{k: v for k, v in t.items() if k != 'shapes'})
+    return totals, [per_shape[k] for k in sorted(per_shape)]
+
+
+def int8_mono_phases(torch, dc, ic, part):
+    """The mono families in int8: for each of KM3D, MonoFlex, GAC and
+    Yolo3D the quantized model's int8 and bf16 predicts (slice) and the
+    card-CPU parity at batch 1; then B8 and the quantize at every conv
+    shape they ran. Returns the slices, the kernel sums and the shapes."""
+    slices, shapes_of, quant = {}, {}, {}
+    for model in MONO_INT8_MODELS:
+        system, quant[model] = build_mono_int8(torch, model)
+        shapes_of[model] = mono_int8_shapes(torch, system, model)
+        slices[model] = {mode: int8_mono_slice_phase(torch, dc, ic, system, model, mode,
+                                                     shapes_of[model])
+                         for mode in ('int8', 'bfloat16')}
+        emit('int8_mono_quantize', model=MONO_INT8_MODELS[model], **quant[model])
+        int8_mono_parity_phase(torch, system, model)
+        del system
+        torch.cuda.empty_cache()
+    totals, per_shape = int8_mono_conv_kernel_phase(torch, ic, shapes_of, part)
+    return dict(slices=slices, totals=totals, per_shape=per_shape, quant=quant)
+
+
+def ddp_stereo_rank(rank, world, port, in_path, out_path):
+    """One rank of ``ddp_stereo_train``: joins the gloo group on the card
+    (``parallel.mesh.initialize_distributed(..., backend='gloo')``: NCCL
+    puts no two ranks on one GPU), runs the bf16 stereo step on its rows of
+    the batch from the weights in ``in_path`` (dropout off) and saves the
+    loss terms, the gradients the optimizer received, the parameters,
+    buffers and correlation launches to ``out_path``."""
+    import torch
+    from visualdet3d_tpu_torch.entry import build_stereo_trainer
+    from visualdet3d_tpu_torch.ops import cost_volume as cv
+    from visualdet3d_tpu_torch.parallel import mesh
+    mesh.initialize_distributed(f'127.0.0.1:{port}', world, rank, backend='gloo',
+                                device='cuda:0')
+    try:
+        spec = torch.load(in_path)
+        system, state, step = build_stereo_trainer(device='cuda', compute_dtype='bfloat16',
+                                                   batch_size=DDP_BATCH // world)
+        system.net.load_state_dict(spec['init'])
+        system.weights_changed()
+        system.dropout = False
+        grads, update = [], state.optimizer.step
+
+        def recording_update():
+            grads.extend(p.grad.detach().cpu() for p in system.net.parameters())
+            update()
+        state.optimizer.step = recording_update
+        batch = {k: v.cuda() for k, v in mesh.shard_batch(mesh.make_mesh(), spec['batch']).items()}
+        cv.reset_launch_counts()
+        metrics = {k: float(v) for k, v in step(batch).items()}
+        torch.cuda.synchronize()
+        torch.save(dict(metrics=metrics, grads=grads,
+                        params=[p.detach().cpu() for p in system.net.parameters()],
+                        buffers=[b.cpu() for b in system.net.buffers()],
+                        launches=dict(cv.LAUNCHES), count=state.optimizer.count), out_path)
+    finally:
+        mesh.shutdown()
+
+
+def ddp_stereo_train_phase(torch):
+    """The data-parallel stereo step on the card: DDP_WORLD processes
+    (``ddp_stereo_rank``), each with DDP_BATCH / DDP_WORLD items of one
+    bf16 batch of DDP_BATCH (``testing.stereo_training_batch``, bench.py's
+    cell), against the single-process bf16 step on the whole batch, the
+    same weights, dropout off. Self-calibrated, as ``stereo_train_parity``:
+    the floor is the single-process step on the reversed batch (the same
+    math in another order). Gates: each loss term within max(8x the floor's
+    difference, 2e-4 of its value); the gradients the optimizer receives
+    (averaged over the ranks): the largest elementwise difference within
+    8x the floor's and 5e-2 of the largest gradient, the norm-wise
+    difference within 3x the floor's; the parameters after the Adam step
+    within 2.5 * lr; the running statistics within max(3x the floor's,
+    1e-4) of their largest value; both ranks' parameters equal; 2 K1 and 2
+    CB launches in each rank's step."""
+    import tempfile
+    from visualdet3d_tpu_torch import testing
+    from visualdet3d_tpu_torch.entry import build_stereo_trainer
+    batch = train_batches_of(torch, testing.stereo_training_batch, 1, DDP_BATCH, seed=72)[0]
+    flipped = {k: v.flip(0) for k, v in batch.items()}
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix='vd3d_ddp_') as work:
+        single, state, step = build_stereo_trainer(device='cuda', compute_dtype='bfloat16',
+                                                   batch_size=DDP_BATCH)
+        init = {k: v.cpu() for k, v in single.net.state_dict().items()}
+        in_path = os.path.join(work, 'in.pt')
+        torch.save(dict(init=init, batch={k: v.cpu() for k, v in batch.items()}), in_path)
+        with __import__('socket').socket() as s:
+            s.bind(('127.0.0.1', 0))
+            port = s.getsockname()[1]
+        outs = [os.path.join(work, f'rank{r}.pt') for r in range(DDP_WORLD)]
+        procs = [subprocess.Popen(
+            [sys.executable, '-c', f'import chip_smoke; chip_smoke.ddp_stereo_rank({r}, '
+             f'{DDP_WORLD}, {port}, {in_path!r}, {outs[r]!r})'], cwd=root,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(DDP_WORLD)]
+        refs = {}
+        for tag, b in (('single', batch), ('flipped', flipped)):
+            if tag == 'flipped':
+                single, state, step = build_stereo_trainer(device='cuda', compute_dtype='bfloat16',
+                                                           batch_size=DDP_BATCH)
+                single.net.load_state_dict({k: v.cuda() for k, v in init.items()})
+                single.weights_changed()
+            single.dropout = False
+            grads, update = [], state.optimizer.step
+
+            def recording_update(grads=grads, system=single, update=update):
+                grads.extend(p.grad.detach().cpu() for p in system.net.parameters())
+                update()
+            state.optimizer.step = recording_update
+            metrics = {k: float(v) for k, v in step(b).items()}
+            refs[tag] = dict(metrics=metrics, grads=grads,
+                             params=[p.detach().cpu() for p in single.net.parameters()],
+                             buffers=[x.cpu() for x in single.net.buffers()])
+        lr = state.optimizer.schedule(0)
+        del single, state, step
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+        check(all(p.returncode == 0 for p in procs),
+              'ddp_stereo_train: a rank failed:\n' + '\n'.join(log[-3000:] for log in logs))
+        ranks = [torch.load(path) for path in outs]
+    wall = time.perf_counter() - t0
+    ref, flo = refs['single'], refs['flipped']
+    result = {}
+    for r, out in enumerate(ranks):
+        loss_err = {k: abs(out['metrics'][k] - v) / max(abs(v), 1e-30)
+                    for k, v in ref['metrics'].items()}
+        loss_floor = {k: abs(flo['metrics'][k] - v) / max(abs(v), 1e-30)
+                      for k, v in ref['metrics'].items()}
+        bad = {k: (loss_err[k], loss_floor[k]) for k in loss_err
+               if loss_err[k] > max(8 * loss_floor[k], 2e-4)}
+        worst = max(float((a - b).abs().max()) for a, b in zip(out['grads'], ref['grads']))
+        floor = max(float((a - b).abs().max()) for a, b in zip(flo['grads'], ref['grads']))
+        gmax = max(float(b.abs().max()) for b in ref['grads'])
+        den = sum(float(b.double().norm()) ** 2 for b in ref['grads'])
+        rel = (sum(float((a - b).double().norm()) ** 2
+                   for a, b in zip(out['grads'], ref['grads'])) / den) ** 0.5
+        rel_floor = (sum(float((a - b).double().norm()) ** 2
+                         for a, b in zip(flo['grads'], ref['grads'])) / den) ** 0.5
+        param_err = max(float((a - b).abs().max()) for a, b in zip(out['params'], ref['params']))
+        stats = [(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30)),
+                  float((f - b).abs().max() / b.abs().max().clamp_min(1e-30)))
+                 for a, b, f in zip(out['buffers'], ref['buffers'], flo['buffers'])
+                 if b.is_floating_point()]
+        stats_err, stats_floor = max(s[0] for s in stats), max(s[1] for s in stats)
+        result[f'rank{r}'] = dict(
+            loss_rel_err=loss_err, loss_rel_err_floor=loss_floor, grad_max_abs_err=worst,
+            grad_max_abs_err_floor=floor, grad_max=gmax, grad_rel_err_all=rel,
+            grad_rel_err_all_floor=rel_floor, param_max_abs_err=param_err,
+            running_stats_rel_err=stats_err, running_stats_rel_err_floor=stats_floor,
+            launches=out['launches'], updates=out['count'])
+        check(not bad, f'ddp_stereo_train rank {r}: loss terms differ beyond the floor {bad}')
+        check(worst <= max(8 * floor, 1e-5 * gmax) and worst <= 5e-2 * gmax
+              and rel <= max(3 * rel_floor, 1e-6),
+              f'ddp_stereo_train rank {r}: gradients differ: max abs {worst} (floor {floor}, gmax '
+              f'{gmax}), norm-wise {rel} (floor {rel_floor})')
+        check(param_err <= 2.5 * lr, f'ddp_stereo_train rank {r}: parameters differ by '
+                                     f'{param_err} (lr {lr})')
+        check(stats_err <= max(3 * stats_floor, 1e-4),
+              f'ddp_stereo_train rank {r}: running statistics differ by {stats_err} (floor '
+              f'{stats_floor})')
+        check(out['count'] == 1 and out['launches']['correlation_volume_interleaved'] == 2
+              and out['launches']['correlation_backward_interleaved'] == 2,
+              f'ddp_stereo_train rank {r}: {out["count"]} updates, launches {out["launches"]}')
+    same = all(torch.equal(a, b) for a, b in zip(ranks[0]['params'], ranks[1]['params']))
+    check(same, 'ddp_stereo_train: the ranks hold different parameters after the step')
+    emit('ddp_stereo_train', world=DDP_WORLD, backend='gloo', batch=DDP_BATCH,
+         per_rank=DDP_BATCH // DDP_WORLD, compute_dtype='bfloat16', lr=lr, wall_s=wall,
+         total_single=ref['metrics']['total'], ranks_equal=same, **result)
+    torch.cuda.empty_cache()
+    return result
+
+
+def cli_train_nccl_world1_phase(torch, km3d_config):
+    """The train CLI (in this process) on the KM3D smoke config for one
+    epoch of 2 steps at batch 16, plain and with ``--coordinator
+    127.0.0.1:<port> --num_processes 1 --process_id 0``: NCCL on the card,
+    every loss reduction and BatchNorm on the process group's path (the
+    global statistics of SyncBatchNorm, the fast variance). numpy's
+    generator is seeded before each run and the loader runs without
+    threads, so every run sees the same augmented items. Self-calibrated,
+    as ``km3d_train_parity``: the floor is a third, plain run whose images
+    are moved by up to two f32 ulps on the card (two steps of Adam carry a
+    last-bit change into every parameter that a near-zero gradient moves by
+    about lr). Gates: the last step's loss within max(8x the floor's
+    difference, 1e-4) relative; the parameters within max(3x the floor's
+    largest difference, 2.5 * lr); the running statistics within max(3x the
+    floor's, 1e-4) of their largest value."""
+    import contextlib
+    import io
+    from visualdet3d_tpu_torch import checkpoint
+    from visualdet3d_tpu_torch.cli import train as train_cli
+    from visualdet3d_tpu_torch.config import cfg_from_file
+    runs = {}
+    real_device_batch = train_cli.device_batch
+    gen = torch.Generator(device='cuda').manual_seed(73)
+
+    def moved_device_batch(batch, device):
+        out = real_device_batch(batch, device)
+        u = torch.rand(out['images'].shape, generator=gen, device=device)
+        out['images'] = out['images'] * (1 + 2.0 ** -22 * (2 * u - 1))
+        return out
+
+    for tag in ('plain', 'nccl', 'moved'):
+        config = f'{km3d_config[:-3]}_{tag}.py'
+        with open(km3d_config) as f, open(config, 'w') as g:
+            g.write(f.read() + f"cfg.path.checkpoint_path = os.path.join(out, '{tag}_ckpt')\n"
+                               f"cfg.path.log_path = os.path.join(out, '{tag}_log')\n"
+                               'cfg.trainer.max_epochs = 1\ncfg.data.num_workers = 0\n')
+        argv = ['--config', config]
+        if tag == 'nccl':
+            with __import__('socket').socket() as s:
+                s.bind(('127.0.0.1', 0))
+                port = s.getsockname()[1]
+            argv += ['--coordinator', f'127.0.0.1:{port}', '--num_processes', '1',
+                     '--process_id', '0']
+        cfg = cfg_from_file(config)
+        np.random.seed(0)
+        buf = io.StringIO()
+        train_cli.device_batch = moved_device_batch if tag == 'moved' else real_device_batch
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                train_cli.main(argv)
+        finally:
+            train_cli.device_batch = real_device_batch
+        wall = time.perf_counter() - t0
+        with open(os.path.join(cfg.path.log_path, 'train_stats.jsonl')) as f:
+            [stats] = [json.loads(line) for line in f]
+        saved = checkpoint.CheckpointManager(cfg.path.checkpoint_path).restore()
+        runs[tag] = dict(wall=wall, stats=stats, model=saved['model'], out=buf.getvalue(),
+                         lr=cfg.optimizer.keywords.lr)
+    plain = runs['plain']
+    check('process 0 of 1' in runs['nccl']['out'], 'cli_train_nccl_world1: no process group')
+    lr = plain['lr']
+    steps = [r['stats']['steps'] for r in runs.values()]
+    check(steps == [2, 2, 2], f'cli_train_nccl_world1: steps {steps}')
+
+    def distance(other):
+        loss = abs(other['stats']['loss'] - plain['stats']['loss']) / abs(plain['stats']['loss'])
+        params = max(float((other['model'][k] - v).abs().max())
+                     for k, v in plain['model'].items()
+                     if v.is_floating_point() and 'running' not in k)
+        stats = max(float((other['model'][k] - v).abs().max() / v.abs().max().clamp_min(1e-30))
+                    for k, v in plain['model'].items() if 'running' in k)
+        return dict(loss_rel_err=loss, param_max_abs_err=params, running_stats_rel_err=stats)
+
+    got, floor = distance(runs['nccl']), distance(runs['moved'])
+    emit('cli_train_nccl_world1', backend='nccl', world=1, steps=2, lr=lr,
+         wall_s={k: r['wall'] for k, r in runs.items()},
+         step_ms={k: r['stats']['step_ms'] for k, r in runs.items()},
+         last_loss={k: r['stats']['loss'] for k, r in runs.items()},
+         nccl_vs_plain=got, moved_vs_plain=floor, launches_nccl=runs['nccl']['stats']['launches'])
+    check(np.isfinite(plain['stats']['loss'])
+          and got['loss_rel_err'] <= max(8 * floor['loss_rel_err'], 1e-4)
+          and got['param_max_abs_err'] <= max(3 * floor['param_max_abs_err'], 2.5 * lr)
+          and got['running_stats_rel_err'] <= max(3 * floor['running_stats_rel_err'], 1e-4),
+          f'cli_train_nccl_world1: the NCCL run {got} against the floor {floor}')
+
+
+def cli_quantize_eval_mono_int8_phase(torch, work, root, split):
+    """``configs/yolo3d_gac.py`` in int8 (``detector.inference_dtype =
+    'int8'``, post-optimisation off) on the tree: the imdb precompute,
+    synthetic priors, a seeded checkpoint made ready to predict on the
+    validation frames (as ``cli_eval_gac_postopt``); ``python -m
+    visualdet3d_tpu_torch.cli.quantize`` (a subprocess) writes the int8
+    artifact; then the eval CLI with ``--quantized_path`` and calibrating on
+    the fly, each on the repeated frames of ``timed_eval_config``: their
+    result files equal, with detections; B8 and the quantize launch every
+    frame."""
+    from visualdet3d_tpu_torch import checkpoint, testing
+    from visualdet3d_tpu_torch.cli import eval as eval_cli
+    from visualdet3d_tpu_torch.cli import imdb_precompute_3d
+    from visualdet3d_tpu_torch.config import cfg_from_file
+    from visualdet3d_tpu_torch.registry import DETECTOR_DICT
+    import visualdet3d_tpu_torch.models  # noqa: F401
+    config = smoke_config(work, 'yolo3d_gac.py', 'gac_int8', root, split, 1)
+    with open(config, 'a') as f:
+        f.write("cfg.detector.inference_dtype = 'int8'\n"
+                'cfg.detector.head.test_cfg.post_optimization = False\n')
+    cfg = cfg_from_file(config)
+    imdb_precompute_3d.run(cfg)
+    testing.write_synthetic_priors(cfg.path.preprocessed_path, cfg.obj_types, num_ratios=2)
+    cfg.detector.inference_dtype = 'float32'  # the checkpoint is the f32 network's
+    system = DETECTOR_DICT[cfg.detector.name](cfg.detector, device='cuda')
+    val = eval_cli.dataset_of(cfg, 'validation')
+    batch = val.collate_fn([val[i] for i in range(len(val))])
+    images = torch.as_tensor(batch['images'], device='cuda')
+    P2 = torch.as_tensor(batch['P2'], device='cuda')
+    testing.prepare_mono_for_predict(system, images, P2, torch.Generator().manual_seed(46))
+    with torch.no_grad():
+        cls = system.predict_raw(images, P2)[0][..., 0].float()
+        useful = system.anchors.useful_mask(system.anchor_pack(tuple(images.shape[1:3])), P2)
+        system.prediction_convs()[0].bias += 1.5 - torch.quantile(cls[useful], 0.995)
+    ckpt = os.path.join(work, 'gac_int8_checkpoint')
+    checkpoint.CheckpointManager(ckpt).save(0, {'model': system.net.state_dict()})
+    del system, images, P2
+    torch.cuda.empty_cache()
+    timed = timed_eval_config(config)
+    artifact = os.path.join(work, 'gac_int8.pt')
+    cmd = [sys.executable, '-m', 'visualdet3d_tpu_torch.cli.quantize', '--config', timed,
+           '--checkpoint_path', ckpt, '--output_path', artifact]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    quantize_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f'cli.quantize (GAC int8) failed (rc {proc.returncode}):\n'
+                                f'{proc.stderr[-3000:]}')
+    runs = {}
+    for name, path in (('artifact', artifact), ('on_the_fly', None)):
+        t0 = time.perf_counter()
+        stats, out, files, launches = run_eval_cli(torch, timed, ckpt,
+                                                   f'cli_quantize_eval_mono_int8 {name}',
+                                                   quantized_path=path)
+        runs[name] = dict(process_s=time.perf_counter() - t0, files=files,
+                          **eval_summary(stats, files, ap_table(out), stats['launches']),
+                          launches_in_cli_run={k: v for k, v in launches.items() if v})
+    check(runs['artifact']['files'] == runs['on_the_fly']['files'],
+          'cli_quantize_eval_mono_int8: the artifact and the on-the-fly calibration wrote '
+          'different results')
+    check(any(runs['artifact']['files'].values()), 'cli_quantize_eval_mono_int8: no detection')
+    for name, r in runs.items():
+        per = r['launches_per_frame']
+        check(per.get('int8_conv2d', 0) > 0 and per.get('int8_quantize') == per.get('int8_conv2d'),
+              f'cli_quantize_eval_mono_int8 {name}: launches a frame {per}')
+        del r['files']
+    emit('cli_quantize_eval_mono_int8', config='configs/yolo3d_gac.py',
+         quantize_process_s=quantize_s, results_equal=True, **runs)
+    return runs
+
+
+def int8_mono_ddp_tree_phases(torch, work, configs):
+    """The int8 mono and process-group phases on the KITTI object tree: the
+    GAC int8 quantize and eval CLIs (on the stereo config's split, as
+    ``cli_eval_gac_postopt``), then the train CLI over NCCL at world 1."""
+    from visualdet3d_tpu_torch.config import cfg_from_file
+    t0 = time.perf_counter()
+    stereo_cfg = cfg_from_file(configs['stereo'])
+    root = stereo_cfg.path.data_path
+    split = (stereo_cfg.data.train_split_file, stereo_cfg.data.val_split_file)
+    mono_int8 = cli_quantize_eval_mono_int8_phase(torch, work, root, split)
+    cli_train_nccl_world1_phase(torch, configs['km3d'])
+    emit('int8_mono_ddp_tree_phases', seconds=time.perf_counter() - t0)
+    return mono_int8
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -5552,7 +6208,9 @@ def main() -> int:
                        for name, cd in (('bfloat16', 'bfloat16'), ('float32', None))}
     gac_slices, gac_kernel, gac_trains = gac_phases(torch, dc, peaks)
     a6 = a6_phases(torch, dc, peaks)
-    cli_km3d, cli_stereo, eval_launches, a6_cli = kitti_training_phases(torch)
+    mono8 = int8_mono_phases(torch, dc, ic, part)
+    ddp_stereo_train_phase(torch)
+    cli_km3d, cli_stereo, eval_launches, a6_cli, mono8_cli = kitti_training_phases(torch)
 
     dtype_of = {'f32': 'float32', 'bf16': 'bfloat16'}
     replaces = {  # the TPU kernel bodies _corr_kernel_eyes and _corr_kernel
@@ -5618,6 +6276,9 @@ def main() -> int:
             launches_per_eval_frame=eval_launches[('km3d', dtype_of[dt])].get(
                 'modulated_deform_conv', 0),
             per_forward='the 16 DCNs of one KM3D forward, batch 16 (shapes weighted by count)',
+            launches_in_mono_int8_predicts=(
+                {MONO_INT8_MODELS[m]: s['int8']['launches']['modulated_deform_conv']
+                 for m, s in mono8['slices'].items()} if dt == 'bf16' else None),
             per_shape=r['per_shape']))
     summary.append(dict(  # the TPU kernel body _lerp_matmul_alltaps_kernel
         name='modulated_deform_conv_alltaps[bf16]', route='cuda',
@@ -5786,6 +6447,11 @@ def main() -> int:
         launches_by_path={k: int8_slices['int8']['launches'][f'int8_conv2d_{k}']
                           for k in ('wgmma', 'wgmma_splitk', 'cp_async')},
         launches_per_eval_frame=eval_launches[('stereo', 'int8')].get('int8_conv2d', 0),
+        launches_per_mono_int8_predict={
+            MONO_INT8_MODELS[m]: r['int8']['launches_per_predict']['int8_conv2d']
+            for m, r in mono8['slices'].items()},
+        launches_per_gac_int8_eval_frame=mono8_cli['artifact']['launches_per_frame'].get(
+            'int8_conv2d', 0),
         int8_predict_by_plan_variant=b8_plan['predict'],
         per_forward='every quantized conv of one batch-16 int8 predict, bf16 out '
                     '(shapes weighted by count)', per_shape=b8['per_shape']))
@@ -5796,6 +6462,9 @@ def main() -> int:
         launches=int8_slices['int8']['launches']['int8_quantize'],
         launches_with_fused_blocks=int8_slices['int8+K8']['launches']['int8_quantize'],
         launches_per_eval_frame=eval_launches[('stereo', 'int8')].get('int8_quantize', 0),
+        launches_per_mono_int8_predict={
+            MONO_INT8_MODELS[m]: r['int8']['launches_per_predict']['int8_quantize']
+            for m, r in mono8['slices'].items()},
         max_abs_err=0.0, ms=b8['quantize']['ms'], graph_ms=b8['quantize']['graph_ms'],
         plain_ms=b8['quantize']['plain_ms'], bound_ms=b8['quantize']['bound_ms'],
         bound_by='bytes', library_ms=b8['quantize']['library_ms'],
@@ -5825,6 +6494,35 @@ def main() -> int:
         cudnn_bf16_two_convs_ms=k8['cudnn_bf16_two_convs_ms'],
         per_forward='one layer1 block at batch 16 (32 x 72 x 320 x 64), bf16 out; ms in CUDA '
                     'events, graph_ms in device time'))
+    for model, t in mono8['totals'].items():  # B8 and the quantize at the mono shapes
+        tag = MONO_INT8_MODELS[model]
+        launches = mono8['slices'][model]['int8']['launches']
+        summary.append(dict(
+            name=f'int8_conv2d[{tag}]', route='cuda',
+            source='visualdet3d_tpu_torch/csrc/int8_conv.cu',
+            replaces='visualdet3d_tpu/models/quant.py:295 (XLA s8 conv_general_dilated; no '
+                     'Pallas kernel)',
+            launches=launches['int8_conv2d'],
+            launches_by_path={k: launches[f'int8_conv2d_{k}']
+                              for k in ('wgmma', 'wgmma_splitk', 'cp_async')},
+            max_abs_err=t['max_abs_err'], ms=t['ms'], device_ms=t['device_ms'],
+            plain_ms=t['plain_ms'], bound_ms=t['bound_ms'], bound_by=t['bound_by'],
+            library_ms=t['library_ms'],
+            library='cuDNN bf16 conv of the same shapes (not the same function)',
+            plans_by_path=t['by_path'], shapes=t['shapes'],
+            per_forward=f'every quantized conv of one batch-16 {tag} int8 predict, bf16 out '
+                        '(shapes weighted by count); ms in CUDA events, device_ms from CUDA '
+                        f'graphs; launches: {N_BATCHES} predicts'))
+        summary.append(dict(
+            name=f'int8_quantize[{tag}]', route='cuda',
+            source='visualdet3d_tpu_torch/csrc/int8_conv.cu',
+            replaces='visualdet3d_tpu/models/quant.py:396 (XLA elementwise _quantize_act; no '
+                     'Pallas kernel)',
+            launches=launches['int8_quantize'], max_abs_err=0.0, ms=t['quantize_ms'],
+            device_ms=t['quantize_device_ms'], plain_ms=t['quantize_plain_ms'],
+            bound_ms=t['quantize_bound_ms'], bound_by='bytes', library_ms=None,
+            per_forward=f'the input of every quantized conv of one batch-16 {tag} int8 '
+                        f'predict; launches: {N_BATCHES} predicts'))
     emit('wall', total_s=time.perf_counter() - t_start, kernel_build_s=build_s)
     print(json.dumps({'kernels': summary}), flush=True)
     print(smi, flush=True)

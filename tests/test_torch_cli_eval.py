@@ -187,12 +187,17 @@ def test_eval_cli_refuses_a_quantized_path_without_int8(km3d_trained, tmp_path):
 
 
 def test_int8_of_a_mono_detector_raises(km3d_trained):
+    """KM3D has the int8 hooks (``tests/test_torch_int8_mono.py`` runs
+    them); MonoDepth, like RetinaNet, has none, in the JAX package either,
+    so its int8 config raises, with that reason."""
     config, work, _ = km3d_trained
     cfg = cfg_from_file(config)
     cfg.detector.inference_dtype = 'int8'
     system = eval_cli.load_system(cfg, str(work / 'checkpoint'), torch.device('cpu'))
-    with pytest.raises(NotImplementedError, match='A5 item 5'):
-        inference_prep.prepare_inference_variables(cfg, system)
+    assert hasattr(system, 'int8_calib_inputs')
+    depth = DETECTOR_DICT['MonoDepth'](testing.monodepth_detector_cfg(depth=18), device='cpu')
+    with pytest.raises(NotImplementedError, match='JAX package has no calibrate_int8'):
+        inference_prep.prepare_inference_variables(cfg, depth)
 
 
 def test_a_checkpoint_that_does_not_fit_raises(km3d_trained):

@@ -450,8 +450,10 @@ def test_cli_trains_and_evaluates_monodepth(tmp_path, capsys):
 @pytest.mark.parametrize('flag', [['--coordinator', 'localhost:1234'],
                                   ['--num_processes', '2'], ['--process_id', '0']])
 def test_cli_refuses_the_multi_process_options(km3d_run, flag):
+    """The three multi-process options come together or not at all: one
+    alone raises before anything is built."""
     config, _, _ = km3d_run
-    with pytest.raises(NotImplementedError, match='A4 item 4'):
+    with pytest.raises(ValueError, match='--num_processes N and --process_id i together'):
         train_cli.main(['--config', config, '--device', 'cpu', *flag])
 
 

@@ -13,11 +13,23 @@ continues from the latest. Every ``test_iter`` epochs the config's
 ``evaluate_func`` (``pipelines/evaluators.py``) runs on the validation
 split after the checkpoint, as the JAX loop does: the training weights in
 f32 (``inference_dtype`` is set aside for it), the network in eval mode,
-then back; its timings go to ``<log_path>/eval_stats.jsonl``. Two raises
-at start where the JAX CLI would go on: a config whose ``evaluate_func``
-is not registered while an evaluation would fall within ``max_epochs``
-(the JAX CLI would fail at that epoch, after training), and the
-multi-process options (one process on one device).
+then back; its timings go to ``<log_path>/eval_stats.jsonl``. One raise at
+start where the JAX CLI would go on: a config whose ``evaluate_func`` is
+not registered while an evaluation would fall within ``max_epochs`` (the
+JAX CLI would fail at that epoch, after training).
+
+Multi-process data-parallel training (``--coordinator host:port
+--num_processes N --process_id i``, all three or none; one process per
+device): the processes join a ``torch.distributed`` group
+(``parallel/mesh.py``: NCCL on the card, ``cuda:(i % device_count)``
+unless ``--device`` names one; gloo on ``--device cpu``). Each loads
+``batch_size`` items a step from its shard of the sampler's stream, as
+the JAX CLI's processes do; an epoch stays ``len // batch_size`` steps.
+The step is the one of the global batch: the losses sum over it, the
+BatchNorms take its statistics and the gradients are averaged over the
+processes. Process 0 alone writes the logs, ``train_stats.jsonl``, the
+checkpoints and the evaluation, and prints; ``--resume`` loads on every
+process.
 
 Each epoch also appends one JSON line to ``<log_path>/train_stats.jsonl``:
 its steps and wall seconds, the seconds the loop waited on the loader
@@ -30,6 +42,8 @@ epoch also the seconds from the start of ``main`` to the first step.
 Usage:
   python -m visualdet3d_tpu_torch.cli.train --config=configs/km3d.py [--resume]
   python -m visualdet3d_tpu_torch.cli.train --config=configs/monodepth.py
+  python -m visualdet3d_tpu_torch.cli.train --config=configs/km3d.py \
+      --coordinator 127.0.0.1:29500 --num_processes 2 --process_id 0   # and 1
 """
 from __future__ import annotations
 
@@ -46,6 +60,7 @@ import numpy as np
 import torch
 
 from visualdet3d_tpu_torch.ops import launch_counts
+from visualdet3d_tpu_torch.parallel import mesh
 
 
 def host_batch(batch: dict, pin: bool) -> dict:
@@ -107,9 +122,11 @@ def parse_args(argv=None):
     parser.add_argument('--pretrained_backbone', default=None,
                         help='a backbone state_dict file (torch.save)')
     parser.add_argument('--coordinator', default=None,
-                        help='multi-process training: not ported (ROADMAP Queue A, A4 item 4)')
-    parser.add_argument('--num_processes', type=int, default=None)
-    parser.add_argument('--process_id', type=int, default=None)
+                        help='multi-process training: host:port of the process group')
+    parser.add_argument('--num_processes', type=int, default=None,
+                        help='multi-process training: the number of processes')
+    parser.add_argument('--process_id', type=int, default=None,
+                        help='multi-process training: this process, 0 .. num_processes - 1')
     return parser.parse_args(argv)
 
 
@@ -125,17 +142,19 @@ def build_system(cfg, device):
 def main(argv=None) -> None:
     t_main = time.perf_counter()
     args = parse_args(argv)
-    if (args.coordinator is not None or args.num_processes is not None
-            or args.process_id is not None):
-        raise NotImplementedError(
-            '--coordinator/--num_processes/--process_id: multi-process (DDP/SyncBN) training '
-            'is not ported yet; see ROADMAP.md Queue A, A4 item 4')
+    device = mesh.initialize_distributed(args.coordinator, args.num_processes, args.process_id,
+                                         device=args.device)
+    try:
+        _train(args, device, t_main)
+    finally:
+        mesh.shutdown()
 
+
+def _train(args, device: torch.device, t_main: float) -> None:
     from visualdet3d_tpu_torch.checkpoint import (CheckpointManager, load_train_state,
                                                   merge_pretrained_backbone, train_state_dict)
     from visualdet3d_tpu_torch.config import cfg_from_file
     from visualdet3d_tpu_torch.data.loader import build_dataloader
-    from visualdet3d_tpu_torch.device import resolve_device
     from visualdet3d_tpu_torch.pipelines.train_state import TrainState
     from visualdet3d_tpu_torch.registry import DATASET_DICT, PIPELINE_DICT
     from visualdet3d_tpu_torch.solver.optimizers import build_optimizer
@@ -144,8 +163,9 @@ def main(argv=None) -> None:
     import visualdet3d_tpu_torch.models  # noqa: F401  (registers the detectors)
     from visualdet3d_tpu_torch.pipelines import evaluators, testers, trainers  # noqa: F401
 
-    device = resolve_device(args.device)
     cfg = cfg_from_file(args.config)
+    is_main = mesh.rank() == 0
+    log = print if is_main else (lambda *a, **k: None)
 
     dataset_train = DATASET_DICT[cfg.data.train_dataset](cfg, 'training')
     steps_per_epoch = max(len(dataset_train) // cfg.data.batch_size, 1)
@@ -160,10 +180,12 @@ def main(argv=None) -> None:
             f'the config evaluates with {evaluate_func!r} after epochs {eval_epochs[:3]}..., '
             f'which is not a registered evaluation ({known}); set trainer.test_iter to 0 or '
             'past max_epochs to train without it')
+    if not is_main:
+        eval_epochs = []
     dataset_val = DATASET_DICT[cfg.data.val_dataset](cfg, 'validation') if eval_epochs else None
 
-    writer = MetricWriter(cfg.path.log_path)
-    loss_logger = LossLogger(writer, 'train')
+    writer = MetricWriter(cfg.path.log_path) if is_main else None
+    loss_logger = LossLogger(writer, 'train') if is_main else None
     pin = device.type == 'cuda'
     collate = dataset_train.collate_fn
 
@@ -173,7 +195,8 @@ def main(argv=None) -> None:
 
     dataloader_train = build_dataloader(
         dataset_train, num_workers=cfg.data.num_workers, batch_size=cfg.data.batch_size,
-        collate_fn=collate_fn, training=True)
+        collate_fn=collate_fn, local_rank=mesh.rank(), world_size=mesh.world_size(),
+        training=True)
 
     system = build_system(cfg, device)
     scheduler_cfg = cfg.get('scheduler', None)
@@ -181,29 +204,33 @@ def main(argv=None) -> None:
     state = TrainState(build_optimizer(system.net.parameters(), cfg.optimizer, scheduler_cfg,
                                        steps_per_unit=1 if is_iter_based else steps_per_epoch))
     n_params = sum(p.numel() for p in system.net.parameters() if p.requires_grad)
-    print(f'number of trained parameters of the model: {n_params:,}')
-    writer.add_text('config', str(cfg))
+    log(f'number of trained parameters of the model: {n_params:,}')
+    if writer:
+        writer.add_text('config', str(cfg))
 
     if args.pretrained_backbone:
         merge_pretrained_backbone(system.net, args.pretrained_backbone)
-        system.weights_changed()
-        print(f'warm-started backbone from {args.pretrained_backbone}')
+        log(f'warm-started backbone from {args.pretrained_backbone}')
+    mesh.replicate(system.net)  # every process starts from process 0's weights
+    system.weights_changed()
 
     if resume_step is not None:
         load_train_state(system.net, state, ckpt.restore(resume_step))
         system.weights_changed()
         start_epoch = state.step // steps_per_epoch
-        print(f'resumed from step {state.step} (epoch {start_epoch})')
+        log(f'resumed from step {state.step} (epoch {start_epoch})')
 
     train_step = PIPELINE_DICT[cfg.trainer.training_func](
         system, compute_dtype=cfg.trainer.get('compute_dtype'))
     stats_path = os.path.join(cfg.path.log_path, 'train_stats.jsonl')
     timer = Timer()
     global_step = start_epoch * steps_per_epoch
-    print(f'Num training images: {len(dataset_train)}; {steps_per_epoch} steps/epoch on {device}')
+    log(f'Num training images: {len(dataset_train)}; {steps_per_epoch} steps/epoch on {device}'
+        + (f', process 0 of {mesh.world_size()}' if mesh.is_distributed() else ''))
 
     for epoch_num in range(start_epoch, cfg.trainer.max_epochs):
-        loss_logger.reset()
+        if loss_logger:
+            loss_logger.reset()
         t_epoch = time.perf_counter()
         wait_s = copy_host_s = 0.0
         step_ms, wait_ms, copies = [], [], []
@@ -237,8 +264,9 @@ def main(argv=None) -> None:
             step_ms.append((time.perf_counter() - t2) * 1e3)
             global_step += 1
             timer.tick()
-            pending_metrics.append(metrics)
-            if global_step % cfg.trainer.disp_iter == 0:
+            if is_main:
+                pending_metrics.append(metrics)
+            if is_main and global_step % cfg.trainer.disp_iter == 0:
                 for m in pending_metrics:
                     loss_logger.update({k: v.item() for k, v in m.items()})
                 pending_metrics.clear()
@@ -249,7 +277,8 @@ def main(argv=None) -> None:
         del data_iter  # ends the loader's producer thread
 
         t_save = time.perf_counter()
-        ckpt.save(global_step, train_state_dict(system.net, state))
+        if is_main:
+            ckpt.save(global_step, train_state_dict(system.net, state))
         save_s = time.perf_counter() - t_save
         if copies:
             torch.cuda.synchronize()
@@ -264,9 +293,10 @@ def main(argv=None) -> None:
             loss=None if metrics is None else float(metrics['total']),
             launches={k: launches_after[k] - launches_before[k] for k in launches_after
                       if launches_after[k] != launches_before[k]})
-        with open(stats_path, 'a') as f:
-            f.write(json.dumps(stats) + '\n')
-        print(f'\nepoch {epoch_num}: {json.dumps(stats)}')
+        if is_main:
+            with open(stats_path, 'a') as f:
+                f.write(json.dumps(stats) + '\n')
+        log(f'\nepoch {epoch_num}: {json.dumps(stats)}')
 
         if epoch_num in eval_epochs:
             print(f'\n/**** start testing after training epoch {epoch_num} ******/')
@@ -281,9 +311,11 @@ def main(argv=None) -> None:
                 inference_dtype='float32', **eval_stats,
                 launches={k: after[k] - before[k] for k in after if after[k] != before[k]}))
             print(f'/**** finish testing after training epoch {epoch_num} ******/')
-        writer.flush()
+        if writer:
+            writer.flush()
 
-    writer.close()
+    if writer:
+        writer.close()
 
 
 if __name__ == '__main__':

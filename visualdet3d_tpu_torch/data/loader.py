@@ -112,12 +112,15 @@ class DataLoader:
 
 
 def build_dataloader(dataset, num_workers: int, batch_size: int,
-                     collate_fn: Callable, training: bool = True) -> DataLoader:
+                     collate_fn: Callable, local_rank: int = -1, world_size: int = 1,
+                     training: bool = True) -> DataLoader:
     """A loader over a ``TrainingSampler`` (training: shuffled, endless,
     full batches) or an ``InferenceSampler`` (one pass, the last batch
-    kept)."""
-    sampler = (TrainingSampler(len(dataset), shuffle=True) if training
-               else InferenceSampler(len(dataset)))
+    kept), each sharded to process ``local_rank`` of ``world_size`` (-1:
+    a single process); ``batch_size`` items a batch in each process."""
+    rank = max(local_rank, 0)
+    sampler = (TrainingSampler(len(dataset), shuffle=True, rank=rank, world_size=world_size)
+               if training else InferenceSampler(len(dataset), rank=rank, world_size=world_size))
     return DataLoader(dataset, batch_size=batch_size, collate_fn=collate_fn,
                       sampler=sampler, num_workers=num_workers,
                       drop_last=training)

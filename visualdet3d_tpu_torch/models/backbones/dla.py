@@ -18,7 +18,7 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
-from visualdet3d_tpu_torch.models.blocks import bn2d
+from visualdet3d_tpu_torch.models.blocks import bn2d, is_calibrating
 from visualdet3d_tpu_torch.registry import BACKBONE_DICT
 
 DLA_SPECS = {
@@ -103,7 +103,8 @@ class Tree(nn.Module):
     ``levels > 1`` that residual is unused, so the projection's parameters
     exist (the bridge loads them) and it is computed only in train mode,
     without gradient, for the running statistics of its BatchNorm, which
-    flax updates there too.
+    flax updates there too, and under the int8 calibration, which records
+    its input as the JAX package's calibration does (``blocks.calibrating``).
     """
 
     def __init__(self, levels: int, in_channels: int, features: int, block: str = 'basic',
@@ -142,6 +143,8 @@ class Tree(nn.Module):
         if self.project and self.training:
             with torch.no_grad():
                 self.BatchNorm_0(self.project_conv(bottom))
+        elif self.project and is_calibrating():  # the int8 calibration records its input
+            self.project_conv(bottom)
         x1 = self.tree1(x)
         children.append(x1)
         return self.tree2(x1, children=children)

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from visualdet3d_tpu_torch.ops.deform_conv import modulated_deform_conv
 from visualdet3d_tpu_torch.ops.sampling import grid_sample
+from visualdet3d_tpu_torch.parallel import mesh
 
 
 class _FlaxBatchNorm:
@@ -40,7 +41,9 @@ class _FlaxBatchNorm:
     normalisation is computed in f32 and rounded once, as flax promotes them
     (an all-bf16 ``F.batch_norm`` on the CPU rounds the per-channel factors
     to bf16, an error that does not average out across a channel). An f64
-    network (a reference step) computes in f64 throughout.
+    network (a reference step) computes in f64 throughout. Under a process
+    group, train mode takes the global batch's statistics
+    (:meth:`_synced_forward`).
     """
 
     freeze_stats = False
@@ -56,6 +59,8 @@ class _FlaxBatchNorm:
             return F.batch_norm(x, self.running_mean.float(), self.running_var.float(),
                                 self.weight.float(), self.bias.float(), False, 0.0, self.eps)
         acc = torch.promote_types(x.dtype, torch.float32)  # f64 stays f64 (a reference step)
+        if mesh.is_distributed():
+            return self._synced_forward(x, acc)
         y = F.batch_norm(x, None, None, self.weight.to(acc), self.bias.to(acc), True, 0.0,
                          self.eps)
         if not self.freeze_stats:
@@ -68,6 +73,29 @@ class _FlaxBatchNorm:
                 self.running_var.mul_(0.9).add_(0.1 * var)
                 self.num_batches_tracked.add_(1)
         return y
+
+    def _synced_forward(self, x: torch.Tensor, acc: torch.dtype) -> torch.Tensor:
+        """Train mode under a process group (SyncBatchNorm): the mean and
+        flax's fast variance ``E[x^2] - E[x]^2`` (clipped at 0) of the
+        global batch, from per-channel sums and counts summed over the
+        processes differentiably (``parallel.mesh.all_sum``), so the
+        backward is the global batch's too; the running statistics take
+        the global ones."""
+        xf = x.to(acc)
+        dims = (0, *range(2, x.dim()))
+        count = xf.new_full((x.shape[1],), x.numel() // x.shape[1])
+        sums = mesh.all_sum(torch.stack([xf.sum(dim=dims), (xf * xf).sum(dim=dims), count]))
+        mean = sums[0] / sums[2]
+        var = (sums[1] / sums[2] - mean * mean).clamp(min=0.0)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        scale = torch.rsqrt(var + self.eps) * self.weight.to(acc)
+        y = (xf - mean.view(shape)) * scale.view(shape) + self.bias.to(acc).view(shape)
+        if not self.freeze_stats:
+            with torch.no_grad():
+                self.running_mean.mul_(0.9).add_(0.1 * mean.detach())
+                self.running_var.mul_(0.9).add_(0.1 * var.detach())
+                self.num_batches_tracked.add_(1)
+        return y.to(x.dtype)
 
 
 class BatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):
@@ -97,7 +125,9 @@ class ChannelDropout(nn.Module):
     whole channels of an NCHW tensor are dropped and the survivors scaled by
     1 / (1 - rate), the mask drawn from ``generator`` (a ``torch.Generator``
     on the input's device, which the caller sets for a training forward;
-    None leaves the input as it is, as flax's deterministic mode)."""
+    None leaves the input as it is, as flax's deterministic mode). Under a
+    process group the mask is drawn for the global batch and each process
+    takes its own rows, so the masks are the single-process step's."""
 
     def __init__(self, rate: float):
         super().__init__()
@@ -108,8 +138,10 @@ class ChannelDropout(nn.Module):
         if not self.training or self.generator is None or self.rate == 0.0:
             return x
         keep = 1.0 - self.rate
-        mask = torch.rand((x.shape[0], x.shape[1]) + (1,) * (x.dim() - 2),
+        world, rank = mesh.world_size(), mesh.rank()
+        mask = torch.rand((world * x.shape[0], x.shape[1]) + (1,) * (x.dim() - 2),
                           generator=self.generator, device=x.device) < keep
+        mask = mask[rank * x.shape[0]:(rank + 1) * x.shape[0]]
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -164,6 +196,26 @@ def conv_inputs_cast_to(dtype: torch.dtype):
         yield
     finally:
         _CONV_INPUT_DTYPE.reset(token)
+
+
+_CALIBRATING: contextvars.ContextVar = contextvars.ContextVar('calibrating', default=False)
+
+
+@contextlib.contextmanager
+def calibrating():
+    """Within the block, modules also call the convs whose outputs they
+    discard in eval mode (a DLA tree's projection of its ``bottom`` where
+    ``levels > 1``), as the JAX package's forward calls them, so that the
+    int8 calibration (``models/quant.py``) records their inputs too."""
+    token = _CALIBRATING.set(True)
+    try:
+        yield
+    finally:
+        _CALIBRATING.reset(token)
+
+
+def is_calibrating() -> bool:
+    return _CALIBRATING.get()
 
 
 class FlaxConv2d(nn.Conv2d):

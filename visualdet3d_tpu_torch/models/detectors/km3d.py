@@ -159,6 +159,15 @@ class KM3D(InferenceMixin):
         img = torch.zeros((batch_size, *image_hw, 3), device=self.device)
         return (self._images(img, torch.float32),)
 
+    # int8 (models/quant.py): the DCN offset convs (27 channels) and the
+    # prediction convs fall below the 64-channel bound, so nothing needs a
+    # deny entry; the int8 copy's DCNs run in bf16
+    def int8_calib_inputs(self, batch):
+        return (batch['images'],)
+
+    def _calib_run(self, batch):
+        return self.net(self._images(batch[0], torch.float32))
+
     @torch.inference_mode()
     def predict_raw(self, images) -> Dict[str, torch.Tensor]:
         """[B, H, W, 3] images -> the head's maps, NHWC [B, H/4, W/4, C], in

@@ -35,7 +35,7 @@ from visualdet3d_tpu_torch.models.blocks import (
     FlaxConv2d, LookGround, ModulatedDeformConv, bn2d, channels_last_, flax_default_init_)
 from visualdet3d_tpu_torch.models.heads.monodepth_loss import (
     reshape_depth, si_log_loss, smooth_loss)
-from visualdet3d_tpu_torch.models.quant import InferenceMixin
+from visualdet3d_tpu_torch.models.quant import INT8_REFUSAL, InferenceMixin
 from visualdet3d_tpu_torch.registry import DETECTOR_DICT
 
 NEUTRAL_PRIOR = math.log(15.0)  # log depth (m) without a precomputed prior
@@ -200,8 +200,7 @@ class MonoDepth(InferenceMixin):
         NHWC, in the dtypes the inference network computes them in."""
         if self.cfg.get('inference_dtype', 'float32') == 'int8':
             raise NotImplementedError(
-                'MonoDepth: int8 inference is not ported yet; see ROADMAP.md Queue A, A5 item 5 '
-                '(the int8 surface of the mono detectors)')
+                f'MonoDepth: {INT8_REFUSAL}')
         P2 = torch.as_tensor(P2, dtype=torch.float32, device=self.device)
         out = self.inference_net()(self._images(images, self.inference_dtype()), P2)
         return {k: v.permute(0, 2, 3, 1) for k, v in out.items()}

@@ -27,8 +27,9 @@ from visualdet3d_tpu_torch.models.blocks import anchor_flatten, channels_last_, 
 from visualdet3d_tpu_torch.models.heads.anchors import Anchors
 from visualdet3d_tpu_torch.models.heads.detection_3d_head import assign_anchors
 from visualdet3d_tpu_torch.models.heads.losses import iou_loss, sigmoid_focal_loss
-from visualdet3d_tpu_torch.models.quant import InferenceMixin
+from visualdet3d_tpu_torch.models.quant import INT8_REFUSAL, InferenceMixin
 from visualdet3d_tpu_torch.ops.nms import nms
+from visualdet3d_tpu_torch.parallel.mesh import all_sum
 from visualdet3d_tpu_torch.registry import DETECTOR_DICT
 
 CLS_PRIOR = 0.01  # the class logits' bias at init: sigmoid(bias) = CLS_PRIOR
@@ -254,9 +255,9 @@ class RetinaNet(InferenceMixin):
                                                       [1.0] * self.num_classes)),
                                dtype=torch.float32, device=self.device)
         cls = sigmoid_focal_loss(cls_scores, labels, self.loss_cfg.get('gamma', 2.0), balance)
-        denom = pos.sum() + 1e-4
-        cls_loss = cls.sum()[None] / denom
-        reg_loss = reg.sum()[None] / denom
+        denom = all_sum(pos.sum()) + 1e-4
+        cls_loss = all_sum(cls.sum())[None] / denom
+        reg_loss = all_sum(reg.sum())[None] / denom
         return cls_loss, reg_loss, dict(cls_loss=cls_loss, reg_loss=reg_loss,
                                         total_loss=cls_loss + reg_loss)
 
@@ -266,8 +267,7 @@ class RetinaNet(InferenceMixin):
         4]) in the inference dtype."""
         if self.cfg.get('inference_dtype', 'float32') == 'int8':
             raise NotImplementedError(
-                'RetinaNet: int8 inference is not ported yet; see ROADMAP.md Queue A, A5 item 5 '
-                '(the int8 surface of the mono detectors)')
+                f'RetinaNet: {INT8_REFUSAL}')
         return self.inference_net()(self._images(images, self.inference_dtype()))
 
     @torch.inference_mode()

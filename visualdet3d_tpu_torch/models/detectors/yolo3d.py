@@ -183,6 +183,18 @@ class Yolo3D(Yolo3DSystem):
 
     ground_aware = False
 
+    # the prediction convs stay in floats unless cfg.int8_all. For Yolo3D's
+    # regression output the JAX package names ('AnchorBasedDetection3DHead_0',
+    # 'Conv_2'), which does not exist (flax numbers the Conv_* apart from
+    # ModulatedDeformConv_0), so JAX quantizes that conv; the port keeps
+    # Conv_1, the conv meant, in floats
+    int8_deny = (
+        ('GroundAwareHead_0', 'Conv_2'),
+        ('GroundAwareHead_0', '_ClsBranch_0', 'Conv_2'),
+        ('AnchorBasedDetection3DHead_0', 'Conv_1'),
+        ('AnchorBasedDetection3DHead_0', '_ClsBranch_0', 'Conv_2'),
+    )
+
     def __init__(self, network_cfg, device: Optional[Union[str, torch.device]] = None):
         super().__init__(network_cfg, device)
         self.dropout = True
@@ -202,6 +214,14 @@ class Yolo3D(Yolo3DSystem):
         img = torch.zeros((batch_size, *image_hw, 3), device=self.device)
         P2 = torch.eye(3, 4, device=self.device).expand(batch_size, 3, 4)
         return self._images(img, torch.float32), P2
+
+    def int8_calib_inputs(self, batch):
+        return (batch['images'], batch['P2'])
+
+    def _calib_run(self, batch):
+        images, P2 = batch[:2]
+        return self.net(self._images(images, torch.float32),
+                        torch.as_tensor(P2, dtype=torch.float32, device=self.device))
 
     def loss(self, images, P2, annotations, apply_fn: Optional[Callable] = None,
              generator: Optional[torch.Generator] = None):
@@ -228,11 +248,9 @@ class Yolo3D(Yolo3DSystem):
         """[B, H, W, 3] images, P2 [B, 3, 4] -> raw (cls_preds [B, N, C+1],
         reg_preds [B, N, 12]). In bf16 the images and weights are bf16 and
         P2 stays f32, as in the JAX package; GAC's regression output is
-        then f32 (``GroundAwareHead``)."""
-        if self.cfg.get('inference_dtype', 'float32') == 'int8':
-            raise NotImplementedError(
-                f'{type(self).__name__}: int8 inference is not ported yet; see ROADMAP.md '
-                'Queue A, A5 (the int8 surface)')
+        then f32 (``GroundAwareHead``). In int8 the quantized convs return
+        bf16, as the JAX package's do, so GAC's tower is bf16 from its
+        first quantized conv on, its regression output too."""
         P2 = torch.as_tensor(P2, dtype=torch.float32, device=self.device)
         return self.inference_net()(self._images(images, self.inference_dtype()), P2)
 

@@ -26,6 +26,7 @@ from visualdet3d_tpu_torch.models.heads import target_coding
 from visualdet3d_tpu_torch.models.heads.losses import (
     bce_with_logits, modified_smooth_l1, sigmoid_focal_loss)
 from visualdet3d_tpu_torch.ops.nms import _greedy_suppress
+from visualdet3d_tpu_torch.parallel.mesh import all_sum, global_mean
 
 
 # ---------------------------------------------------------------------------
@@ -132,8 +133,9 @@ def detection_3d_loss(cls_preds: torch.Tensor,
     cls_loss = torch.where(num_gt > 0, cls_loss, torch.zeros_like(cls_loss))
     weights = num_gt.to(dtype)  # per image: its box count
 
-    cls_loss = cls_loss.mean().reshape(1)
-    weighted = (weights[:, None] * reg_loss / (weights.sum() + 1e-6)).sum(dim=0)  # [13]
+    # over the global batch under a process group (parallel/mesh.py)
+    cls_loss = global_mean(cls_loss).reshape(1)
+    weighted = all_sum((weights[:, None] * reg_loss / (all_sum(weights.sum()) + 1e-6)).sum(dim=0))
     reg_loss = weighted.mean().reshape(1)
     return cls_loss, reg_loss, dict(cls_loss=cls_loss, reg_loss=reg_loss,
                                     total_loss=cls_loss + reg_loss)

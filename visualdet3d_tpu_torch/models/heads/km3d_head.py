@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from visualdet3d_tpu_torch.geometry import clip_boxes
 from visualdet3d_tpu_torch.models.heads import rtm3d_utils as rtm
 from visualdet3d_tpu_torch.ops.nms import nms
+from visualdet3d_tpu_torch.parallel.mesh import all_sum
 
 # branch name -> output channels (reference config KM3D_example)
 DEFAULT_HEAD_DICT = {'hm': 3, 'wh': 2, 'hps': 18, 'rot': 8, 'dim': 3,
@@ -71,9 +72,9 @@ def neg_loss(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
     neg_loss_ = F.logsigmoid(-pred) * pred_prob ** 2 * neg_weights * neg_inds
     neg_loss_ = torch.where(pred_prob < 0.01, 0.0, neg_loss_)
 
-    num_pos = pos_inds.sum()
-    pos_sum = pos_loss.sum()
-    neg_sum = neg_loss_.sum()
+    num_pos = all_sum(pos_inds.sum())
+    pos_sum = all_sum(pos_loss.sum())
+    neg_sum = all_sum(neg_loss_.sum())
     return torch.where(num_pos == 0, -neg_sum, -(pos_sum + neg_sum) / num_pos.clamp(min=1))
 
 
@@ -85,14 +86,14 @@ def reg_weighted_l1_loss(output, mask, ind, target, dep):
     mask = mask.to(pred.dtype)
     loss = (pred * mask - target * mask).abs()
     loss = loss.sum(dim=2) * dep
-    return loss.sum() / (mask.sum() + 1e-4)
+    return all_sum(loss.sum()) / (all_sum(mask.sum()) + 1e-4)
 
 
 def reg_l1_loss(output, mask, ind, target):
     """Masked L1."""
     pred = rtm.transpose_and_gather_feat(output, ind)
     mask = mask[..., None].expand(pred.shape).to(pred.dtype)
-    return (pred * mask - target * mask).abs().sum() / (mask.sum() + 1e-4)
+    return all_sum((pred * mask - target * mask).abs().sum()) / (all_sum(mask.sum()) + 1e-4)
 
 
 def exp_rampup(epoch, rampup_length: int = 100):

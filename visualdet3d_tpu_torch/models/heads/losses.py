@@ -18,6 +18,8 @@ from typing import Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from visualdet3d_tpu_torch.parallel.mesh import global_mean
+
 
 def sigmoid_focal_loss(logits: torch.Tensor, targets: torch.Tensor, gamma: float = 0.0,
                        balance_weights: Union[torch.Tensor, float] = 1.0) -> torch.Tensor:
@@ -124,4 +126,4 @@ def stereo_focal_loss(est_cost: torch.Tensor, gt_disp: torch.Tensor, variance: f
     weight = (1.0 - gt_prob) ** (-focal_coefficient)
     loss = -(gt_prob * F.log_softmax(est_cost, dim=-1) * weight
              * mask[..., None].to(est_cost.dtype))
-    return loss.sum(dim=-1).mean()
+    return global_mean(loss.sum(dim=-1))

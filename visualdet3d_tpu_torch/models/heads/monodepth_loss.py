@@ -16,6 +16,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from visualdet3d_tpu_torch.parallel.mesh import all_sum, global_mean
+
 
 def gradient_x(img: torch.Tensor) -> torch.Tensor:
     """Horizontal forward difference with the last column replicated:
@@ -34,7 +36,7 @@ def smooth_loss(depth: torch.Tensor, image: torch.Tensor) -> torch.Tensor:
     dgx, dgy = gradient_x(depth), gradient_y(depth)
     wx = torch.exp(-20 * gradient_x(image).abs().mean(dim=-1, keepdim=True))
     wy = torch.exp(-20 * gradient_y(image).abs().mean(dim=-1, keepdim=True))
-    return ((dgx * wx).abs() + (dgy * wy).abs()).mean()
+    return global_mean((dgx * wx).abs() + (dgy * wy).abs())
 
 
 def reshape_depth(gt_depth: torch.Tensor, shape: Tuple[int, int]) -> torch.Tensor:
@@ -53,6 +55,6 @@ def si_log_loss(depth_prediction: torch.Tensor, reshaped_gt: torch.Tensor,
     (0.1, max_depth), log difference above 0.001). Inputs [B, H, W]."""
     diff = torch.log(depth_prediction) - torch.log(reshaped_gt.clamp(min=1e-9))
     in_range = (reshaped_gt > 0.1) & (reshaped_gt < max_depth)
-    num = in_range.sum().clamp(min=1).to(diff.dtype)
+    num = all_sum(in_range.sum()).clamp(min=1).to(diff.dtype)
     diff = torch.where(in_range & (diff.abs() > 0.001), diff, torch.zeros_like(diff))
-    return (diff ** 2).sum() / num - si_lambda * (diff.sum() / num) ** 2
+    return all_sum((diff ** 2).sum()) / num - si_lambda * (all_sum(diff.sum()) / num) ** 2

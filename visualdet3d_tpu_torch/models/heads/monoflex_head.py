@@ -18,6 +18,7 @@ from visualdet3d_tpu_torch.models.heads import rtm3d_utils as rtm
 from visualdet3d_tpu_torch.models.heads.km3d_head import neg_loss, reg_weighted_l1_loss
 from visualdet3d_tpu_torch.models.heads.losses import iou_loss
 from visualdet3d_tpu_torch.ops.nms import nms
+from visualdet3d_tpu_torch.parallel.mesh import all_sum
 
 # branch name -> output channels (configs/monoflex.py)
 MONOFLEX_HEAD_DICT = {'hm': 3, 'bbox2d': 4, 'hps': 20, 'rot': 8, 'dim': 3,
@@ -78,7 +79,7 @@ def monoflex_loss(output: Dict[str, torch.Tensor], ann: Dict[str, torch.Tensor],
     positive objects. ``epoch`` is unused (the signature of ``km3d_loss``)."""
     ind = ann['ind'].long()
     mask = ann['reg_mask'].float()  # [B, M]
-    n_pos = mask.sum()
+    n_pos = all_sum(mask.sum())
 
     hm_loss = neg_loss(output['hm'], ann['hm'])
     hp_loss = reg_weighted_l1_loss(output['hps'], ann['hps_mask'], ind, ann['hps'], ann['dep'])
@@ -95,14 +96,14 @@ def monoflex_loss(output: Dict[str, torch.Tensor], ann: Dict[str, torch.Tensor],
     pred_box = torch.cat([-g['bbox2d'][..., :2], g['bbox2d'][..., 2:]], -1)
     targ = ann['bboxes2d_target']
     targ_box = torch.cat([-targ[..., :2], targ[..., 2:]], -1)
-    box2d_loss = (iou_loss(pred_box, targ_box) * mask).sum() / (n_pos + 1e-4)
+    box2d_loss = all_sum((iou_loss(pred_box, targ_box) * mask).sum()) / (n_pos + 1e-4)
 
-    dim_loss = ((g['dim'] - ann['dim']).abs() * m1).sum() / (n_pos + 1e-4)
-    off_loss = ((g['offset'] - ann['reg']).abs() * m1).sum() / (n_pos + 1e-4)
+    dim_loss = all_sum(((g['dim'] - ann['dim']).abs() * m1).sum()) / (n_pos + 1e-4)
+    off_loss = all_sum(((g['offset'] - ann['reg']).abs() * m1).sum()) / (n_pos + 1e-4)
 
     depth_loss = ((depth_decoded - ann['dep']).abs() * torch.exp(-depth_uncer)
                   + depth_uncer * uncertainty_weight)
-    depth_loss = (depth_loss * m1).sum() / (n_pos + 1e-4)
+    depth_loss = all_sum((depth_loss * m1).sum()) / (n_pos + 1e-4)
 
     kp_target = ann['dep'].repeat_interleave(3, dim=-1)
     kp_mask = ann['kp_detph_mask'].float()
@@ -110,9 +111,9 @@ def monoflex_loss(output: Dict[str, torch.Tensor], ann: Dict[str, torch.Tensor],
                    + corner_uncer * uncertainty_weight)
     # invalid keypoint depths count in the value, not in the gradient
     kp_valid = kp_loss_raw * kp_mask + (1 - kp_mask) * kp_loss_raw.detach()
-    keypoint_depth_loss = (kp_valid.mean(dim=-1) * mask).sum() / (n_pos + 1e-4)
+    keypoint_depth_loss = all_sum((kp_valid.mean(dim=-1) * mask).sum()) / (n_pos + 1e-4)
 
-    soft_depth_loss = ((merged[..., None] - ann['dep']).abs() * m1).sum() / (n_pos + 1e-4)
+    soft_depth_loss = all_sum(((merged[..., None] - ann['dep']).abs() * m1).sum()) / (n_pos + 1e-4)
 
     loss_stats = {'hm_loss': hm_loss, 'hp_loss': hp_loss,
                   'box2d_loss': box2d_loss, 'off_loss': off_loss,

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from visualdet3d_tpu_torch.ops.rotated_iou import aligned_boxes_iou3d
+from visualdet3d_tpu_torch.parallel.mesh import all_sum, global_mean
 
 
 # ---------------------------------------------------------------------------
@@ -135,7 +136,7 @@ def _masked_cross_entropy(logits: torch.Tensor, target: torch.Tensor,
     """CE over all rows with logits zeroed where mask == 0 (masked rows
     contribute the constant log(2) with zero gradient)."""
     logp = torch.log_softmax(logits * mask, dim=-1)
-    return -logp.gather(-1, target[:, None])[:, 0].mean()
+    return -global_mean(logp.gather(-1, target[:, None])[:, 0])
 
 
 def _smooth_l1(x, y):
@@ -157,12 +158,13 @@ def compute_rot_loss(output: torch.Tensor, target_bin: torch.Tensor, target_res:
 
     def res_branch(sin_idx, cos_idx, bin_col):
         sel = (target_bin[:, bin_col] != 0).to(output.dtype)
-        denom = sel.sum().clamp(min=1.0)
-        loss_sin = (_smooth_l1(output[:, sin_idx], torch.sin(target_res[:, bin_col]))
-                    * sel).sum() / denom
-        loss_cos = (_smooth_l1(output[:, cos_idx], torch.cos(target_res[:, bin_col]))
-                    * sel).sum() / denom
-        return torch.where(sel.sum() > 0, loss_sin + loss_cos, 0.0)
+        n_sel = all_sum(sel.sum())
+        denom = n_sel.clamp(min=1.0)
+        loss_sin = all_sum((_smooth_l1(output[:, sin_idx], torch.sin(target_res[:, bin_col]))
+                            * sel).sum()) / denom
+        loss_cos = all_sum((_smooth_l1(output[:, cos_idx], torch.cos(target_res[:, bin_col]))
+                            * sel).sum()) / denom
+        return torch.where(n_sel > 0, loss_sin + loss_cos, 0.0)
 
     return loss_bin1 + loss_bin2 + res_branch(2, 3, 0) + res_branch(6, 7, 1)
 
@@ -324,8 +326,8 @@ def position_loss(output: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor
     dim_ok = 1.0 - (dim_neg.sum(dim=2) > 0).float()
 
     loss_norm = torch.linalg.norm(position - batch['location'], dim=2)
-    mask_num = (loss_mask != 0).sum()
-    coor_loss = (loss_norm * loss_mask).sum() / (mask_num + 1)
+    mask_num = all_sum((loss_mask != 0).sum())
+    coor_loss = all_sum((loss_norm * loss_mask).sum()) / (mask_num + 1)
 
     dim_gt = torch.where(dim_neg, 0.0, batch['dim'])
     with torch.no_grad():
@@ -336,6 +338,6 @@ def position_loss(output: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor
     prob = prob[..., 0]
     box_score = box_score * loss_mask * dim_ok
     loss_prob = -(box_score * F.logsigmoid(prob) + (1 - box_score) * F.logsigmoid(-prob))
-    loss_prob = (loss_prob * loss_mask * dim_ok).sum() / (mask_num + 1)
-    box_score_mean = (box_score * loss_mask).sum() / (mask_num + 1e-3)
+    loss_prob = all_sum((loss_prob * loss_mask * dim_ok).sum()) / (mask_num + 1)
+    box_score_mean = all_sum((box_score * loss_mask).sum()) / (mask_num + 1e-3)
     return coor_loss, loss_prob, box_score_mean

@@ -47,6 +47,7 @@ from torch import nn
 
 from visualdet3d_tpu_torch import convert
 from visualdet3d_tpu_torch.models.backbones.resnet import BasicBlock
+from visualdet3d_tpu_torch.models.blocks import calibrating
 from visualdet3d_tpu_torch.models.fold_bn import fold_batchnorm, module_path
 from visualdet3d_tpu_torch.ops.int8_block import CHANNELS as BLOCK_CHANNELS
 from visualdet3d_tpu_torch.ops.int8_block import block_params, int8_basic_block
@@ -56,6 +57,10 @@ from visualdet3d_tpu_torch.ops.int8_conv import int8_conv2d, quantize_act
 INFERENCE_DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16,
                     'int8': torch.bfloat16}
 BLOCK_FUSE_KEY = 'block_fuse'
+# why a system without int8 hooks (RetinaNet, MonoDepth) refuses an int8 config
+INT8_REFUSAL = ('int8 inference is not part of this system: the JAX package has no '
+                'calibrate_int8 or quantize_int8 for it either, where an int8 config fails with '
+                'an AttributeError')
 
 PathT = Tuple[str, ...]
 
@@ -79,8 +84,10 @@ def default_select(mod: nn.Module, in_channels: int, path: PathT, deny: frozense
 def record_act_absmax(net: nn.Module, run: Callable[[tuple], object], batches: Iterable[tuple],
                       select: Callable) -> Dict[PathT, float]:
     """Calibration: the absmax of every selected conv's input over
-    ``batches``, in f32, with ``net`` in eval mode; ``run(batch)`` applies the
-    net to one batch. Returns {conv path: absmax}."""
+    ``batches``, in f32, with ``net`` in eval mode (and
+    ``blocks.calibrating``: the convs whose outputs eval mode discards run
+    too, as JAX's trace calls them); ``run(batch)`` applies the net to one
+    batch. Returns {conv path: absmax}."""
     out: Dict[PathT, float] = {}
     handles = []
 
@@ -97,8 +104,9 @@ def record_act_absmax(net: nn.Module, run: Callable[[tuple], object], batches: I
     was_training = net.training
     net.eval()
     try:
-        for batch in batches:
-            run(batch)
+        with calibrating():
+            for batch in batches:
+                run(batch)
     finally:
         net.train(was_training)
         for h in handles:
@@ -151,15 +159,17 @@ def _store_block_fusions(net: nn.Module, quant: Dict[PathT, dict]) -> None:
     eps), and store their affines under ``<block path> + ('block_fuse',)``:
     ``bn_scale = scale``, ``bn_shift = bias - mean * scale``. Structural, as
     in the JAX package: any module with ``Conv_0``, ``Conv_1``,
-    ``BatchNorm_0``, ``BatchNorm_1`` and no ``Conv_2``."""
+    ``BatchNorm_0``, ``BatchNorm_1`` and no ``Conv_2``. A block whose convs
+    have a bias gets no entry (the JAX package stores one and its chain
+    drops the bias)."""
     qflat = flatten_quant(quant)
     for path in list(qflat):
         if path[-1] != 'Conv_0':
             continue
         bp = path[:-1]
         e1, e2 = qflat.get(bp + ('Conv_0',)), qflat.get(bp + ('Conv_1',))
-        if e1 is None or e2 is None:
-            continue
+        if e1 is None or e2 is None or 'bias' in e1 or 'bias' in e2:
+            continue  # the fused chain has no place for a conv bias
         k1, k2 = e1['kernel_q'], e2['kernel_q']
         if not (tuple(k1.shape[1:3]) == (3, 3) and tuple(k2.shape[1:3]) == (3, 3)
                 and k1.shape[3] == k2.shape[0]):  # identity: C_in == C_out

@@ -33,6 +33,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from visualdet3d_tpu_torch.models.quant import INT8_REFUSAL
+
 CALIBRATION_SEED = 0
 QUANT_PATH_SEP = '/'
 
@@ -77,8 +79,7 @@ def full_f32():
 def _require_int8(system) -> None:
     if not hasattr(system, 'int8_calib_inputs'):
         raise NotImplementedError(
-            f'{type(system).__name__}: int8 inference is not ported yet; see ROADMAP.md '
-            'Queue A, A5 item 5 (the int8 surface of the mono detectors)')
+            f'{type(system).__name__}: {INT8_REFUSAL}')
 
 
 def quantize_on_training_frames(cfg, system) -> Dict[tuple, dict]:

@@ -32,6 +32,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from visualdet3d_tpu_torch.models.blocks import conv_inputs_cast_to
+from visualdet3d_tpu_torch.parallel import mesh
 from visualdet3d_tpu_torch.solver.optimizers import Optimizer
 
 COMPUTE_DTYPES = {None: torch.float32, 'float32': torch.float32, 'bfloat16': torch.bfloat16}
@@ -74,12 +75,17 @@ def _update(state: TrainState, system, total: torch.Tensor,
     (one sync per step); the running statistics the forward updated stay
     either way. A parameter the loss does not reach (a frozen trunk stage)
     gets a zero gradient, so that weight decay and momentum move it as
-    optax moves it (``torch.optim`` would skip it). Returns the detached
-    loss terms and ``total``."""
+    optax moves it (``torch.optim`` would skip it). Under a process group
+    the gradients are then averaged over the processes
+    (``parallel.mesh.average_gradients``), before the optimizer clips them:
+    the losses sum over the global batch, so ``total`` and the skip rule
+    are the same on every process. Returns the detached loss terms and
+    ``total``."""
     total.backward()
     for p in state.optimizer.params:
         if p.grad is None:  # not reached by the loss (a frozen stage): 0, as jax.grad gives
             p.grad = torch.zeros_like(p)
+    mesh.average_gradients(state.optimizer.params)
     if bool(total > 0):
         state.optimizer.step()
         system.weights_changed()
