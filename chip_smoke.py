@@ -11,7 +11,8 @@ each printed as one JSON line:
 1. device: the card (``nvidia-smi`` name and power limit) and the build of
    every CUDA kernel of the paths from the sources in the checkout
    (``csrc/correlation.cu``, ``csrc/deform_conv.cu``, ``csrc/int8_conv.cu``,
-   ``csrc/int8_block.cu``, one ``nvcc`` each, started together);
+   ``csrc/int8_block.cu``, ``csrc/stereo_bm.cu``, one ``nvcc`` each,
+   started together);
 2. kernel, kernel_per_forward, kernel_edges: both correlation kernels
    against their plain PyTorch version at the stereo path's shapes (batch
    16, 288x1280), f32 and bf16, with their time (CUDA events, median over
@@ -21,7 +22,15 @@ each printed as one JSON line:
    (``bound_ms``) and the share of it reached; then ragged edge cases in
    both dtypes (ragged and several column tiles, D > W, two disparity
    chunks, channels over several stages, C off the 16-byte pieces, an
-   unaligned right eye);
+   unaligned right eye); stereo_bm_kernel, stereo_bm_edges: the StereoBM
+   block matcher (``ops/stereo_bm.py``) against its plain version, bit for
+   bit, at 288x1280 on a shifted textured pair, the right eye's mirrored
+   call on non-contiguous views and a pair with flat and repeated regions,
+   with its ms a frame (both eyes) in CUDA events and device time, the
+   plain version's, the bound (bytes or INT32 operations), the valid share
+   and OpenCV's StereoBM on the host in a process of its own as a
+   yardstick; then widths at and just above 192 + 24, odd and too small
+   heights, unaligned bases and the wrapper's refusals;
 3. slice, profile, parity: ``Stereo3D.predict`` (ResNet-34 at 288x1280) at
    batch 16 in f32 and bf16 over distinct request batches: ms per batch,
    fps, batch-1 p50 latency, valid detections, the correlation launches
@@ -144,7 +153,7 @@ each printed as one JSON line:
    loss falling over 10 steps on one batch; Yolo3D 1 DCN forward, 1 dx, 1
    dW and 1 dW reduce launch a step); gac_train_parity and
    yolo3d_train_parity (one f32 step at batch 2 on the card and on the
-   CPU, both against the same step on the CPU in f64, at the KM3D step
+   CPU, both against the same step in f64 (on the card), at the KM3D step
    gates with the CPU's own distance to f64 as the floor, and each DCN or
    LookGround leaf of the card's step within 1e-3 of the f64 step).
 
@@ -211,7 +220,7 @@ each printed as one JSON line:
    forward, dx, dW and dW-reduce launches a step, and one bf16 step under
    ``VD3D_DCN_ALLTAPS=1`` on K4); retinanet_train_parity,
    monodepth_train_parity (one f32 step at batch 2 on the card and on the
-   CPU, both against the CPU's step in f64, the leaves of the DCNs and of
+   CPU, both against the step in f64 (on the card), the leaves of the DCNs and of
    ``LookGround`` each held on its own). After the evaluation phases of 11,
    on disk: depth_data (``testing.write_synthetic_kitti_depth``: 16 frames
    and 4 validation frames at 375x1242, the item's ms by stage, the depth
@@ -221,6 +230,22 @@ each printed as one JSON line:
    metrics; RetinaNet's 2-D results and AP table); cli_eval_monodepth (the
    eval CLI at batch 1 over 40 frames: the frame's, the item's and the
    PNG's ms; the card's metrics against ``--device cpu``'s within 1e-4).
+
+13. The tools (A7), after cli_train_eval, on disk: stereo_bm_precompute
+   (a 4-frame tree whose right eyes are the left ones shifted by a known
+   field, ``testing.write_synthetic_kitti(stereo_shift=True)``; the
+   disparity CLI's ``--use_stereo_bm`` path on the card, 4 StereoBM kernel
+   launches a frame (2 calls), then with ``device='cpu'``: the PNGs equal
+   bit for bit, the known shift recovered in most valid blocks, the seconds
+   of each; the host's wall and CPU ms of the stereo train augmentation
+   with the loader's ``F.interpolate`` resize and inside
+   ``cv_ops.exact_resize()``);
+   cli_eval_test_split (``cli.imdb_precompute_test`` on that tree as
+   ``path.test_path``, then the eval CLI's ``--split_to_test test`` for
+   Stereo3D at batch 1: a finite result txt a frame, no evaluation, 2 K1 a
+   frame); demo (``cli.demo`` on validation frame 0 with the eval-ready
+   KM3D checkpoint: the PNG at the input's size, its rows those of the f32
+   eval CLI's result file, pixels painted).
 
 Then a ``wall`` line (the script's seconds), the ``kernels`` summary line,
 the ``nvidia-smi`` line and, last,
@@ -253,6 +278,10 @@ CARD_PEAKS = {
     'PCIe': (2.0e12, 51e12, 756e12),
     'SXM': (3.35e12, 67e12, 989e12),
 }
+# INT32 operations a second of the same parts (the guide's table has none):
+# 64 INT32 lanes an SM a clock at the boost clock, 114 SMs at 1.755 GHz
+# (PCIe) and 132 at 1.98 GHz (SXM)
+CARD_INT32_OPS = {'PCIe': 114 * 64 * 1.755e9, 'SXM': 132 * 64 * 1.98e9}
 
 
 T_START = time.perf_counter()  # the elapsed seconds each line carries count from here
@@ -970,29 +999,30 @@ def dcn_inputs(torch, gen, b, h, w, c_in, c_out, dtype, n, ho=None, wo=None,
     return runs, weight, bias
 
 
-def dcn_check(torch, dc, args, weight, bias, what, **conv):
-    """The kernel against the plain version on the card; returns (max abs
-    error, tolerance text). f32: 3e-5 of max|out| (the two sum the K*C_in
-    tap products in different orders). bf16: per element, one bf16 ulp of
-    the plain pre-bias output plus one of the output: the sampled values are
-    rounded identically (explicitly rounded products and sums in both), bf16
-    products are exact in f32, so only the f32 sum order differs, which can
-    flip the rounding of the pre-bias output, and then of the bias add."""
-    out = dc.modulated_deform_conv(*args, weight, bias, **conv)
-    ref = dc.modulated_deform_conv_plain(*args, weight, bias, **conv)
-    torch.cuda.synchronize()
-    check(out.shape == ref.shape and out.dtype == ref.dtype,
-          f'{what}: {tuple(out.shape)} {out.dtype} against {tuple(ref.shape)} {ref.dtype}')
-    err = (out.float() - ref.float()).abs()
-    if out.dtype == torch.float32:
-        tol = 'atol 3e-5 * max|out|'
-        ok = bool(err.max() <= 3e-5 * ref.abs().max() + 1e-7)
-    else:
-        pre = dc.modulated_deform_conv_plain(*args, weight, None, **conv).float()
-        tol = 'one bf16 ulp of the plain pre-bias output + one of the output, per element'
-        ok = bool((err <= bf16_ulp(pre) + bf16_ulp(ref.float())).all())
-    max_err = float(err.max())
-    check(ok, f'{what}: max abs err {max_err} outside {tol}')
+def dcn_check(torch, dc, runs, weight, bias, what, **conv):
+    """The kernel against the plain version on the card, on every input
+    (x, offset, mask) of ``runs``; returns (max abs error, tolerance text).
+    f32: 3e-5 of max|out| (the two sum the K*C_in tap products in different
+    orders). bf16: ``dcn_exact_check``: the f64 sums of the same bf16
+    samples beside the plain version, with an accumulation allowance (a
+    sweep of 50 seeds at each KM3D neck shape found the plain-only gate's
+    premise, that only a last-bit sum-order difference can flip a rounding,
+    false where the 2304-9216 products nearly cancel)."""
+    if runs[0][0].dtype == torch.bfloat16:
+        err, tol, _ = dcn_exact_check(torch, dc, runs, weight, bias, what, **conv)
+        return err, tol
+    tol = 'atol 3e-5 * max|out|'
+    max_err = 0.0
+    for i, args in enumerate(runs):
+        out = dc.modulated_deform_conv(*args, weight, bias, **conv)
+        ref = dc.modulated_deform_conv_plain(*args, weight, bias, **conv)
+        torch.cuda.synchronize()
+        check(out.shape == ref.shape and out.dtype == ref.dtype,
+              f'{what}: {tuple(out.shape)} {out.dtype} against {tuple(ref.shape)} {ref.dtype}')
+        err = float((out - ref).abs().max())
+        check(err <= 3e-5 * float(ref.abs().max()) + 1e-7,
+              f'{what} (input {i} of {len(runs)}): max abs err {err} outside {tol}')
+        max_err = max(max_err, err)
     return max_err, tol
 
 
@@ -1010,7 +1040,7 @@ def deform_kernel_phase(torch, dc, peaks):
             runs, weight, bias = dcn_inputs(torch, gen, BATCH, h, w, c_in, c_out, dtype,
                                             N_KERNEL_RUNS)
             what = f'modulated_deform_conv {dt} {h}x{w} {c_in}->{c_out}'
-            max_err, tol = dcn_check(torch, dc, runs[0], weight, bias, what)
+            max_err, tol = dcn_check(torch, dc, runs, weight, bias, what)
             ms = cuda_ms(lambda a: dc.modulated_deform_conv(*a, weight, bias), runs)
             plain_ms = cuda_ms(lambda a: dc.modulated_deform_conv_plain(*a, weight, bias),
                                runs, warmup=1)
@@ -1061,7 +1091,7 @@ def deform_edge_phase(torch, dc):
                                   conv.get('dilation', 1))
             runs, weight, bias = dcn_inputs(torch, gen, b, h, w, c_in, c_out, dtype, 1,
                                             ho=ho, wo=wo, off_std=off_std, far=far)
-            dcn_check(torch, dc, runs[0], weight, bias, f'edge {name} {dtype}', **conv)
+            dcn_check(torch, dc, runs, weight, bias, f'edge {name} {dtype}', **conv)
             cases.append(name)
         # samples exactly on rows/columns -1, H - 1 and H
         runs, weight, bias = dcn_inputs(torch, gen, 1, 6, 7, 4, 3, dtype, 1, off_std=0.0, far=0.0)
@@ -1069,14 +1099,15 @@ def deform_edge_phase(torch, dc):
         off = off.float()
         off[0, 0, 0, 0::2] = torch.tensor([0, 0, 0, -1, 0, 0, 6, 5, 4.0], device='cuda')
         off[0, 3, 3, 1::2] = torch.tensor([-3, 3.5, 2, -1, 0, 0, 0.5, 0, 0], device='cuda')
-        dcn_check(torch, dc, (x, off.to(dtype), mask), weight, bias, f'edge -1/H {dtype}')
+        dcn_check(torch, dc, [(x, off.to(dtype), mask)], weight, bias, f'edge -1/H {dtype}')
         cases.append('samples on -1, H - 1 and H')
         # a contiguous x whose base is off 16-byte alignment: scalar loads
         runs, weight, bias = dcn_inputs(torch, gen, 2, 9, 11, 64, 64, dtype, 1)
         x, off, mask = runs[0]
         shifted = torch.empty(x.numel() + 1, dtype=dtype, device='cuda')[1:].view(x.shape)
         shifted.copy_(x)
-        dcn_check(torch, dc, (shifted, off, mask), weight, bias, f'edge unaligned x {dtype}')
+        dcn_check(torch, dc, [(shifted, off, mask)], weight, bias,
+                  f'edge unaligned x {dtype}')
         cases.append('x base off 16-byte alignment')
     # what the kernel does not take raises, never falls back
     x, off, mask = runs[0]
@@ -1119,6 +1150,37 @@ def dcn_switches(alltaps=False, premul=False):
             os.environ.pop(key, None)
             if value is not None:
                 os.environ[key] = value
+
+
+@contextlib.contextmanager
+def f64_reference_on_card():
+    """The parity phases' f64 reference steps run on the card (the CPU took
+    22-62 s for MonoDepth's alone on the card machine's host): cuDNN and
+    torch compute f64 there, but the DCN kernels take f32 and bf16 only, so
+    inside this context a DCN on f64 tensors computes the plain version
+    (the reference's own arithmetic, not a path of the port, whose
+    wrappers raise on f64)."""
+    import torch
+    from visualdet3d_tpu_torch.ops import deform_conv as dc
+    fwd, bwd = dc._forward_kernel, dc.modulated_deform_conv_backward
+
+    def forward(x, offset, mask, weight, bias, stride, padding, dilation, alltaps=False):
+        if x.dtype == torch.float64:
+            return dc.modulated_deform_conv_plain(x, offset, mask, weight, bias, stride,
+                                                  padding, dilation)
+        return fwd(x, offset, mask, weight, bias, stride, padding, dilation, alltaps=alltaps)
+
+    def backward(x, offset, mask, weight, grad_out, stride=1, padding=1, dilation=1):
+        if x.dtype == torch.float64:
+            return dc.modulated_deform_conv_backward_plain(x, offset, mask, weight, grad_out,
+                                                           stride, padding, dilation)
+        return bwd(x, offset, mask, weight, grad_out, stride, padding, dilation)
+
+    dc._forward_kernel, dc.modulated_deform_conv_backward = forward, backward
+    try:
+        yield
+    finally:
+        dc._forward_kernel, dc.modulated_deform_conv_backward = fwd, bwd
 
 
 def dcn_bf16_check(torch, dc, args, weight, out, ref, pre, what, **conv):
@@ -3183,68 +3245,78 @@ def gac_parity_phase(torch, system, head):
     del cpu
 
 
-# the bf16 forward's accumulation allowance at the head, in f32 ulps of the
-# sum of the absolute tap products: mma.sync's f32 accumulator adds each
-# 16-product step with the tensor core's alignment and truncation, measured
-# at up to 8 such ulps at [4, 18, 80, 1024] -> 1024 and 2.7-3.5 at the KM3D
-# neck's shapes (cuBLAS's f32 GEMM of the plain version: 0.25)
+# the bf16 forward's accumulation allowance, in f32 ulps of the sum of the
+# absolute tap products: mma.sync's f32 accumulator adds each 16-product
+# step with the tensor core's alignment and truncation, measured at up to 8
+# such ulps at [4, 18, 80, 1024] -> 1024 and 2.6-5.4 at the KM3D neck's
+# shapes over 50 seeds each (cuBLAS's f32 GEMM of the plain version: 0.25-0.48)
 HEAD_DCN_ACC_ULPS = 16
 
 
-def dcn_exact_f64(torch, dc, x, offset, mask, weight):
+def dcn_exact_f64(torch, dc, x, offset, mask, weight, stride=1, padding=1, dilation=1):
     """The exact pre-bias DCN output of the kernel's own bf16 samples and
     weights (the plain version's lerps and rounding points, the tap
     products summed in f64, where the sums of products of two bf16 values
     are exact), and the sum of the absolute tap products, both [B, Ho, Wo,
-    C_out] f64 (stride 1, padding 1)."""
+    C_out] f64."""
     b, h, w, c_in = x.shape
+    ho, wo = offset.shape[1:3]
     kh, kw, _, c_out = weight.shape
-    y0, x0, weights = dc._corners(offset, mask, h, w, kh, kw, 1, 1, 1, x.dtype)
+    y0, x0, weights = dc._corners(offset, mask, h, w, kh, kw, stride, padding, dilation,
+                                  x.dtype)
     flat = x.reshape(b, h * w, c_in).float()
     wk = weight.reshape(kh * kw, c_in, c_out).double()
-    exact = torch.zeros((b, h * w, c_out), dtype=torch.float64, device=x.device)
+    exact = torch.zeros((b, ho * wo, c_out), dtype=torch.float64, device=x.device)
     absum = torch.zeros_like(exact)
     for k in range(kh * kw):
         sampled = dc._sample_tap(flat, y0, x0, weights, k, h, w).to(x.dtype).double()
         exact += sampled @ wk[k]
         absum += sampled.abs() @ wk[k].abs()
-    return exact.reshape(b, h, w, c_out), absum.reshape(b, h, w, c_out)
+    return exact.reshape(b, ho, wo, c_out), absum.reshape(b, ho, wo, c_out)
 
 
-def head_dcn_bf16_check(torch, dc, args, weight, bias, what):
-    """K3 at the head shape against the plain version (f32 sums) and the f64
-    sums of the same bf16 samples, per element: within one bf16 ulp of the
-    pre-bias output and one of the output (as ``dcn_check``), plus the
+def dcn_exact_check(torch, dc, runs, weight, bias, what, **conv):
+    """K3 in bf16 against the plain version (f32 sums) and the f64 sums of
+    the same bf16 samples, on every input of ``runs``, per element: within
+    one bf16 ulp of the pre-bias output and one of the output, plus the
     accumulation allowance HEAD_DCN_ACC_ULPS f32 ulps of the sum of the
-    absolute tap products. ``dcn_check``'s premise, that only a last-bit
-    sum-order difference can flip a rounding, fails where the 9216 products
-    nearly cancel: there the tensor core's accumulation error is many ulps
-    of the small output. Returns (max abs err to the plain version,
-    tolerance text, the kernel's and the plain version's worst error to the
-    f64 sums in f32 ulps of the sum of the absolute products)."""
-    out = dc.modulated_deform_conv(*args, weight, bias).double()
-    ref = dc.modulated_deform_conv_plain(*args, weight, bias).double()
-    pre = dc.modulated_deform_conv_plain(*args, weight, None).float()
-    exact, absum = dcn_exact_f64(torch, dc, *args, weight)
-    torch.cuda.synchronize()
+    absolute tap products. The premise of a gate on the plain version
+    alone, that only a last-bit sum-order difference can flip a rounding,
+    fails where the products nearly cancel: there the tensor core's
+    accumulation error is many ulps of the small output. Returns (max abs
+    err to the plain version, tolerance text, the kernel's and the plain
+    version's worst error to the f64 sums in f32 ulps of the sum of the
+    absolute products)."""
     eps = 2.0 ** -23
-    allow = HEAD_DCN_ACC_ULPS * eps * absum
-    tol = bf16_ulp(pre).double() + bf16_ulp(ref.float()).double() + allow
-    oracle = (exact.to(torch.bfloat16) + bias).double()
-    err_plain = (out - ref).abs()
-    err_exact = (out - oracle).abs()
-    ulps_of = lambda v: float(((v.to(torch.bfloat16).double() - exact).abs()
-                               - bf16_ulp(exact.float()).double() / 2).clamp_min(0).div(
-                                   (eps * absum).clamp_min(1e-30)).max())
-    acc_ulps = {'kernel': ulps_of(dc.modulated_deform_conv(*args, weight, None).double()),
-                'plain': ulps_of(pre.double())}
     text = (f'one bf16 ulp of the pre-bias output + one of the output + {HEAD_DCN_ACC_ULPS} f32 '
             'ulps of sum|tap products|, per element, against the f32 plain version and the f64 '
             'sums of the same bf16 samples')
-    ok = bool((err_plain <= tol).all()) and bool((err_exact <= tol).all())
-    check(ok, f'{what}: max abs err {float(err_plain.max())} to the plain version, '
-              f'{float(err_exact.max())} to the f64 sums, outside {text}')
-    return float(err_plain.max()), text, acc_ulps
+    max_err, acc_ulps = 0.0, {'kernel': 0.0, 'plain': 0.0}
+    for i, args in enumerate(runs):
+        out = dc.modulated_deform_conv(*args, weight, bias, **conv)
+        check(out.dtype == torch.bfloat16, f'{what}: {out.dtype} out of a bf16 kernel')
+        out = out.double()
+        ref = dc.modulated_deform_conv_plain(*args, weight, bias, **conv).double()
+        pre = dc.modulated_deform_conv_plain(*args, weight, None, **conv).float()
+        exact, absum = dcn_exact_f64(torch, dc, *args, weight, **conv)
+        torch.cuda.synchronize()
+        check(out.shape == ref.shape, f'{what}: {tuple(out.shape)} against {tuple(ref.shape)}')
+        allow = HEAD_DCN_ACC_ULPS * eps * absum
+        tol = bf16_ulp(pre).double() + bf16_ulp(ref.float()).double() + allow
+        oracle = (exact.to(torch.bfloat16) + bias).double()
+        err_plain = (out - ref).abs()
+        err_exact = (out - oracle).abs()
+        ulps_of = lambda v: float(((v.to(torch.bfloat16).double() - exact).abs()
+                                   - bf16_ulp(exact.float()).double() / 2).clamp_min(0).div(
+                                       (eps * absum).clamp_min(1e-30)).max())
+        kpre = dc.modulated_deform_conv(*args, weight, None, **conv).double()
+        acc_ulps = {'kernel': max(acc_ulps['kernel'], ulps_of(kpre)),
+                    'plain': max(acc_ulps['plain'], ulps_of(pre.double()))}
+        ok = bool((err_plain <= tol).all()) and bool((err_exact <= tol).all())
+        check(ok, f'{what} (input {i} of {len(runs)}): max abs err {float(err_plain.max())} to '
+                  f'the plain version, {float(err_exact.max())} to the f64 sums, outside {text}')
+        max_err = max(max_err, float(err_plain.max()))
+    return max_err, text, acc_ulps
 
 
 def gac_head_dcn_kernel_phase(torch, dc, peaks):
@@ -3252,7 +3324,7 @@ def gac_head_dcn_kernel_phase(torch, dc, peaks):
     Yolo3D head's shape, [16, 18, 80, 1024] -> 1024, f32 and bf16, offsets
     seeded (std 2 px, 5% of them 20-40 px, outside the map): each against
     its plain version on the same inputs at batch 16 (``dcn_check`` in f32,
-    ``head_dcn_bf16_check`` in bf16, ``bwd_check``), its time in CUDA
+    ``dcn_exact_check`` in bf16, ``bwd_check``), its time in CUDA
     events and in device time (the forward from CUDA graphs, dx and dW
     apart from a profiler pass by kernel name), its bound, a cuDNN dense 3x3
     conv of the same shape as a reference point, ``dx_f32_plan``'s tile and
@@ -3269,10 +3341,9 @@ def gac_head_dcn_kernel_phase(torch, dc, peaks):
         what = f'gac head modulated_deform_conv {dt} {h}x{w} {c_in}->{c_out}'
         acc_ulps = None
         if dtype == torch.bfloat16:
-            fwd_err, fwd_tol, acc_ulps = head_dcn_bf16_check(torch, dc, runs[0], weight, bias,
-                                                             what)
+            fwd_err, fwd_tol, acc_ulps = dcn_exact_check(torch, dc, runs, weight, bias, what)
         else:
-            fwd_err, fwd_tol = dcn_check(torch, dc, runs[0], weight, bias, what)
+            fwd_err, fwd_tol = dcn_check(torch, dc, runs, weight, bias, what)
         fwd = lambda a: dc.modulated_deform_conv(*a, weight, bias)
         ms = cuda_ms(fwd, runs)
         device = graph_ms(fwd, runs[:4])  # device time: no host time in it
@@ -3434,8 +3505,9 @@ def gac_train_parity_phase(torch, head):
     running statistics set to the batch's; Yolo3D's offsets of std 0.5
     px; alpha and the prediction convs seeded, so that the gradient reaches
     the whole network), dropout off on both, at the KM3D step gates with
-    another floor: both f32 steps are held against the same step on the
-    CPU in f64, and the card's distance to it must stay within the CPU's
+    another floor: both f32 steps are held against the same step in f64
+    (on the card: ``f64_reference_on_card``), and the card's distance to it
+    must stay within the CPU's
     own f32 distance times the gates' factors. Each loss term within
     max(8x the floor's difference, 2e-4 of its value); the gradients
     before the update clips them: the largest elementwise difference within
@@ -3492,22 +3564,24 @@ def gac_train_parity_phase(torch, head):
     t0 = time.perf_counter()
     m_cpu = {k: float(v) for k, v in cpu_step(cpu_batch).items()}
     cpu_s = time.perf_counter() - t0
-    # the reference: the same step's loss and gradients on the CPU in f64
+    # the reference: the same step's loss and gradients in f64, on the card
     # (the loss itself in f32 on the f64 predictions, as in every step)
-    ref = build_gac_system(device='cpu', head=head)
+    ref = build_gac_system(device='cuda', head=head)
     ref.net.load_state_dict(init)
     ref.net.double()
     ref.dropout = False
     t0 = time.perf_counter()
-    cls_loss, reg_loss, terms = ref.loss(
-        cpu_batch['images'], cpu_batch['P2'], cpu_batch['annotations'],
-        apply_fn=lambda net, images, P2: net(images.double(), P2=P2.double()))
-    total = cls_loss.mean() + reg_loss.mean()
-    total.backward()
+    with f64_reference_on_card():
+        cls_loss, reg_loss, terms = ref.loss(
+            batch['images'], batch['P2'], batch['annotations'],
+            apply_fn=lambda net, images, P2: net(images.double(), P2=P2.double()))
+        total = cls_loss.mean() + reg_loss.mean()
+        total.backward()
+    torch.cuda.synchronize()
     ref_s = time.perf_counter() - t0
     m_ref = {k: float(v.detach()) for k, v in terms.items()}
     m_ref['total'] = float(total.detach())
-    g_ref = [(torch.zeros_like(p) if p.grad is None else p.grad).detach().double()
+    g_ref = [(torch.zeros_like(p) if p.grad is None else p.grad).detach().double().cpu()
              for p in ref.net.parameters()]
 
     loss_err = {k: abs(m_gpu[k] - v) / max(abs(v), 1e-30) for k, v in m_ref.items()}
@@ -3537,7 +3611,7 @@ def gac_train_parity_phase(torch, head):
                     for bg, bc in zip(gpu.net.buffers(), cpu.net.buffers())
                     if bg.is_floating_point())
     emit(phase, batch=PARITY_TRAIN_BATCH, dtype='float32', tf32=False,
-         reference='the CPU step in f64',
+         reference='the same step in f64 on the card',
          loss_rel_err=loss_err, loss_rel_err_floor=loss_floor, grad_max_abs_err=worst,
          grad_max_abs_err_floor=floor, grad_max=gmax, grad_rel_err_all=rel,
          grad_rel_err_all_floor=rel_floor, grad_rel_diff_card_cpu=rel_card_cpu,
@@ -3906,7 +3980,7 @@ def km3d_resnet_parity_phase(torch):
 
 ORACLE_FRAMES = 160       # label files only: every difficulty has 41+ valid Cars
 ORACLE_SPLIT_FRAMES = 3769  # the frames of KITTI's usual validation split (3DOP's)
-EVAL_REPEATS = 10         # a timed evaluation lists the VAL_FRAMES frames 10 times: 40 frames
+EVAL_REPEATS = 5          # a timed evaluation lists the VAL_FRAMES frames 5 times: 20 frames
 
 
 def timed_eval_config(config):
@@ -4067,6 +4141,9 @@ def eval_ready_checkpoint(torch, config, name, prepare):
     system = eval_cli.load_system(cfg, cfg.path.checkpoint_path, torch.device('cuda'))
     val = eval_cli.dataset_of(cfg, 'validation')
     prepare(system, val.collate_fn([val[i] for i in range(len(val))]))
+    state = system.net.state_dict()
+    emit('eval_ready_checkpoint', model=name, finite=all(
+        bool(torch.isfinite(v).all()) for v in state.values() if v.is_floating_point()))
     out = os.path.join(os.path.dirname(config), f'{name}_eval_checkpoint')
     checkpoint.CheckpointManager(out).save(0, {'model': system.net.state_dict()})
     del system
@@ -4376,8 +4453,388 @@ def kitti_eval_phases(torch, work, configs):
     launches[('stereo', 'int8')] = int8['artifact']['launches_per_frame']
     cli_eval_parity_phase(torch, f32_files)
     cli_train_eval_phase(torch, configs['km3d'])
+    a7 = a7_tree_phases(torch, work, configs, ckpts, f32_files['km3d'])
     emit('kitti_eval_phases', seconds=time.perf_counter() - t0)
-    return launches
+    return launches, a7
+
+
+def a7_tree_phases(torch, work, configs, ckpts, km3d_f32):
+    """A7 on trees on disk, after the evaluation phases: the StereoBM
+    precompute on a tree with shifted right eyes, the test split's imdb and
+    the eval CLI's test split on it (Stereo3D), the demo (KM3D, against the
+    f32 eval CLI's first result file). Returns their results."""
+    t0 = time.perf_counter()
+    bm, root, _ = stereo_bm_precompute_phase(torch, work)
+    test_split = cli_eval_test_split_phase(torch, work, root, configs['stereo'], ckpts['stereo'])
+    km3d_config, _, files = km3d_f32
+    demo = demo_phase(torch, work, km3d_config, ckpts['km3d'], files)
+    emit('a7_tree_phases', seconds=time.perf_counter() - t0)
+    return dict(stereo_bm_precompute=bm, cli_eval_test_split=test_split, demo=demo)
+
+
+# ---------------------------------------------------------------------------
+# A7, the tools: the StereoBM disparity precompute on the hand-written block
+# matcher, the test split's imdb and inference, the demo
+# ---------------------------------------------------------------------------
+
+STEREO_BM_HW = (288, 1280)   # the stereo config's test augmentation: the maps' geometry
+STEREO_BM_RUNS = 4           # distinct frames a timing
+BM_TREE_FRAMES = 4           # the shifted-right-eye tree of the precompute and test split
+# a (pixel, disparity) of the valid region: |L - R| (a subtract and an abs),
+# the vertical running sum's add and subtract, the horizontal one's
+BM_OPS_PER_SAD = 6
+
+
+def stereo_bm_check(torch, sb, left, right, what):
+    """The kernel against its plain version on the card, bit for bit;
+    returns (the map, the valid share)."""
+    out = sb.stereo_bm(left, right)
+    ref = sb.stereo_bm_plain(left, right)
+    torch.cuda.synchronize()
+    check(out.dtype == torch.int16 and out.shape == ref.shape,
+          f'{what}: {out.dtype} {tuple(out.shape)} against {tuple(ref.shape)}')
+    diff = int((out != ref).sum())
+    check(diff == 0, f'{what}: {diff} pixels differ from the plain version')
+    return out, float((out != sb.FILTERED).float().mean())
+
+
+def cv2_stereo_bm_ms(pairs):
+    """OpenCV's StereoBM(192, 25) on the same pairs in a process of its own
+    (the port never imports OpenCV), median ms a call on this host, or None
+    where this host has no cv2."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'pairs.npy')
+        np.save(path, np.stack([np.stack(p) for p in pairs]))
+        code = ('import sys, time, statistics, numpy as np\n'
+                'try:\n    import cv2\nexcept ImportError:\n    print("null"); sys.exit(0)\n'
+                'bm = cv2.StereoBM_create(192, 25)\n'
+                f'pairs = np.load({path!r})\n'
+                'bm.compute(pairs[0, 0], pairs[0, 1])\n'
+                'ts = []\n'
+                'for l, r in pairs:\n'
+                '    t = time.perf_counter(); bm.compute(l, r); ts.append(time.perf_counter() - t)\n'
+                'print(statistics.median(ts) * 1e3, cv2.getNumThreads(), cv2.__version__)\n')
+        out = subprocess.run([sys.executable, '-c', code], capture_output=True, text=True,
+                             timeout=120).stdout.split()
+    return None if not out or out[0] == 'null' else dict(
+        ms=float(out[0]), threads=int(out[1]), version=out[2])
+
+
+def stereo_bm_kernel_phase(torch, sb, peaks, int32_ops_per_s):
+    """The StereoBM kernel against its plain version on the card, bit for
+    bit, at 288x1280 on STEREO_BM_RUNS frames of each of three inputs: a
+    shifted textured pair, the right eye's call (the mirrored pair) on
+    non-contiguous views, and a pair with flat and repeated regions. A
+    frame is the two calls of the precompute (each eye). Prints the
+    kernel's ms a frame by CUDA events and by device time (CUDA graphs),
+    the plain version's on the card, the valid share, the bound
+    max(bytes / memory rate, integer operations / the INT32 rate), and
+    OpenCV's StereoBM on the host as a yardstick (another process).
+    Launches count kernels: a call launches two (prefilter, matcher)."""
+    from visualdet3d_tpu_torch import testing
+    bw = peaks[0]
+    h, w = STEREO_BM_HW
+    rng = np.random.default_rng(81)
+    frames, shares, host_pairs = [], {}, []
+    for kind in ('shifted', 'mirrored_views', 'flat_repeated'):
+        shares[kind] = []
+        for i in range(STEREO_BM_RUNS):
+            left, right = testing.stereo_grey_pair(rng, STEREO_BM_HW, 100 + i,
+                                                   flat=kind == 'flat_repeated')
+            host_pairs.append((left, right))
+            lt, rt = torch.from_numpy(left).cuda(), torch.from_numpy(right).cuda()
+            if kind == 'mirrored_views':
+                # the right eye's call on the mirrored pair, through views the
+                # kernel reads by their strides: column-major, every other column
+                a = rt.flip(1).t().contiguous().t()
+                wide = torch.empty((h, 2 * w), dtype=torch.uint8, device='cuda')
+                b = wide[:, ::2]
+                b.copy_(lt.flip(1))
+                check(not a.is_contiguous() and not b.is_contiguous(),
+                      'stereo_bm_kernel: the views are contiguous')
+                lt, rt = a, b
+            out, share = stereo_bm_check(torch, sb, lt, rt, f'stereo_bm {kind} {i}')
+            if i == 0:  # the plain version on the card is the CPU's (its ties included)
+                check(torch.equal(out.cpu(), sb.stereo_bm_plain(lt.cpu(), rt.cpu())),
+                      f'stereo_bm {kind}: the card differs from the plain version on the CPU')
+            shares[kind].append(share)
+            if kind == 'shifted':
+                frames.append((lt, rt))
+    # a frame: the left eye's call and the right eye's on the mirrored pair
+    # (mirrored beforehand, so that the copies are not timed)
+    flipped = [(p, (p[1].flip(1).contiguous(), p[0].flip(1).contiguous())) for p in frames]
+    both = lambda q: (sb.stereo_bm(*q[0]), sb.stereo_bm(*q[1]))
+    sb.reset_launch_counts()
+    both(flipped[0])
+    launches_per_frame = sb.LAUNCHES['stereo_bm']
+    check(launches_per_frame == 4, f'stereo_bm_kernel: {launches_per_frame} launches a frame')
+    ms = cuda_ms(both, flipped)
+    device_ms = graph_ms(both, flipped[:3])
+    plain_ms = cuda_ms(lambda q: (sb.stereo_bm_plain(*q[0]), sb.stereo_bm_plain(*q[1])),
+                       flipped[:2], warmup=1)
+    roi = sb.valid_region(h, w)
+    valid_pixels = (roi[1] - roi[0]) * (roi[3] - roi[2])
+    n_ops = 2 * valid_pixels * sb.NUM_DISPARITIES * BM_OPS_PER_SAD
+    n_bytes = 2 * (2 * h * w + 2 * h * w)  # a frame: both eyes' grey images in, an int16 map out
+    bound_ms, bound_by = bound_of(n_bytes / bw * 1e3, n_ops / int32_ops_per_s * 1e3)
+    yard = cv2_stereo_bm_ms(host_pairs[:STEREO_BM_RUNS])
+    r = dict(hw=list(STEREO_BM_HW), frames=STEREO_BM_RUNS, max_abs_err=0,
+             tolerance='bit for bit (integer arithmetic)', ms=ms, device_ms=device_ms,
+             plain_ms=plain_ms, launches_per_frame=launches_per_frame, bound_ms=bound_ms,
+             bound_by=bound_by, bytes=n_bytes, int_ops=n_ops, int32_ops_per_s=int32_ops_per_s,
+             share_of_bound_device=bound_ms / device_ms,
+             valid_share={k: statistics.mean(v) for k, v in shares.items()},
+             library_ms=None, cv2_host=yard,
+             per_frame='the two StereoBM calls of one frame of the precompute (each eye), '
+                       '288x1280; ms in CUDA events, device_ms from CUDA graphs')
+    emit('stereo_bm_kernel', kernel='stereo_bm', **r)
+    return r
+
+
+STEREO_BM_EDGES = (  # (H, W, column offset of the base, what each reaches)
+    (61, 217, 0, 'W = 192 + 25: two valid columns'),
+    (61, 216, 0, 'W = 192 + 24: one valid column'),
+    (25, 218, 0, 'the least height with a valid row, odd'),
+    (27, 300, 1, 'odd height, a base 1 byte off alignment'),
+    (24, 300, 0, 'no valid row'),
+    (40, 200, 0, 'no valid column'),
+    (64, 1280 + 33, 0, 'a ragged last column tile'),
+    (90, 400, 3, 'bands and tiles, base 3 bytes off'),
+)
+
+
+def stereo_bm_edge_phase(torch, sb):
+    """The kernel against its plain version, bit for bit, at the edges the
+    main path does not reach (widths at and just above 192 + 24, odd and
+    too small heights, unaligned bases), and the wrapper's refusals."""
+    from visualdet3d_tpu_torch import testing
+    rng = np.random.default_rng(82)
+    cases = []
+    for h, w, off, what in STEREO_BM_EDGES:
+        left, right = testing.stereo_grey_pair(rng, (h, w), 7)
+        base = torch.zeros((2, h, w + off), dtype=torch.uint8, device='cuda')
+        base[0, :, off:] = torch.from_numpy(left).cuda()
+        base[1, :, off:] = torch.from_numpy(right).cuda()
+        _, share = stereo_bm_check(torch, sb, base[0, :, off:], base[1, :, off:],
+                                   f'stereo_bm edge {h}x{w}+{off}')
+        cases.append(dict(hw=[h, w], offset=off, what=what, valid_share=share))
+    x = torch.zeros((30, 300), dtype=torch.uint8, device='cuda')
+    refusals = (
+        ('int16 images', ValueError, lambda: sb.stereo_bm(x.short(), x.short())),
+        ('shapes that differ', ValueError, lambda: sb.stereo_bm(x, x[:, 1:])),
+        ('a CPU right eye', ValueError, lambda: sb.stereo_bm(x, x.cpu())),
+    )
+    for name, exc, fn in refusals:
+        try:
+            fn()
+        except exc:
+            continue
+        fail(f'stereo_bm took {name} instead of raising {exc.__name__}')
+    emit('stereo_bm_edges', ok=True, cases=cases, refused=[r[0] for r in refusals])
+
+
+def bm_tree(work):
+    """A BM_TREE_FRAMES-frame synthetic tree whose right eyes are the left
+    ones shifted by ``testing.synthetic_disparity``, split files (every
+    frame in both) and a Stereo3D smoke config on it; returns (root,
+    config path)."""
+    from visualdet3d_tpu_torch import testing
+    root = testing.write_synthetic_kitti(os.path.join(work, 'kitti_bm'), BM_TREE_FRAMES,
+                                         seed=17, stereo_shift=True)
+    split = testing.write_split_files(os.path.join(work, 'split_bm'), range(BM_TREE_FRAMES),
+                                      range(BM_TREE_FRAMES))
+    return root, smoke_config(work, 'stereo3d.py', 'stereo_bm', root, split, 1)
+
+
+def recovered_share(disp_map, frame, seed, hw, crop_top):
+    """The share of a StereoBM map's valid 4x4 blocks within 1 px (x16) of
+    the tree's known shift at the block's centre, mapped back through the
+    stereo config's CropTop and Resize to KITTI_HW."""
+    from visualdet3d_tpu_torch import testing
+    field = testing.synthetic_disparity(frame, KITTI_HW, seed)
+    h, w = hw
+    by, bx = np.mgrid[:disp_map.shape[0], :disp_map.shape[1]]
+    yo = np.clip(np.round((by * 4 + 2) * (KITTI_HW[0] - crop_top) / h - 0.5 + crop_top),
+                 0, KITTI_HW[0] - 1).astype(int)
+    xo = np.clip(np.round((bx * 4 + 2) * KITTI_HW[1] / w - 0.5), 0, KITTI_HW[1] - 1).astype(int)
+    truth = field[yo, xo] * (w / KITTI_HW[1]) * 16
+    valid = disp_map > 0
+    return float((np.abs(disp_map - truth)[valid] <= 16).mean()), float(valid.mean())
+
+
+def loader_resize_ms(cfg, reps: int = 8):
+    """Median host ms of the stereo config's train augmentation on the
+    tree's frame 0 (the loader's item without its decode), with
+    ``cv_ops.resize``'s ``F.interpolate`` (the loader's) and inside
+    ``cv_ops.exact_resize()`` (``cv2.resize`` bit for bit, the StereoBM
+    precompute's), the same random draws for both: wall time, and the
+    process's CPU time (all its threads), which is what the loader's
+    threads, each on an item, share."""
+    from visualdet3d_tpu_torch.data import cv_ops
+    from visualdet3d_tpu_torch.data.augmentations import build_augmentator
+    from visualdet3d_tpu_torch.data.kitti.kittidata import KittiData
+    calib, left, right = KittiData(cfg.path.data_path, '000000', {
+        'calib': True, 'image': True, 'image_3': True, 'label': False,
+        'velodyne': False}).read_data()[:3]
+    augment = build_augmentator(cfg.data.train_augmentation)
+    out = {}
+    for mode, ctx in (('interpolate', contextlib.nullcontext), ('exact', cv_ops.exact_resize)):
+        np.random.seed(0)
+        wall, cpu = [], []
+        with ctx():
+            for _ in range(reps):
+                t0, c0 = time.perf_counter(), time.process_time()
+                augment(left.copy(), right.copy(), calib.P2.copy(), calib.P3.copy(), [])
+                wall.append((time.perf_counter() - t0) * 1e3)
+                cpu.append((time.process_time() - c0) * 1e3)
+        out[mode] = dict(wall_ms=statistics.median(wall), cpu_ms=statistics.median(cpu))
+    return out
+
+
+def stereo_bm_precompute_phase(torch, work):
+    """The disparity CLI's ``--use_stereo_bm`` path (``disparity_compute.run``)
+    on the shifted tree: on the card, the launch counts set to 0 just
+    before (4 StereoBM kernel launches a frame: 2 calls), then with
+    ``device='cpu'`` (the plain version); the two sets of PNGs must be
+    equal bit for bit. The left maps must recover the tree's known shift
+    (x16, at 1280/1242) in most valid blocks. Prints the seconds of each,
+    the share, and :func:`loader_resize_ms`."""
+    from visualdet3d_tpu_torch.cli import disparity_compute
+    from visualdet3d_tpu_torch.config import cfg_from_file
+    from visualdet3d_tpu_torch.data.image_io import read_png
+    from visualdet3d_tpu_torch.ops import launch_counts, reset_launch_counts
+    t0 = time.perf_counter()
+    root, config = bm_tree(work)
+    tree_s = time.perf_counter() - t0
+    maps, seconds = {}, {}
+    for device in ('cuda', 'cpu'):
+        cfg = cfg_from_file(config)
+        cfg.path.preprocessed_path = os.path.join(work, f'bm_{device}')
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        disparity_compute.run(cfg, use_stereo_bm=True, device=device)
+        seconds[device] = time.perf_counter() - t0
+        if device == 'cuda':
+            launches = launch_counts()['stereo_bm']
+        disp_dir = os.path.join(cfg.path.preprocessed_path, 'training', 'disp')
+        maps[device] = {n: read_png(os.path.join(disp_dir, n))
+                        for n in sorted(os.listdir(disp_dir))}
+    check(launches == 4 * BM_TREE_FRAMES,
+          f'stereo_bm_precompute: {launches} StereoBM launches for {BM_TREE_FRAMES} frames')
+    check(len(maps['cuda']) == 2 * BM_TREE_FRAMES and maps['cuda'].keys() == maps['cpu'].keys(),
+          f'stereo_bm_precompute: maps {sorted(maps["cuda"])} and {sorted(maps["cpu"])}')
+    for n, m in maps['cuda'].items():
+        check(m.dtype == np.uint16 and m.shape == (STEREO_BM_HW[0] // 4, STEREO_BM_HW[1] // 4),
+              f'stereo_bm_precompute: {n} is {m.dtype} {m.shape}')
+        check(np.array_equal(m, maps['cpu'][n]),
+              f'stereo_bm_precompute: {n} differs between the card and the CPU')
+    cfg = cfg_from_file(config)
+    shares = [recovered_share(maps['cuda']['P2%06d.png' % i], i, 17, STEREO_BM_HW,
+                              cfg.data.augmentation.crop_top) for i in range(BM_TREE_FRAMES)]
+    recovered = [s[0] for s in shares]
+    check(min(recovered) > 0.5, f'stereo_bm_precompute: known shift recovered in {recovered}')
+    r = dict(frames=BM_TREE_FRAMES, tree_s=tree_s, card_s=seconds['cuda'],
+             cpu_s=seconds['cpu'], launches=launches, recovered_share=recovered,
+             valid_block_share=[s[1] for s in shares], maps_equal_card_cpu=True,
+             train_augmentation_ms=loader_resize_ms(cfg))
+    emit('stereo_bm_precompute', **r)
+    return r, root, config
+
+
+def cli_eval_test_split_phase(torch, work, root, stereo_config, ckpt):
+    """The test split from a tree the port made: ``imdb_precompute_test``
+    on the shifted tree's frames (as ``cfg.path.test_path``), then the
+    eval CLI with ``--split_to_test test`` for Stereo3D at batch 1 on the
+    card, the launch counts set to 0 just before: one finite KITTI result
+    txt a frame, no evaluation, 2 correlation launches a frame."""
+    import contextlib
+    import io
+    from visualdet3d_tpu_torch.cli import eval as eval_cli
+    from visualdet3d_tpu_torch.cli import imdb_precompute_test
+    from visualdet3d_tpu_torch.config import cfg_from_file
+    from visualdet3d_tpu_torch.ops import launch_counts, reset_launch_counts
+    config = os.path.join(work, 'stereo_test_split.py')
+    with open(stereo_config) as f, open(config, 'w') as g:
+        g.write(f.read() + f'cfg.path.test_path = {root!r}\n')
+    cfg = cfg_from_file(config)
+    t0 = time.perf_counter()
+    records = imdb_precompute_test.run(cfg)
+    imdb_s = time.perf_counter() - t0
+    check(len(records) == BM_TREE_FRAMES and all(r['label'] == [] for r in records),
+          f'cli_eval_test_split: {len(records)} test records')
+    reset_launch_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        eval_cli.main(['--config', config, '--checkpoint_path', ckpt, '--split_to_test', 'test'])
+    cli_s = time.perf_counter() - t0
+    launches = launch_counts()
+    with open(os.path.join(cfg.path.log_path, 'eval_stats.jsonl')) as f:
+        stats = json.loads(f.readlines()[-1])
+    result_dir = os.path.join(cfg.path.preprocessed_path, 'test', 'data')
+    names = sorted(os.listdir(result_dir))
+    check(names == ['%06d.txt' % i for i in range(BM_TREE_FRAMES)],
+          f'cli_eval_test_split: result files {names}')
+    rows = 0
+    for n in names:
+        with open(os.path.join(result_dir, n)) as f:
+            for line in f.read().splitlines():
+                vals = np.array([float(v) for v in line.split()[1:]])
+                check(vals.size == 15 and np.isfinite(vals).all(),
+                      f'cli_eval_test_split: {n} row {line!r}')
+                rows += 1
+    check('Car AP' not in buf.getvalue(), 'cli_eval_test_split: the test split was evaluated')
+    per_frame = stats['launches'].get('correlation_volume_interleaved', 0) / stats['frames']
+    check(per_frame == 2 and launches['correlation_volume_interleaved'] >= 2 * BM_TREE_FRAMES,
+          f'cli_eval_test_split: {per_frame} correlation launches a frame')
+    r = dict(frames=stats['frames'], records=len(records), result_rows=rows, imdb_s=imdb_s,
+             cli_s=cli_s, frame_ms=spread(stats['frame_ms']), load_ms=spread(stats['load_ms']),
+             launches_per_frame={k: v / stats['frames'] for k, v in stats['launches'].items()})
+    emit('cli_eval_test_split', **r)
+    return r
+
+
+def demo_phase(torch, work, km3d_config, ckpt, eval_files):
+    """The demo CLI (``cli.demo``) on the card on validation frame 0 with the
+    eval-ready KM3D checkpoint: its PNG decodes at the config's size, its
+    ``.txt`` holds the eval CLI's result rows for that frame, and the
+    drawing painted pixels where there are detections."""
+    import contextlib
+    import io
+    from visualdet3d_tpu_torch.cli import demo
+    from visualdet3d_tpu_torch.cli.eval import dataset_of
+    from visualdet3d_tpu_torch.config import cfg_from_file
+    from visualdet3d_tpu_torch.data.image_io import read_png
+    out = os.path.join(work, 'demo_km3d.png')
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        demo.main(['--config', km3d_config, '--checkpoint_path', ckpt, '--index', '0',
+                   '--out', out])
+    demo_s = time.perf_counter() - t0
+    cfg = cfg_from_file(km3d_config)
+    img = read_png(out)
+    data = dataset_of(cfg, 'validation')[0]
+    check(img.dtype == np.uint8 and img.shape == data['image'].shape,
+          f'demo: the PNG is {img.dtype} {img.shape}, the input {data["image"].shape}')
+    with open(out[:-4] + '.txt') as f:
+        text = f.read()
+    (names, vals), (ref_names, ref_vals) = result_rows(text), result_rows(eval_files['000000.txt'])
+    check(names == ref_names and vals.shape == ref_vals.shape
+          and np.allclose(vals, ref_vals, atol=0.0101),  # a unit of the rows' last digit
+          f'demo: its rows {text!r} differ from the eval CLI\'s {eval_files["000000.txt"]!r}')
+    aug = cfg.data.augmentation
+    plain = np.clip((data['image'] * np.asarray(aug.rgb_std) + np.asarray(aug.rgb_mean)) * 255,
+                    0, 255).astype(np.uint8)
+    painted = int((img != plain).any(-1).sum())
+    detections = len(text.splitlines())
+    check(detections == 0 or painted > 0, f'demo: {detections} detections, no pixel painted')
+    r = dict(demo_s=demo_s, image_hw=list(img.shape[:2]), detections=detections,
+             rows_equal_text=text == eval_files['000000.txt'], painted_pixels=painted,
+             printed=buf.getvalue().splitlines()[-1])
+    emit('demo', **r)
+    return r
 
 
 def kitti_training_phases(torch):
@@ -4397,11 +4854,11 @@ def kitti_training_phases(torch):
         km3d = cli_train_phase(torch, configs['km3d'], 'cli_train_km3d', dcn)
         corr = {'correlation_volume_interleaved': 2, 'correlation_backward_interleaved': 2}
         stereo = cli_train_phase(torch, configs['stereo'], 'cli_train_stereo', corr)
-        eval_launches = kitti_eval_phases(torch, work, configs)
+        eval_launches, a7 = kitti_eval_phases(torch, work, configs)
         a6_cli = a6_tree_phases(torch, work, configs['km3d'])
         mono_int8_cli = int8_mono_ddp_tree_phases(torch, work, configs)
     km3d_resnet_parity_phase(torch)
-    return km3d, stereo, eval_launches, a6_cli, mono_int8_cli
+    return km3d, stereo, eval_launches, a6_cli, mono_int8_cli, a7
 
 
 def a6_tree_phases(torch, work, km3d_config):
@@ -4736,7 +5193,7 @@ def monodepth_dcn_kernel_phase(torch, dc, peaks):
     DCN shapes at batch 8 (22x76 768->256, 44x152 384->64, 88x304 64->64),
     offsets seeded (std 2 px, 5% of them 20-40 px): each against its plain
     version on the same inputs (``dcn_check`` in f32; in bf16
-    ``head_dcn_bf16_check``, the f64 sums of the kernel's own bf16 samples
+    ``dcn_exact_check``, the f64 sums of the kernel's own bf16 samples
     with the tensor cores' accumulation allowance; ``bwd_check``), in CUDA
     events and device time (the forward from CUDA graphs, dx and dW apart
     from a profiler pass), beside its bound and a cuDNN dense 3x3 conv of
@@ -4758,10 +5215,10 @@ def monodepth_dcn_kernel_phase(torch, dc, peaks):
             what = f'monodepth {name} modulated_deform_conv {dt} {h}x{w} {c_in}->{c_out}'
             acc_ulps = None
             if dtype == torch.bfloat16:
-                fwd_err, fwd_tol, acc_ulps = head_dcn_bf16_check(torch, dc, runs[0], weight,
-                                                                 bias, what)
+                fwd_err, fwd_tol, acc_ulps = dcn_exact_check(torch, dc, runs, weight, bias,
+                                                             what)
             else:
-                fwd_err, fwd_tol = dcn_check(torch, dc, runs[0], weight, bias, what)
+                fwd_err, fwd_tol = dcn_check(torch, dc, runs, weight, bias, what)
             fwd = lambda a: dc.modulated_deform_conv(*a, weight, bias)
             ms = cuda_ms(fwd, runs)
             device = graph_ms(fwd, runs[:4])
@@ -4872,8 +5329,9 @@ def a6_step_parity(torch, phase, gpu, gpu_state, gpu_step, cpu, cpu_state, cpu_s
                    batch, ref_loss, leaf_suffixes, param_gate, leaf_cap=None):
     """One f32 step (TF32 off) on the card and on the CPU from the same
     weights and batch, both held against the same step's loss and
-    gradients on the CPU in f64 (``ref_loss(ref, cpu_batch)`` returns its
-    (total, loss terms); ``ref`` holds the weights in f64), as
+    gradients in f64 on the card (``ref_loss(ref, batch)`` returns its
+    (total, loss terms); ``ref`` holds the weights in f64 on the card,
+    ``f64_reference_on_card``), as
     ``gac_train_parity_phase`` holds GAC's: each loss term within max(8x
     the CPU's own f32 distance, 2e-4 of its value); the gradients before
     the update: the largest elementwise difference within 8x the CPU's
@@ -4898,12 +5356,14 @@ def a6_step_parity(torch, phase, gpu, gpu_state, gpu_step, cpu, cpu_state, cpu_s
     m_cpu = {k: float(v) for k, v in cpu_step(cpu_batch).items()}
     cpu_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    total, terms = ref_loss(ref, cpu_batch)
-    total.backward()
+    with f64_reference_on_card():
+        total, terms = ref_loss(ref, batch)
+        total.backward()
+    torch.cuda.synchronize()
     ref_s = time.perf_counter() - t0
     m_ref = {k: float(v.detach()) for k, v in terms.items()}
     m_ref['total'] = float(total.detach())
-    g_ref = [(torch.zeros_like(p) if p.grad is None else p.grad).detach().double()
+    g_ref = [(torch.zeros_like(p) if p.grad is None else p.grad).detach().double().cpu()
              for p in ref.net.parameters()]
     loss_err = {k: abs(m_gpu[k] - v) / max(abs(v), 1e-30) for k, v in m_ref.items()}
     loss_floor = {k: abs(m_cpu[k] - v) / max(abs(v), 1e-30) for k, v in m_ref.items()}
@@ -4924,7 +5384,7 @@ def a6_step_parity(torch, phase, gpu, gpu_state, gpu_step, cpu, cpu_state, cpu_s
                     for bg, bc in zip(gpu.net.buffers(), cpu.net.buffers())
                     if bg.is_floating_point())
     emit(phase, batch=PARITY_TRAIN_BATCH, dtype='float32', tf32=False,
-         reference='the CPU step in f64',
+         reference='the same step in f64 on the card',
          loss_rel_err=loss_err, loss_rel_err_floor=loss_floor, grad_max_abs_err=worst,
          grad_max_abs_err_floor=floor, grad_max=gmax, grad_rel_err_all=rel,
          grad_rel_err_all_floor=rel_floor, leaves_rel_err_floor_max=leaf,
@@ -5091,7 +5551,7 @@ def a6_train_phase(torch, dc, model, compute_dtype):
 
 def a6_train_parity_phase(torch, model):
     """One f32 training step at batch 2 on the card against the CPU, both
-    against the CPU's step in f64 (``a6_step_parity``), from the same
+    against the same step in f64 on the card (``a6_step_parity``), from the same
     weights (the residual branches damped, ``damp_residuals``; RetinaNet's
     prediction convs calibrated; MonoDepth prepared with offsets of 0.5 px)
     and batch. RetinaNet: SGD, so the parameters after the step within lr
@@ -5111,7 +5571,7 @@ def a6_train_parity_phase(torch, model):
     cpu, cpu_state, cpu_step = build(device='cpu', batch_size=PARITY_TRAIN_BATCH)
     cpu.net.load_state_dict(init)
     cpu.weights_changed()
-    ref = getattr(entry, f'build_{model}_system')(device='cpu')
+    ref = getattr(entry, f'build_{model}_system')(device='cuda')
     ref.net.load_state_dict(init)
     ref.net.double()
     if model == 'retinanet':
@@ -5724,15 +6184,23 @@ def int8_mono_conv_kernel_phase(torch, ic, shapes_of, part):
             torch.cuda.synchronize()
             check(torch.equal(got, ref), f'int8_quantize {qkey}: differs from the plain version')
             qfn = lambda t: ic.quantize_act(t, inv)  # noqa: E731
+            # the yardstick of the stereo Q row: torch.quantize_per_tensor on
+            # an f32 copy (not the same function), device time
+            xq = [x.float() for x in xb]
+            scale = float(1.0 / inv)
             quant_of[qkey] = dict(ms=cuda_ms(qfn, xb), device_ms=graph_ms(qfn, xb),
                                   plain_ms=cuda_ms(lambda t: ic.quantize_act_plain(t, inv), xb),
+                                  library_ms=graph_ms(lambda t: torch.quantize_per_tensor(
+                                      t, scale, 0, torch.qint8), xq),
                                   bound_ms=3 * b * h * w * c / bw * 1e3)
+            del xq
         del xs, xf
     totals = {}
     for model, shapes in shapes_of.items():
         t = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                  max_abs_err=0.0, quantize_ms=0.0, quantize_device_ms=0.0,
-                 quantize_plain_ms=0.0, quantize_bound_ms=0.0, launches_per_predict=0,
+                 quantize_plain_ms=0.0, quantize_library_ms=0.0, quantize_bound_ms=0.0,
+                 launches_per_predict=0,
                  by_path={})
         bound_by = {'bytes': 0.0, 'operations': 0.0}
         for key, count in shapes.items():
@@ -5746,6 +6214,7 @@ def int8_mono_conv_kernel_phase(torch, ic, shapes_of, part):
             t['quantize_ms'] += count * q['ms']
             t['quantize_device_ms'] += count * q['device_ms']
             t['quantize_plain_ms'] += count * q['plain_ms']
+            t['quantize_library_ms'] += count * q['library_ms']
             t['quantize_bound_ms'] += count * q['bound_ms']
             t['launches_per_predict'] += count
             t['by_path'][r['path']] = t['by_path'].get(r['path'], 0) + count
@@ -6114,6 +6583,7 @@ def main() -> int:
         from visualdet3d_tpu_torch.ops import int8_block as ib
         from visualdet3d_tpu_torch.ops import int8_conv as ic
         from visualdet3d_tpu_torch.ops import kernel_build
+        from visualdet3d_tpu_torch.ops import stereo_bm as sb
         from visualdet3d_tpu_torch.entry import build_int8_system
         from visualdet3d_tpu_torch.testing import calibrate_prediction_convs
     except ImportError as e:
@@ -6127,7 +6597,8 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     part, peaks = card_peaks(name)
     t0 = time.perf_counter()
-    libs = kernel_build.build(['correlation', 'deform_conv', 'int8_conv', 'int8_block'])
+    libs = kernel_build.build(['correlation', 'deform_conv', 'int8_conv', 'int8_block',
+                               'stereo_bm'])
     build_s = time.perf_counter() - t0
     ptxas = [line.strip() for so in libs.values()
              for line in so.with_name(so.name + '.log').read_text().splitlines()
@@ -6135,10 +6606,13 @@ def main() -> int:
     emit('device', nvidia_smi=smi, name=name, count=torch.cuda.device_count(),
          torch=torch.__version__, cuda=torch.version.cuda, peaks_of=part,
          peak_bytes_per_s=peaks[0], peak_f32_flops=peaks[1], peak_bf16_flops=peaks[2],
+         peak_int32_ops=CARD_INT32_OPS[part],
          kernel_build_s=build_s, ptxas=ptxas)
 
     kernels = kernel_phase(torch, cv, peaks)
     edge_case_phase(torch, cv)
+    bm_kernel = stereo_bm_kernel_phase(torch, sb, peaks, CARD_INT32_OPS[part])
+    stereo_bm_edge_phase(torch, sb)
 
     system = build_system(depth=34, device='cuda')
     gen = torch.Generator().manual_seed(5)
@@ -6210,7 +6684,7 @@ def main() -> int:
     a6 = a6_phases(torch, dc, peaks)
     mono8 = int8_mono_phases(torch, dc, ic, part)
     ddp_stereo_train_phase(torch)
-    cli_km3d, cli_stereo, eval_launches, a6_cli, mono8_cli = kitti_training_phases(torch)
+    cli_km3d, cli_stereo, eval_launches, a6_cli, mono8_cli, a7 = kitti_training_phases(torch)
 
     dtype_of = {'f32': 'float32', 'bf16': 'bfloat16'}
     replaces = {  # the TPU kernel bodies _corr_kernel_eyes and _corr_kernel
@@ -6520,9 +6994,25 @@ def main() -> int:
                      'Pallas kernel)',
             launches=launches['int8_quantize'], max_abs_err=0.0, ms=t['quantize_ms'],
             device_ms=t['quantize_device_ms'], plain_ms=t['quantize_plain_ms'],
-            bound_ms=t['quantize_bound_ms'], bound_by='bytes', library_ms=None,
+            bound_ms=t['quantize_bound_ms'], bound_by='bytes',
+            library_ms=t['quantize_library_ms'],
+            library='torch.quantize_per_tensor on an f32 copy, device time (not the same '
+                    'function: it divides and clips at -128)',
             per_forward=f'the input of every quantized conv of one batch-16 {tag} int8 '
                         f'predict; launches: {N_BATCHES} predicts'))
+    summary.append(dict(
+        name='stereo_bm', route='cuda', source='visualdet3d_tpu_torch/csrc/stereo_bm.cu',
+        replaces='none: cv2.StereoBM_create(192, 25) on the host, '
+                 'visualdet3d_tpu/cli/disparity_compute.py:41 (no Pallas kernel)',
+        launches=a7['stereo_bm_precompute']['launches'],
+        launches_per_frame=bm_kernel['launches_per_frame'],
+        max_abs_err=bm_kernel['max_abs_err'], ms=bm_kernel['ms'],
+        device_ms=bm_kernel['device_ms'], plain_ms=bm_kernel['plain_ms'],
+        bound_ms=bm_kernel['bound_ms'], bound_by=bm_kernel['bound_by'], library_ms=None,
+        library='none: no PyTorch call computes it', cv2_host=bm_kernel['cv2_host'],
+        valid_share=bm_kernel['valid_share'],
+        per_forward=f'{bm_kernel["per_frame"]}; launches: the disparity CLI\'s --use_stereo_bm '
+                    f'run over {BM_TREE_FRAMES} frames'))
     emit('wall', total_s=time.perf_counter() - t_start, kernel_build_s=build_s)
     print(json.dumps({'kernels': summary}), flush=True)
     print(smi, flush=True)

@@ -210,7 +210,7 @@ def variants(shapes, names=None) -> None:
                 what = f'{name} {dt} {h}x{w} {c_in}->{c_out}'
                 if name in CHECKED:
                     if not dx_only:
-                        chip_smoke.dcn_check(torch, dc, runs[0], weight, bias, what)
+                        chip_smoke.dcn_check(torch, dc, runs[:1], weight, bias, what)
                     chip_smoke.bwd_check(torch, dc, runs[0], weight, grads[0], what)
                 if not dx_only:
                     row[f'fwd_{name}'] = chip_smoke.cuda_ms(

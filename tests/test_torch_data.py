@@ -771,7 +771,28 @@ def test_disparity_maps_match_jax(full):
         assert port_map.max() > 0
 
 
-def test_stereo_bm_path_raises(full):
-    with pytest.raises(NotImplementedError, match='StereoBM'):
-        port_disparity.compute_disparity_for_split(full['port'], [], '', {}, 'training',
-                                                   use_point_cloud=False)
+def test_stereo_bm_path_raises(full, tmp_path):
+    """The ``--use_stereo_bm`` path (its name kept from when the port raised
+    there): the port's maps of a 2-frame tree whose right eyes are the left
+    ones shifted by a known field (``stereo_shift``: on independent noise
+    eyes StereoBM finds almost nothing), its block matcher's plain version
+    on the CPU, equal bit for bit to the JAX CLI's (``cv2.StereoBM``,
+    ``cv2.imwrite``), and most of each map's blocks matched."""
+    root = testing.write_synthetic_kitti(str(tmp_path / 'kitti'), 2, seed=5, stereo_shift=True)
+    od = {'calib': True, 'image': True, 'image_3': True, 'label': False, 'velodyne': False}
+    dirs = {}
+    for name, module in (('jax', jax_disparity), ('port', port_disparity)):
+        cfg = copy.deepcopy(full[name])
+        cfg.path.preprocessed_path = str(tmp_path / name)
+        kwargs = {'device': 'cpu'} if name == 'port' else {}
+        module.compute_disparity_for_split(cfg, ['%06d' % i for i in range(2)], root, od,
+                                           'training', use_point_cloud=False, **kwargs)
+        dirs[name] = os.path.join(cfg.path.preprocessed_path, 'training', 'disp')
+    names = sorted(os.listdir(dirs['port']))
+    assert names == sorted(os.listdir(dirs['jax'])) == ['P2000000.png', 'P2000001.png',
+                                                         'P3000000.png', 'P3000001.png']
+    for name in names:
+        port_map = image_io.read_png(os.path.join(dirs['port'], name))
+        assert port_map.dtype == np.uint16 and port_map.shape == (288 // 4, 1280 // 4)
+        np.testing.assert_array_equal(port_map, cv2.imread(os.path.join(dirs['jax'], name), -1))
+        assert (port_map > 0).mean() > 0.5  # the valid region touches 76.5% of the blocks

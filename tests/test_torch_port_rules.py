@@ -247,7 +247,7 @@ def test_stereo_trainer_runs_on_the_cpu_when_asked():
 
 def test_every_kernel_source_is_in_the_package():
     names = sorted(p.stem for p in kernel_build.CSRC_DIR.glob('*.cu'))
-    assert names == ['correlation', 'deform_conv', 'int8_block', 'int8_conv']
+    assert names == ['correlation', 'deform_conv', 'int8_block', 'int8_conv', 'stereo_bm']
     for name in names:
         src = (kernel_build.CSRC_DIR / f'{name}.cu').read_text()
         assert 'extern "C"' in src and 'vd3d_cuda_error_string' in src

@@ -8,18 +8,23 @@ release the interpreter lock for the data loader's threads.
   or ``INTER_NEAREST``'s source index ``floor(dst * (1 / (out / in)))``
   (OpenCV's rounding: ``dst * in / out`` differs at exact multiples); a
   uint16 image (a KITTI depth map) takes OpenCV's own float arithmetic bit
-  for bit (:func:`_resize_linear_u16`);
+  for bit (:func:`_resize_linear_u16`), and so does a float32 image inside
+  :func:`exact_resize` (the StereoBM precompute's ground truth);
 * :func:`warp_affine`: ``warpAffine(M, INTER_LINEAR)`` with a zero border,
   sampling each output pixel at ``M^-1 (x, y, 1)`` exactly (float64
   coordinates), bilinearly, through ``F.grid_sample``;
 * :func:`rgb_to_hsv`, :func:`hsv_to_rgb`: OpenCV's float formulas (H in
-  degrees, [0, 360); S and V unscaled), in float32.
+  degrees, [0, 360); S and V unscaled), in float32;
+* :func:`rgb_to_gray`: ``cvtColor(COLOR_RGB2GRAY)`` of a uint8 image, in
+  OpenCV's 15-bit fixed point.
 
 Images are [H, W] or [H, W, C] numpy arrays; the result keeps the input's
 dtype (uint8 and uint16 are rounded and clipped, as OpenCV saturates).
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Tuple
 
 import numpy as np
@@ -28,6 +33,26 @@ import torch.nn.functional as F
 
 INTER_NEAREST, INTER_LINEAR = 0, 1
 FLT_EPSILON = np.float32(np.finfo(np.float32).eps)
+_exact = threading.local()
+
+
+@contextlib.contextmanager
+def exact_resize():
+    """Within it, :func:`resize` of a float32 image in this thread is
+    ``cv2.resize``'s bit for bit (:func:`_resize_linear_f32`; ``F.interpolate``'s
+    float32 source coordinates move a sample by up to ~1e-4 of the pixel
+    step): for ground truth that must equal the JAX package's files. The
+    loader, whose threads share the host's cores, keeps ``F.interpolate``:
+    inside this mode the stereo config's train augmentation of a 375x1242
+    pair takes more CPU time, measured by ``chip_smoke.py``'s
+    ``stereo_bm_precompute`` line (``train_augmentation_ms``: wall and CPU
+    ms of both paths; the numbers are in ``PERF.md`` §6)."""
+    prev = getattr(_exact, 'on', False)
+    _exact.on = True
+    try:
+        yield
+    finally:
+        _exact.on = prev
 
 
 def _as_float_chw(image: np.ndarray) -> torch.Tensor:
@@ -63,6 +88,8 @@ def resize(image: np.ndarray, size_wh: Tuple[int, int],
         raise NotImplementedError(f'interpolation {interpolation}')
     if image.dtype == np.uint16:
         return _resize_linear_u16(image, w, h)
+    if image.dtype == np.float32 and getattr(_exact, 'on', False):
+        return _resize_linear_f32(image, w, h)
     out = F.interpolate(_as_float_chw(image), size=(h, w), mode='bilinear',
                         align_corners=False, antialias=False)
     return _back(out, image)
@@ -103,19 +130,45 @@ def _linear_taps(n_in: int, n_out: int):
     return lo, np.minimum(lo + 1, n_in - 1), frac
 
 
+def _fma_lerp(t: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``fmaf(t, b - a, a)`` of float32 ``a``, ``b`` and float64 ``t`` (a
+    float32 value), broadcast: the product of two 24-bit significands is
+    exact in float64, so one float64 rounding and the cast to float32 give
+    the single rounding, except where the float64 sum falls exactly halfway
+    between two float32 values (its low 29 bits 1 followed by 0s) or below
+    float32's normal range: those few take :func:`_fma32`."""
+    s = torch.addcmul(a.double(), t, (b - a).double())
+    r = s.float()
+    risky = ((s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000) | (s.abs() < 2.0 ** -125)
+    if bool(risky.any()):
+        at = risky.nonzero(as_tuple=True)
+        tt, aa, bb = (v.expand_as(r)[at].float().numpy() for v in (t, a, b))
+        r[at] = torch.from_numpy(_fma32(tt, bb - aa, aa))
+    return r
+
+
+def _resize_linear_f32(image: np.ndarray, w: int, h: int) -> np.ndarray:
+    """``cv2.resize(image, (w, h))`` of a float32 image, bit for bit:
+    OpenCV resizes each row first, then the columns, each output the lerp
+    ``fmaf(t, b - a, a)`` of its two taps (:func:`_linear_taps`)."""
+    out = torch.from_numpy(np.ascontiguousarray(image, np.float32))
+    trail = (1,) * (image.ndim - 2)
+    if w != image.shape[1]:  # at the same size every fraction is 0: the identity
+        x0, x1, fx = (torch.from_numpy(v) for v in _linear_taps(image.shape[1], w))
+        out = _fma_lerp(fx.double().view((1, -1) + trail), out.index_select(1, x0),
+                        out.index_select(1, x1))
+    if h != image.shape[0]:
+        y0, y1, fy = (torch.from_numpy(v) for v in _linear_taps(image.shape[0], h))
+        out = _fma_lerp(fy.double().view((-1, 1) + trail), out.index_select(0, y0),
+                        out.index_select(0, y1))
+    return np.ascontiguousarray(out.numpy())
+
+
 def _resize_linear_u16(image: np.ndarray, w: int, h: int) -> np.ndarray:
     """``cv2.resize(image, (w, h))`` of a uint16 image, bit for bit:
-    OpenCV resizes 16-bit images in float32, rows first, each output the
-    lerp ``fmaf(t, b - a, a)`` of its two taps (:func:`_linear_taps`), and
-    rounds half to even with saturation."""
-    trail = (1,) * (image.ndim - 2)
-    out = image.astype(np.float32)
-    if w != image.shape[1]:  # at the same size every fraction is 0: the identity
-        x0, x1, fx = _linear_taps(image.shape[1], w)
-        out = _fma32(fx.reshape((1, -1) + trail), out[:, x1] - out[:, x0], out[:, x0])
-    if h != image.shape[0]:
-        y0, y1, fy = _linear_taps(image.shape[0], h)
-        out = _fma32(fy.reshape((-1, 1) + trail), out[y1] - out[y0], out[y0])
+    OpenCV resizes 16-bit images in float32 (:func:`_resize_linear_f32`)
+    and rounds half to even with saturation."""
+    out = _resize_linear_f32(image.astype(np.float32), w, h)
     return np.ascontiguousarray(np.clip(np.rint(out), 0, 65535).astype(np.uint16))
 
 
@@ -181,3 +234,21 @@ def hsv_to_rgb(image: np.ndarray) -> np.ndarray:
     rgb = bgr[..., ::-1]
     gray = (s == 0)[..., None]
     return np.ascontiguousarray(np.where(gray, v[..., None], rgb).astype(np.float32))
+
+
+# OpenCV's RGB -> grey weights for 8-bit images, 0.299 / 0.587 / 0.114 in
+# 15-bit fixed point (equal to cv2.cvtColor at all 2^24 RGB triples; the
+# 14-bit weights 4899 / 9617 / 1868 differ from it where the sum is near .5)
+GRAY_R, GRAY_G, GRAY_B, GRAY_SHIFT = 9798, 19235, 3735, 15
+
+
+def rgb_to_gray(image: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(image, COLOR_RGB2GRAY)`` of a uint8 [H, W, 3] RGB
+    image, bit for bit: ``(R*9798 + G*19235 + B*3735 + 2^14) >> 15``."""
+    if image.dtype != np.uint8 or image.ndim != 3 or image.shape[2] != 3:
+        raise ValueError(f'rgb_to_gray: expected uint8 [H, W, 3], got {image.dtype} '
+                         f'{image.shape}')
+    x = image.astype(np.int32)
+    g = (x[..., 0] * GRAY_R + x[..., 1] * GRAY_G + x[..., 2] * GRAY_B
+         + (1 << (GRAY_SHIFT - 1))) >> GRAY_SHIFT
+    return g.astype(np.uint8)

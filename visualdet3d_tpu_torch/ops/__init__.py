@@ -9,7 +9,7 @@ from __future__ import annotations
 import importlib
 from typing import Dict
 
-LAUNCH_COUNTERS = ('deform_conv', 'cost_volume', 'int8_conv', 'int8_block')
+LAUNCH_COUNTERS = ('deform_conv', 'cost_volume', 'int8_conv', 'int8_block', 'stereo_bm')
 
 
 def _counting_modules():

@@ -666,15 +666,65 @@ def _kitti_label_rows(rng: np.random.Generator, P2: np.ndarray, image_hw, n: int
     return rows
 
 
+DISPARITY_BANDS = 4
+
+
+def synthetic_disparity(frame: int, image_hw=KITTI_IMAGE_HW, seed: int = 0) -> np.ndarray:
+    """The known disparity field of ``write_synthetic_kitti(...,
+    stereo_shift=True)``'s frame ``frame``: [H, W] int px, constant on each of
+    ``DISPARITY_BANDS`` row bands x ``DISPARITY_BANDS`` column bands, each
+    drawn from [8, 60] (at 1242 px wide)."""
+    h, w = image_hw
+    d = np.random.default_rng([seed, frame]).integers(8, 61, (DISPARITY_BANDS,) * 2)
+    rows = np.arange(h) * DISPARITY_BANDS // h
+    cols = np.arange(w) * DISPARITY_BANDS // w
+    return d[rows[:, None], cols[None, :]]
+
+
+def shifted_right_eye(left: np.ndarray, disparity: np.ndarray, rng) -> np.ndarray:
+    """The right eye of ``left`` [H, W, C] uint8 under ``disparity`` [H, W]
+    (px, of the left pixels): the left pixel at x lands at x - D, drawn in
+    order of D so that the nearer (larger D) wins; the uncovered pixels are
+    new noise; then +-2 of noise everywhere."""
+    h, w = disparity.shape
+    right = rng.integers(0, 256, left.shape, np.uint8)
+    ys, xs = np.mgrid[:h, :w]
+    order = np.argsort(disparity, axis=None, kind='stable')
+    ys, xs = ys.reshape(-1)[order], xs.reshape(-1)[order]
+    xr = xs - disparity.reshape(-1)[order]
+    inside = xr >= 0
+    right[ys[inside], xr[inside]] = left[ys[inside], xs[inside]]
+    noise = rng.integers(-2, 3, left.shape)
+    return np.clip(right.astype(np.int32) + noise, 0, 255).astype(np.uint8)
+
+
+def stereo_grey_pair(rng, image_hw, frame: int = 0, flat: bool = False):
+    """A uint8 grey pair [H, W] of noise whose right eye is the left one
+    shifted by ``synthetic_disparity(frame, image_hw)`` (``shifted_right_eye``);
+    ``flat``: the left third of the left eye is flat and half of its middle
+    third a repeated stripe (StereoBM's texture and uniqueness checks)."""
+    h, w = image_hw
+    left = rng.integers(0, 256, (h, w, 1), np.uint8)
+    if flat:
+        left[:, : w // 3] = 128
+        stripes = (np.arange(w) // 4 % 2 * 160 + 40).astype(np.uint8)
+        left[h // 2:, w // 3: 2 * w // 3, 0] = stripes[w // 3: 2 * w // 3]
+    right = shifted_right_eye(left, synthetic_disparity(frame, image_hw), rng)
+    return left[..., 0], right[..., 0]
+
+
 def write_synthetic_kitti(root: str, n_frames: int, seed: int = 0,
-                          image_hw=KITTI_IMAGE_HW) -> str:
+                          image_hw=KITTI_IMAGE_HW, stereo_shift: bool = False) -> str:
     """A synthetic KITTI object tree: ``root/{calib,image_2,image_3,label_2,
     velodyne}/%06d.{txt,png,bin}`` for ``n_frames`` frames, as
     ``tests/kitti_fixture.build_mini_kitti`` lays it out, at KITTI's full
     375x1242. Images are uniform noise (the worst case for the PNG
     decoder), written by the port's PNG writer with the rows cycling
     through all five filter types; 1-5 labelled objects a frame; 20,000
-    velodyne points a frame in front of the car. Returns ``root``."""
+    velodyne points a frame in front of the car. With ``stereo_shift`` the
+    right eye is instead the left one shifted by ``synthetic_disparity``
+    (``shifted_right_eye``, from a stream of its own: the rest of the tree
+    is the same). Returns ``root``."""
     from visualdet3d_tpu_torch.data.image_io import FILTER_TYPES, write_png
     rng = np.random.default_rng(seed)
     for sub in ('calib', 'image_2', 'image_3', 'label_2', 'velodyne'):
@@ -687,8 +737,11 @@ def write_synthetic_kitti(root: str, n_frames: int, seed: int = 0,
         name = '%06d' % i
         with open(os.path.join(root, 'calib', name + '.txt'), 'w') as f:
             f.write(calib_text)
-        for sub in ('image_2', 'image_3'):
-            image = rng.integers(0, 256, (*image_hw, 3), np.uint8)
+        images = [rng.integers(0, 256, (*image_hw, 3), np.uint8) for _ in range(2)]
+        if stereo_shift:
+            images[1] = shifted_right_eye(images[0], synthetic_disparity(i, image_hw, seed),
+                                          np.random.default_rng([seed, i, 1]))
+        for sub, image in zip(('image_2', 'image_3'), images):
             write_png(os.path.join(root, sub, name + '.png'), image, FILTER_TYPES)
         rows = _kitti_label_rows(rng, KITTI_CALIB['P2'], image_hw, int(rng.integers(1, 6)))
         with open(os.path.join(root, 'label_2', name + '.txt'), 'w') as f:
