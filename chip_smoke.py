@@ -104,11 +104,12 @@ each printed as one JSON line:
 8. int8 inference (``entry.build_int8_system``: Stereo3D at 288x1280, BN
    folded, calibrated, ``int8_all``): int8_conv_edges (the int8 conv kernel
    B8 and the activation quantize kernel against their plain versions: on
-   the wgmma path split K under each epilogue, M and N off the tile, K
-   tails, boxes over the image's edge; on the cp.async path C_in 72 and 16,
-   an unaligned base, stride 2; 1x1, dilation 2, asymmetric padding,
-   channel tails, +-127; the quantize at a base off 16-byte alignment; and
-   the wrappers' refusals); int8_probe (the int8
+   channel pitches C_in 8, 16, 24, 40, 72 and 1025, tails that are not zero
+   included, split K under each epilogue and forced, M and N off the tile,
+   K tails, boxes over the image's edge, stride 2 on strided TMA boxes, 1x1,
+   dilation 2, asymmetric padding, +-127; the flat and the pitched quantize
+   at bases off 16-byte alignment; and the wrappers' refusals, an unaligned
+   base among them); int8_probe (the int8
    probes K9a/b/c of ``tools/probe_pallas_int8.py`` at their shapes and
    seeds, bit-exact, beside ``torch._int_mm``, CUDA events and CUDA-graph
    device times); int8_slice in three modes (every conv on its own,
@@ -118,11 +119,12 @@ each printed as one JSON line:
    profile; int8_conv_kernel (B8 at every conv shape of the batch-16
    predict, collected by hooks: its plan, s32 bit-exact, the f32 and bf16
    epilogues, its time against cuDNN's bf16 conv of the same shape and,
-   at 1x1 stride-1 shapes, ``torch._int_mm``, the bound; int8_quantize: the
+   at 1x1 stride-1 shapes, ``torch._int_mm`` with K zero-padded to a
+   multiple of 8, in events and device time, the bound; int8_quantize: the
    quantize kernel at each input, bit-exact, in CUDA events and device time
    (CUDA graphs) beside its bound and ``torch.quantize_per_tensor``);
    int8_plan, int8_plan_predict (B8's plan against
-   its variants, split K, no split and the cp.async path, at K9(a) and at
+   its variants, split K and no split, at K9(a) and at
    the batch-1 predict's shapes, bit-exact under each, event and device
    times, and the int8 predict at batch 1 and 16 under each);
    int8_block_kernel and int8_block_edges (K8 on the
@@ -2343,25 +2345,40 @@ def int8_conv_shapes(torch, system, batch):
     return seen
 
 
-def int8_conv_check(torch, ic, xq, wq, stride, padding, dilation, bias, what):
-    """B8 against its plain version on the same inputs: the s32 sums
-    bit-exact; the f32 epilogue within 1e-6 relative; bf16 within one bf16
-    ulp of the plain bf16 value. Returns the largest f32 abs error."""
+def pitched_int8(torch, ic, gen, shape, c=None, tail=0):
+    """Random s8 values of ``shape`` [..., c] on the kernel's channel pitch
+    (``ic.channel_pitch(c)``, c = the last axis by default): the tail past
+    c zero, or random with ``tail=1`` (the kernel must not read it)."""
+    c = shape[-1] if c is None else c
+    pitch = ic.channel_pitch(c)
+    t = torch.randint(-127, 128, (*shape[:-1], pitch), generator=gen, device='cuda',
+                      dtype=torch.int8)
+    if not tail:
+        t[..., c:] = 0
+    return t
+
+
+def int8_conv_check(torch, ic, xq, wq, stride, padding, dilation, bias, what, c_in=None):
+    """B8 against its plain version on the same (pitched) inputs, ``c_in``
+    channels of each pitch: the s32 sums bit-exact; the f32 epilogue within
+    1e-6 relative; bf16 within one bf16 ulp of the plain bf16 value.
+    Returns the largest f32 abs error."""
     gen = torch.Generator(device='cuda').manual_seed(11)
     n = wq.shape[0]
     scale = torch.rand((n,), generator=gen, device='cuda') * 1e-3 + 1e-5
-    raw = ic.int8_conv2d(xq, wq, stride, padding, dilation)
-    ref = ic.int8_conv2d_plain(xq, wq, stride, padding, dilation)
+    raw = ic.int8_conv2d(xq, wq, stride, padding, dilation, c_in=c_in)
+    ref = ic.int8_conv2d_plain(xq, wq, stride, padding, dilation, c_in=c_in)
     torch.cuda.synchronize()
     check(raw.dtype == torch.int32 and raw.shape == ref.shape and torch.equal(raw, ref),
           f'int8_conv2d {what}: s32 sums differ from the exact sums in '
           f'{int((raw != ref).sum()) if raw.shape == ref.shape else "shape"} places')
-    f32 = ic.int8_conv2d(xq, wq, stride, padding, dilation, scale, bias, torch.float32)
-    f32_ref = ic.int8_conv2d_plain(xq, wq, stride, padding, dilation, scale, bias, torch.float32)
+    f32 = ic.int8_conv2d(xq, wq, stride, padding, dilation, scale, bias, torch.float32, c_in)
+    f32_ref = ic.int8_conv2d_plain(xq, wq, stride, padding, dilation, scale, bias, torch.float32,
+                                   c_in)
     err = (f32 - f32_ref).abs()
     check(bool((err <= 1e-6 * f32_ref.abs()).all()),
           f'int8_conv2d {what}: f32 epilogue off by {float(err.max())} (1e-6 relative)')
-    bf = ic.int8_conv2d(xq, wq, stride, padding, dilation, scale, bias, torch.bfloat16)
+    bf = ic.int8_conv2d(xq, wq, stride, padding, dilation, scale, bias, torch.bfloat16, c_in)
     bf_ref = f32_ref.to(torch.bfloat16).float()
     berr = (bf.float() - bf_ref).abs()
     check(bool((berr <= bf16_ulp(bf_ref)).all()),
@@ -2371,78 +2388,103 @@ def int8_conv_check(torch, ic, xq, wq, stride, padding, dilation, bias, what):
 
 def quantize_phase_shape(torch, ic, shape, part):
     """The activation quantize kernel against its plain version on a bf16
-    activation of ``shape`` (NHWC), bit-exact; its time in CUDA events
-    (``ms``: the wrapper's host time shows where the device would idle) and
-    in device time (``graph_ms``, CUDA graphs), the plain version's (torch's
-    five elementwise passes), ``torch.quantize_per_tensor`` on an f32 copy
-    (a yardstick, not the same function: it divides, rounds and clips at
-    -128) and the bytes bound (2 bytes read, 1 written per element)."""
+    activation of ``shape`` (NHWC), onto the conv's channel pitch as
+    ``Int8Conv2d`` runs it, bit-exact; its time in CUDA events (``ms``: the
+    wrapper's host time shows where the device would idle) and in device
+    time (``graph_ms``, CUDA graphs), the plain version's (torch's five
+    elementwise passes), ``torch.quantize_per_tensor`` on an f32 copy (a
+    yardstick, not the same function: it divides, rounds and clips at -128)
+    and the bytes bound (2 bytes read an element, 1 written a byte of the
+    pitch)."""
     gen = torch.Generator(device='cuda').manual_seed(17)
     xs = [(torch.randn(shape, generator=gen, device='cuda') * 3).to(torch.bfloat16)
           for _ in range(N_KERNEL_RUNS)]
     inv = torch.tensor(127 / 9.0, device='cuda')
-    got, ref = ic.quantize_act(xs[0], inv), ic.quantize_act_plain(xs[0], inv)
+    pitch = ic.channel_pitch(shape[-1])
+    got, ref = ic.quantize_act(xs[0], inv, pitch), ic.quantize_act_plain(xs[0], inv, pitch)
     torch.cuda.synchronize()
     check(got.dtype == torch.int8 and torch.equal(got, ref),
           f'int8_quantize {shape}: differs from the plain version in '
           f'{int((got != ref).sum())} places')
     n = xs[0].numel()
-    fn = lambda t: ic.quantize_act(t, inv)
+    fn = lambda t: ic.quantize_act(t, inv, pitch)
     xf = [x.float() for x in xs[:4]]
     scale = float(1.0 / inv)
     out = dict(ms=cuda_ms(fn, xs), graph_ms=graph_ms(fn, xs[:4]),
-               plain_ms=cuda_ms(lambda t: ic.quantize_act_plain(t, inv), xs),
+               plain_ms=cuda_ms(lambda t: ic.quantize_act_plain(t, inv, pitch), xs),
                library_ms=graph_ms(lambda t: torch.quantize_per_tensor(t, scale, 0, torch.qint8),
                                    xf),
-               bound_ms=3 * n / CARD_PEAKS[part][0] * 1e3)
+               bound_ms=(2 * n + n // shape[-1] * pitch) / CARD_PEAKS[part][0] * 1e3)
     del xf
     return out
 
 
+def int_mm_1x1(torch, ic, xs, wq, c):
+    """``torch._int_mm`` on the s32 sums of a 1x1 stride-1 conv without
+    padding: the pitched inputs ``xs`` [..., pitch] and weights ``wq`` [N,
+    1, 1, pitch] cut to their first ``c`` channels and zero-padded to a
+    multiple of 8 (the library's K), as [M, K] and [K, N]. Returns the
+    inputs, the weights and the call, checked against the plain sums."""
+    import torch.nn.functional as F
+    k8 = -(-c // 8) * 8
+    n = wq.shape[0]
+    a = [F.pad(x[..., :c].reshape(-1, c), (0, k8 - c)) for x in xs]
+    wt = F.pad(wq.view(n, -1)[:, :c], (0, k8 - c)).t().contiguous()
+    fn = lambda t: torch._int_mm(t, wt)  # noqa: E731
+    check(torch.equal(fn(a[0]).view(*xs[0].shape[:-1], n),
+                      ic.int8_conv2d_plain(xs[0], wq, c_in=c)),
+          'torch._int_mm differs from the plain sums')
+    return a, fn
+
+
 def int8_conv_kernel_phase(torch, ic, shapes, part):
-    """B8 at every conv shape of the batch-16 int8 predict: bit-exact s32,
-    the epilogues, its time in the main path's mode (bf16 out), the plain
-    version's, a cuDNN bf16 conv of the same shape (a yardstick, not the
-    same function) and the bound."""
+    """B8 at every conv shape of the batch-16 int8 predict (on the channel
+    pitch, as ``Int8Conv2d`` runs it): bit-exact s32, the epilogues, its time
+    in the main path's mode (bf16 out), the plain version's, a cuDNN bf16
+    conv of the same shape (a yardstick, not the same function), at 1x1
+    shapes ``torch._int_mm`` on the same sums (events and device time), and
+    the bound."""
     import torch.nn.functional as F
     bw = CARD_PEAKS[part][0]
     gen = torch.Generator(device='cuda').manual_seed(12)
-    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, ops=0, bytes=0,
-                 max_abs_err=0.0)
+    total = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, ops=0,
+                 bytes=0, max_abs_err=0.0)
     quant = dict(ms=0.0, graph_ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
     quant_shapes = []
     bound_by = {'bytes': 0.0, 'operations': 0.0}
     per_shape = []
     for (b, h, w, c, n, kh, kw, stride, padding, dilation, has_bias), count in sorted(shapes.items()):
         runs = max(3, N_KERNEL_RUNS // 2)
-        xs = [torch.randint(-127, 128, (b, h, w, c), generator=gen, device='cuda',
-                            dtype=torch.int8) for _ in range(runs)]
-        wq = torch.randint(-127, 128, (n, kh, kw, c), generator=gen, device='cuda', dtype=torch.int8)
+        xs = [pitched_int8(torch, ic, gen, (b, h, w, c)) for _ in range(runs)]
+        wq = pitched_int8(torch, ic, gen, (n, kh, kw, c))
         scale = torch.rand((n,), generator=gen, device='cuda') * 1e-3
         bias = torch.randn((n,), generator=gen, device='cuda') if has_bias else None
         what = (f'{b}x{h}x{w}x{c}->{n} k{kh}x{kw} s{stride} p{padding} d{dilation}'
                 f'{" +bias" if has_bias else ""}')
-        err = int8_conv_check(torch, ic, xs[0], wq, stride, padding, dilation, bias, what)
+        err = int8_conv_check(torch, ic, xs[0], wq, stride, padding, dilation, bias, what, c)
         q = quantize_phase_shape(torch, ic, (b, h, w, c), part)
         for key in quant:
             quant[key] += count * q[key]
         quant_shapes.append(dict(shape=[b, h, w, c], per_predict=count, **q))
         emit('int8_quantize', **quant_shapes[-1])
-        fn = lambda x: ic.int8_conv2d(x, wq, stride, padding, dilation, scale, bias, torch.bfloat16)
-        ms = cuda_ms(fn, xs)
+        fn = lambda x: ic.int8_conv2d(x, wq, stride, padding, dilation, scale, bias,
+                                      torch.bfloat16, c)
+        ms, device_ms = cuda_ms(fn, xs), graph_ms(fn, xs[:3])
         plain_ms = cuda_ms(lambda x: ic.int8_conv2d_plain(x, wq, stride, padding, dilation, scale,
-                                                          bias, torch.bfloat16), xs[:3], warmup=1)
+                                                          bias, torch.bfloat16, c),
+                           xs[:3], warmup=1)
         # cuDNN's bf16 conv of the same shape, channels_last (not the same function)
-        xf = [x.permute(0, 3, 1, 2).to(torch.bfloat16) for x in xs]
-        wf = wq.permute(0, 3, 1, 2).to(torch.bfloat16)
+        xf = [x[..., :c].permute(0, 3, 1, 2).to(torch.bfloat16) for x in xs]
+        wf = wq[..., :c].permute(0, 3, 1, 2).to(torch.bfloat16)
         bf = bias.to(torch.bfloat16) if bias is not None else None
         pad = (padding[0][0], padding[1][0])
         library_ms = cuda_ms(lambda x: F.conv2d(x, wf, bf, stride, pad, dilation), xf)
-        int_mm_ms = None
+        int_mm_ms = int_mm_device_ms = None
         if (kh, kw) == (1, 1) and tuple(stride) == (1, 1) and padding == ((0, 0), (0, 0)):
             # the same function's s32 sums as one library GEMM
-            wt = wq.view(n, c).t().contiguous()
-            int_mm_ms = cuda_ms(lambda x: torch._int_mm(x.view(-1, c), wt), xs)
+            a, mm = int_mm_1x1(torch, ic, xs, wq, c)
+            int_mm_ms, int_mm_device_ms = cuda_ms(mm, a), graph_ms(mm, a[:3])
+            del a
         plan = ic.plan_int8_conv(b, h, w, c, n, kh, kw, tuple(stride), padding, tuple(dilation),
                                  sms=torch.cuda.get_device_properties(0).multi_processor_count)
         ho, wo = ic.output_hw(h, w, kh, kw, stride, padding, dilation)
@@ -2450,12 +2492,15 @@ def int8_conv_kernel_phase(torch, ic, shapes, part):
         nbytes = b * h * w * c + n * kh * kw * c + b * ho * wo * n * 2 + 4 * n * (2 if has_bias else 1)
         bytes_ms, ops_ms = nbytes / bw * 1e3, ops / int8_peak(part) * 1e3
         bound = max(bytes_ms, ops_ms)
-        per_shape.append(dict(shape=what, per_predict=count, ms=ms, plain_ms=plain_ms,
-                              cudnn_bf16_ms=library_ms, int_mm_ms=int_mm_ms,
-                              path=plan.path, plan=plan._asdict(), bound_ms=bound,
+        per_shape.append(dict(shape=what, per_predict=count, ms=ms, device_ms=device_ms,
+                              plain_ms=plain_ms, cudnn_bf16_ms=library_ms, int_mm_ms=int_mm_ms,
+                              int_mm_device_ms=int_mm_device_ms, plan=plan._asdict(),
+                              bound_ms=bound,
                               bound_by='bytes' if bytes_ms >= ops_ms else 'operations',
-                              tops=ops / ms / 1e9, max_abs_err_f32=err))
+                              share_of_bound_device=bound / device_ms, tops=ops / ms / 1e9,
+                              max_abs_err_f32=err))
         total['ms'] += count * ms
+        total['device_ms'] += count * device_ms
         total['plain_ms'] += count * plain_ms
         total['library_ms'] += count * library_ms
         total['bound_ms'] += count * bound
@@ -2478,97 +2523,88 @@ def int8_conv_kernel_phase(torch, ic, shapes, part):
     return total
 
 
+INT8_EDGE_CASES = (  # (name, B, H, W, C_in, C_out, k, stride, padding, dilation, split K, tail)
+    # split K as planned (under each epilogue: int8_conv_check runs all three)
+    ('split K: 1x1 over 640 px, C_in 8192', 1, 1, 640, 8192, 64, 1, 1, ((0, 0), (0, 0)), 1,
+     True, 0),
+    ('split K: 3x3, 6x20 px, 1408 -> 256', 1, 6, 20, 1408, 256, 3, 1, ((1, 1), (1, 1)), 1,
+     True, 0),
+    ('1x1 over 2560 px, C_in 576 (K9(a))', 1, 1, 2560, 576, 64, 1, 1, ((0, 0), (0, 0)), 1,
+     False, 0),
+    # M and N off the tile, K tails, boxes over the image's edge
+    ('M off the tile: 7x9 px, 3 images, 64 -> 64', 3, 7, 9, 64, 64, 3, 1, ((1, 1), (1, 1)), 1,
+     False, 0),
+    ('N 64 at 72x320 (the layer1 shape, batch 2)', 2, 72, 320, 64, 64, 3, 1, ((1, 1), (1, 1)),
+     1, False, 0),
+    ('N off the tile: 200', 12, 18, 80, 256, 200, 3, 1, ((1, 1), (1, 1)), 1, False, 0),
+    ('N 5', 2, 9, 11, 64, 5, 3, 1, ((1, 1), (1, 1)), 1, False, 0),
+    ('K tail: C_in 48 (a 128-byte chunk, past 48 zero-filled)', 2, 17, 23, 48, 96, 3, 1,
+     ((1, 1), (1, 1)), 1, False, 0),
+    ('K tail: C_in 288 (32-byte chunks)', 4, 18, 80, 288, 288, 3, 1, ((1, 1), (1, 1)), 1,
+     False, 0),
+    ('C_in 96 at 36x160', 4, 36, 160, 96, 96, 3, 1, ((1, 1), (1, 1)), 1, False, 0),
+    ('boxes over the edge: padding 3, dilation 2', 2, 13, 29, 128, 128, 3, 1,
+     ((3, 2), (1, 3)), 2, False, 0),
+    # channel pitches: C_in off 16 or under 32, stored on channel_pitch(C_in)
+    ('pitch: C_in 8 (pitch 32), N 9', 2, 11, 11, 8, 9, 3, 1, ((1, 1), (1, 1)), 1, False, 0),
+    ('pitch: C_in 16 (pitch 32)', 2, 11, 13, 16, 64, 3, 1, ((1, 1), (1, 1)), 1, False, 0),
+    ('pitch: C_in 24 (pitch 32)', 2, 11, 11, 24, 24, 3, 1, ((1, 1), (1, 1)), 1, False, 0),
+    ('pitch: C_in 40 (pitch 48), +bias', 2, 9, 13, 40, 70, 3, 1, ((1, 1), (1, 1)), 1, False, 0),
+    ('pitch: C_in 72 -> 72 at 36x160 (the stereo shape, batch 2)', 2, 36, 160, 72, 72, 3, 1,
+     ((1, 1), (1, 1)), 1, False, 0),
+    ('pitch: C_in 72 -> 144 at 18x40', 2, 18, 40, 72, 144, 3, 1, ((1, 1), (1, 1)), 1, False, 0),
+    ('pitch: C_in 1025 -> 1024, 1x1 at 18x80 (LookGround, batch 2)', 2, 18, 80, 1025, 1024, 1,
+     1, ((0, 0), (0, 0)), 1, False, 0),
+    ('pitch: C_in 1025 -> 300, 1x1, tails not zero', 1, 7, 9, 1025, 300, 1, 1,
+     ((0, 0), (0, 0)), 1, False, 1),
+    ('pitch: C_in 72, 3x3, tails not zero', 2, 9, 13, 72, 72, 3, 1, ((1, 1), (1, 1)), 1,
+     False, 1),
+    ('pitch: C_in 7 -> 5, tails not zero', 2, 11, 11, 7, 5, 3, 1, ((1, 1), (1, 1)), 1, False, 1),
+    # stride 2: boxes of output pixels on strided TMA boxes
+    ('stride 2: 3x3, 64 -> 128', 2, 17, 23, 64, 128, 3, 2, ((1, 1), (1, 1)), 1, False, 0),
+    ('stride 2: 1x1, 64 -> 128', 2, 17, 23, 64, 128, 1, 2, ((0, 0), (0, 0)), 1, False, 0),
+    ('stride 2: 3x3, C_in 8 -> 9 at 5x6', 1, 5, 6, 8, 9, 3, 2, ((1, 1), (1, 1)), 1, False, 0),
+    ('stride 2: 3x3, 256 -> 256 at 72x320 (a ResNet downsampling)', 2, 72, 320, 256, 256, 3, 2,
+     ((1, 1), (1, 1)), 1, False, 0),
+    # shapes and paddings
+    ('1x1 with padding', 2, 9, 13, 64, 64, 1, 1, ((1, 1), (1, 1)), 1, False, 0),
+    ('dilation 2', 2, 12, 20, 64, 64, 3, 1, ((2, 2), (2, 2)), 2, False, 0),
+    ('asymmetric padding, 2x2', 1, 10, 14, 32, 16, 2, 1, ((0, 1), (1, 0)), 1, False, 0),
+    ('C_out 576', 1, 18, 80, 256, 576, 3, 1, ((1, 1), (1, 1)), 1, False, 0),
+    ('batch 1, W 1', 1, 7, 1, 64, 64, 3, 1, ((1, 1), (1, 1)), 1, False, 0),
+    ('H 1', 3, 1, 33, 64, 64, 3, 1, ((1, 1), (1, 1)), 1, False, 0),
+    ('padding wider than the image', 1, 2, 3, 64, 64, 3, 1, ((3, 3), (3, 3)), 1, False, 0),
+)
+
+
 def int8_conv_edge_phase(torch, ic):
-    """Cases the main path does not reach, and the wrapper's refusals."""
+    """Cases the main path does not reach, and the wrappers' refusals: B8
+    on each INT8_EDGE_CASES shape with the plan it must take (and again
+    with split K forced where its tiles are fewer than the SMs), every
+    epilogue bit for bit against the plain version; the flat and the
+    pitched quantize against theirs."""
     gen = torch.Generator(device='cuda').manual_seed(13)
-
-    def rand(shape):
-        return torch.randint(-127, 128, shape, generator=gen, device='cuda', dtype=torch.int8)
-
-    cases = [  # (name, B, H, W, C_in, C_out, k, stride, padding, dilation, bias)
-        ('1x1', 2, 9, 13, 64, 64, 1, 1, ((0, 0), (0, 0)), 1, True),
-        ('3x3 stride 2', 2, 17, 23, 64, 128, 3, 2, ((1, 1), (1, 1)), 1, False),
-        ('1x1 stride 2', 2, 17, 23, 64, 128, 1, 2, ((0, 0), (0, 0)), 1, False),
-        ('dilation 2', 2, 12, 20, 64, 64, 3, 1, ((2, 2), (2, 2)), 2, True),
-        ('asymmetric padding, 2x2', 1, 10, 14, 32, 16, 2, 1, ((0, 1), (1, 0)), 1, False),
-        ('C_in 72 -> 72', 2, 7, 9, 72, 72, 3, 1, ((1, 1), (1, 1)), 1, False),
-        ('C_in 72 -> 144', 2, 18, 40, 72, 144, 3, 1, ((1, 1), (1, 1)), 1, True),
-        ('C_out 576', 1, 18, 80, 256, 576, 3, 1, ((1, 1), (1, 1)), 1, True),
-        ('C_in 12 (4-byte copies)', 2, 11, 11, 12, 24, 3, 1, ((1, 1), (1, 1)), 1, False),
-        ('C_in 7 (1-byte copies)', 2, 11, 11, 7, 5, 3, 1, ((1, 1), (1, 1)), 1, True),
-        ('C_in 8 (8-byte copies)', 1, 5, 6, 8, 9, 3, 2, ((1, 1), (1, 1)), 1, False),
-        ('batch 1, W 1', 1, 7, 1, 64, 64, 3, 1, ((1, 1), (1, 1)), 1, False),
-        ('H 1', 3, 1, 33, 64, 64, 3, 1, ((1, 1), (1, 1)), 1, False),
-        ('padding wider than the image', 1, 2, 3, 64, 64, 3, 1, ((3, 3), (3, 3)), 1, False),
-    ]
-    # the wgmma path's edges, each with the plan it must take: split K (under
-    # each epilogue: int8_conv_check runs all three), a ragged M, N = 64 and
-    # N off the tile, K tails (chunks of 32 with a zero-filled tail), boxes
-    # over the image's edge, and shapes the TMA unit cannot take; every
-    # wgmma case whose tiles are fewer than the SMs runs with split K forced
-    # too
-    wgmma_cases = [  # (name, B, H, W, C_in, C_out, k, padding, dilation, path, split K)
-        ('split K: 1x1 over 640 px, C_in 8192', 1, 1, 640, 8192, 64, 1, ((0, 0), (0, 0)), 1,
-         'wgmma', True),
-        ('split K: 3x3, 6x20 px, 1408 -> 256 (+bias)', 1, 6, 20, 1408, 256, 3,
-         ((1, 1), (1, 1)), 1, 'wgmma', True),
-        ('1x1 over 2560 px, C_in 576 (K9(a))', 1, 1, 2560, 576, 64, 1, ((0, 0), (0, 0)), 1,
-         'wgmma', False),
-        ('M off the tile: 7x9 px, 3 images, 64 -> 64', 3, 7, 9, 64, 64, 3, ((1, 1), (1, 1)), 1,
-         'wgmma', False),
-        ('N 64 at 72x320 (the layer1 shape, batch 2)', 2, 72, 320, 64, 64, 3, ((1, 1), (1, 1)),
-         1, 'wgmma', False),
-        ('N off the tile: 200', 12, 18, 80, 256, 200, 3, ((1, 1), (1, 1)), 1, 'wgmma',
-         False),
-        ('N 5', 2, 9, 11, 64, 5, 3, ((1, 1), (1, 1)), 1, 'wgmma', False),
-        ('K tail: C_in 48 (32-byte chunks, the last half zero-filled)', 2, 17, 23, 48, 96, 3,
-         ((1, 1), (1, 1)), 1, 'wgmma', False),
-        ('K tail: C_in 288 (32-byte chunks)', 4, 18, 80, 288, 288, 3, ((1, 1), (1, 1)), 1,
-         'wgmma', False),
-        ('C_in 96 at 36x160', 4, 36, 160, 96, 96, 3, ((1, 1), (1, 1)), 1, 'wgmma', False),
-        ('boxes over the edge: padding 3, dilation 2', 2, 13, 29, 128, 128, 3,
-         ((3, 2), (1, 3)), 2, 'wgmma', False),
-        ('cp.async: C_in 72 at 36x160', 2, 36, 160, 72, 72, 3, ((1, 1), (1, 1)), 1, 'cp_async',
-         False),
-        ('cp.async: C_in 16', 2, 11, 13, 16, 64, 3, ((1, 1), (1, 1)), 1, 'cp_async', False),
-    ]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     forced = []
-    for name, b, h, w, c, n, k, pad, d, path, split in wgmma_cases:
-        plan = ic.plan_int8_conv(b, h, w, c, n, k, k, (1, 1), pad, (d, d), sms=sms)
-        check(plan.path == path and (plan.split > 1) == split,
-              f'int8_conv2d {name}: plan {plan}, expected the {path} path, split {split}')
-        ic.reset_launch_counts()
+    for name, b, h, w, c, n, k, s, pad, d, split, tail in INT8_EDGE_CASES:
+        plan = ic.plan_int8_conv(b, h, w, c, n, k, k, (s, s), pad, (d, d), sms=sms)
+        check((plan.split > 1) == split, f'int8_conv2d {name}: plan {plan}, expected split {split}')
+        xq = pitched_int8(torch, ic, gen, (b, h, w, c), tail=tail)
+        wq = pitched_int8(torch, ic, gen, (n, k, k, c), tail=tail)
         bias = torch.randn((n,), generator=gen, device='cuda')
-        int8_conv_check(torch, ic, rand((b, h, w, c)), rand((n, k, k, c)), (1, 1), pad, (d, d),
-                        bias, name)
-        key = f'int8_conv2d_{path}{"_splitk" if split else ""}'
+        ic.reset_launch_counts()
+        int8_conv_check(torch, ic, xq, wq, (s, s), pad, (d, d), bias, name, c)
+        key = f'int8_conv2d_wgmma{"_splitk" if split else ""}'
         check(ic.LAUNCHES[key] == ic.LAUNCHES['int8_conv2d'] == 3,
               f'int8_conv2d {name}: launches {ic.LAUNCHES}, expected 3 on {key}')
-        if path == 'wgmma' and not split and plan.m_tiles * plan.n_tiles < sms:
+        if not split and plan.m_tiles * plan.n_tiles < sms and plan.k_steps > 1:
             ic.reset_launch_counts()
             with int8_plan_variant(ic, 'split'):
-                int8_conv_check(torch, ic, rand((b, h, w, c)), rand((n, k, k, c)), (1, 1), pad,
-                                (d, d), bias, f'{name}, split K forced')
+                int8_conv_check(torch, ic, xq, wq, (s, s), pad, (d, d), bias,
+                                f'{name}, split K forced', c)
             check(ic.LAUNCHES['int8_conv2d_wgmma_splitk'] == 3,
                   f'int8_conv2d {name}, split K forced: launches {ic.LAUNCHES}')
             forced.append(name)
-    for n in (70, 144):
-        int8_conv_check(torch, ic, rand((2, 18, 80, 256)), rand((n, 3, 3, 256)), (1, 1),
-                        ((1, 1), (1, 1)), (1, 1), None, f'N {n}')
-    # a base off 16-byte alignment goes to the cp.async path
-    x = rand((2, 9, 13, 64))
-    shifted = torch.empty(x.numel() + 1, dtype=torch.int8, device='cuda')[1:].view(x.shape)
-    shifted.copy_(x)
-    ic.reset_launch_counts()
-    int8_conv_check(torch, ic, shifted, rand((64, 3, 3, 64)), (1, 1), ((1, 1), (1, 1)), (1, 1),
-                    None, 'unaligned input base')
-    check(ic.LAUNCHES['int8_conv2d_cp_async'] == 3,
-          f'int8_conv2d with an unaligned base: launches {ic.LAUNCHES}, expected the cp.async path')
-    for name, b, h, w, c, n, k, s, pad, d, has_bias in cases:
-        bias = torch.randn((n,), generator=gen, device='cuda') if has_bias else None
-        int8_conv_check(torch, ic, rand((b, h, w, c)), rand((n, k, k, c)), (s, s), pad, (d, d),
-                        bias, name)
     # +-127 everywhere at the widest K of the path (9 x 1408): the largest sums
     for sign in (1, -1):
         xq = torch.full((1, 4, 5, 1408), 127, dtype=torch.int8, device='cuda')
@@ -2576,8 +2612,8 @@ def int8_conv_edge_phase(torch, ic):
         int8_conv_check(torch, ic, xq, wq, (1, 1), ((1, 1), (1, 1)), (1, 1), None, f'+-127 {sign}')
         acc = ic.int8_conv2d(xq, wq, padding=((1, 1), (1, 1)))
         check(int(acc[0, 1, 1, 0]) == sign * 9 * 1408 * 127 * 127, 'int8_conv2d: extreme sum')
-    cases = [c[0] for c in wgmma_cases] + [f'{c}, split K forced' for c in forced] + \
-        ['N 70, 144', 'unaligned input base'] + [c[0] for c in cases] + ['+-127 at K = 9 x 1408']
+    cases = [c[0] for c in INT8_EDGE_CASES] + [f'{c}, split K forced' for c in forced] + \
+        ['+-127 at K = 9 x 1408']
     for shape, per_channel in (((3, 5, 7, 72), True), ((1, 1, 1, 3), False), ((2, 9, 13, 64), True)):
         x = torch.randn(shape, generator=gen, device='cuda') * 40
         inv = (torch.rand((shape[-1],) if per_channel else (), generator=gen, device='cuda') + 0.5)
@@ -2585,28 +2621,53 @@ def int8_conv_edge_phase(torch, ic):
             check(torch.equal(ic.quantize_act(xx, inv), ic.quantize_act_plain(xx, inv)),
                   f'int8_quantize {shape} {xx.dtype} per-channel {per_channel}: differs')
     # a base that is not 16-byte aligned (a slice of a larger tensor), sizes off
-    # the 16-element vector, per-tensor and per-channel scales
-    for n_inv, rows, offset in ((1, 1001, 1), (72, 19, 1), (1408, 3, 3), (64, 37, 5)):
-        big = torch.randn((rows * n_inv + 8,), generator=gen, device='cuda') * 60
+    # the 16-element vector, per-tensor and per-channel scales; flat, and onto
+    # the conv's channel pitch where that is wider than the channels
+    for n_inv, rows, offset in ((1, 1001, 1), (72, 19, 1), (1408, 3, 3), (64, 37, 5),
+                                (1025, 21, 1), (1025, 20, 2), (9, 53, 3)):
+        c = n_inv if n_inv > 1 else 24
+        big = torch.randn((rows * c + 8,), generator=gen, device='cuda') * 60
         big[3:8] = torch.tensor([0.5, 2.5, -2.5, -0.0, 1e4], device='cuda')
         inv = (torch.rand((n_inv,), generator=gen, device='cuda') + 0.5 if n_inv > 1
                else torch.ones((), device='cuda'))
         for bb in (big, big.to(torch.bfloat16)):
-            xx = bb[offset:offset + rows * n_inv].view(rows, n_inv)
+            xx = bb[offset:offset + rows * c].view(rows, c)
             check(xx.data_ptr() % 16 != 0, 'int8_quantize: the unaligned case is aligned')
-            got, ref = ic.quantize_act(xx, inv), ic.quantize_act_plain(xx, inv)
-            torch.cuda.synchronize()
-            check(torch.equal(got, ref), f'int8_quantize {xx.dtype} base +{offset} elements, '
-                  f'n_inv {n_inv}: differs in {int((got != ref).sum())} places')
+            for pitch in {None, ic.channel_pitch(c)}:
+                got, ref = ic.quantize_act(xx, inv, pitch), ic.quantize_act_plain(xx, inv, pitch)
+                torch.cuda.synchronize()
+                check(torch.equal(got, ref), f'int8_quantize {xx.dtype} base +{offset} elements, '
+                      f'n_inv {n_inv}, pitch {pitch}: differs in {int((got != ref).sum())} places')
+    # the pitched quantize at the channel counts of the pitch cases, from
+    # fresh (aligned) tensors: every row phase of a 1025-wide bf16 row
+    for c in (8, 9, 24, 40, 72, 1025):
+        x = torch.randn((3, 5, 7, c), generator=gen, device='cuda') * 40
+        for inv in (torch.tensor(0.7, device='cuda'),
+                    torch.rand((c,), generator=gen, device='cuda') + 0.5):
+            for xx in (x, x.to(torch.bfloat16)):
+                pitch = ic.channel_pitch(c)
+                got = ic.quantize_act(xx, inv, pitch)
+                check(got.shape == (3, 5, 7, pitch)
+                      and torch.equal(got, ic.quantize_act_plain(xx, inv, pitch)),
+                      f'int8_quantize {xx.dtype} C {c} onto pitch {pitch}: differs')
     cases += ['quantize: per-channel scales, f32 and bf16, ragged sizes, saturation',
-              'quantize: a base off 16-byte alignment, n_inv 1, 64, 72, 1408']
+              'quantize: a base off 16-byte alignment, n_inv 1, 9, 64, 72, 1025, 1408, flat and '
+              'pitched', 'quantize onto the pitch: C 8, 9, 24, 40, 72, 1025']
 
-    xq, wq = rand((2, 8, 8, 64)), rand((64, 3, 3, 64))
+    xq, wq = pitched_int8(torch, ic, gen, (2, 8, 8, 64)), pitched_int8(torch, ic, gen, (64, 3, 3, 64))
+    x72, w72 = (torch.randint(-127, 128, shape, generator=gen, device='cuda', dtype=torch.int8)
+                for shape in ((2, 8, 8, 72), (64, 3, 3, 72)))
+    shifted = torch.empty(xq.numel() + 1, dtype=torch.int8, device='cuda')[1:].view(xq.shape)
+    shifted.copy_(xq)
     refusals = [
         ('non-contiguous input', lambda: ic.int8_conv2d(xq.permute(0, 2, 1, 3), wq)),
         ('float input', lambda: ic.int8_conv2d(xq.float(), wq)),
         ('uint8 weights', lambda: ic.int8_conv2d(xq, wq.to(torch.uint8))),
         ('channel mismatch', lambda: ic.int8_conv2d(xq, wq[..., :32].contiguous())),
+        ('pitch off 16 (C_in 72 unpitched)', lambda: ic.int8_conv2d(x72, w72)),
+        ('C_in past the pitch', lambda: ic.int8_conv2d(xq, wq, c_in=65)),
+        ('unaligned input base', lambda: ic.int8_conv2d(shifted, wq)),
+        ('stride past the TMA unit', lambda: ic.int8_conv2d(xq, wq, stride=(9, 9))),
         ('bf16 scale', lambda: ic.int8_conv2d(xq, wq, scale=torch.ones(64, device='cuda',
                                                                        dtype=torch.bfloat16),
                                               out_dtype=torch.float32)),
@@ -2616,11 +2677,13 @@ def int8_conv_edge_phase(torch, ic):
         ('int8 quantize input', lambda: ic.quantize_act(xq, torch.ones((), device='cuda'))),
         ('mismatched quantize scales', lambda: ic.quantize_act(
             torch.ones((2, 8), device='cuda'), torch.ones((3,), device='cuda'))),
+        ('quantize pitch off 16', lambda: ic.quantize_act(
+            torch.ones((2, 9), device='cuda'), torch.ones((), device='cuda'), 24)),
     ]
     for what, call in refusals:
         try:
             call()
-        except (TypeError, ValueError):
+        except (TypeError, ValueError, NotImplementedError):
             continue
         fail(f'int8_conv2d accepted a {what}')
     emit('int8_conv_edges', ok=True, cases=cases, refused=[r[0] for r in refusals])
@@ -2702,14 +2765,11 @@ def int8_probe_phase(torch, ic, part):
 @contextlib.contextmanager
 def int8_plan_variant(ic, variant):
     """Every int8 conv in the block on one variant of its plan: 'plan' (as
-    planned), 'split' (the wgmma path, K split wherever the tiles are fewer
-    than the SMs), 'unsplit' (the wgmma path, K never split) or 'cp_async'
-    (the cp.async path, the mma.sync design, for every shape)."""
+    planned), 'split' (K split wherever the tiles are fewer than the SMs)
+    or 'unsplit' (K never split)."""
     planned = ic.plan_int8_conv
 
     def plan(*args, **kwargs):
-        if variant == 'cp_async':
-            return planned(*args, **kwargs)._replace(path='cp_async')
         return planned(*args, split_k={'split': True, 'unsplit': False}.get(variant), **kwargs)
     ic.plan_int8_conv = plan
     try:
@@ -2718,16 +2778,16 @@ def int8_plan_variant(ic, variant):
         ic.plan_int8_conv = planned
 
 
-INT8_PLAN_TURNS = ('split', 'unsplit', 'cp_async', 'plan', 'plan', 'cp_async', 'unsplit', 'split')
+INT8_PLAN_TURNS = ('split', 'unsplit', 'plan', 'plan', 'unsplit', 'split')
 N_PLAN_BS1 = 30
 
 
 def int8_plan_phase(torch, ic, system, batch, P2):
     """B8's plan against its alternatives on the same inputs, in turns (each
     variant twice, the mean): at K9(a) (raw s32) and at every conv shape of
-    the batch-1 int8 predict (bf16 out; at batch 1 the tiles of most shapes
-    do not fill the card), each conv split, unsplit and on the cp.async path,
-    bit-exact under each, with CUDA events (what a caller pays: the host's
+    the batch-1 int8 predict (bf16 out, on the channel pitch; at batch 1 the
+    tiles of most shapes do not fill the card), each conv split and
+    unsplit, bit-exact under each, with CUDA events (what a caller pays: the host's
     time included) and CUDA graphs (device time); then the whole int8
     predict, every conv on its own, at batch 1 (p50 of 2 x N_PLAN_BS1 calls:
     host-bound, so noisier than the batch-16 numbers) and at batch 16 (host
@@ -2741,9 +2801,8 @@ def int8_plan_phase(torch, ic, system, batch, P2):
     per_shape = []
     for key, count in [(k9a, 0)] + shapes:
         b, h, w, c, n, kh, kw, stride, padding, dilation, has_bias = key
-        xs = [torch.randint(-127, 128, (b, h, w, c), generator=gen, device='cuda',
-                            dtype=torch.int8) for _ in range(4)]
-        wq = torch.randint(-127, 128, (n, kh, kw, c), generator=gen, device='cuda', dtype=torch.int8)
+        xs = [pitched_int8(torch, ic, gen, (b, h, w, c)) for _ in range(4)]
+        wq = pitched_int8(torch, ic, gen, (n, kh, kw, c))
         bias = torch.randn((n,), generator=gen, device='cuda') if has_bias else None
         if key == k9a:
             what, fn = 'K9(a) [2560, 576] x [576, 64] s32', lambda x: ic.int8_conv2d(x, wq)
@@ -2751,7 +2810,7 @@ def int8_plan_phase(torch, ic, system, batch, P2):
             what = (f'{b}x{h}x{w}x{c}->{n} k{kh}x{kw}{" +bias" if has_bias else ""}')
             scale = torch.rand((n,), generator=gen, device='cuda') * 1e-3
             fn = lambda x: ic.int8_conv2d(x, wq, stride, padding, dilation, scale, bias,
-                                          torch.bfloat16)
+                                          torch.bfloat16, c)
         plan = ic.plan_int8_conv(b, h, w, c, n, kh, kw, tuple(stride), padding, tuple(dilation),
                                  sms=sms)
         got = {}
@@ -2759,10 +2818,10 @@ def int8_plan_phase(torch, ic, system, batch, P2):
             with int8_plan_variant(ic, variant):
                 if variant not in got:
                     int8_conv_check(torch, ic, xs[0], wq, stride, padding, dilation, bias,
-                                    f'{what} ({variant})')
+                                    f'{what} ({variant})', c)
                 got.setdefault(variant, []).append((cuda_ms(fn, xs), graph_ms(fn, xs[:3])))
         row = dict(shape=what, per_predict_bs1=count, planned=dict(
-            path=plan.path, split=plan.split, grid=plan.grid, tiles=plan.m_tiles * plan.n_tiles))
+            split=plan.split, grid=plan.grid, tiles=plan.m_tiles * plan.n_tiles))
         for variant, runs in got.items():
             row[variant] = dict(ms=statistics.mean(r[0] for r in runs),
                                 graph_ms=statistics.mean(r[1] for r in runs))
@@ -2935,13 +2994,13 @@ def int8_slice_phase(torch, cv, ic, ib, system, mode):
     expected = {'int8': (n_convs, 0), 'int8+K8': (n_convs - 2 * n_fused, n_fused),
                 'bfloat16': (0, 0)}[mode]
     per_predict = {k: v / N_BATCHES for k, v in launches.items()}
-    by_path = sum(per_predict[f'int8_conv2d_{k}'] for k in ('wgmma', 'wgmma_splitk', 'cp_async'))
+    by_split = sum(per_predict[f'int8_conv2d_{k}'] for k in ('wgmma', 'wgmma_splitk'))
     check(per_predict['correlation_volume_interleaved'] == 2
           and (per_predict['int8_conv2d'], per_predict['int8_basic_block']) == expected
-          and per_predict['int8_quantize'] == sum(expected) and by_path == expected[0]
-          and (mode == 'bfloat16' or per_predict['int8_conv2d_wgmma'] > 0),
-          f'{mode}: launches per predict {per_predict}, expected B8/K8 {expected} (B8 on the '
-          f'wgmma path among them), one quantize for each and 2 K1')
+          and per_predict['int8_quantize'] == sum(expected) and by_split == expected[0]
+          and 'int8_conv2d_cp_async' not in per_predict,
+          f'{mode}: launches per predict {per_predict}, expected B8/K8 {expected} (unsplit and '
+          f'split, no cp.async key), one quantize for each and 2 K1')
     if mode == 'int8+K8':
         check(n_fused == 3, f'{mode}: {n_fused} fused 64-channel blocks, expected layer1\'s 3')
     n_valid = [int(o['valid'].sum()) for o in outs]
@@ -3814,11 +3873,21 @@ def kitti_precompute_phase(work):
     return configs
 
 
+# the train CLI as ``python -m`` runs it, after seeding the generators its
+# initialisation and augmentation draw from (the CLI seeds none, as the JAX
+# CLI): a checkpoint of two steps that once gave ``cli_eval_stereo`` no
+# detection is the same checkpoint in every run
+SEEDED_TRAIN_CLI = ('import random, runpy; import numpy, torch; random.seed(0); '
+                    'numpy.random.seed(0); torch.manual_seed(0); '
+                    "runpy.run_module('visualdet3d_tpu_torch.cli.train', run_name='__main__', "
+                    'alter_sys=True)')
+
+
 def run_train_cli(config, resume, log_path):
     """``python -m visualdet3d_tpu_torch.cli.train`` in a subprocess (the
-    card by default); its output goes to ``log_path``. Returns the wall
-    seconds and the output."""
-    cmd = [sys.executable, '-m', 'visualdet3d_tpu_torch.cli.train', '--config', config]
+    card by default), its generators seeded first (SEEDED_TRAIN_CLI); its
+    output goes to ``log_path``. Returns the wall seconds and the output."""
+    cmd = [sys.executable, '-c', SEEDED_TRAIN_CLI, '--config', config]
     if resume:
         cmd.append('--resume')
     t0 = time.perf_counter()
@@ -3827,7 +3896,8 @@ def run_train_cli(config, resume, log_path):
     wall = time.perf_counter() - t0
     with open(log_path, 'a') as f:
         f.write(proc.stdout + proc.stderr)
-    check(proc.returncode == 0, f'{" ".join(cmd[1:])} failed (rc {proc.returncode}):\n'
+    check(proc.returncode == 0, f'the train CLI on {config}{" --resume" if resume else ""} '
+                                f'failed (rc {proc.returncode}):\n'
                                 f'{proc.stderr[-3000:]}')
     return wall, proc.stdout
 
@@ -5989,7 +6059,7 @@ def int8_mono_slice_phase(torch, dc, ic, system, model, mode, shapes):
     quantize for every quantized conv, the float remainder in bf16, its
     DCNs on K3) or 'bfloat16' (the same folded network in bf16): ms per
     batch, fps, bs1 p50, peak memory, valid detections, finite outputs, and
-    the launches of B8 (by path), the quantize and the DCN forward kernels
+    the launches of B8 (unsplit and split), the quantize and the DCN forward kernels
     in that run, the counts set to 0 just before it. B8 and the quantize
     must launch once per quantized conv that the predict runs (``shapes``),
     the DCNs MONO_DCN_PER_FORWARD times on the per-tap kernel."""
@@ -6010,14 +6080,14 @@ def int8_mono_slice_phase(torch, dc, ic, system, model, mode, shapes):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     per_predict = {k: v / N_BATCHES for k, v in launches.items()}
     n_b8 = sum(shapes.values()) if mode == 'int8' else 0
-    by_path = sum(per_predict[f'int8_conv2d_{k}'] for k in ('wgmma', 'wgmma_splitk', 'cp_async'))
+    by_split = sum(per_predict[f'int8_conv2d_{k}'] for k in ('wgmma', 'wgmma_splitk'))
     n_dcn = MONO_DCN_PER_FORWARD[model]
-    check(per_predict['int8_conv2d'] == n_b8 == per_predict['int8_quantize'] == by_path
-          and (mode != 'int8' or per_predict['int8_conv2d_wgmma'] > 0)
+    check(per_predict['int8_conv2d'] == n_b8 == per_predict['int8_quantize'] == by_split
+          and 'int8_conv2d_cp_async' not in per_predict
           and (per_predict['modulated_deform_conv'], per_predict['modulated_deform_conv_alltaps'],
                per_predict['modulated_deform_conv_premul_accum']) == (n_dcn, 0, 0),
           f'int8_mono_slice {name} {mode}: launches per predict {per_predict}, expected {n_b8} '
-          f'B8 (on the wgmma path among them) and quantize, {n_dcn} per-tap DCN')
+          f'B8 (unsplit and split, no cp.async key) and quantize, {n_dcn} per-tap DCN')
     n_valid = [int(o['valid'].sum()) for o in outs]
     for o in outs:
         check(o['bboxes'].shape == (BATCH, 32, 11) and o['scores'].shape == (BATCH, 32),
@@ -6124,13 +6194,14 @@ def int8_mono_parity_phase(torch, system, model):
 
 def int8_mono_conv_kernel_phase(torch, ic, shapes_of, part):
     """B8 at every conv shape of the four mono families' batch-16 int8
-    predicts (``shapes_of``: model -> {shape: count}): the s32 sums bit for
-    bit and the epilogues against the plain version (``int8_conv_check``),
-    its time in CUDA events and in device time (CUDA graphs), the plain
-    version's, a cuDNN bf16 conv of the same shape (a yardstick, not the
-    same function), the plan (path, split) and the bound; the quantize of
-    each input shape bit for bit, in events and device time. Returns per
-    model the sums a predict."""
+    predicts (``shapes_of``: model -> {shape: count}), on the channel pitch
+    as ``Int8Conv2d`` runs it: the s32 sums bit for bit and the epilogues
+    against the plain version (``int8_conv_check``), its time in CUDA events
+    and in device time (CUDA graphs), the plain version's, a cuDNN bf16 conv
+    of the same shape (a yardstick, not the same function), at 1x1 shapes
+    ``torch._int_mm`` on the same sums (device time), the plan and the
+    bound; the quantize of each input shape onto its pitch bit for bit, in
+    events and device time. Returns per model the sums a predict."""
     import torch.nn.functional as F
     bw = CARD_PEAKS[part][0]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -6143,25 +6214,29 @@ def int8_mono_conv_kernel_phase(torch, ic, shapes_of, part):
     per_shape, quant_of = {}, {}
     for key in sorted(union):
         b, h, w, c, n, kh, kw, stride, padding, dilation, has_bias = key
-        xs = [torch.randint(-127, 128, (b, h, w, c), generator=gen, device='cuda',
-                            dtype=torch.int8) for _ in range(3)]
-        wq = torch.randint(-127, 128, (n, kh, kw, c), generator=gen, device='cuda',
-                           dtype=torch.int8)
+        xs = [pitched_int8(torch, ic, gen, (b, h, w, c)) for _ in range(3)]
+        wq = pitched_int8(torch, ic, gen, (n, kh, kw, c))
         scale = torch.rand((n,), generator=gen, device='cuda') * 1e-3
         bias = torch.randn((n,), generator=gen, device='cuda') if has_bias else None
         what = (f'{b}x{h}x{w}x{c}->{n} k{kh}x{kw} s{tuple(stride)} p{padding} d{tuple(dilation)}'
                 f'{" +bias" if has_bias else ""}')
-        err = int8_conv_check(torch, ic, xs[0], wq, stride, padding, dilation, bias, what)
+        err = int8_conv_check(torch, ic, xs[0], wq, stride, padding, dilation, bias, what, c)
         fn = lambda x: ic.int8_conv2d(x, wq, stride, padding, dilation, scale, bias,  # noqa: E731
-                                      torch.bfloat16)
+                                      torch.bfloat16, c)
         ms, device_ms = cuda_ms(fn, xs), graph_ms(fn, xs)
         plain_ms = cuda_ms(lambda x: ic.int8_conv2d_plain(x, wq, stride, padding, dilation, scale,
-                                                          bias, torch.bfloat16), xs[:1], warmup=1)
-        xf = [x.permute(0, 3, 1, 2).to(torch.bfloat16) for x in xs]
-        wf = wq.permute(0, 3, 1, 2).to(torch.bfloat16)
+                                                          bias, torch.bfloat16, c),
+                           xs[:1], warmup=1)
+        xf = [x[..., :c].permute(0, 3, 1, 2).to(torch.bfloat16) for x in xs]
+        wf = wq[..., :c].permute(0, 3, 1, 2).to(torch.bfloat16)
         bf = bias.to(torch.bfloat16) if bias is not None else None
         pad = (padding[0][0], padding[1][0])
         library_ms = cuda_ms(lambda x: F.conv2d(x, wf, bf, tuple(stride), pad, tuple(dilation)), xf)
+        int_mm_device_ms = None
+        if (kh, kw) == (1, 1) and tuple(stride) == (1, 1) and padding == ((0, 0), (0, 0)):
+            a, mm = int_mm_1x1(torch, ic, xs, wq, c)
+            int_mm_device_ms = graph_ms(mm, a)
+            del a
         plan = ic.plan_int8_conv(b, h, w, c, n, kh, kw, tuple(stride), padding, tuple(dilation),
                                  sms=sms)
         ho, wo = ic.output_hw(h, w, kh, kw, stride, padding, dilation)
@@ -6170,7 +6245,8 @@ def int8_mono_conv_kernel_phase(torch, ic, shapes_of, part):
                   + 4 * n * (2 if has_bias else 1))
         bytes_ms, ops_ms = nbytes / bw * 1e3, ops / int8_peak(part) * 1e3
         per_shape[key] = dict(shape=what, per_predict=union[key], ms=ms, device_ms=device_ms,
-                              plain_ms=plain_ms, cudnn_bf16_ms=library_ms, path=plan.path,
+                              plain_ms=plain_ms, cudnn_bf16_ms=library_ms,
+                              int_mm_device_ms=int_mm_device_ms, split=plan.split,
                               plan=plan._asdict(), bound_ms=max(bytes_ms, ops_ms),
                               bound_by='bytes' if bytes_ms >= ops_ms else 'operations',
                               share_of_bound_device=max(bytes_ms, ops_ms) / device_ms,
@@ -6180,19 +6256,22 @@ def int8_mono_conv_kernel_phase(torch, ic, shapes_of, part):
         if qkey not in quant_of:
             xb = [(torch.randn(qkey, generator=gen, device='cuda') * 3).to(torch.bfloat16)
                   for _ in range(3)]
-            got, ref = ic.quantize_act(xb[0], inv), ic.quantize_act_plain(xb[0], inv)
+            pitch = ic.channel_pitch(c)
+            got = ic.quantize_act(xb[0], inv, pitch)
+            ref = ic.quantize_act_plain(xb[0], inv, pitch)
             torch.cuda.synchronize()
             check(torch.equal(got, ref), f'int8_quantize {qkey}: differs from the plain version')
-            qfn = lambda t: ic.quantize_act(t, inv)  # noqa: E731
+            qfn = lambda t: ic.quantize_act(t, inv, pitch)  # noqa: E731
             # the yardstick of the stereo Q row: torch.quantize_per_tensor on
             # an f32 copy (not the same function), device time
             xq = [x.float() for x in xb]
             scale = float(1.0 / inv)
             quant_of[qkey] = dict(ms=cuda_ms(qfn, xb), device_ms=graph_ms(qfn, xb),
-                                  plain_ms=cuda_ms(lambda t: ic.quantize_act_plain(t, inv), xb),
+                                  plain_ms=cuda_ms(lambda t: ic.quantize_act_plain(t, inv, pitch),
+                                                   xb),
                                   library_ms=graph_ms(lambda t: torch.quantize_per_tensor(
                                       t, scale, 0, torch.qint8), xq),
-                                  bound_ms=3 * b * h * w * c / bw * 1e3)
+                                  bound_ms=b * h * w * (2 * c + pitch) / bw * 1e3)
             del xq
         del xs, xf
     totals = {}
@@ -6200,8 +6279,7 @@ def int8_mono_conv_kernel_phase(torch, ic, shapes_of, part):
         t = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                  max_abs_err=0.0, quantize_ms=0.0, quantize_device_ms=0.0,
                  quantize_plain_ms=0.0, quantize_library_ms=0.0, quantize_bound_ms=0.0,
-                 launches_per_predict=0,
-                 by_path={})
+                 launches_per_predict=0, split_launches_per_predict=0, int_mm_1x1={})
         bound_by = {'bytes': 0.0, 'operations': 0.0}
         for key, count in shapes.items():
             r, q = per_shape[key], quant_of[key[:4]]
@@ -6217,7 +6295,10 @@ def int8_mono_conv_kernel_phase(torch, ic, shapes_of, part):
             t['quantize_library_ms'] += count * q['library_ms']
             t['quantize_bound_ms'] += count * q['bound_ms']
             t['launches_per_predict'] += count
-            t['by_path'][r['path']] = t['by_path'].get(r['path'], 0) + count
+            t['split_launches_per_predict'] += count * (r['split'] > 1)
+            if r['int_mm_device_ms'] is not None:  # B8 beside torch._int_mm, device time
+                t['int_mm_1x1'][r['shape']] = dict(device_ms=r['device_ms'],
+                                                   int_mm_device_ms=r['int_mm_device_ms'])
             bound_by[r['bound_by']] += count * r['bound_ms']
         t['bound_by'] = max(bound_by, key=bound_by.get)
         t['shapes'] = [per_shape[key]['shape'] for key in sorted(shapes)]
@@ -6918,8 +6999,12 @@ def main() -> int:
         max_abs_err=b8['max_abs_err'], ms=b8['ms'], plain_ms=b8['plain_ms'],
         bound_ms=b8['bound_ms'], bound_by=b8['bound_by'], library_ms=b8['library_ms'],
         library='cuDNN bf16 conv of the same shapes (not the same function)',
-        launches_by_path={k: int8_slices['int8']['launches'][f'int8_conv2d_{k}']
-                          for k in ('wgmma', 'wgmma_splitk', 'cp_async')},
+        device_ms=b8['device_ms'],
+        launches_by_split={k: int8_slices['int8']['launches'][f'int8_conv2d_{k}']
+                           for k in ('wgmma', 'wgmma_splitk')},
+        int_mm_1x1={r['shape']: dict(device_ms=r['device_ms'],
+                                     int_mm_device_ms=r['int_mm_device_ms'])
+                    for r in b8['per_shape'] if r['int_mm_device_ms'] is not None},
         launches_per_eval_frame=eval_launches[('stereo', 'int8')].get('int8_conv2d', 0),
         launches_per_mono_int8_predict={
             MONO_INT8_MODELS[m]: r['int8']['launches_per_predict']['int8_conv2d']
@@ -6977,13 +7062,14 @@ def main() -> int:
             replaces='visualdet3d_tpu/models/quant.py:295 (XLA s8 conv_general_dilated; no '
                      'Pallas kernel)',
             launches=launches['int8_conv2d'],
-            launches_by_path={k: launches[f'int8_conv2d_{k}']
-                              for k in ('wgmma', 'wgmma_splitk', 'cp_async')},
+            launches_by_split={k: launches[f'int8_conv2d_{k}']
+                               for k in ('wgmma', 'wgmma_splitk')},
             max_abs_err=t['max_abs_err'], ms=t['ms'], device_ms=t['device_ms'],
             plain_ms=t['plain_ms'], bound_ms=t['bound_ms'], bound_by=t['bound_by'],
             library_ms=t['library_ms'],
             library='cuDNN bf16 conv of the same shapes (not the same function)',
-            plans_by_path=t['by_path'], shapes=t['shapes'],
+            split_plans_per_predict=t['split_launches_per_predict'],
+            int_mm_1x1=t['int_mm_1x1'], shapes=t['shapes'],
             per_forward=f'every quantized conv of one batch-16 {tag} int8 predict, bf16 out '
                         '(shapes weighted by count); ms in CUDA events, device_ms from CUDA '
                         f'graphs; launches: {N_BATCHES} predicts'))

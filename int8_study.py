@@ -6,6 +6,9 @@ Run from the repository root:
 
     python3 int8_study.py variants
     python3 int8_study.py parent DIR
+    python3 int8_study.py b8 [DIR]
+    python3 int8_study.py params
+    python3 int8_study.py predict DIR [MODEL ...]
 
 Each mode prints one JSON line a measurement, then the card's name and power
 limit.
@@ -31,11 +34,34 @@ limit.
   count per predict, and K8 on the real layer1_0 entries and input, in CUDA
   events and device time; both bit-exact against their plain versions.
 
-The substitutions match the source's text (``VARIANTS``);
+* ``b8 [DIR]``: B8 and the quantize at shapes whose plan this tree
+  changed (the channel pitch, the GEMM view of 1x1 convs, the 3-stage
+  ring: ``B8_SHAPES``), this
+  tree's against DIR's sources under DIR's wrappers, in turns, in CUDA
+  events and device time, beside the bound and, at 1x1 shapes,
+  ``torch._int_mm`` (``b8``).
+
+* ``params``: B8 (``csrc/int8_conv.cu``) as it is and with one int added
+  to its kernel's parameter struct ``TmaConv`` (``PARAMS_PLUS_ONE``: 136
+  bytes in place of 128), built in parallel and timed in turns (two
+  rounds) at ``PARAMS_SHAPES``, device time: what the source's
+  ``static_assert`` on the struct's size keeps.
+
+* ``predict DIR [MODEL ...]``: the int8 predicts end to end, this tree's
+  and DIR's, each in a process of its own run from its root with its own
+  ``chip_smoke.py`` (its kernels built from its sources), in turns
+  (parent, current, current, parent): ms a batch-16 predict over 6
+  distinct batches (two rounds), the batch-1 p50 over 12 calls, and one
+  predict's device time from the profiler. MODEL: ``stereo``
+  (``entry.build_int8_system``, every conv on its own) or a key of
+  ``chip_smoke.MONO_INT8_MODELS`` (the default: stereo, ground_aware, dcn).
+
+The substitutions match the source's text (``VARIANTS``, ``PARAMS_PLUS_ONE``);
 ``tests/test_torch_int8_block_tiles.py`` checks that each still does.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import subprocess
@@ -239,12 +265,222 @@ def parent(path: str) -> None:
                           'k8': k8, 'quantize_per_shape': per_shape}), flush=True)
 
 
+# B8 at the shapes this tree's plan changed, (B, H, W, C_in, C_out, k,
+# padding), bias (folded BN), bf16 out: the two the parent's plan sent to its
+# cp.async kernel (the stereo 72-channel 3x3 at stride 8 and GAC's
+# LookGround 1x1, C_in 1025, at stride 16) at batch 16 and 1, 1x1 convs
+# whose boxes the GEMM view changed (GAC's 23 + 22 at 18x80, KM3D's 12x40),
+# and 3x3 convs on the 3-stage ring (stereo, KM3D)
+B8_SHAPES = tuple((b, h, w, c, n, k, pad) for b in (16, 1) for h, w, c, n, k, pad in (
+    (36, 160, 72, 72, 3, ((1, 1), (1, 1))), (18, 80, 1025, 1024, 1, ((0, 0), (0, 0))))) + (
+    (16, 18, 80, 256, 1024, 1, ((0, 0), (0, 0))), (16, 18, 80, 1024, 256, 1, ((0, 0), (0, 0))),
+    (16, 12, 40, 1280, 512, 1, ((0, 0), (0, 0))),
+    # 128-channel tiles on 128-byte chunks, on a 3-stage ring (two blocks an SM)
+    (32, 36, 160, 128, 128, 3, ((1, 1), (1, 1))), (16, 18, 80, 384, 384, 3, ((1, 1), (1, 1))),
+    (16, 18, 80, 1408, 576, 3, ((1, 1), (1, 1))), (16, 48, 160, 128, 128, 3, ((1, 1), (1, 1))))
+
+
+def parent_int8_conv(path: str):
+    """DIR's ``ops/int8_conv.py`` as a module of its own, on DIR's
+    ``csrc/int8_conv.cu`` built here."""
+    import importlib.util
+    import types
+    csrc = Path(path) / 'visualdet3d_tpu_torch' / 'csrc'
+    lib = build_all({'parent_int8_conv': ((csrc / 'int8_conv.cu').read_text(), csrc)})[
+        'parent_int8_conv']
+    spec = importlib.util.spec_from_file_location(
+        'parent_int8_conv', Path(path) / 'visualdet3d_tpu_torch' / 'ops' / 'int8_conv.py')
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.kernel_build = types.SimpleNamespace(load=lambda name: lib)
+    return mod
+
+
+@contextlib.contextmanager
+def image_view():
+    """This tree's plan with every conv on its own (B, H, W) boxes: no GEMM
+    view of the 1x1 convs."""
+    view = ic.gemm_view
+    ic.gemm_view = lambda b, h, w, *args, **kwargs: (b, h, w)
+    ic.plan_int8_conv.cache_clear()
+    try:
+        yield
+    finally:
+        ic.gemm_view = view
+        ic.plan_int8_conv.cache_clear()
+
+
+def b8(path=None) -> None:
+    """B8 and the quantize at B8_SHAPES on this tree (pitched, as
+    ``Int8Conv2d`` runs them; at 1x1 shapes also without the GEMM view,
+    ``current_image_view``) and, with DIR, on DIR's sources under DIR's
+    wrappers (its layout), in turns (parent, current, current, parent): CUDA
+    events and device time (CUDA graphs), each bit for bit against the plain
+    sums; the bound; at 1x1 shapes ``torch._int_mm`` on the same sums (K
+    zero-padded to a multiple of 8)."""
+    part, _ = chip_smoke.card_peaks(torch.cuda.get_device_name(0))
+    bw, peak = chip_smoke.CARD_PEAKS[part][0], chip_smoke.int8_peak(part)
+    who_of = {'current': ic}
+    if path is not None:
+        who_of['parent'] = parent_int8_conv(path)
+    turns = ('parent', 'current', 'current', 'parent') if path is not None else ('current',)
+    gen = torch.Generator(device='cuda').manual_seed(21)
+    inv = torch.tensor(127 / 9.0, device='cuda')
+    for b, h, w, c, n, k, pad in B8_SHAPES:
+        pitch = ic.channel_pitch(c)
+        xs = [chip_smoke.pitched_int8(torch, ic, gen, (b, h, w, c)) for _ in range(4)]
+        wq = chip_smoke.pitched_int8(torch, ic, gen, (n, k, k, c))
+        acts = [(torch.randn((b, h, w, c), generator=gen, device='cuda') * 3).to(torch.bfloat16)
+                for _ in range(4)]
+        scale = torch.rand((n,), generator=gen, device='cuda') * 1e-3
+        bias = torch.randn((n,), generator=gen, device='cuda')
+        ref = ic.int8_conv2d_plain(xs[0], wq, padding=pad, c_in=c)
+        ho, wo = ic.output_hw(h, w, k, k, (1, 1), pad, (1, 1))
+        ops = 2 * b * ho * wo * n * k * k * c
+        nbytes = b * h * w * c + n * k * k * c + 2 * b * ho * wo * n + 8 * n
+        row = dict(shape=[b, h, w, c, n, k], pitch=pitch,
+                   plan=ic.plan_int8_conv(b, h, w, c, n, k, k, padding=pad)._asdict(),
+                   bound_ms=max(nbytes / bw, ops / peak) * 1e3,
+                   bound_by='bytes' if nbytes / bw >= ops / peak else 'operations',
+                   quantize_bound_ms=b * h * w * (2 * c + pitch) / bw * 1e3)
+        runs = {}
+        for who in turns + (('current_image_view',) * 2 if k == 1 else ()):
+            mod = who_of.get(who, ic)
+            if who.startswith('current'):
+                x_in, w_in, q = xs, wq, dict(c_in=c)
+                qfn = lambda t: ic.quantize_act(t, inv, pitch)  # noqa: E731
+            else:  # the parent's layout: C_in channels, no pitch
+                x_in = [x[..., :c].contiguous() for x in xs]
+                w_in, q = wq[..., :c].contiguous(), {}
+                qfn = lambda t: mod.quantize_act(t, inv)  # noqa: E731
+            with image_view() if who == 'current_image_view' else contextlib.nullcontext():
+                got = mod.int8_conv2d(x_in[0], w_in, padding=pad, **q)
+                chip_smoke.check(torch.equal(got, ref), f'int8_study: {who} B8 {row["shape"]} '
+                                 'differs from the plain sums')
+                chip_smoke.check(torch.equal(qfn(acts[0])[..., :c],
+                                             ic.quantize_act_plain(acts[0], inv)),
+                                 f'int8_study: {who} quantize {row["shape"]} differs')
+                fn = lambda t: mod.int8_conv2d(t, w_in, padding=pad, scale=scale,  # noqa: E731
+                                               bias=bias, out_dtype=torch.bfloat16, **q)
+                runs.setdefault(who, []).append(dict(
+                    ms=chip_smoke.cuda_ms(fn, x_in), device_ms=chip_smoke.graph_ms(fn, x_in),
+                    quantize_ms=chip_smoke.cuda_ms(qfn, acts),
+                    quantize_device_ms=chip_smoke.graph_ms(qfn, acts)))
+        for who, rs in runs.items():
+            row[who] = {key: sum(r[key] for r in rs) / len(rs) for key in rs[0]}
+            row[who]['share_of_bound_device'] = row['bound_ms'] / row[who]['device_ms']
+            row[who]['device_ms_by_turn'] = [r['device_ms'] for r in rs]
+        if k == 1:
+            a, mm = chip_smoke.int_mm_1x1(torch, ic, xs, wq, c)
+            row.update(int_mm_k=a[0].shape[1], int_mm_ms=chip_smoke.cuda_ms(mm, a),
+                       int_mm_device_ms=chip_smoke.graph_ms(mm, a))
+        print(json.dumps({'mode': 'b8', **row}), flush=True)
+
+
+CONV_SRC = kernel_build.CSRC_DIR / 'int8_conv.cu'
+PARAMS_PLUS_ONE = [('  int stage_bytes, bar_offset;', '  int stage_bytes, bar_offset, unused;'),
+                   ('static_assert(sizeof(TmaConv) <= 128', 'static_assert(sizeof(TmaConv) <= 136')]
+PARAMS_SHAPES = ((16, 36, 160, 128, 128, 3, ((1, 1), (1, 1))), (16, 36, 160, 72, 72, 3, ((1, 1), (1, 1))),
+                 (16, 18, 80, 1024, 256, 1, ((0, 0), (0, 0))),
+                 (16, 18, 80, 1025, 1024, 1, ((0, 0), (0, 0))))
+
+
+def params() -> None:
+    text = CONV_SRC.read_text()
+    libs = build_all({'as_is': (text, kernel_build.CSRC_DIR),
+                      'one_more_int': (substitute(text, PARAMS_PLUS_ONE), kernel_build.CSRC_DIR)})
+    for lib in libs.values():
+        lib.vd3d_int8_conv2d_wgmma.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 24 + \
+            [ctypes.c_void_p]
+        lib.vd3d_int8_conv2d_wgmma.restype = ctypes.c_int
+    gen = torch.Generator(device='cuda').manual_seed(23)
+    for b, h, w, c, n, k, pad in PARAMS_SHAPES:
+        xs = [chip_smoke.pitched_int8(torch, ic, gen, (b, h, w, c)) for _ in range(3)]
+        wq = chip_smoke.pitched_int8(torch, ic, gen, (n, k, k, c))
+        scale = torch.rand((n,), generator=gen, device='cuda') * 1e-3
+        ref = ic.int8_conv2d_plain(xs[0], wq, padding=pad, c_in=c)
+        res = {}
+        for rnd in range(2):
+            for name, lib in libs.items():
+                ic._int8_conv_lib = lambda lib=lib: lib
+                chip_smoke.check(torch.equal(ic.int8_conv2d(xs[0], wq, padding=pad, c_in=c), ref),
+                                 f'int8_study: {name} differs from the plain sums')
+                fn = lambda t: ic.int8_conv2d(t, wq, padding=pad, scale=scale,  # noqa: E731
+                                              out_dtype=torch.bfloat16, c_in=c)
+                res.setdefault(name, []).append(chip_smoke.graph_ms(fn, xs))
+        print(json.dumps({'mode': 'params', 'shape': [b, h, w, c, n, k], 'device_ms': res}),
+              flush=True)
+
+
+PREDICT = r'''
+import json, statistics, sys, time
+import numpy as np
+import torch
+import chip_smoke as cs
+from visualdet3d_tpu_torch.ops import kernel_build
+kernel_build.build(['int8_conv', 'int8_block', 'correlation', 'deform_conv'])
+for model in sys.argv[1:]:
+    if model == 'stereo':
+        from visualdet3d_tpu_torch.entry import IMAGE_HW, KITTI_P2, build_int8_system
+        system = build_int8_system(device='cuda')
+        gen = torch.Generator(device='cuda').manual_seed(3)
+        batches = [(torch.randn((16, *IMAGE_HW, 3), generator=gen, device='cuda'),
+                    torch.randn((16, *IMAGE_HW, 3), generator=gen, device='cuda'))
+                   for _ in range(7)]
+        P2 = torch.as_tensor(np.tile(KITTI_P2, (16, 1, 1)), device='cuda')
+        call = lambda b, p: system.predict(*b, p)
+        one = lambda b: tuple(t[:1].clone() for t in b)
+    else:
+        system, _ = cs.build_mono_int8(torch, model)
+        images, P2, _ = cs.mono_inputs(torch, model, 7, 16, seed=64)
+        batches = images
+        call = lambda b, p: system.predict(b, p)
+        one = lambda b: b[:1].clone()
+    system.cfg.inference_dtype, system.cfg.int8_block = 'int8', None
+    call(batches[0], P2)
+    torch.cuda.synchronize()
+    rounds = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        for b in batches[1:]:
+            call(b, P2)
+        torch.cuda.synchronize()
+        rounds.append((time.perf_counter() - t0) * 1e3 / 6)
+    lats = cs.bs1_latencies(torch, lambda b: call(b, P2[:1]), [one(b) for b in batches])
+    wall, _, _, device_ms = cs.device_profile(torch, lambda: call(batches[1], P2))
+    print(json.dumps({'model': model, 'ms_per_batch': rounds, 'bs1_p50_ms': statistics.median(lats),
+                      'device_ms': device_ms, 'profile_wall_ms': wall}), flush=True)
+    del system
+    torch.cuda.empty_cache()
+'''
+
+
+def predict(path: str, models) -> None:
+    models = models or ['stereo', 'ground_aware', 'dcn']
+    roots = {'parent': str(Path(path).resolve()), 'current': str(Path(__file__).resolve().parent)}
+    for turn, who in enumerate(('parent', 'current', 'current', 'parent')):
+        proc = subprocess.run([sys.executable, '-c', PREDICT, *models], cwd=roots[who],
+                              capture_output=True, text=True, timeout=1200)
+        if proc.returncode:
+            raise SystemExit(f'int8_study: the {who} predict failed:\n{proc.stderr[-3000:]}')
+        for line in proc.stdout.splitlines():
+            if line.startswith('{"model"'):
+                print(json.dumps({'mode': 'predict', 'turn': turn, 'who': who,
+                                  **json.loads(line)}), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit('int8_study: needs a CUDA card')
     mode = sys.argv[1] if len(sys.argv) > 1 else 'variants'
     if mode == 'variants':
         variants()
+    elif mode == 'predict' and len(sys.argv) > 2:
+        predict(sys.argv[2], sys.argv[3:])
+    elif mode == 'params':
+        params()
+    elif mode == 'b8':
+        b8(sys.argv[2] if len(sys.argv) > 2 else None)
     elif mode == 'parent' and len(sys.argv) > 2:
         parent(sys.argv[2])
     else:

@@ -353,7 +353,7 @@ def test_no_smem_opt_in_is_cached_once_a_process():
     assert 'cudaGetDevice(&device)' in helper and 'devices_set & bit' in helper
     assert text.count('cudaFuncSetAttribute') == 1  # the helper's
     conv = (kernel_build.CSRC_DIR / 'int8_conv.cu').read_text()
-    assert conv.count('opt_in_smem(int8_conv') == 2  # both B8 launchers
+    assert conv.count('opt_in_smem(int8_conv') == 1  # B8's launcher
 
 
 def test_every_int8_smem_opt_in_is_the_shared_helper():

@@ -1,18 +1,8 @@
 // Pieces shared by the int8 kernels (int8_conv.cu, int8_block.cu): asynchronous
 // copies into shared memory with zero fill, the s8 x s8 -> s32 tensor-core
-// products (mma.sync.m16n8k32 and wgmma.mma_async m64n64k32), mbarriers, TMA
-// loads, the driver's tensor-map encoder, and the once-per-device opt-in to
-// more than 48 KB of dynamic shared memory.
-//
-// Fragments of mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 (PTX ISA), with
-// g = lane / 4 and t = lane % 4:
-//   A (16 x 32, row-major): a0 = A[g][4t..4t+3],     a1 = A[g+8][4t..4t+3],
-//                           a2 = A[g][16+4t..],      a3 = A[g+8][16+4t..]
-//   B (32 x 8, by column):  b0 = B[4t..4t+3][g],     b1 = B[16+4t..][g]
-//   C (16 x 8):             c0, c1 = C[g][2t, 2t+1], c2, c3 = C[g+8][2t, 2t+1]
-// so an A tile stored row by row with k contiguous and a B tile stored column
-// by column (an output channel's weights, k contiguous) give every fragment
-// register from one aligned 32-bit piece of shared memory (ldmatrix).
+// product wgmma.mma_async m64n64k32, mbarriers, TMA loads, the driver's
+// tensor-map encoder, and the once-per-device opt-in to more than 48 KB of
+// dynamic shared memory.
 //
 // The wgmma accumulator of m64nNk32 (s32): thread t of the warpgroup holds
 // rows 16 * (t / 32) + (t % 32) / 4 and that + 8, columns 8j + 2(t % 4) + {0, 1};
@@ -48,15 +38,6 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], int a0, int a1, int a2, int a3, int b0,
-                                       int b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {

@@ -16,39 +16,29 @@
 //
 // with zero outside the image (exact under symmetric quantization: 0 -> 0).
 // The input is NHWC s8 (the port's channels_last activations), the weights
-// [C_out, kh, kw, C_in] s8 (k = (ky*kw + kx)*C_in + c contiguous), the output
-// NHWC. scale = w_scale * act_scale is formed by the caller in f32, as JAX
+// [C_out, kh, kw, pitch] s8 (k = (ky*kw + kx)*pitch + c contiguous; the
+// channel pitch below), the output NHWC. scale = w_scale * act_scale is formed by the caller in f32, as JAX
 // forms it; the epilogue multiplies and adds with explicit round-to-nearest
 // (__fmul_rn, __fadd_rn: no fused multiply-add), the plain version's order.
 //
 // As a GEMM: M = B*Ho*Wo output pixels, N = C_out, K = kh*kw*C_in. What bounds
-// it on the card: the int8 tensor cores for the wide convs of the stereo path
-// (3x3 over 256-1408 channels: hundreds of operations per byte), and behind
-// them the L2 traffic that feeds shared memory (a 128 x 256 tile reads 48 KB
-// per 8.4 M operations: ~11 TB/s at the peak rate); device memory for the
-// 64-channel convs at stride 4. The source has two paths, chosen per shape by
-// the plan of ops/int8_conv.py (plan_int8_conv):
+// it on the card: the int8 tensor cores for the wide convs (3x3 over 256-1408
+// channels: hundreds of operations per byte), and behind them the L2 traffic
+// that feeds shared memory (a 128 x 256 tile reads 48 KB per 8.4 M operations:
+// ~11 TB/s at the peak rate); device memory for the 64-72-channel convs at
+// strides 4 and 8. Every shape takes the one path described before its kernel
+// below (TMA loads of shifted boxes of the NHWC input and of the weights into
+// a 4-stage ring kept by one producer warp, wgmma.mma_async s8 on two consumer
+// warpgroups, split K where few tiles meet a long K, the epilogue staged
+// through shared memory), with the plan of ops/int8_conv.py (plan_int8_conv).
 //
-//   * the wgmma path (stride 1, C_in % 16 == 0, 16-byte aligned bases: every
-//     int8 conv of the stereo predict but the two at C_in = 72), described
-//     before its kernel below: TMA loads of shifted boxes of the NHWC input
-//     and of the weights into a 4-stage ring kept by one producer warp,
-//     wgmma.mma_async s8 on two consumer warpgroups, split K where few
-//     tiles meet a long K, the epilogue staged through shared memory;
-//   * the cp.async path, for every other shape (stride 2, C_in not a multiple
-//     of 16, a misaligned base): a block owns a 128-pixel x 128-channel
-//     output tile (64 channels where C_out < 128) and walks K in steps of
-//     64, gathering its im2col tile [128 x 64] of the input and the weight
-//     tile into shared memory with cp.async (16, 8 or 4 bytes a copy, by
-//     what C_in and the pointers allow; zero fill for the border, the
-//     padding and the K and N tails), three stages deep. Eight warps each
-//     compute a 64 x 32 piece (32 x 32 in the 64-channel tile) with
-//     mma.sync m16n8k32 (s8 x s8 -> s32), their fragments loaded by
-//     ldmatrix. Rows of shared memory are padded to 80 bytes, so the eight
-//     rows of an ldmatrix hit 32 distinct banks. A table in shared memory
-//     keeps each tile row's image base and top-left input coordinate, so the
-//     gather does one division per step (K index -> tap, channel) and none
-//     per row.
+// Channel pitch: the input's and the weights' channels are stored in rows of
+// `pitch` bytes, a multiple of 16 (the TMA unit's stride unit) and at least
+// 32 (one k32 step of wgmma), C_in of them used; Int8Conv2d keeps its
+// weights with a zero tail, and the quantize below writes its output so.
+// The input's tensor map is C_in channels wide with a `pitch` stride: the
+// TMA unit zero-fills every channel past C_in, so the tails are never read
+// into a product.
 //
 // The same source holds the activation quantize that feeds it, which replaces
 // XLA's elementwise _quantize_act (visualdet3d_tpu/models/quant.py:396; no
@@ -75,262 +65,12 @@ namespace {
 
 using namespace vd3d_int8;
 
-constexpr int kBM = 128;        // output pixels per block
-constexpr int kBK = 64;         // K per step
-constexpr int kRow = kBK + 16;  // padded shared-memory row, bytes
-constexpr int kThreads = 256;
-constexpr int kStages = 3;
-
 enum Epilogue { kRawS32 = 0, kScaleF32 = 1, kScaleBF16 = 2 };
 
-struct Conv {
-  const int8_t* x;
-  const int8_t* w;
-  void* out;
-  const float* scale;
-  const float* bias;
-  int H, W, C, N, kw, sh, sw, ph, pw, dh, dw, Ho, Wo, K;
-  long long M;
-};
-
-// Gather step kt of the im2col tile [kBM x kBK] and the weight tile
-// [BN x kBK] into one stage.
-template <int VEC, int BN>
-__device__ __forceinline__ void load_step(const Conv& p, int kt, int8_t* As, int8_t* Bs,
-                                          const long long* row_base, const int* row_iy,
-                                          const int* row_ix, long long n0) {
-  constexpr int kCpr = kBK / VEC;          // copies per row
-  constexpr int kRstep = kThreads / kCpr;  // rows between a thread's copies
-  const int col = (threadIdx.x % kCpr) * VEC;
-  const int r0 = threadIdx.x / kCpr;
-  const int k = kt * kBK + col;
-  const bool k_ok = k < p.K;
-  int ci = 0, dy = 0, dx = 0;
-  if (k_ok) {
-    const int tap = k / p.C;
-    ci = k - tap * p.C;
-    const int ky = tap / p.kw;
-    dy = ky * p.dh;
-    dx = (tap - ky * p.kw) * p.dw;
-  }
-#pragma unroll 4
-  for (int r = r0; r < kBM; r += kRstep) {
-    const long long base = row_base[r];
-    const int iy = row_iy[r] + dy, ix = row_ix[r] + dx;
-    const bool ok = k_ok && base >= 0 && iy >= 0 && iy < p.H && ix >= 0 && ix < p.W;
-    const int8_t* src = ok ? p.x + base + ((long long)iy * p.W + ix) * p.C + ci : p.x;
-    int8_t* dst = As + r * kRow + col;
-    if constexpr (VEC >= 4) {
-      cp_async<VEC>(dst, src, ok);
-    } else {
-      *dst = ok ? *src : (int8_t)0;
-    }
-  }
-#pragma unroll 4
-  for (int r = r0; r < BN; r += kRstep) {
-    const long long n = n0 + r;
-    const bool ok = k_ok && n < p.N;
-    const int8_t* src = ok ? p.w + n * p.K + k : p.w;
-    int8_t* dst = Bs + r * kRow + col;
-    if constexpr (VEC >= 4) {
-      cp_async<VEC>(dst, src, ok);
-    } else {
-      *dst = ok ? *src : (int8_t)0;
-    }
-  }
-}
-
-template <int EPI>
-__device__ __forceinline__ void store_pair(const Conv& p, long long m, int n, int v0, int v1) {
-  if (m >= p.M || n >= p.N) return;
-  const long long o = m * p.N + n;
-  const bool pair = n + 1 < p.N;
-  if constexpr (EPI == kRawS32) {
-    int* out = static_cast<int*>(p.out) + o;
-    if (pair && (p.N % 2 == 0)) {
-      *reinterpret_cast<int2*>(out) = make_int2(v0, v1);
-    } else {
-      out[0] = v0;
-      if (pair) out[1] = v1;
-    }
-  } else {
-    float f0 = __fmul_rn(__int2float_rn(v0), p.scale[n]);
-    float f1 = pair ? __fmul_rn(__int2float_rn(v1), p.scale[n + 1]) : 0.f;
-    if (p.bias != nullptr) {
-      f0 = __fadd_rn(f0, p.bias[n]);
-      if (pair) f1 = __fadd_rn(f1, p.bias[n + 1]);
-    }
-    if constexpr (EPI == kScaleF32) {
-      float* out = static_cast<float*>(p.out) + o;
-      if (pair && (p.N % 2 == 0)) {
-        *reinterpret_cast<float2*>(out) = make_float2(f0, f1);
-      } else {
-        out[0] = f0;
-        if (pair) out[1] = f1;
-      }
-    } else {
-      __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out) + o;
-      if (pair && (p.N % 2 == 0)) {
-        *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(f0, f1);
-      } else {
-        out[0] = __float2bfloat16_rn(f0);
-        if (pair) out[1] = __float2bfloat16_rn(f1);
-      }
-    }
-  }
-}
-
-// ldmatrix.x4: four 8x8 matrices of 16-bit pairs (here 8 rows x 16 s8);
-// lane L gives the row address of matrix L / 8, row L % 8.
-__device__ __forceinline__ void ldmatrix_x4(int (&r)[4], const int8_t* row) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(row)));
-}
-
-// BN = 128: eight warps as 2 (M) x 4 (N), a warp computing 64 x 32;
-// BN = 64: 4 x 2 warps of 32 x 32.
-template <int VEC, int EPI, int BN>
-__global__ void __launch_bounds__(kThreads) int8_conv_kernel(Conv p) {
-  constexpr int kWarpsN = BN / 32, kWarpsM = 8 / kWarpsN;
-  constexpr int kWM = kBM / kWarpsM;       // warp rows
-  constexpr int kMT = kWM / 16, kNT = 4;   // m16 and n8 tiles of a warp
-  constexpr int kStage = (kBM + BN) * kRow;
-  extern __shared__ __align__(16) int8_t smem[];
-  __shared__ long long row_base[kBM];
-  __shared__ int row_iy[kBM], row_ix[kBM];
-
-  const long long m0 = (long long)blockIdx.x * kBM;
-  const long long n0 = (long long)blockIdx.y * BN;
-  if (threadIdx.x < kBM) {
-    const long long m = m0 + threadIdx.x;
-    if (m < p.M) {
-      const long long hw = (long long)p.Ho * p.Wo;
-      const long long b = m / hw;
-      const int r = (int)(m - b * hw);
-      const int oy = r / p.Wo, ox = r - (r / p.Wo) * p.Wo;
-      row_base[threadIdx.x] = b * p.H * p.W * p.C;
-      row_iy[threadIdx.x] = oy * p.sh - p.ph;
-      row_ix[threadIdx.x] = ox * p.sw - p.pw;
-    } else {
-      row_base[threadIdx.x] = -1;
-      row_iy[threadIdx.x] = 0;
-      row_ix[threadIdx.x] = 0;
-    }
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int wm = (warp % kWarpsM) * kWM, wn = (warp / kWarpsM) * 32;
-  // this lane's ldmatrix row: A (rows +8 for matrices 1, 3; bytes +16 for 2, 3),
-  // B (rows +8 for matrices 2, 3; bytes +16 for 1, 3)
-  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8, a_col = (lane >> 4) * 16;
-  const int b_row = (lane & 7) + (lane >> 4) * 8, b_col = ((lane >> 3) & 1) * 16;
-  int acc[kMT][kNT][4];
-#pragma unroll
-  for (int i = 0; i < kMT; ++i)
-#pragma unroll
-    for (int j = 0; j < kNT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-  const int steps = (p.K + kBK - 1) / kBK;
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < steps)
-      load_step<VEC, BN>(p, s, smem + s * kStage, smem + s * kStage + kBM * kRow, row_base,
-                         row_iy, row_ix, n0);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < steps; ++kt) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    const int nxt = kt + kStages - 1;
-    if (nxt < steps) {
-      int8_t* st = smem + (nxt % kStages) * kStage;
-      load_step<VEC, BN>(p, nxt, st, st + kBM * kRow, row_base, row_iy, row_ix, n0);
-    }
-    cp_async_commit();
-    const int8_t* A = smem + (kt % kStages) * kStage;
-    const int8_t* Bt = A + kBM * kRow;
-#pragma unroll
-    for (int ks = 0; ks < kBK; ks += 32) {
-      int a[kMT][4], b[kNT][2];
-#pragma unroll
-      for (int i = 0; i < kMT; ++i)
-        ldmatrix_x4(a[i], A + (wm + i * 16 + a_row) * kRow + ks + a_col);
-#pragma unroll
-      for (int j = 0; j < kNT; j += 2) {
-        int r[4];
-        ldmatrix_x4(r, Bt + (wn + j * 8 + b_row) * kRow + ks + b_col);
-        b[j][0] = r[0];
-        b[j][1] = r[1];
-        b[j + 1][0] = r[2];
-        b[j + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int i = 0; i < kMT; ++i)
-#pragma unroll
-        for (int j = 0; j < kNT; ++j)
-          mma_s8(acc[i][j], a[i][0], a[i][1], a[i][2], a[i][3], b[j][0], b[j][1]);
-    }
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int i = 0; i < kMT; ++i) {
-    const long long m = m0 + wm + i * 16 + g;
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-      const int n = (int)n0 + wn + j * 8 + 2 * t;
-      store_pair<EPI>(p, m, n, acc[i][j][0], acc[i][j][1]);
-      store_pair<EPI>(p, m + 8, n, acc[i][j][2], acc[i][j][3]);
-    }
-  }
-}
-
-template <int VEC, int EPI, int BN>
-cudaError_t launch_tile(const Conv& p, cudaStream_t stream) {
-  constexpr int smem = kStages * (kBM + BN) * kRow;
-  static unsigned long long devices_set = 0;  // per instance
-  if (const cudaError_t e = opt_in_smem(int8_conv_kernel<VEC, EPI, BN>, smem, devices_set);
-      e != cudaSuccess)
-    return e;
-  const dim3 grid((unsigned)((p.M + kBM - 1) / kBM), (unsigned)((p.N + BN - 1) / BN));
-  int8_conv_kernel<VEC, EPI, BN><<<grid, kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
-// 128 output channels a block where there are as many, else 64.
-template <int VEC, int EPI>
-cudaError_t launch_epi(const Conv& p, cudaStream_t stream) {
-  return p.N >= 128 ? launch_tile<VEC, EPI, 128>(p, stream) : launch_tile<VEC, EPI, 64>(p, stream);
-}
-
-template <int VEC>
-cudaError_t launch_vec(const Conv& p, int epilogue, cudaStream_t stream) {
-  switch (epilogue) {
-    case kRawS32: return launch_epi<VEC, kRawS32>(p, stream);
-    case kScaleF32: return launch_epi<VEC, kScaleF32>(p, stream);
-    case kScaleBF16: return launch_epi<VEC, kScaleBF16>(p, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-// The widest copy that C_in and the two pointers allow.
-int copy_width(const void* x, const void* w, int C) {
-  const uintptr_t a = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w);
-  for (int v = 16; v >= 4; v /= 2)
-    if (C % v == 0 && a % v == 0) return v;
-  return 1;
-}
-
 // ---------------------------------------------------------------------------
-// The wgmma path: stride 1, C_in % 16 == 0, 16-byte aligned x and w (every
-// int8 conv of the stereo predict but the two at C_in = 72). The plan
-// (ops/int8_conv.py, plan_int8_conv) picks the box, the K step, the N tile
-// and the split; this source takes them as they come.
+// The convolution. The plan (ops/int8_conv.py, plan_int8_conv) picks the
+// box, the K step, the N tile and the split; this source takes them as they
+// come. A 1x1 conv without padding comes as one row of B*H*W pixels.
 //
 //   * A block owns two boxes of 64 output pixels (box_h x box_w, a rectangle
 //     of one image's output: whole rows, row segments or an 8x8 patch,
@@ -339,15 +79,24 @@ int copy_width(const void* x, const void* w, int C) {
 //     row of boxes, and a block takes boxes 2t and 2t+1.
 //   * K is walked as (tap, channel chunk of BK = 128, 64 or 32 bytes). The A
 //     tile of one consumer and one step is ONE TMA load: the box of the NHWC
-//     input at (c0, ox0 - pw + kx*dw, oy0 - ph + ky*dh, b). Coordinates
-//     outside the image (the padding, the border, a ragged box, a channel
-//     tail) are zero-filled by the TMA unit, so the gather has no predicate.
-//     The B tile is one TMA load of the [N, K] weights at (tap*C + c0, n0).
+//     input at (c0, ox0*sw - pw + kx*dw, oy0*sh - ph + ky*dh, b), traversed
+//     with element strides (sw, sh) on W and H, so a strided conv loads its
+//     box_w x box_h taps densely. Coordinates outside the image (the
+//     padding, the border, a ragged box, the channels past C_in) are
+//     zero-filled by the TMA unit, so the gather has no predicate.
+//     The B tile is one TMA load of the [N, kh*kw*pitch] weights at
+//     (tap*pitch + c0, n0); where the chunk runs past the tap's pitch it
+//     reads the next tap's weights, which meet the zero-filled A channels.
 //     Both land swizzled (32, 64 or 128-byte swizzle for BK = 32, 64, 128),
 //     one row per pixel or output channel, K-major: the layout wgmma takes
 //     for 8-bit operands.
-//   * Warp 8 is the producer: one thread keeps a ring of 4 stages in flight
-//     (full/empty mbarriers, the full one counting the TMA's bytes).
+//   * Warp 8 is the producer: one thread keeps a ring of STAGES stages in
+//     flight (full/empty mbarriers, the full one counting the TMA's bytes):
+//     4, or 3 where K runs few steps and that lets a second block onto the
+//     SM (the plan's `stages`: 128-channel tiles on 128-byte chunks, whose 4
+//     stages of 32 KB leave no room for one), so that two blocks' loads hide
+//     each other's latency. The count is a template parameter: a runtime one
+//     cost the 4-stage kernels 5-7% (int8_study.py b8 on an H100).
 //     Warps 0-3 and 4-7 are two consumer warpgroups, one per box, each
 //     running wgmma.mma_async m64nBNk32 s8 x s8 -> s32 on its 64 x BN tile
 //     with the accumulators in registers, one wgmma group in flight while
@@ -365,7 +114,6 @@ int copy_width(const void* x, const void* w, int C) {
 //     and bias to the full sums (never to a partial one).
 // ---------------------------------------------------------------------------
 
-constexpr int kTmaStages = 4;
 constexpr int kTmaThreads = 288;  // consumer warpgroups 0 (warps 0-3), 1 (4-7); producer warp 8
 constexpr int kBoxPixels = 64;    // pixels of one box = rows of one consumer's tile
 
@@ -374,11 +122,14 @@ struct TmaConv {
   const float* scale;
   const float* bias;
   int* acc;  // split K: the zeroed s32 sums (the output itself for raw s32)
-  int B, Ho, Wo, N, C, kw, ph, pw, dh, dw;
+  int B, Ho, Wo, N, pitch, kw, sh, sw, ph, pw, dh, dw;
   int box_h, box_w, boxes_x, boxes_per_image, m_boxes;
-  int bk, chunks, k_steps, steps_per_split, n_tiles, split;
-  int stage_bytes, bar_offset, out_vec;  // out_vec: N * element size % 16 == 0
+  int bk, chunks, k_steps, steps_per_split, n_tiles;  // the split: gridDim.y
+  int stage_bytes, bar_offset;
 };
+// 128 bytes at most: on an H100 one int more (136 bytes) ran the kernel
+// 1.45-1.75x slower at every shape timed (int8_study.py params)
+static_assert(sizeof(TmaConv) <= 128, "TmaConv: keep the kernel's parameters within 128 bytes");
 
 // wgmma shared-memory descriptor of a K-major tile whose rows are BK bytes
 // (BK = the swizzle span): start address, LBO 1 (unused when swizzled), SBO
@@ -494,7 +245,7 @@ __device__ __forceinline__ typename OutT<EPI>::T epilogue_value(int v, const flo
   }
 }
 
-template <int BN, int EPI>
+template <int BN, int EPI, int STAGES>
 __global__ void __launch_bounds__(kTmaThreads, BN == 256 ? 1 : 2)
     int8_conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                            const __grid_constant__ CUtensorMap wmap, TmaConv p) {
@@ -504,10 +255,10 @@ __global__ void __launch_bounds__(kTmaThreads, BN == 256 ? 1 : 2)
   const uint32_t raw_addr = smem_addr(smem_raw);
   uint8_t* smem = smem_raw + ((1024 - (raw_addr & 1023)) & 1023);
   const uint32_t base = smem_addr(smem);
-  const uint32_t full0 = base + p.bar_offset, empty0 = full0 + 8 * kTmaStages;
+  const uint32_t full0 = base + p.bar_offset, empty0 = full0 + 8 * STAGES;
   const int tid = threadIdx.x;
   if (tid == 0) {
-    for (int s = 0; s < kTmaStages; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       mbar_init(full0 + 8 * s, 1);
       mbar_init(empty0 + 8 * s, 2);
     }
@@ -530,12 +281,12 @@ __global__ void __launch_bounds__(kTmaThreads, BN == 256 ? 1 : 2)
         const int q = 2 * m_tile + c;  // q >= m_boxes: b = B, wholly outside, zero-filled
         bb[c] = q / p.boxes_per_image;
         const int r = q - bb[c] * p.boxes_per_image;
-        by[c] = (r / p.boxes_x) * p.box_h - p.ph;
-        bx[c] = (r % p.boxes_x) * p.box_w - p.pw;
+        by[c] = (r / p.boxes_x) * p.box_h * p.sh - p.ph;
+        bx[c] = (r % p.boxes_x) * p.box_w * p.sw - p.pw;
       }
       for (int i = 0; i < n_steps; ++i) {
-        const int st = i % kTmaStages;
-        if (i >= kTmaStages) mbar_wait(empty0 + 8 * st, ((i / kTmaStages) - 1) & 1);
+        const int st = i % STAGES;
+        if (i >= STAGES) mbar_wait(empty0 + 8 * st, ((i / STAGES) - 1) & 1);
         const int s = s_begin + i;
         const int tap = s / p.chunks, c0 = (s - tap * p.chunks) * bk;
         const int ky = tap / p.kw, kx = tap - ky * p.kw;
@@ -545,7 +296,7 @@ __global__ void __launch_bounds__(kTmaThreads, BN == 256 ? 1 : 2)
         for (int c = 0; c < 2; ++c)
           tma_load_4d(dst + c * kBoxPixels * bk, &xmap, full, c0, bx[c] + kx * p.dw,
                       by[c] + ky * p.dh, bb[c]);
-        tma_load_2d(dst + 2 * kBoxPixels * bk, &wmap, full, tap * p.C + c0, n0);
+        tma_load_2d(dst + 2 * kBoxPixels * bk, &wmap, full, tap * p.pitch + c0, n0);
       }
     }
     return;
@@ -557,8 +308,8 @@ __global__ void __launch_bounds__(kTmaThreads, BN == 256 ? 1 : 2)
 #pragma unroll
   for (int j = 0; j < BN / 2; ++j) acc[j] = 0;
   for (int i = 0; i < n_steps; ++i) {
-    const int st = i % kTmaStages;
-    mbar_wait(full0 + 8 * st, (i / kTmaStages) & 1);
+    const int st = i % STAGES;
+    mbar_wait(full0 + 8 * st, (i / STAGES) & 1);
     const uint32_t stage = base + st * p.stage_bytes;
     const uint64_t da = wgmma_desc(stage + wg * kBoxPixels * bk, bk);
     const uint64_t db = wgmma_desc(stage + 2 * kBoxPixels * bk, bk);
@@ -567,7 +318,7 @@ __global__ void __launch_bounds__(kTmaThreads, BN == 256 ? 1 : 2)
     wgmma_commit();
     wgmma_wait<1>();
     // the previous step's products are done: its stage goes back to the producer
-    if (i > 0 && t == 0) mbar_arrive(empty0 + 8 * ((i - 1) % kTmaStages));
+    if (i > 0 && t == 0) mbar_arrive(empty0 + 8 * ((i - 1) % STAGES));
   }
   wgmma_wait<0>();
 
@@ -585,7 +336,7 @@ __global__ void __launch_bounds__(kTmaThreads, BN == 256 ? 1 : 2)
     return ((long long)b * p.Ho + oy) * p.Wo + ox;
   };
 
-  if (p.split > 1) {  // partial sums: exact integer atomics into the zeroed s32 buffer
+  if (gridDim.y > 1) {  // split K: exact integer atomics into the zeroed s32 buffer
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const long long m = pixel(r_lo + 8 * h);
@@ -618,7 +369,7 @@ __global__ void __launch_bounds__(kTmaThreads, BN == 256 ? 1 : 2)
   }
   named_barrier(2 + wg, 128);
   T* out = static_cast<T*>(p.out);
-  if (p.out_vec) {  // 16-byte pieces of each pixel row
+  if ((p.N * (int)sizeof(T)) % 16 == 0) {  // 16-byte pieces of each pixel row
     constexpr int kVec = 16 / (int)sizeof(T), kPieces = BN / kVec;
     for (int e = t; e < kBoxPixels * kPieces; e += 128) {
       const int r = e / kPieces, v = e - r * kPieces;
@@ -654,24 +405,24 @@ CUtensorMapSwizzle swizzle_of(int bk) {
                    : (bk == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B);
 }
 
-template <int BN, int EPI>
-cudaError_t launch_wgmma(const CUtensorMap& xmap, const CUtensorMap& wmap, TmaConv p,
+template <int BN, int EPI, int STAGES>
+cudaError_t launch_wgmma(const CUtensorMap& xmap, const CUtensorMap& wmap, TmaConv p, int split,
                          cudaStream_t stream) {
   using T = typename OutT<EPI>::T;
-  const int ring = kTmaStages * p.stage_bytes;
+  const int ring = STAGES * p.stage_bytes;
   const int staging = 2 * kBoxPixels * (BN * (int)sizeof(T) + 16);
   p.bar_offset = ((ring > staging ? ring : staging) + 7) / 8 * 8;
-  p.out_vec = (p.N * (int)sizeof(T)) % 16 == 0;
-  const int smem = p.bar_offset + 16 * kTmaStages + 1024;  // + the 1024-byte alignment
+  const int smem = p.bar_offset + 16 * STAGES + 1024;  // + the 1024-byte alignment
   static unsigned long long devices_set = 0;  // per instance
-  if (const cudaError_t e = opt_in_smem(int8_conv_wgmma_kernel<BN, EPI>, 232448, devices_set);
+  if (const cudaError_t e =
+          opt_in_smem(int8_conv_wgmma_kernel<BN, EPI, STAGES>, 232448, devices_set);
       e != cudaSuccess)
     return e;
   const long long tiles = (long long)((p.m_boxes + 1) / 2) * p.n_tiles;
-  const dim3 grid((unsigned)tiles, (unsigned)p.split);
-  int8_conv_wgmma_kernel<BN, EPI><<<grid, kTmaThreads, smem, stream>>>(xmap, wmap, p);
+  const dim3 grid((unsigned)tiles, (unsigned)split);
+  int8_conv_wgmma_kernel<BN, EPI, STAGES><<<grid, kTmaThreads, smem, stream>>>(xmap, wmap, p);
   cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || p.split == 1 || EPI == kRawS32) return e;
+  if (e != cudaSuccess || split == 1 || EPI == kRawS32) return e;
   const long long total = (long long)p.B * p.Ho * p.Wo * p.N;
   long long blocks = (total + 255) / 256;
   if (blocks > 132LL * 8) blocks = 132LL * 8;
@@ -679,13 +430,13 @@ cudaError_t launch_wgmma(const CUtensorMap& xmap, const CUtensorMap& wmap, TmaCo
   return cudaGetLastError();
 }
 
-template <int BN>
+template <int BN, int STAGES>
 cudaError_t launch_wgmma_epi(const CUtensorMap& xmap, const CUtensorMap& wmap, const TmaConv& p,
-                             int epilogue, cudaStream_t stream) {
+                             int split, int epilogue, cudaStream_t stream) {
   switch (epilogue) {
-    case kRawS32: return launch_wgmma<BN, kRawS32>(xmap, wmap, p, stream);
-    case kScaleF32: return launch_wgmma<BN, kScaleF32>(xmap, wmap, p, stream);
-    case kScaleBF16: return launch_wgmma<BN, kScaleBF16>(xmap, wmap, p, stream);
+    case kRawS32: return launch_wgmma<BN, kRawS32, STAGES>(xmap, wmap, p, split, stream);
+    case kScaleF32: return launch_wgmma<BN, kScaleF32, STAGES>(xmap, wmap, p, split, stream);
+    case kScaleBF16: return launch_wgmma<BN, kScaleBF16, STAGES>(xmap, wmap, p, split, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -878,6 +629,124 @@ int launch_quantize(const void* x, const void* inv, void* out, long long n, int 
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The pitched quantize: x [rows, C] -> out [rows, pitch] s8, each row's C
+// values and then zeros up to the pitch (the conv's channel pitch, a
+// multiple of 16: C_in = 72 -> 80, 1025 -> 1040). Bound by device memory as
+// the flat pass is.
+//
+//   * A thread takes one 16-byte vector of the output (16 channels of one
+//     row) at a time, grid stride over rows x pitch / 16: every store is 16
+//     bytes and aligned, neighbouring threads write neighbouring vectors.
+//   * Its 16 inputs start at x + r*C + 16j, whose alignment changes from row
+//     to row where a row is not a whole number of 16-byte words (C = 1025
+//     in bf16: 2050-byte rows). They are read as the aligned 16-byte words
+//     that hold them (3 in bf16, 5 in f32) and shifted into place, a word
+//     offset and then __funnelshift_r by the bytes left: no unaligned
+//     access; the extra word is the neighbouring thread's too (L1 serves it).
+//     The vector that holds a row's last C % 16 channels reads on into the
+//     next row the same way and keeps its first C % 16 values.
+//   * A vector whose aligned words would reach outside x (at the tensor's
+//     two ends) is read element by element: the scalar head and tail.
+//     Channels past C are written as 0. The arithmetic is the flat pass's.
+// ---------------------------------------------------------------------------
+
+// 16 values from an element-aligned address, through aligned 16-byte loads.
+template <typename T>
+__device__ __forceinline__ void load_vec_shifted(const T* p, float (&v)[kQVec]) {
+  constexpr int kWords = kQVec * (int)sizeof(T) / 4;  // 8 (bf16) or 16 (f32)
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  const uint4* q = reinterpret_cast<const uint4*>(a & ~uintptr_t(15));
+  uint32_t w[kWords + 4];
+#pragma unroll
+  for (int i = 0; i <= kWords / 4; ++i) {
+    const uint4 r = __ldg(q + i);
+    w[4 * i] = r.x;
+    w[4 * i + 1] = r.y;
+    w[4 * i + 2] = r.z;
+    w[4 * i + 3] = r.w;
+  }
+  const int wo = (int)(a & 15) >> 2, bits = (int)(a & 3) * 8;
+  uint32_t u[kWords + 1];
+#pragma unroll
+  for (int i = 0; i <= kWords; ++i)
+    u[i] = wo == 0 ? w[i] : (wo == 1 ? w[i + 1] : (wo == 2 ? w[i + 2] : w[i + 3]));
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) {
+    const uint32_t word = __funnelshift_r(u[i], u[i + 1], bits);
+    if constexpr (sizeof(T) == 4) {
+      v[i] = __uint_as_float(word);
+    } else {  // a bf16 is the top half of its f32
+      v[2 * i] = __uint_as_float(word << 16);
+      v[2 * i + 1] = __uint_as_float(word & 0xffff0000u);
+    }
+  }
+}
+
+template <typename T, bool kPerChannel>
+__global__ void __launch_bounds__(kQThreads) quantize_pitched_kernel(
+    const T* __restrict__ x, const float* __restrict__ inv, int8_t* __restrict__ out,
+    int rows, int C, int pitch) {
+  constexpr int kSpan = (kQVec * (int)sizeof(T) / 16 + 1) * 16;  // bytes a shifted load reads
+  const int per_row = pitch / kQVec;
+  const int total = rows * per_row;  // below 2**31 (the entry's check)
+  const uintptr_t lo = reinterpret_cast<uintptr_t>(x);
+  const uintptr_t hi = reinterpret_cast<uintptr_t>(x + (long long)rows * C);
+  const float s0 = kPerChannel ? 0.f : __ldg(inv);
+  for (int v = blockIdx.x * kQThreads + threadIdx.x; v < total; v += gridDim.x * kQThreads) {
+    const int r = v / per_row;
+    const int c0 = (v - r * per_row) * kQVec;
+    const T* src = x + (long long)r * C + c0;
+    const int n = min(kQVec, C - c0);  // the row's channels in this vector (none past C)
+    const uintptr_t a = reinterpret_cast<uintptr_t>(src) & ~uintptr_t(15);
+    float xv[kQVec];
+    if (n > 0 && a >= lo && a + kSpan <= hi) {
+      load_vec_shifted(src, xv);
+    } else {
+#pragma unroll
+      for (int e = 0; e < kQVec; ++e) xv[e] = e < n ? to_f32(src[e]) : 0.f;
+    }
+    uint32_t w[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      w[k] = 0;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 4 * k + e;
+        if (c < n)
+          w[k] |= (uint32_t)(uint8_t)quantize_one(xv[c], kPerChannel ? __ldg(inv + c0 + c) : s0)
+                  << (8 * e);
+      }
+    }
+    *reinterpret_cast<uint4*>(out + (long long)r * pitch + c0) =
+        make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+template <typename T>
+int launch_quantize_pitched(const void* x, const void* inv, void* out, int rows, int C,
+                            int pitch, int n_inv, void* stream) {
+  int device = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return (int)e;
+  const long long total = (long long)rows * (pitch / kQVec);
+  long long blocks = (total + kQThreads - 1) / kQThreads;
+  if (blocks > (long long)sms * kQBlocksPerSm) blocks = (long long)sms * kQBlocksPerSm;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const T* xt = static_cast<const T*>(x);
+  const float* it = static_cast<const float*>(inv);
+  int8_t* ot = static_cast<int8_t*>(out);
+  if (n_inv > 1) {
+    quantize_pitched_kernel<T, true><<<(unsigned)blocks, kQThreads, 0, s>>>(xt, it, ot, rows, C,
+                                                                           pitch);
+  } else {
+    quantize_pitched_kernel<T, false><<<(unsigned)blocks, kQThreads, 0, s>>>(xt, it, ot, rows, C,
+                                                                            pitch);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -891,59 +760,45 @@ int vd3d_int8_quantize(const void* x, const void* inv, void* out, long long n, i
                 : launch_quantize<float>(x, inv, out, n, n_inv, stream);
 }
 
-// x [B,H,W,C] s8, w [N,kh,kw,C] s8, out [B,Ho,Wo,N] (s32, f32 or bf16 by
-// epilogue 0, 1, 2); scale [N] f32 (epilogues 1, 2), bias [N] f32 or null.
-int vd3d_int8_conv2d(const void* x, const void* w, void* out, const void* scale,
-                     const void* bias, int B, int H, int W, int C, int N, int kh, int kw,
-                     int sh, int sw, int ph, int pw, int dh, int dw, int Ho, int Wo,
-                     int epilogue, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || N <= 0 || kh <= 0 || kw <= 0 || sh <= 0 ||
-      sw <= 0 || dh <= 0 || dw <= 0 || Ho <= 0 || Wo <= 0 || ph < 0 || pw < 0)
+// x [rows, c] f32 (x_bf16 = 0) or bf16 (1), element-aligned; inv [n_inv] f32,
+// n_inv 1 or c; out [rows, pitch] s8, 16-byte aligned, pitch a multiple of 16
+// and at least c: each row's c values, then zeros.
+int vd3d_int8_quantize_pitched(const void* x, const void* inv, void* out, long long rows, int c,
+                               int pitch, int n_inv, int x_bf16, void* stream) {
+  if (rows <= 0 || c <= 0 || pitch < c || pitch % kQVec || (n_inv != 1 && n_inv != c) ||
+      rows * (pitch / kQVec) >= (1LL << 31) || reinterpret_cast<uintptr_t>(out) % 16 ||
+      reinterpret_cast<uintptr_t>(x) % (x_bf16 ? 2 : 4))
     return (int)cudaErrorInvalidValue;
-  if (epilogue != kRawS32 && scale == nullptr) return (int)cudaErrorInvalidValue;
-  const long long K = (long long)kh * kw * C;
-  const long long M = (long long)B * Ho * Wo;
-  if (K > (1LL << 30) || (M + kBM - 1) / kBM > 0x7fffffffLL || (N + 63) / 64 > 65535)
-    return (int)cudaErrorInvalidValue;
-  Conv p;
-  p.x = static_cast<const int8_t*>(x);
-  p.w = static_cast<const int8_t*>(w);
-  p.out = out;
-  p.scale = static_cast<const float*>(scale);
-  p.bias = static_cast<const float*>(bias);
-  p.H = H; p.W = W; p.C = C; p.N = N; p.kw = kw;
-  p.sh = sh; p.sw = sw; p.ph = ph; p.pw = pw; p.dh = dh; p.dw = dw;
-  p.Ho = Ho; p.Wo = Wo; p.K = (int)K; p.M = M;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (copy_width(x, w, C)) {
-    case 16: return (int)launch_vec<16>(p, epilogue, s);
-    case 8: return (int)launch_vec<8>(p, epilogue, s);
-    case 4: return (int)launch_vec<4>(p, epilogue, s);
-    default: return (int)launch_vec<1>(p, epilogue, s);
-  }
+  const int r = (int)rows;
+  return x_bf16 ? launch_quantize_pitched<__nv_bfloat16>(x, inv, out, r, c, pitch, n_inv, stream)
+                : launch_quantize_pitched<float>(x, inv, out, r, c, pitch, n_inv, stream);
 }
 
-// The wgmma path, with the plan of ops/int8_conv.py (plan_int8_conv): x, w,
-// out, scale, bias and the shapes as vd3d_int8_conv2d (stride 1); acc: with
-// split > 1, the zeroed s32 sums [B*Ho*Wo, N] (the output itself for raw
-// s32), else unused; box_h * box_w = 64; bk = 32, 64 or 128 bytes (C >= bk);
-// bn = 64, 128 or 256; block (t, s) of the split takes K steps
-// [s * steps_per_split, (s + 1) * steps_per_split).
+// The int8 conv, with the plan of ops/int8_conv.py (plan_int8_conv): x
+// [B,H,W,pitch] s8 and w [N,kh,kw,pitch] s8, C of each pitch-byte row used;
+// out [B,Ho,Wo,N] (s32, f32 or bf16 by epilogue 0, 1, 2); scale [N] f32
+// (epilogues 1, 2), bias [N] f32 or null; acc: with split > 1, the zeroed
+// s32 sums [B*Ho*Wo, N] (the output itself for raw s32), else unused;
+// box_h * box_w = 64, box_w * sw and box_h * sh at most 256; bk = 32, 64 or
+// 128 bytes; bn = 64, 128 or 256; stages 4, or 3 at bn = 128; block (t, s) of
+// the split takes K steps [s * steps_per_split, (s + 1) * steps_per_split).
 int vd3d_int8_conv2d_wgmma(const void* x, const void* w, void* out, const void* scale,
-                           const void* bias, void* acc, int B, int H, int W, int C, int N, int kh,
-                           int kw, int ph, int pw, int dh, int dw, int Ho, int Wo, int epilogue,
-                           int box_h, int box_w, int bk, int bn, int split, int steps_per_split,
-                           void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || N <= 0 || kh <= 0 || kw <= 0 || dh <= 0 ||
-      dw <= 0 || Ho <= 0 || Wo <= 0 || ph < 0 || pw < 0 || box_h <= 0 || box_w <= 0 ||
-      box_h * box_w != kBoxPixels || (bk != 32 && bk != 64 && bk != 128) || C < bk ||
-      C % 16 != 0 || split <= 0 || steps_per_split <= 0)
+                           const void* bias, void* acc, int B, int H, int W, int C, int pitch,
+                           int N, int kh, int kw, int sh, int sw, int ph, int pw, int dh, int dw,
+                           int Ho, int Wo, int epilogue, int box_h, int box_w, int bk, int bn,
+                           int stages, int split, int steps_per_split, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || N <= 0 || kh <= 0 || kw <= 0 || sh <= 0 ||
+      sw <= 0 || sh > 8 || sw > 8 || dh <= 0 || dw <= 0 || Ho <= 0 || Wo <= 0 || ph < 0 ||
+      pw < 0 || box_h <= 0 || box_w <= 0 || box_h * box_w != kBoxPixels || box_h * sh > 256 ||
+      box_w * sw > 256 || (bk != 32 && bk != 64 && bk != 128) || pitch < C || pitch < 32 ||
+      pitch % 16 != 0 || (stages != 4 && !(stages == 3 && bn == 128)) || split <= 0 ||
+      steps_per_split <= 0)
     return (int)cudaErrorInvalidValue;
   if (epilogue != kRawS32 && scale == nullptr) return (int)cudaErrorInvalidValue;
   if (split > 1 && (epilogue == kRawS32 ? out : acc) == nullptr) return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w)) % 16)
     return (int)cudaErrorMisalignedAddress;
-  const long long K = (long long)kh * kw * C;
+  const long long K = (long long)kh * kw * pitch;
   const int chunks = (C + bk - 1) / bk;
   const long long k_steps = (long long)kh * kw * chunks;
   if (K > (1LL << 30) || (long long)split * steps_per_split < k_steps ||
@@ -954,8 +809,8 @@ int vd3d_int8_conv2d_wgmma(const void* x, const void* w, void* out, const void* 
   p.scale = static_cast<const float*>(scale);
   p.bias = static_cast<const float*>(bias);
   p.acc = static_cast<int*>(epilogue == kRawS32 ? out : acc);
-  p.B = B; p.Ho = Ho; p.Wo = Wo; p.N = N; p.C = C; p.kw = kw;
-  p.ph = ph; p.pw = pw; p.dh = dh; p.dw = dw;
+  p.B = B; p.Ho = Ho; p.Wo = Wo; p.N = N; p.pitch = pitch; p.kw = kw;
+  p.sh = sh; p.sw = sw; p.ph = ph; p.pw = pw; p.dh = dh; p.dw = dw;
   p.box_h = box_h; p.box_w = box_w;
   p.boxes_x = (Wo + box_w - 1) / box_w;
   const long long per_image = (long long)p.boxes_x * ((Ho + box_h - 1) / box_h);
@@ -965,20 +820,25 @@ int vd3d_int8_conv2d_wgmma(const void* x, const void* w, void* out, const void* 
   p.boxes_per_image = (int)per_image;
   p.m_boxes = (int)m_boxes;
   p.bk = bk; p.chunks = chunks; p.k_steps = (int)k_steps;
-  p.steps_per_split = steps_per_split; p.split = split;
+  p.steps_per_split = steps_per_split;
   p.n_tiles = (N + bn - 1) / bn;
   p.stage_bytes = (2 * kBoxPixels + bn) * bk;
-  p.bar_offset = 0; p.out_vec = 0;
+  p.bar_offset = 0;
 
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap xmap, wmap;
   const cuuint32_t ones[4] = {1, 1, 1, 1};
+  // C channels wide, pitch bytes apart: the channels past C are zero-filled
   const cuuint64_t xdims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t xstrides[3] = {(cuuint64_t)C, (cuuint64_t)W * C, (cuuint64_t)H * W * C};
-  const cuuint32_t xbox[4] = {(cuuint32_t)bk, (cuuint32_t)box_w, (cuuint32_t)box_h, 1};
+  const cuuint64_t xstrides[3] = {(cuuint64_t)pitch, (cuuint64_t)W * pitch,
+                                  (cuuint64_t)H * W * pitch};
+  // a box of box_w x box_h taps, every sw-th column and sh-th row
+  const cuuint32_t xbox[4] = {(cuuint32_t)bk, (cuuint32_t)(box_w * sw), (cuuint32_t)(box_h * sh),
+                              1};
+  const cuuint32_t xsteps[4] = {1, (cuuint32_t)sw, (cuuint32_t)sh, 1};
   if (encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(x), xdims, xstrides, xbox,
-             ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_of(bk),
+             xsteps, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_of(bk),
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return (int)cudaErrorInvalidValue;
   const cuuint64_t wdims[2] = {(cuuint64_t)K, (cuuint64_t)N};
@@ -990,9 +850,11 @@ int vd3d_int8_conv2d_wgmma(const void* x, const void* w, void* out, const void* 
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (bn) {
-    case 64: return (int)launch_wgmma_epi<64>(xmap, wmap, p, epilogue, s);
-    case 128: return (int)launch_wgmma_epi<128>(xmap, wmap, p, epilogue, s);
-    case 256: return (int)launch_wgmma_epi<256>(xmap, wmap, p, epilogue, s);
+    case 64: return (int)launch_wgmma_epi<64, 4>(xmap, wmap, p, split, epilogue, s);
+    case 128:
+      return (int)(stages == 3 ? launch_wgmma_epi<128, 3>(xmap, wmap, p, split, epilogue, s)
+                               : launch_wgmma_epi<128, 4>(xmap, wmap, p, split, epilogue, s));
+    case 256: return (int)launch_wgmma_epi<256, 4>(xmap, wmap, p, split, epilogue, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

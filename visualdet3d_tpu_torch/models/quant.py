@@ -51,7 +51,8 @@ from visualdet3d_tpu_torch.models.blocks import calibrating
 from visualdet3d_tpu_torch.models.fold_bn import fold_batchnorm, module_path
 from visualdet3d_tpu_torch.ops.int8_block import CHANNELS as BLOCK_CHANNELS
 from visualdet3d_tpu_torch.ops.int8_block import block_params, int8_basic_block
-from visualdet3d_tpu_torch.ops.int8_conv import int8_conv2d, quantize_act
+from visualdet3d_tpu_torch.ops.int8_conv import (channel_pitch, int8_conv2d, pad_channels,
+                                                 quantize_act)
 
 # inference_dtype -> the dtype of the float computation ('int8': its float remainder)
 INFERENCE_DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16,
@@ -207,8 +208,11 @@ def collect_block_entries(quant: Dict[PathT, dict]) -> Dict[PathT, dict]:
 
 class Int8Conv2d(nn.Module):
     """A quantized ``nn.Conv2d``: NCHW channels_last in, the compute dtype
-    out. The input's quantize is a torch pass; the conv and its epilogue are
-    ``ops.int8_conv.int8_conv2d`` (the CUDA kernel on the card)."""
+    out. The input's quantize and the conv with its epilogue are
+    ``ops.int8_conv.quantize_act`` and ``int8_conv2d`` (the CUDA kernels on
+    the card), on the kernel's channel pitch: ``kernel_q`` is the artifact's
+    ``[C_out, kh, kw, C_in]`` with a zero tail to ``[..., pitch]``, and the
+    quantize writes its output so."""
 
     def __init__(self, conv: nn.Conv2d, entry: dict, compute_dtype: torch.dtype):
         super().__init__()
@@ -216,16 +220,19 @@ class Int8Conv2d(nn.Module):
         (ph, pw) = conv.padding
         self.padding = ((ph, ph), (pw, pw))
         self.compute_dtype = compute_dtype
+        self.c_in = entry['kernel_q'].shape[-1]
+        self.pitch = channel_pitch(self.c_in)
         act = entry['act_scale'].float()
-        self.register_buffer('kernel_q', entry['kernel_q'].contiguous())
+        self.register_buffer('kernel_q', pad_channels(entry['kernel_q'], self.pitch))
         self.register_buffer('inv_act', 1.0 / act)
         self.register_buffer('scale', (entry['w_scale'] * act).float())
         self.register_buffer('bias', entry['bias'].float() if 'bias' in entry else None)
 
     def forward(self, x):
-        xq = quantize_act(x.permute(0, 2, 3, 1).contiguous(), self.inv_act)
+        xq = quantize_act(x.permute(0, 2, 3, 1).contiguous(), self.inv_act, self.pitch)
         y = int8_conv2d(xq, self.kernel_q, self.stride, self.padding, self.dilation,
-                        scale=self.scale, bias=self.bias, out_dtype=self.compute_dtype)
+                        scale=self.scale, bias=self.bias, out_dtype=self.compute_dtype,
+                        c_in=self.c_in)
         return y.permute(0, 3, 1, 2)
 
 
@@ -233,28 +240,31 @@ class Int8BasicBlock(nn.Module):
     """A fused identity-shortcut BasicBlock. ``impl='pallas'``: the fused
     CUDA kernel (K8) with the dequantized residual; ``impl='xla'``: the JAX
     package's flat chain (``_int8_basic_block``) with the float residual,
-    its two s32 convs on the int8 conv kernel."""
+    its two s32 convs on the int8 conv kernel (on its channel pitch, which
+    is the channels themselves for K8's 64)."""
 
     def __init__(self, be: dict, impl: str, compute_dtype: torch.dtype):
         super().__init__()
         e1, e2 = be['e1'], be['e2']
         self.impl, self.compute_dtype = impl, compute_dtype
-        self.register_buffer('k1', e1['kernel_q'].contiguous())
-        self.register_buffer('k2', e2['kernel_q'].contiguous())
+        self.c = e1['kernel_q'].shape[-1]
+        self.pitch = channel_pitch(self.c)
+        self.register_buffer('k1', pad_channels(e1['kernel_q'], self.pitch))
+        self.register_buffer('k2', pad_channels(e2['kernel_q'], self.pitch))
         self.register_buffer('inv_act1', 1.0 / e1['act_scale'].float())
         self.register_buffer('params', block_params(e1, e2, be['bn1_scale'], be['bn1_shift'],
                                                     be['bn2_scale'], be['bn2_shift']))
 
     def forward(self, x):
         x = x.permute(0, 2, 3, 1).contiguous()
-        xq = quantize_act(x, self.inv_act1)
+        xq = quantize_act(x, self.inv_act1, self.pitch)
         if self.impl == 'pallas':
             y = int8_basic_block(xq, self.k1, self.k2, self.params, self.compute_dtype)
         else:
             p, pad = self.params, ((1, 1), (1, 1))
-            h = int8_conv2d(xq, self.k1, padding=pad).float() * p[0] + p[1]
-            hq = quantize_act(torch.relu(h), p[2])
-            y = int8_conv2d(hq, self.k2, padding=pad).float() * p[3] + p[4]
+            h = int8_conv2d(xq, self.k1, padding=pad, c_in=self.c).float() * p[0] + p[1]
+            hq = quantize_act(torch.relu(h), p[2], self.pitch)
+            y = int8_conv2d(hq, self.k2, padding=pad, c_in=self.c).float() * p[3] + p[4]
             y = torch.relu(y + x.float()).to(self.compute_dtype)
         return y.permute(0, 3, 1, 2)
 
